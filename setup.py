@@ -3,6 +3,8 @@ from setuptools import find_packages, setup
 setup(
     name="voicebox-tpu",
     packages=find_packages(exclude=["tests*"]),
+    # the PyTorch port builds its CUDA kernels from these sources at first use
+    package_data={"voicebox_tpu_torch": ["csrc/*.cu"]},
     version="0.1.0",
     license="MIT",
     description=(
@@ -26,6 +28,10 @@ setup(
         "numpy",
         "scipy",
     ],
+    extras_require={
+        # the PyTorch/CUDA port (voicebox_tpu_torch); its kernels need nvcc
+        "torch": ["torch>=2.1", "numpy"],
+    },
     classifiers=[
         "Development Status :: 4 - Beta",
         "Intended Audience :: Developers",

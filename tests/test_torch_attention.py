@@ -1,0 +1,122 @@
+"""The port's attention (`voicebox_tpu_torch.ops.flash_attention`,
+`models.attention`) against the JAX package, on the CPU in float32.
+
+The plain version is held against the Pallas kernel (interpret mode) on rows
+with at least one real key, and against the JAX `reference_attention` on
+every row, a fully-masked one included. K1 itself runs only on the card:
+`tests/test_torch_cuda.py` and `chip_smoke.py` hold it against the plain
+version there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from voicebox_tpu.models.attention import Attention as JaxAttention
+from voicebox_tpu.models.primitives import rotary_frequencies
+from voicebox_tpu.ops.flash_attention import _flash_forward
+from voicebox_tpu.ops.flash_attention import reference_attention as jax_reference_attention
+from voicebox_tpu_torch.models.attention import Attention
+from voicebox_tpu_torch.ops.flash_attention import (
+    MASK_FILL,
+    flash_attention,
+    reference_attention,
+)
+from voicebox_tpu_torch.utils.convert import attention_state_dict
+
+ATOL = 2e-4
+
+
+def _inputs(seed, b, h, n, kv, d, masked_frac=0.3, empty_batch=None):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(b, h, n, d).astype(np.float32)
+    k = rs.randn(b, h, kv, d).astype(np.float32)
+    v = rs.randn(b, h, kv, d).astype(np.float32)
+    mask = rs.rand(b, kv) >= masked_frac
+    mask[:, 0] = True  # at least one real key per row
+    if empty_batch is not None:
+        mask[empty_batch] = False
+    return q, k, v, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("n,kv,d,scale", [
+    (200, 200, 32, None),   # ragged against the 128 blocks
+    (70, 130, 16, 10.0),    # n != kv, the qk-norm scale
+    (128, 256, 64, None),   # block multiples
+])
+def test_plain_matches_pallas_kernel_interpret(n, kv, d, scale):
+    q, k, v, mask = _inputs(0, 2, 2, n, kv, d)
+    s = d ** -0.5 if scale is None else scale
+    out_j, lse_j = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), s,
+        block_q=128, block_k=128, return_lse=True, interpret=True,
+    )
+    out_t, lse_t = reference_attention(*_t(q, k, v, mask), scale=scale, return_lse=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=ATOL, rtol=1e-5)
+    assert lse_t.shape == (2, 2, 1, n)
+
+
+@pytest.mark.parametrize("scale", [None, 10.0])
+def test_plain_matches_jax_reference_every_row(scale):
+    # batch element 1 has every key masked: its rows are fully masked
+    q, k, v, mask = _inputs(1, 3, 2, 40, 56, 16, empty_batch=1)
+    ref = jax_reference_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), scale
+    )
+    out, lse = flash_attention(*_t(q, k, v, mask), scale=scale, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    # the fully-masked rows are mean(V) over the real keys, lse = fill + log(kv)
+    np.testing.assert_allclose(
+        out[1].numpy(), np.broadcast_to(v[1].mean(axis=1, keepdims=True), out[1].shape),
+        atol=1e-5,
+    )
+    np.testing.assert_allclose(lse[1].numpy(), MASK_FILL + np.log(56.0), rtol=1e-6)
+
+
+def _jax_attention_case(qk_norm, seed=3):
+    dim, h, d, b, n = 32, 2, 16, 2, 24
+    rs = np.random.RandomState(seed)
+    mod = JaxAttention(dim=dim, dim_head=d, heads=h, qk_norm=qk_norm)
+    x = rs.randn(b, n, dim).astype(np.float32)
+    mask = rs.rand(b, n) > 0.25
+    mask[:, 0] = True
+    rotary = rotary_frequencies(jnp.arange(n) - 3, d)
+    params = mod.init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
+    # perturb every leaf so that identity-initialised gains cannot hide a bug
+    params = jax.tree.map(
+        lambda p: np.asarray(p) + 0.1 * rs.randn(*np.shape(p)).astype(np.float32), params
+    )
+    out = mod.apply({"params": params}, jnp.asarray(x), mask=jnp.asarray(mask),
+                    rotary_emb=rotary)
+    return params, x, mask, np.asarray(rotary), np.asarray(out), (dim, h, d)
+
+
+@pytest.mark.parametrize("qk_norm", [True, False])
+def test_attention_module_matches_jax(qk_norm):
+    params, x, mask, rotary, ref, (dim, h, d) = _jax_attention_case(qk_norm)
+    port = Attention(dim, dim_head=d, heads=h, qk_norm=qk_norm)
+    port.load_state_dict(attention_state_dict(params), strict=True)
+    with torch.no_grad():
+        out = port(*_t(x, mask), rotary_emb=torch.from_numpy(rotary))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    q, k, v, mask = _t(*_inputs(4, 1, 2, 33, 33, 64))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, mask)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(out, reference_attention(q, k, v, mask), rtol=0, atol=0)
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="no attention path"):
+        flash_attention(q, q, q)

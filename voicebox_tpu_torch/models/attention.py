@@ -1,0 +1,54 @@
+"""Multi-head bidirectional attention.
+
+Counterpart of `voicebox_tpu/models/attention.py::Attention` (the branch
+without sequence parallelism or dropout): fused QKV projection, heads split
+to (b, h, n, d), per-head qk-norm with the fixed scale 10, rotary on q and
+k, then `ops.flash_attention` (K1 on the card) and the output projection.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+from .primitives import Linear, MultiheadRMSNorm, apply_rotary_pos_emb
+
+__all__ = ["Attention"]
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 qk_norm: bool = False, qk_norm_scale: float = 10.0,
+                 dtype=torch.float32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        self.qk_norm_scale = qk_norm_scale if qk_norm else None
+        dim_inner = heads * dim_head
+        if qk_norm:
+            self.q_norm = MultiheadRMSNorm(dim_head, heads)
+            self.k_norm = MultiheadRMSNorm(dim_head, heads)
+        self.to_qkv = Linear(dim, dim_inner * 3, bias=False, dtype=dtype)
+        self.to_out = Linear(dim_inner, dim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rotary_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        h, d = self.heads, self.dim_head
+        q, k, v = (
+            t.reshape(b, n, h, d).transpose(1, 2)
+            for t in self.to_qkv(x).chunk(3, dim=-1)
+        )
+        if self.qk_norm_scale is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if rotary_emb is not None:
+            q = apply_rotary_pos_emb(rotary_emb, q)
+            k = apply_rotary_pos_emb(rotary_emb, k)
+        # K1 takes contiguous (b, h, n, d) operands
+        out = flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            mask=mask, scale=self.qk_norm_scale,
+        )
+        return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))

@@ -1,0 +1,182 @@
+"""Neural primitives of the denoiser.
+
+Counterpart of `voicebox_tpu/models/primitives.py`. A layer built with
+`dtype` computes in it, as flax's `dtype` does. It also stores its weights
+in `dtype`: rounding fp32 weights to bf16 once, at load, gives the values
+that flax's cast at every use gives, without a cast kernel per call. The
+norms, the rotary embedding, the time features and the adaptive-norm
+projections compute in fp32 whatever the model's dtype, as in the JAX
+package. The tanh GELU is the denoiser's (the vocoder uses the exact one).
+
+`SimpleGateLoopLayer` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "Linear",
+    "Conv1d",
+    "l2norm",
+    "LearnedSinusoidalPosEmb",
+    "RotaryEmbedding",
+    "rotate_half",
+    "apply_rotary_pos_emb",
+    "ConvPositionEmbed",
+    "RMSNorm",
+    "AdaptiveRMSNorm",
+    "MultiheadRMSNorm",
+    "GEGLU",
+    "FeedForward",
+]
+
+
+class Linear(nn.Linear):
+    """nn.Linear with its weights in `dtype`, computing in `dtype`."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d on channels-first input, weights and compute in `dtype`."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) over the last axis, with the clamp inside the
+    square root (an all-zero row stays finite)."""
+    sumsq = x.square().sum(dim=-1, keepdim=True)
+    return x * torch.rsqrt(sumsq.clamp_min(eps * eps))
+
+
+class LearnedSinusoidalPosEmb(nn.Module):
+    """Learned-frequency Fourier features of the scalar ODE time, fp32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        assert dim % 2 == 0
+        self.weights = nn.Parameter(torch.randn(dim // 2))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:  # (b,) -> (b, dim)
+        freqs = t[:, None].float() * self.weights[None, :] * 2 * math.pi
+        return torch.cat([freqs.sin(), freqs.cos()], dim=-1)
+
+
+class RotaryEmbedding(nn.Module):
+    """RoPE frequency table, fp32, from the registered `inv_freq` buffer."""
+
+    def __init__(self, dim: int, theta: float = 50000.0):
+        super().__init__()
+        inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32) / dim))
+        self.register_buffer("inv_freq", inv_freq)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:  # (n,) -> (n, dim)
+        freqs = positions.float()[:, None] * self.inv_freq[None, :]
+        return torch.cat([freqs, freqs], dim=-1)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Rotary applied in fp32, cast back to t's dtype."""
+    t32 = t.float()
+    return (t32 * pos.cos() + rotate_half(t32) * pos.sin()).to(t.dtype)
+
+
+class ConvPositionEmbed(nn.Module):
+    """Depthwise 1-D conv + tanh GELU on (b, n, dim), masked before and
+    after. The caller adds the residual."""
+
+    def __init__(self, dim: int, kernel_size: int = 31, groups: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        assert kernel_size % 2 == 1
+        self.dw_conv1d = nn.Sequential(
+            Conv1d(dim, dim, kernel_size, groups=groups or dim,
+                   padding=kernel_size // 2, dtype=dtype),
+            nn.GELU(approximate="tanh"),
+        )
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is not None:
+            x = x.masked_fill(~mask[..., None], 0.0)
+        out = self.dw_conv1d(x.transpose(1, 2)).transpose(1, 2)
+        if mask is not None:
+            out = out.masked_fill(~mask[..., None], 0.0)
+        return out
+
+
+class RMSNorm(nn.Module):
+    """gamma * sqrt(dim) * l2norm(x), computed in fp32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = dim ** 0.5
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (l2norm(x.float()) * self.scale * self.gamma).to(x.dtype)
+
+
+class AdaptiveRMSNorm(nn.Module):
+    """RMSNorm whose gain and bias are fp32 projections of a condition
+    vector, zero-initialised so the module starts as the identity norm."""
+
+    def __init__(self, dim: int, cond_dim: Optional[int] = None):
+        super().__init__()
+        cond_dim = cond_dim or dim
+        self.scale = dim ** 0.5
+        self.to_gamma = nn.Linear(cond_dim, dim)
+        self.to_beta = nn.Linear(cond_dim, dim)
+        for lin, bias in ((self.to_gamma, 1.0), (self.to_beta, 0.0)):
+            nn.init.zeros_(lin.weight)
+            nn.init.constant_(lin.bias, bias)
+
+    def forward(self, x: torch.Tensor, *, cond: torch.Tensor) -> torch.Tensor:
+        normed = l2norm(x.float()) * self.scale
+        cond = cond.float()
+        gamma, beta = self.to_gamma(cond), self.to_beta(cond)
+        return (normed * gamma[:, None, :] + beta[:, None, :]).to(x.dtype)
+
+
+class MultiheadRMSNorm(nn.Module):
+    """Per-head qk-norm on (b, h, n, d): gamma (h, 1, d) * sqrt(d) * l2norm."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.scale = dim ** 0.5
+        self.gamma = nn.Parameter(torch.ones(heads, 1, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (l2norm(x.float()) * self.gamma * self.scale).to(x.dtype)
+
+
+class GEGLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, gate = x.chunk(2, dim=-1)
+        return F.gelu(gate, approximate="tanh") * x
+
+
+def FeedForward(dim: int, mult: float = 4.0, dropout: float = 0.0,
+                dtype=torch.float32) -> nn.Sequential:
+    """GEGLU MLP with inner dim int(dim * mult * 2 / 3). A Sequential, so the
+    projections sit at the reference's keys `0` and `3`."""
+    dim_inner = int(dim * mult * 2 / 3)
+    return nn.Sequential(
+        Linear(dim, dim_inner * 2, dtype=dtype),
+        GEGLU(),
+        nn.Dropout(dropout),
+        Linear(dim_inner, dim, dtype=dtype),
+    )

@@ -1,0 +1,105 @@
+"""Bidirectional transformer with register tokens, optional U-Net skip
+connections and adaptive or plain RMSNorm.
+
+Counterpart of `voicebox_tpu/models/transformer.py::Transformer` with its
+unrolled loop. Module layout and state-dict keys are the reference's:
+`register_tokens`, `layers.{i}` = [skip_combiner, gateloop, attn_prenorm,
+attn, ff_prenorm, ff] (absent entries are None and hold no keys),
+`rotary_emb.inv_freq`, `final_norm.gamma`.
+
+Per block: [skip combine] -> prenorm attention + residual -> prenorm
+feed-forward + residual. Registers are prepended at rotary position -10000
+and are never masked. `VoiceBox` leaves the skip connections off; the flag
+is kept for checkpoints that carry `skip_combiner_{i}`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .attention import Attention
+from .primitives import AdaptiveRMSNorm, FeedForward, Linear, RMSNorm, RotaryEmbedding
+
+__all__ = ["Transformer"]
+
+
+class Transformer(nn.Module):
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        dim_head: int = 64,
+        heads: int = 8,
+        ff_mult: float = 4.0,
+        num_register_tokens: int = 0,
+        adaptive_rmsnorm: bool = False,
+        adaptive_rmsnorm_cond_dim_in: Optional[int] = None,
+        use_unet_skip_connection: bool = False,
+        attn_qk_norm: bool = False,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        assert depth % 2 == 0, "depth must be even (U-Net skip symmetry)"
+        self.depth = depth
+        self.num_register_tokens = num_register_tokens
+        if num_register_tokens > 0:
+            self.register_tokens = nn.Parameter(torch.randn(num_register_tokens, dim))
+
+        def prenorm():
+            if adaptive_rmsnorm:
+                return AdaptiveRMSNorm(dim, cond_dim=adaptive_rmsnorm_cond_dim_in)
+            return RMSNorm(dim)
+
+        self.adaptive = adaptive_rmsnorm
+        self.layers = nn.ModuleList()
+        for ind in range(depth):
+            has_skip = use_unet_skip_connection and ind + 1 > depth // 2
+            self.layers.append(nn.ModuleList([
+                Linear(dim * 2, dim, dtype=dtype) if has_skip else None,
+                None,  # gateloop layer: not ported yet
+                prenorm(),
+                Attention(dim, dim_head=dim_head, heads=heads, qk_norm=attn_qk_norm,
+                          dtype=dtype),
+                prenorm(),
+                FeedForward(dim, mult=ff_mult, dtype=dtype),
+            ]))
+        self.rotary_emb = RotaryEmbedding(dim_head)
+        self.final_norm = RMSNorm(dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                adaptive_rmsnorm_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        batch, seq_len, _ = x.shape
+        num_reg = self.num_register_tokens
+        if num_reg > 0:
+            registers = self.register_tokens.to(x.dtype).expand(batch, -1, -1)
+            x = torch.cat([registers, x], dim=1)
+            if mask is not None:
+                mask = torch.cat([mask.new_ones(batch, num_reg), mask], dim=1)
+
+        positions = torch.arange(seq_len, device=x.device, dtype=torch.float32)
+        if num_reg > 0:
+            positions = torch.cat([positions.new_full((num_reg,), -10000.0), positions])
+        rotary_emb = self.rotary_emb(positions)
+
+        if self.adaptive:
+            def norm(m, t):
+                return m(t, cond=adaptive_rmsnorm_cond)
+        else:
+            def norm(m, t):
+                return m(t)
+
+        skips = []
+        for skip_combiner, _, attn_prenorm, attn, ff_prenorm, ff in self.layers:
+            if skip_combiner is None:
+                skips.append(x)
+            else:
+                x = skip_combiner(torch.cat([x, skips.pop() * 2 ** -0.5], dim=-1))
+            x = attn(norm(attn_prenorm, x), mask=mask, rotary_emb=rotary_emb) + x
+            x = ff(norm(ff_prenorm, x)) + x
+
+        if num_reg > 0:
+            x = x[:, num_reg:]
+        return self.final_norm(x)

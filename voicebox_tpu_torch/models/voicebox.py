@@ -1,0 +1,176 @@
+"""The VoiceBox denoiser: the vector field of the conditional flow matcher.
+
+Counterpart of `voicebox_tpu/models/voicebox.py::VoiceBox` in inference
+mode: `proj_in` when a codec with another latent width is attached, input
+fusion `to_embed(cat(x, cond_emb, cond))`, the ConvPositionEmbed residual,
+the fp32 time MLP, the adaptive-norm Transformer and the linear head.
+Kept from the JAX package: `cond` defaults to `target` when absent (the
+reference's quirk); ids < 0 map to the null row; classifier-free guidance
+drops the condition through an explicit `cond_drop_mask`.
+
+State-dict keys are the reference's (`export_voicebox_torch`), so the
+exporter's output loads with `strict=True`. The attached codec is frozen and
+holds its own weights, so it is not a registered submodule: it appears in no
+key and moves with `ConditionalFlowMatcherWrapper`, which registers it.
+
+The training loss (random span mask, random CFG drop) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.interp import interpolate_1d
+from .primitives import ConvPositionEmbed, LearnedSinusoidalPosEmb, Linear
+from .transformer import Transformer
+
+__all__ = ["VoiceBox"]
+
+
+class VoiceBox(nn.Module):
+    def __init__(
+        self,
+        num_cond_tokens: Optional[int] = None,
+        audio_enc_dec=None,
+        dim_in: Optional[int] = None,
+        dim_cond_emb: int = 1024,
+        dim: int = 1024,
+        depth: int = 24,
+        dim_head: int = 64,
+        heads: int = 16,
+        ff_mult: float = 4.0,
+        time_hidden_dim: Optional[int] = None,
+        conv_pos_embed_kernel_size: int = 31,
+        conv_pos_embed_groups: Optional[int] = None,
+        attn_qk_norm: bool = True,
+        num_register_tokens: int = 16,
+        condition_on_text: bool = True,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        assert depth % 2 == 0, "depth must be even (U-Net skip symmetry)"
+        if condition_on_text:
+            assert num_cond_tokens is not None, (
+                "num_cond_tokens must be set when condition_on_text=True"
+            )
+        # not registered: the codec is frozen and owns its weights
+        self.__dict__["audio_enc_dec"] = audio_enc_dec
+        self.num_cond_tokens = num_cond_tokens
+        self.condition_on_text = condition_on_text
+        self.dtype = dtype
+        if audio_enc_dec is not None:
+            self.latent_dim = audio_enc_dec.latent_dim
+        else:
+            self.latent_dim = dim_in if dim_in is not None else dim
+        time_hidden_dim = time_hidden_dim or dim * 4
+
+        needs_proj = audio_enc_dec is not None and dim != self.latent_dim
+        x_dim = dim if needs_proj else self.latent_dim
+        self.register_buffer("null_cond", torch.zeros(x_dim))
+        self.proj_in = Linear(self.latent_dim, dim, dtype=dtype) if needs_proj else None
+        self.sinu_pos_emb = nn.Sequential(
+            LearnedSinusoidalPosEmb(dim), nn.Linear(dim, time_hidden_dim), nn.SiLU()
+        )
+        self.to_cond_emb = (
+            nn.Embedding(num_cond_tokens + 1, dim_cond_emb, dtype=dtype)
+            if condition_on_text else None
+        )
+        dim_cond = dim_cond_emb if condition_on_text else 0
+        self.to_embed = Linear(x_dim * 2 + dim_cond, dim, dtype=dtype)
+        self.conv_embed = ConvPositionEmbed(
+            dim, kernel_size=conv_pos_embed_kernel_size,
+            groups=conv_pos_embed_groups, dtype=dtype,
+        )
+        self.transformer = Transformer(
+            dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
+            num_register_tokens=num_register_tokens, adaptive_rmsnorm=True,
+            adaptive_rmsnorm_cond_dim_in=time_hidden_dim, attn_qk_norm=attn_qk_norm,
+            dtype=dtype,
+        )
+        self.to_pred = Linear(dim, self.latent_dim, bias=False, dtype=dtype)
+
+    @property
+    def null_cond_id(self) -> int:
+        # the last embedding row doubles as the CFG null token
+        return self.num_cond_tokens
+
+    def _proj_in(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.proj_in is None else self.proj_in(t)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (b, n, latent_dim) noisy latent
+        *,
+        times,  # float, () or (b,)
+        cond_token_ids: Optional[torch.Tensor] = None,  # (b, n_cond) int
+        self_attn_mask: Optional[torch.Tensor] = None,  # (b, n) bool
+        cond_drop_mask: Optional[torch.Tensor] = None,  # (b,) bool, True = drop
+        target: Optional[torch.Tensor] = None,
+        cond: Optional[torch.Tensor] = None,  # (b, n, latent_dim)
+        cond_mask: Optional[torch.Tensor] = None,  # (b, n) bool, True = generate
+    ) -> torch.Tensor:
+        x = self._proj_in(x)
+        if cond is None:  # the reference's quirk: cond defaults to the target
+            cond = target
+        assert cond is not None, "either cond or target must be provided"
+        cond = self._proj_in(cond)
+        batch, seq_len, _ = cond.shape
+
+        times = torch.as_tensor(times, device=x.device)
+        if times.dim() == 0 or times.numel() == 1:
+            times = times.reshape(1).expand(batch)
+
+        if cond_mask is None:
+            cond_mask = torch.ones(batch, seq_len, dtype=torch.bool, device=x.device)
+        cond = cond * (~cond_mask[..., None]).to(cond.dtype)
+
+        cond_ids = cond_token_ids
+        if cond_drop_mask is not None:
+            cond = cond.masked_fill(cond_drop_mask[:, None, None], 0.0)
+            if cond_ids is not None:
+                cond_ids = cond_ids.masked_fill(cond_drop_mask[:, None], self.null_cond_id)
+
+        parts = [x, cond]
+        if self.condition_on_text:
+            assert cond_ids is not None, "cond_token_ids required when condition_on_text"
+            cond_ids = cond_ids.masked_fill(cond_ids < 0, self.null_cond_id)
+            cond_emb = self.to_cond_emb(cond_ids)
+            if cond_emb.shape[-2] != seq_len:
+                cond_emb = interpolate_1d(cond_emb.transpose(1, 2), seq_len).transpose(1, 2)
+                if self_attn_mask is not None:
+                    self_attn_mask = interpolate_1d(self_attn_mask, seq_len)
+            parts = [x, cond_emb, cond]
+
+        x = self.to_embed(torch.cat([t.to(self.dtype) for t in parts], dim=-1))
+        x = self.conv_embed(x, mask=self_attn_mask) + x
+
+        time_emb = self.sinu_pos_emb(times)  # fp32
+        x = self.transformer(x, mask=self_attn_mask, adaptive_rmsnorm_cond=time_emb)
+        return self.to_pred(x)
+
+    def forward_with_cond_scale(self, x: torch.Tensor, *, times, cond_scale: float = 1.0,
+                                **kwargs) -> torch.Tensor:
+        """Classifier-free guidance, `null + (cond - null) * cond_scale`, with
+        the conditioned and the null half as ONE forward at batch 2b."""
+        b = x.shape[0]
+        if cond_scale == 1.0:
+            drop = torch.zeros(b, dtype=torch.bool, device=x.device)
+            return self(x, times=times, cond_drop_mask=drop, **kwargs)
+
+        def cat(t):
+            if isinstance(t, torch.Tensor) and t.dim() > 0:
+                return torch.cat([t, t], dim=0)
+            return t
+
+        times = torch.as_tensor(times, device=x.device)
+        if times.dim() == 0 or times.numel() == 1:
+            times = times.reshape(1).expand(b)
+        drop2 = torch.arange(2 * b, device=x.device) >= b
+        out2 = self(cat(x), times=cat(times), cond_drop_mask=drop2,
+                    **{k: cat(v) for k, v in kwargs.items()})
+        out2 = out2.to(x.dtype)
+        logits, null_logits = out2[:b], out2[b:]
+        return null_logits + (logits - null_logits) * cond_scale

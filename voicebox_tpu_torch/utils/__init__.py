@@ -1,0 +1,1 @@
+"""Host-side helpers: parameter conversion from the JAX package."""
