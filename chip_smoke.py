@@ -3,24 +3,47 @@
 
 Run it from the root of a checkout: `python3 chip_smoke.py`. It needs one
 Hopper card (compute capability 9.x), nvcc and PyTorch built for CUDA; it
-imports nothing of JAX. Its phases print one line each:
+imports nothing of JAX. Its phases print one line each or more:
 
-1. device: the card's name and power limit (nvidia-smi);
-2. build: K1 (`voicebox_tpu_torch/csrc/flash_attention_fwd.cu`) built by
-   nvcc for sm_90a from the checkout, and the build time;
+1. device: the card's name and power limit (nvidia-smi); TF32 off for
+   matmuls and cuDNN;
+2. build: K1 (`csrc/flash_attention_fwd.cu`) and K2 + K3
+   (`csrc/flash_attention_bwd.cu`) built by nvcc for sm_90a from the
+   checkout, both at once, with the build time and ptxas's registers and
+   spills;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
-   serving shapes and on masked and ragged inputs, each case with its
-   tolerance; CUDA-event times of both at the two serving shapes;
-4. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
+   serving and training shapes and on masked and ragged inputs, each case
+   with its tolerance; CUDA-event times of K1, the plain version and SDPA;
+4. K2/K3 check: K2 and K3 against the plain backward and against autograd
+   of the plain forward, by the largest error and by the error's norm, at
+   the training shape (bf16 qk-normed and randn, fp32), the reference head
+   split, ragged n/kv and a fully-masked batch element under qk-norm's
+   scale 10; CUDA-event times of K2, K3, the plain backward and SDPA's
+   backward (each of the two gives dq, dk and dv together), and attention
+   forward + backward through K1/K2/K3 beside SDPA's;
+5. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
    and on the CPU (the plain version) from the same weights and noise;
    latents, RVQ codes and audio compared;
-5. serve: the flagship geometry in bf16 (dim 512, depth 24, 4 x 128 heads,
+6. train, card vs CPU: the same small fp32 denoiser takes 3 optimizer steps
+   through `VoiceBoxTrainer` on the card (K1/K2/K3) and on the CPU, from
+   the same weights, batches, noise, times and masks; losses and every
+   parameter compared;
+7. serve: the flagship geometry in bf16 (dim 512, depth 24, 4 x 128 heads,
    EncodecVoco with RVQ 8 x 1024 x 128 and the vocos-encodec-24khz
    geometry) answers requests of 750 frames (10 s of 24 kHz audio) at
    batch 1 and 2; each must give finite (b, 1, 240000) audio through
    exactly depth x 4 = 96 K1 launches;
-6. one JSON line for the kernels, then the last line
-   `{"ok": true, "device": {...}}`.
+8. train: the flagship geometry trains at full width (bf16 compute, fp32
+   parameters and AdamW, batch 8 x 752 frames + 16 registers) through
+   `VoiceBoxTrainer`: 2 warm-up steps, then timed steps, each with exactly
+   24 K1, 24 K2 and 24 K3 launches and a finite loss and gradient norm;
+   steps/s, the profiled idle share of one step and peak memory;
+9. witness: the flagship's gradient on the trained weights through
+   K1/K2/K3 against the plain attention on the card, same batch and draws,
+   in bf16 and fp32 compute, with unit qk gains and gains of 0.25, beside
+   the noise floor of the plain version against itself;
+10. one JSON line for the kernels (one row per kernel and main path), then
+   the last line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the process exits nonzero and prints no result.
 Weights are random, made from a seed.
@@ -28,44 +51,95 @@ Weights are random, made from a seed.
 
 from __future__ import annotations
 
-import copy
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 import voicebox_tpu_torch as vbt
 from voicebox_tpu_torch import kernels
+from voicebox_tpu_torch.models import attention as attention_module
 from voicebox_tpu_torch.models.codec import EncodecVoco
 from voicebox_tpu_torch.models.encodec import ResidualVQ
 from voicebox_tpu_torch.models.primitives import l2norm
 from voicebox_tpu_torch.models.vocos import Vocos
-from voicebox_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from voicebox_tpu_torch.ops.flash_attention import (
+    attention_delta,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    reference_attention,
+    reference_attention_backward,
+)
 
 SEED = 0
-K1_SOURCE = "voicebox_tpu_torch/csrc/flash_attention_fwd.cu"
-K1_REPLACES = "voicebox_tpu/ops/flash_attention.py:105"
+SOURCES = {"k1": "voicebox_tpu_torch/csrc/flash_attention_fwd.cu",
+           "k2": "voicebox_tpu_torch/csrc/flash_attention_bwd.cu",
+           "k3": "voicebox_tpu_torch/csrc/flash_attention_bwd.cu"}
+REPLACES = {"k1": "voicebox_tpu/ops/flash_attention.py:105",
+            "k2": "voicebox_tpu/ops/flash_attention.py:166",
+            "k3": "voicebox_tpu/ops/flash_attention.py:215"}
+NAMES = {"k1": "flash_attention_fwd", "k2": "flash_attention_bwd_dq",
+         "k3": "flash_attention_bwd_dkv"}
+WRAPPERS = {"k1": flash_attention, "k2": flash_attention_bwd_dq, "k3": flash_attention_bwd_dkv}
 
-# (name, (b, h, n, kv, d), dtype, inputs, mask, atol, rtol). "serving": q and k
-# qk-normed to norm sqrt(d) with scale 10, as the denoiser calls K1 (logits up
-# to 10 d); "randn": unit normals with scale d^-0.5, a softer softmax.
-# bf16 tolerance: P and out are each rounded to bf16 (2^-8 relative) on both
-# sides, in another order. fp32 tolerance: logits up to 1280 carry ~1e-4 of
-# summation-order rounding, which moves exp() by as much relative.
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): the bound of a call
+# is the larger of its operations over the peak and its bytes over HBM's rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+# (name, (b, h, n, kv, d), dtype, inputs, mask, atol, rtol). "qk": q and k
+# qk-normed to norm sqrt(d) with scale 10, as the denoiser calls attention
+# (logits up to 10 d); "randn": unit normals with scale d^-0.5, a softer
+# softmax. bf16 tolerance: P and out are each rounded to bf16 (2^-8
+# relative) on both sides, in another order. fp32 tolerance: logits up to
+# 1280 carry ~1e-4 of summation-order rounding, which moves exp() by as much
+# relative.
 K1_CASES = [
-    ("flagship_cfg_bf16", (2, 4, 766, 766, 128), torch.bfloat16, "serving", None, 1e-2, 1e-2),
-    ("reference_split_bf16", (2, 16, 1040, 1040, 64), torch.bfloat16, "serving", None, 1e-2, 1e-2),
-    ("flagship_cfg_f32", (2, 4, 766, 766, 128), torch.float32, "serving", None, 1e-3, 1e-3),
-    ("reference_split_f32", (2, 16, 1040, 1040, 64), torch.float32, "serving", None, 1e-3, 1e-3),
+    ("flagship_cfg_bf16", (2, 4, 766, 766, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("reference_split_bf16", (2, 16, 1040, 1040, 64), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("train_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("flagship_cfg_f32", (2, 4, 766, 766, 128), torch.float32, "qk", None, 1e-3, 1e-3),
+    ("reference_split_f32", (2, 16, 1040, 1040, 64), torch.float32, "qk", None, 1e-3, 1e-3),
     ("mask_empty_row_bf16", (3, 4, 300, 300, 128), torch.bfloat16, "randn", "empty_row", 1e-2, 1e-2),
     ("mask_empty_row_f32", (3, 4, 300, 300, 64), torch.float32, "randn", "empty_row", 1e-5, 1e-5),
     ("ragged_257_bf16", (2, 4, 257, 257, 64), torch.bfloat16, "randn", "random", 1e-2, 1e-2),
     ("ragged_257_f32", (2, 4, 257, 200, 128), torch.float32, "randn", "random", 1e-5, 1e-5),
 ]
-TIMED_CASES = ("flagship_cfg_bf16", "reference_split_bf16")
+K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16")
+
+# (name, (b, h, n, kv, d), dtype, inputs, mask, tol): K2/K3 hold when, for
+# each of dq, dk, dv, against the plain backward and against autograd of the
+# plain forward in fp32, max |kernel - ref| <= tol * max |ref| and
+# ||kernel - ref|| <= NORM_TOL * ||ref|| (the norm holds every entry to the
+# bound, not only the largest: qk-normed logits at scale 10 make dq and dk
+# heavy-tailed, so tol * max |ref| can exceed a typical entry). bf16: P and
+# dS are rounded to bf16 before their products and dq, dk, dv on the way
+# out (2^-8 relative each), in the same places as in the plain backward but
+# not in autograd's fp32, where the rounding of dS, whose row sums cancel,
+# weighs more; fp32: the logits' rounding at scale 10, as for K1.
+# "train_randn_bf16" holds the bf16 (WMMA) code at the training shape on a
+# soft softmax, where no entry dominates. The empty-row cases mask every key
+# of the last batch element and run qk-normed logits at scale 10, where a
+# masked key's exp(s - lse) overflows.
+K23_CASES = [
+    ("train_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 2e-2),
+    ("train_randn_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "randn", "all", 2e-2),
+    ("train_f32", (8, 4, 768, 768, 128), torch.float32, "qk", "all", 1e-4),
+    ("reference_split_bf16", (8, 16, 768, 768, 64), torch.bfloat16, "qk", "all", 2e-2),
+    ("ragged_bf16", (2, 4, 257, 200, 128), torch.bfloat16, "randn", "random", 2e-2),
+    ("ragged_f32", (2, 4, 257, 200, 64), torch.float32, "randn", "random", 1e-4),
+    ("empty_row_qk_bf16", (3, 4, 300, 300, 128), torch.bfloat16, "qk", "empty_row", 2e-2),
+    ("empty_row_qk_f32", (3, 4, 300, 300, 64), torch.float32, "qk", "empty_row", 1e-4),
+]
+K23_TIMED = ("train_bf16", "reference_split_bf16")
+NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
 FLAGSHIP = dict(
     num_cond_tokens=500, dim_cond_emb=512, dim=512, depth=24, dim_head=128, heads=4,
@@ -74,6 +148,16 @@ FLAGSHIP = dict(
 FRAMES = 750  # 10 s at 24 kHz, hop 320
 STEPS, CFG_SCALE = 3, 1.3
 EVALS_PER_REQUEST = 2 * (STEPS - 1)  # midpoint: two evaluations per interval
+
+# the flagship training step (bench.py:41-107): latents of the Encodec width,
+# 752 frames + 16 registers = 768 tokens, batch 8, AdamW lr 1e-4, wd 1e-2,
+# global-norm clip 0.5, CFG drop 0.2
+TRAIN_FRAMES, TRAIN_BATCH, LATENT_DIM = 752, 8, 128
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+
+# the small fp32 denoiser of the card-vs-CPU phases
+SMALL = dict(num_cond_tokens=100, dim_cond_emb=64, dim=128, depth=2, dim_head=64, heads=2,
+             num_register_tokens=4)
 
 
 def log(phase: str, msg: str) -> None:
@@ -92,12 +176,51 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # the device sleeps (~50 ms) while the host queues every call, so the
+    # events time the device's work and not the host's launches: a short
+    # library call (SDPA's, through autograd) is otherwise host-bound
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns: dict, iters: int = 20) -> dict:
+    """Mean CUDA-event time of each function, timed in the order
+    a, b, ..., ..., b, a and averaged over the two turns."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(cuda_ms(fns[n], iters))
+    return {n: sum(t) / len(t) for n, t in times.items()}
+
+
+def attention_bound(kernel: str, shape, dtype) -> tuple:
+    """(bound_ms, bound_by) of one K1, K2 or K3 call: operations 4, 6 or 8
+    b h n kv d; bytes of each input read once and each output written once."""
+    b, h, n, kv, d = shape
+    e = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes, rows = b * h * n * d * e, b * h * kv * d * e, b * h * n * 4
+    flops = {"k1": 4, "k2": 6, "k3": 8}[kernel] * b * h * n * kv * d
+    moved = {
+        "k1": 2 * q_bytes + 2 * kv_bytes + rows,      # q, k, v, mask in; out, lse out
+        "k2": 3 * q_bytes + 2 * kv_bytes + 2 * rows,  # q, k, v, dO, lse, delta in; dq out
+        "k3": 2 * q_bytes + 4 * kv_bytes + 2 * rows,  # the same in; dk, dv out
+    }[kernel] + b * kv
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], moved / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in WRAPPERS.items()}
 
 
 def phase_device() -> str:
@@ -107,8 +230,9 @@ def phase_device() -> str:
     ).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     major, minor = torch.cuda.get_device_capability(0)
-    assert major == 9, f"K1 is built for sm_90a; this card is sm_{major}{minor}"
+    assert major == 9, f"the kernels are built for sm_90a; this card is sm_{major}{minor}"
     # the fp32 phases compare against fp32 references: no TF32 anywhere
+    # (ConvPositionEmbed is a cuDNN conv, where TF32 is on by default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -118,39 +242,51 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    sources = ("flash_attention_fwd", "flash_attention_bwd")
     t0 = time.perf_counter()
-    lib = kernels.build("flash_attention_fwd")
-    kernels.load("flash_attention_fwd")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        libs = list(pool.map(kernels.build, sources))
+    for name in sources:
+        kernels.load(name)
     dt = time.perf_counter() - t0
-    ptxas = [
-        line.strip() for line in open(f"{lib}.log")
-        if "registers" in line or "spill" in line
-    ]
-    log("build", f"K1 {lib.name} nvcc {' '.join(kernels.NVCC_FLAGS)} in {dt:.2f} s; "
-                 f"ptxas: {' | '.join(ptxas)}")
+    for name, lib in zip(sources, libs):
+        ptxas = [
+            line.strip() for line in open(f"{lib}.log")
+            if "registers" in line or "spill" in line
+        ]
+        log("build", f"{name}: {lib.name}; ptxas: {' | '.join(ptxas)}")
+    log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)}: {len(sources)} sources in "
+                 f"{dt:.2f} s, built in parallel")
 
 
-def _k1_inputs(shape, dtype, inputs, mask_kind, gen):
+def _attn_inputs(shape, dtype, inputs, mask_kind, gen):
     b, h, n, kv, d = shape
     dev = "cuda"
     q, k, v = (torch.randn(b, h, m, d, generator=gen, device=dev) for m in (n, kv, kv))
+    do = torch.randn(b, h, n, d, generator=gen, device=dev)
     scale = d ** -0.5
-    if inputs == "serving":
+    if inputs == "qk":
         q, k = (l2norm(t) * d ** 0.5 for t in (q, k))
         scale = 10.0
     mask = None
-    if mask_kind is not None:
+    if mask_kind == "all":  # the denoiser's mask when no frame is padding
+        mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
+    elif mask_kind is not None:
         mask = torch.rand(b, kv, generator=gen, device=dev) < 0.7
         if mask_kind == "empty_row":
             mask[-1] = False  # every key of the last batch element masked
-    return q.to(dtype), k.to(dtype), v.to(dtype), mask, scale
+    return q.to(dtype), k.to(dtype), v.to(dtype), do.to(dtype), mask, scale
+
+
+def _sdpa_mask(mask):
+    return None if mask is None else mask[:, None, None, :]
 
 
 def phase_k1_check(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for name, shape, dtype, inputs, mask_kind, atol, rtol in K1_CASES:
-        q, k, v, mask, scale = _k1_inputs(shape, dtype, inputs, mask_kind, gen)
+        q, k, v, _, mask, scale = _attn_inputs(shape, dtype, inputs, mask_kind, gen)
         out, lse = flash_attention(q, k, v, mask, scale, return_lse=True)
         ref, ref_lse = reference_attention(q, k, v, mask, scale, return_lse=True)
         torch.cuda.synchronize()
@@ -168,21 +304,117 @@ def phase_k1_check(smi: str) -> dict:
             line += f" empty_row_vs_mean_v={row_err:.3e}"
         log("k1", line)
         assert ok and lse_ok, f"K1 disagrees with the plain version on {name}"
-        results[name] = {"max_abs_err": err.max().item()}
-        if name in TIMED_CASES:
-            run_k1 = lambda: flash_attention(q, k, v, mask, scale)  # noqa: E731
-            run_plain = lambda: reference_attention(q, k, v, mask, scale)  # noqa: E731
-            plain_a, k1_a, k1_b, plain_b = (
-                cuda_ms(f) for f in (run_plain, run_k1, run_k1, run_plain)
-            )
-            results[name].update(ms=(k1_a + k1_b) / 2, plain_ms=(plain_a + plain_b) / 2)
-            log("k1", f"time {name}: K1 {results[name]['ms']:.4f} ms, plain "
-                      f"{results[name]['plain_ms']:.4f} ms (CUDA events, mean of 20, "
-                      f"order plain/K1/K1/plain) on {smi}")
+        results[name] = {"max_abs_err": err.max().item(), "shape": shape, "dtype": dtype}
+        if name in K1_TIMED:
+            sm = _sdpa_mask(mask)
+            t = in_turns({
+                "plain": lambda: reference_attention(q, k, v, mask, scale),
+                "k1": lambda: flash_attention(q, k, v, mask, scale),
+                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sm,
+                                                               scale=scale),
+            })
+            bound_ms, bound_by = attention_bound("k1", shape, dtype)
+            results[name].update(ms=t["k1"], plain_ms=t["plain"], library_ms=t["sdpa"],
+                                 bound_ms=bound_ms, bound_by=bound_by)
+            log("k1", f"time {name}: K1 {t['k1']:.4f} ms, plain {t['plain']:.4f} ms, SDPA "
+                      f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (CUDA "
+                      f"events, mean of 2 x 20, order plain/K1/SDPA/SDPA/K1/plain) on {smi}")
     return results
 
 
-def _small_slice():
+def _rel_err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(),
+                                                                1e-30)
+
+
+def _norm_err(got, ref) -> float:
+    """||got - ref|| / ||ref|| over every entry."""
+    ref = ref.double()
+    return (got.double() - ref).norm().item() / max(ref.norm().item(), 1e-300)
+
+
+def phase_k23_check(smi: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    results = {}
+    for name, shape, dtype, inputs, mask_kind, tol in K23_CASES:
+        q, k, v, do, mask, scale = _attn_inputs(shape, dtype, inputs, mask_kind, gen)
+        out, lse = flash_attention(q, k, v, mask, scale, return_lse=True)
+        delta = attention_delta(do, out)
+        dq = flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        got = (dq, dk, dv)
+        assert all(bool(torch.isfinite(g).all()) for g in got), f"non-finite K2/K3 on {name}"
+        plain = reference_attention_backward(q, k, v, mask, out, lse, do, scale)
+        leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(reference_attention(*leaves, mask, scale), leaves,
+                                   do.float())
+        err_plain = [_rel_err(a, b) for a, b in zip(got, plain)]
+        err_auto = [_rel_err(a, b) for a, b in zip(got, auto)]
+        norm_plain = [_norm_err(a, b) for a, b in zip(got, plain)]
+        norm_auto = [_norm_err(a, b) for a, b in zip(got, auto)]
+        abs_err = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)]
+        typical = [r.float().abs().median().item() for r in plain]
+        tol_plain, tol_auto = NORM_TOL[dtype]
+        line = (f"{name} {tuple(shape)} {str(dtype)[6:]} dq/dk/dv max_abs_err vs plain "
+                f"{abs_err[0]:.3e}/{abs_err[1]:.3e}/{abs_err[2]:.3e} (median |ref| "
+                f"{'/'.join(f'{e:.3e}' for e in typical)}), relative to max|ref| vs plain "
+                f"{'/'.join(f'{e:.2e}' for e in err_plain)}, vs autograd "
+                f"{'/'.join(f'{e:.2e}' for e in err_auto)} (tol {tol:g} x max|ref|); "
+                f"||err|| / ||ref|| vs plain {'/'.join(f'{e:.2e}' for e in norm_plain)} (tol "
+                f"{tol_plain:g}), vs autograd {'/'.join(f'{e:.2e}' for e in norm_auto)} (tol "
+                f"{tol_auto:g})")
+        ok = (max(err_plain + err_auto) <= tol and max(norm_plain) <= tol_plain
+              and max(norm_auto) <= tol_auto)
+        if mask_kind == "empty_row":
+            zero = int(torch.count_nonzero(dq[-1])) + int(torch.count_nonzero(dk[-1]))
+            want_dv = (do[-1].float().sum(dim=1, keepdim=True) / shape[3]).expand_as(dv[-1])
+            dv_err = _rel_err(dv[-1], want_dv)
+            line += (f"; fully-masked element: nonzero dq+dk {zero} (want 0), dv vs "
+                     f"sum(dO)/kv {dv_err:.2e}")
+            ok = ok and zero == 0 and dv_err <= tol
+        log("k23", line)
+        assert ok, f"K2/K3 disagree with the plain backward on {name}"
+        results[name] = {"max_abs_err": abs_err, "shape": shape, "dtype": dtype}
+        if name in K23_TIMED:
+            sm = _sdpa_mask(mask)
+            lv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+            def ours_fwd_bwd():
+                torch.autograd.grad(flash_attention(*lv, mask, scale), lv, do)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(F.scaled_dot_product_attention(
+                    *lv, attn_mask=sm, scale=scale), lv, do)
+
+            # SDPA's backward alone: one autograd call into its fused backward,
+            # which gives dq, dk and dv together from its saved out and lse
+            sdpa_out = F.scaled_dot_product_attention(*lv, attn_mask=sm, scale=scale)
+            sdpa_node = type(sdpa_out.grad_fn).__name__
+            t = in_turns({
+                "plain": lambda: reference_attention_backward(q, k, v, mask, out, lse, do,
+                                                              scale),
+                "k2": lambda: flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale),
+                "k3": lambda: flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale),
+                "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, lv, do, retain_graph=True),
+                "ours_fwd_bwd": ours_fwd_bwd,
+                "sdpa_fwd_bwd": sdpa_fwd_bwd,
+            }, iters=10)
+            del sdpa_out
+            results[name]["times"] = t
+            results[name]["bounds"] = {kk: attention_bound(kk, shape, dtype)
+                                       for kk in ("k2", "k3")}
+            b2, b3 = (results[name]["bounds"][kk][0] for kk in ("k2", "k3"))
+            log("k23", f"time {name}: K2 {t['k2']:.4f} ms (bound {b2:.4f}), K3 "
+                       f"{t['k3']:.4f} ms (bound {b3:.4f}), K2+K3 {t['k2'] + t['k3']:.4f} ms; "
+                       f"dq, dk, dv together: plain backward {t['plain']:.4f} ms, SDPA "
+                       f"backward ({sdpa_node}) {t['sdpa_bwd']:.4f} ms; forward + backward: "
+                       f"K1+K2+K3 {t['ours_fwd_bwd']:.4f} ms, SDPA {t['sdpa_fwd_bwd']:.4f} ms "
+                       f"(CUDA events, mean of 2 x 10, in turns) on {smi}")
+    return results
+
+
+def _small_slice(device):
     codec = EncodecVoco(
         quantizer=ResidualVQ(num_quantizers=4, codebook_size=64, dim=32),
         vocos=Vocos(input_channels=32, dim=64, intermediate_dim=96, num_layers=2,
@@ -190,8 +422,12 @@ def _small_slice():
                     num_quantizers=4),
         ratios=(2, 2, 2, 2),
     )
-    vb = vbt.VoiceBox(num_cond_tokens=100, audio_enc_dec=codec, dim_cond_emb=64, dim=128,
-                      depth=2, dim_head=64, heads=2, num_register_tokens=4)
+    vb = vbt.VoiceBox(audio_enc_dec=codec, **SMALL)
+    _soften_qk_gains(vb)
+    return vbt.ConditionalFlowMatcherWrapper(vb, device=device)
+
+
+def _soften_qk_gains(vb):
     # qk-norm scales q and k to norm sqrt(d) and the logits by 10, so with unit
     # gains they reach 10 d = 640 and the softmax is nearly an argmax: a 1e-6
     # change of y0 then moves the latents by 1e-2 (measured on the CPU). Gains
@@ -199,12 +435,11 @@ def _small_slice():
     for name, p in vb.named_parameters():
         if name.endswith(("q_norm.gamma", "k_norm.gamma")):
             torch.nn.init.constant_(p, 0.25)
-    return vbt.ConditionalFlowMatcherWrapper(vb)
 
 
 def phase_slice_card_vs_cpu() -> None:
-    cfm_cpu = seeded(_small_slice, SEED).eval()
-    cfm_gpu = copy.deepcopy(cfm_cpu).to("cuda")
+    cfm_cpu = seeded(lambda: _small_slice("cpu"), SEED).eval()
+    cfm_gpu = seeded(lambda: _small_slice("cuda"), SEED).eval()
     gen = torch.Generator().manual_seed(SEED + 1)
     b, n = 2, 96
     cond = torch.randn(b, n, 32, generator=gen)
@@ -239,6 +474,75 @@ def phase_slice_card_vs_cpu() -> None:
     assert audio_err <= 1e-3 * peak, "audio disagrees card vs CPU"
 
 
+SMALL_TRAIN = dict(lr=1e-3, initial_lr=1e-4, num_warmup_steps=1, wd=1e-2, max_grad_norm=0.5,
+                   save_results_every=1000)
+
+
+def _small_trainer(device, items):
+    def build():
+        vb = vbt.VoiceBox(dim_in=32, **SMALL)
+        _soften_qk_gains(vb)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device=device)
+
+    cfm = seeded(build, SEED + 4)
+    return vbt.VoiceBoxTrainer(cfm, batch_size=2, dataset=vbt.ArrayDataset(items),
+                               num_train_steps=3, valid_frac=0.0, bucket_multiple=128,
+                               log_every=1000, device=device, **SMALL_TRAIN)
+
+
+def phase_train_card_vs_cpu() -> None:
+    rs = np.random.RandomState(SEED + 5)
+    items = [(rs.randn(n, 32).astype(np.float32), rs.randint(0, 100, n).astype(np.int32))
+             for n in (96, 90, 93, 96)]
+    cpu, gpu = _small_trainer("cpu", items), _small_trainer("cuda", items)
+    init = {n: p.detach().clone() for n, p in cpu.cfm_wrapper.voicebox.named_parameters()}
+    frames = 124  # 90-96 frames + 4 registers: the bucket grid gives 124 + 4 = 128 tokens
+    depth = SMALL["depth"]
+    losses = []
+    for step in range(3):
+        m = 2
+        draws = dict(noise=rs.randn(m, frames, 32).astype(np.float32),
+                     times=rs.rand(m).astype(np.float32),
+                     cond_mask=rs.rand(m, frames) < 0.7, cond_drop_mask=rs.rand(m) < 0.2)
+        cpu_loss = cpu.train_step(**{k: torch.from_numpy(v) for k, v in draws.items()})["loss"]
+        reset_launches()
+        gpu_loss = gpu.train_step(**{k: torch.from_numpy(v).cuda() for k, v in draws.items()})
+        torch.cuda.synchronize()
+        # step 0 also evaluates one validation batch: one more forward
+        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth}
+        assert read_launches() == want, f"step {step} launched {read_launches()}, want {want}"
+        losses.append((gpu_loss["loss"].item(), cpu_loss.item()))
+    loss_err = max(abs(g - c) / abs(c) for g, c in losses)
+    lr = SMALL_TRAIN["lr"]
+    worst, n_off, total, cos_min = 0.0, 0, 0, 1.0
+    gpu_params = dict(gpu.cfm_wrapper.voicebox.named_parameters())
+    for name, p in cpu.cfm_wrapper.voicebox.named_parameters():
+        a = (gpu_params[name].detach().cpu() - init[name]).double()
+        b = (p.detach() - init[name]).double()
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        n_off += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+        cos_min = min(cos_min, (a * b).sum().item() / max(a.norm().item() * b.norm().item(),
+                                                          1e-30))
+    frac_off = n_off / total
+    log("train", f"card vs CPU, fp32, dim 128 depth 2 heads 2x64, batch 2 x {frames} frames, "
+                 f"3 AdamW steps (lr {lr:g}, clip 0.5): losses card/CPU "
+                 f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
+                 f"{loss_err:.2e} (tol 1e-4); K1/K2/K3 launches per step {depth}/{depth}/"
+                 f"{depth}; parameter updates: min per-tensor cosine {cos_min:.6f} (tol > "
+                 f"0.999), max abs diff {worst:.3e} (tol 6 lr = {6 * lr:g}), weights off by "
+                 f"> 0.01 lr {n_off} of {total} (tol 1e-3 of them)")
+    # Adam moves each weight by ~lr whatever its gradient's size, so a weight
+    # whose gradient is near zero carries the two devices' summation-order
+    # rounding amplified: a few weights may differ by up to a flipped update
+    # (2 lr a step), the rest agree to rounding
+    assert loss_err <= 1e-4, "losses disagree card vs CPU"
+    assert cos_min > 0.999 and worst <= 6 * lr and frac_off <= 1e-3, (
+        "parameters disagree card vs CPU"
+    )
+
+
 def _flagship():
     codec = EncodecVoco()  # RVQ 8 x 1024 x 128, vocos-encodec-24khz geometry
     vb = vbt.VoiceBox(audio_enc_dec=codec, dtype=torch.bfloat16, **FLAGSHIP)
@@ -246,7 +550,7 @@ def _flagship():
 
 
 def phase_serve(smi: str) -> int:
-    cfm = seeded(_flagship, SEED + 2).eval().to("cuda")
+    cfm = seeded(_flagship, SEED + 2).eval()
     codec = cfm.codec
     audio_s = FRAMES * codec.downsample_factor / codec.sampling_rate
     expected = FLAGSHIP["depth"] * EVALS_PER_REQUEST
@@ -272,13 +576,296 @@ def phase_serve(smi: str) -> int:
         return dt, launches
 
     request(1)  # warm-up: allocator, cuFFT plans
-    flash_attention.launches = 0  # the main path's run starts here
+    reset_launches()  # the serving path's run starts here
     for i, batch in enumerate((1, 1, 2, 2)):
         dt, launches = request(batch)
         log("serve", f"request {i} batch {batch}: {FRAMES} frames = {audio_s:.1f} s audio, "
                      f"latency {dt * 1e3:.2f} ms, RTF {dt / audio_s:.5f}, K1 launches "
                      f"{launches}, audio finite {(batch, 1, FRAMES * 320)} on {smi}")
-    return flash_attention.launches
+    counts = read_launches()
+    assert counts["k2"] == counts["k3"] == 0, "serving launched the backward"
+    del cfm
+    torch.cuda.empty_cache()
+    return counts["k1"]
+
+
+def _profile_step(trainer) -> dict:
+    """One training step under torch.profiler: the host wall time, the
+    union of the device's kernel intervals (busy), the idle share
+    1 - busy / wall, the number of device kernels and the largest kernels by
+    device time. The idle share is None when the profiler saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device activity only: the profiler also puts each record_function range
+    # (such as the optimizer's step) on the device's timeline
+    kernels_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels_)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels_:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels_),
+            "idle": 1.0 - busy / wall_us if spans else None,
+            "top": [(name[:60], t / 1e3, n) for name, (t, n) in top]}
+
+
+def phase_train(smi: str) -> dict:
+    def build():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          **FLAGSHIP)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+    cfm = seeded(build, SEED + 6)
+    rs = np.random.RandomState(SEED + 7)
+    items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
+              rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
+             for _ in range(40)]
+    trainer = vbt.VoiceBoxTrainer(
+        cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(items), num_train_steps=1000,
+        lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.2, log_every=1000,
+        save_results_every=1000, seed=SEED,
+    )
+    n_params = sum(p.numel() for p in trainer.params)
+    watched = {n: p.detach().clone() for n, p in trainer.named_params
+               if n in ("to_embed.weight", "transformer.layers.23.3.to_qkv.weight")}
+    depth = FLAGSHIP["depth"]
+    for _ in range(TRAIN_WARMUP):  # step 0 also runs the validation batch
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()  # the training path's run starts here
+    logs, host_s = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t_all = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        before = read_launches()
+        t0 = time.perf_counter()
+        logs.append(trainer.train_step())
+        host_s.append(time.perf_counter() - t0)
+        after = read_launches()
+        step_launches = {k: after[k] - before[k] for k in after}
+        assert step_launches == {"k1": depth, "k2": depth, "k3": depth}, (
+            f"a training step launched {step_launches}, expected {depth} of each"
+        )
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
+    assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
+    moved = {n: (p.detach() - watched[n]).abs().max().item() for n, p in trainer.named_params
+             if n in watched}
+    assert all(m > 0 for m in moved.values()), f"parameters did not change: {moved}"
+    prof = _profile_step(trainer)
+    idle = prof["idle"]
+    log("train", f"flagship: dim 512 depth 24 heads 4x128, bf16 compute, fp32 params "
+                 f"({n_params / 1e6:.1f} M) and AdamW, batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
+                 f"frames + 16 registers; {TRAIN_TIMED} timed steps after {TRAIN_WARMUP} "
+                 f"warm-up: losses {[round(x, 4) for x in losses]}, grad norms "
+                 f"{[round(x, 3) for x in norms]}, launches per step K1/K2/K3 {depth}/{depth}/"
+                 f"{depth}; max |change| of watched weights {moved}")
+    log("train", f"steps/s {TRAIN_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, "
+                 f"{gpu_ms / TRAIN_TIMED:.2f} ms/step), {TRAIN_TIMED / wall:.3f} (host clock, "
+                 f"steps {[round(t * 1e3, 1) for t in host_s]} ms); idle share of one profiled "
+                 f"step {'not measured' if idle is None else f'{idle:.3f}'}; peak memory "
+                 f"{peak_gib:.2f} GiB (max_memory_allocated) on {smi}")
+    log("train", f"profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
+                 f"{prof['busy_ms']:.2f} ms over {prof['kernels']} kernels; largest (name, "
+                 f"ms, calls): {'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
+    return counts, trainer
+
+
+WITNESS_DELTA = 2.0 ** -20  # the noise floor's change of the attention scale
+
+
+def _plain_attention(factor: float = 1.0):
+    """Autograd of the plain `reference_attention`, its scale times `factor`."""
+    def attend(q, k, v, mask=None, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return reference_attention(q, k, v, mask, scale * factor)
+    return attend
+
+
+def _flagship_grads(cfm, params, batch, seed: int, attend=None):
+    """Loss and gradient of one flagship batch, the span and CFG masks, the
+    noise and the times drawn from a generator seeded with `seed`; every
+    attention call through K1/K2/K3, or through `attend` in its place."""
+    x, mask, ids = batch
+    kernel_path = attention_module.flash_attention
+    if attend is not None:
+        attention_module.flash_attention = attend
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        loss = cfm.loss_fn(x, mask=mask, cond_token_ids=ids, generator=gen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        attention_module.flash_attention = kernel_path
+    return loss.item(), [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+
+def _grad_gap(a, b, watch: dict) -> dict:
+    """How far gradient b lies from gradient a: the losses' relative
+    difference, the global norms' ratio, the cosine of the whole gradient
+    vectors, and the norm ratio and cosine of each watched leaf."""
+    (loss_a, ga), (loss_b, gb) = a, b
+    dots = torch.stack([(x.double() * y.double()).sum() for x, y in zip(ga, gb)])
+    na = torch.stack([x.double().norm() for x in ga])
+    nb = torch.stack([y.double().norm() for y in gb])
+    leaf_cos = dots / (na * nb).clamp_min(1e-300)
+    return {
+        "loss": abs(loss_b - loss_a) / abs(loss_a),
+        "norm": nb.norm().item() / na.norm().item(),
+        "cos": dots.sum().item() / (na.norm() * nb.norm()).item(),
+        "leaves": {tag: (nb[i].item() / na[i].item(), leaf_cos[i].item())
+                   for tag, i in watch.items()},
+        "norms": (na.norm().item(), nb.norm().item()),
+        "leaf_norms": {tag: na[i].item() for tag, i in watch.items()},
+    }
+
+
+def _fmt_gap(g: dict) -> str:
+    return (f"loss {g['loss']:.2e}, global norm ratio {g['norm']:.6f}, cosine {g['cos']:.6f}; "
+            f"to_qkv by layer (norm ratio, cosine) "
+            + ", ".join(f"{t}: {r:.3f} {c:.4f}" for t, (r, c) in g["leaves"].items()))
+
+
+# (loss, global norm, cosine) limits of the kernels-vs-plain gap in fp32
+# with qk gains 0.25, where the gradient is well conditioned: the loss and
+# the global norm relative, the cosine of the whole gradient and of each
+# watched leaf
+WITNESS_TOL = (1e-5, 1e-4, 0.9999)
+
+
+def phase_grad_witness(trainer, smi: str) -> None:
+    """The flagship's gradient through K1/K2/K3 against the plain attention
+    on the card: the trainer's weights, one training batch and the same
+    draws, computing in bf16 (the trained configuration) and in fp32 (the
+    same weights in a VoiceBox computing in fp32). The noise floor is the
+    plain attention against itself with its scale moved by 2^-20 either way,
+    a change the size of the logits' summation-order rounding.
+
+    With unit qk gains (logits up to 10 d), and in bf16 whatever the gains,
+    the floor shows that no two computations of this gradient agree in its
+    direction: the checks there are that the kernels stay as close to the
+    plain version as the floor shows the plain version stays to itself, in
+    the loss, in the last layer's gradient norm and in the global norm's
+    order of magnitude. In fp32 with the qk gains set to 0.25 (logits up to
+    80) the gradient is well conditioned and the kernels must match the
+    plain version within WITNESS_TOL."""
+    batch = trainer._next_batch(trainer.dl_iter)
+    names = [n for n, _ in trainer.named_params]
+    state = trainer.cfm_wrapper.voicebox.state_dict()
+
+    def build_f32():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.float32, param_dtype=torch.float32,
+                          **FLAGSHIP)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+    cfm32 = seeded(build_f32, SEED + 8)
+    cfm32.voicebox.load_state_dict(state)
+    cfm32.train()
+    params32 = [p for _, p in cfm32.voicebox.named_parameters() if p.requires_grad]
+    depth = FLAGSHIP["depth"]
+    last = str(depth - 1)
+    watch = {str(i): names.index(f"transformer.layers.{i}.3.to_qkv.weight")
+             for i in [*range(0, depth - 1, max(depth // 4, 1)), depth - 1]}
+    models = (("bf16", trainer.cfm_wrapper, trainer.params), ("f32", cfm32, params32))
+    failed = []
+    for gains in ("unit", "0.25"):
+        if gains == "0.25":
+            for _, cfm, _ in models:
+                _soften_qk_gains(cfm.voicebox)
+        for label, cfm, params in models:
+            def grads(attend=None):
+                return _flagship_grads(cfm, params, batch, SEED + 9, attend)
+
+            plain = grads(_plain_attention())
+            gap = _grad_gap(plain, grads(), watch)
+            floors = [_grad_gap(plain, grads(_plain_attention(1 + s * WITNESS_DELTA)), watch)
+                      for s in (1, -1)]
+            torch.cuda.synchronize()
+            name = f"{label} compute, qk gains {gains}"
+            log("witness", f"flagship gradient, {name}, same weights, batch and draws; "
+                           f"plain attention on the card: loss {plain[0]:.6f}, global norm "
+                           f"{gap['norms'][0]:.4e}, to_qkv norm by layer "
+                           f"{ {t: f'{v:.3e}' for t, v in gap['leaf_norms'].items()} } on {smi}")
+            log("witness", f"{name}: K1/K2/K3 vs plain: {_fmt_gap(gap)}")
+            for s, floor in zip(("+", "-"), floors):
+                log("witness", f"{name}: noise floor, plain with scale x (1 {s} 2^-20) vs "
+                               f"plain: {_fmt_gap(floor)}")
+            ok = all(math.isfinite(x) and x > 0 for g in [gap] + floors for x in g["norms"])
+            if gains == "unit" or label == "bf16":
+                # the floor's own spread: the loss within 1e-2, the last layer's
+                # norm within 25%, the global norm within two orders of magnitude
+                ok = ok and (gap["loss"] <= 1e-2 and 0.8 <= gap["leaves"][last][0] <= 1.25
+                             and 1e-2 <= gap["norm"] <= 1e2)
+            else:
+                loss_tol, norm_tol, cos_tol = WITNESS_TOL
+                ok = ok and (gap["loss"] <= loss_tol and abs(gap["norm"] - 1) <= norm_tol
+                             and gap["cos"] > cos_tol
+                             and min(c for _, c in gap["leaves"].values()) > cos_tol)
+                log("witness", f"{name}: tol loss {loss_tol:g}, global norm {norm_tol:g}, "
+                               f"cosines > {cos_tol:g}")
+            if not ok:
+                failed.append(name)
+            del plain
+    del cfm32, params32
+    torch.cuda.empty_cache()
+    assert not failed, f"the flagship gradient through the kernels disagrees with the plain " \
+                       f"attention: {failed}"
+
+
+def kernel_line(k1, k23, serve_k1, train_counts) -> str:
+    """One row per kernel and main path: K1 on the serving path (timed at the
+    serving shape) and on the training path (at the training shape), K2 and
+    K3 on the training path."""
+    rows = []
+    for path, case, launches in (("serve", "flagship_cfg_bf16", serve_k1),
+                                 ("train", "train_bf16", train_counts["k1"])):
+        r = k1[case]
+        rows.append({
+            "name": f"{NAMES['k1']}[{path}]", "path": path, "route": "cuda",
+            "source": SOURCES["k1"], "replaces": REPLACES["k1"], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    train = k23["train_bf16"]
+    t = train["times"]
+    for kk in ("k2", "k3"):
+        bound_ms, bound_by = train["bounds"][kk]
+        rows.append({
+            "name": NAMES[kk], "path": "train", "route": "cuda", "source": SOURCES[kk],
+            "replaces": REPLACES[kk], "launches": train_counts[kk],
+            # K3's error is the larger of dk's and dv's
+            "max_abs_err": train["max_abs_err"][0] if kk == "k2" else max(
+                train["max_abs_err"][1:]),
+            "ms": t[kk], "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t["sdpa_bwd"],
+            "plain_and_library_compute": "dq, dk and dv together",
+            "fwd_bwd_ms": t["ours_fwd_bwd"], "library_fwd_bwd_ms": t["sdpa_fwd_bwd"],
+        })
+    return json.dumps({"kernels": rows})
 
 
 def main() -> int:
@@ -290,16 +877,16 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     k1 = phase_k1_check(smi)
+    k23 = phase_k23_check(smi)
     phase_slice_card_vs_cpu()
-    launches = phase_serve(smi)
-    assert launches > 0, "the main path launched K1 no time"
-    flagship = k1["flagship_cfg_bf16"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": flagship["max_abs_err"], "ms": flagship["ms"],
-        "plain_ms": flagship["plain_ms"],
-    }]}), flush=True)
+    phase_train_card_vs_cpu()
+    serve_k1 = phase_serve(smi)
+    assert serve_k1 > 0, "the serving path launched K1 no time"
+    train_counts, trainer = phase_train(smi)
+    assert min(train_counts.values()) > 0, f"the training path skipped a kernel: {train_counts}"
+    phase_grad_witness(trainer, smi)
+    del trainer
+    print(kernel_line(k1, k23, serve_k1, train_counts), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

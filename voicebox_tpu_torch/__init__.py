@@ -1,10 +1,12 @@
 """voicebox_tpu_torch: the PyTorch and CUDA port of voicebox_tpu.
 
 The JAX package `voicebox_tpu` is the reference; this package mirrors its
-module names. It imports torch and never jax. Its first slice is the
-serving path: the conditional-flow-matching sampler over the VoiceBox
-denoiser, then the Encodec/Vocos decode. On CUDA tensors every attention
-call runs K1, the hand-written Hopper kernel in `csrc/`.
+module names. It imports torch and never jax. Its slices so far: the
+serving path (the conditional-flow-matching sampler over the VoiceBox
+denoiser, then the Encodec/Vocos decode) and the training step (the CFM
+loss, AdamW, `VoiceBoxTrainer`). On CUDA tensors every attention call runs
+K1 forward and K2 + K3 backward, the hand-written Hopper kernels in `csrc/`.
+Entry points run on the card unless the caller passes `device="cpu"`.
 """
 
 from .models.cfm import ConditionalFlowMatcherWrapper
@@ -12,13 +14,17 @@ from .models.codec import EncodecVoco
 from .models.transformer import Transformer
 from .models.vocos import Vocos
 from .models.voicebox import VoiceBox
+from .training.data import ArrayDataset
+from .training.trainer import VoiceBoxTrainer
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "ArrayDataset",
     "ConditionalFlowMatcherWrapper",
     "EncodecVoco",
     "Transformer",
     "Vocos",
     "VoiceBox",
+    "VoiceBoxTrainer",
 ]

@@ -1,9 +1,12 @@
 """Multi-head bidirectional attention.
 
 Counterpart of `voicebox_tpu/models/attention.py::Attention` (the branch
-without sequence parallelism or dropout): fused QKV projection, heads split
-to (b, h, n, d), per-head qk-norm with the fixed scale 10, rotary on q and
-k, then `ops.flash_attention` (K1 on the card) and the output projection.
+without sequence parallelism): fused QKV projection, heads split to
+(b, h, n, d), per-head qk-norm with the fixed scale 10, rotary on q and k,
+then `ops.flash_attention` (K1 forward, K2 + K3 backward on the card) and
+the output projection. Attention dropout in training is not ported yet (the
+JAX package sends it to its XLA path; every reference config uses 0): a
+module in training mode with `attn_dropout > 0` raises.
 """
 
 from __future__ import annotations
@@ -22,19 +25,26 @@ __all__ = ["Attention"]
 class Attention(nn.Module):
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  qk_norm: bool = False, qk_norm_scale: float = 10.0,
-                 dtype=torch.float32):
+                 attn_dropout: float = 0.0, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.attn_dropout = attn_dropout
         self.qk_norm_scale = qk_norm_scale if qk_norm else None
         dim_inner = heads * dim_head
         if qk_norm:
             self.q_norm = MultiheadRMSNorm(dim_head, heads)
             self.k_norm = MultiheadRMSNorm(dim_head, heads)
-        self.to_qkv = Linear(dim, dim_inner * 3, bias=False, dtype=dtype)
-        self.to_out = Linear(dim_inner, dim, bias=False, dtype=dtype)
+        self.to_qkv = Linear(dim, dim_inner * 3, bias=False, dtype=dtype,
+                             param_dtype=param_dtype)
+        self.to_out = Linear(dim_inner, dim, bias=False, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rotary_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training and self.attn_dropout > 0:
+            raise NotImplementedError(
+                "attention dropout in training is not ported yet (ROADMAP Queue 1, "
+                "item 7); the reference configs use attn_dropout=0"
+            )
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         q, k, v = (

@@ -1,9 +1,13 @@
 """Neural primitives of the denoiser.
 
 Counterpart of `voicebox_tpu/models/primitives.py`. A layer built with
-`dtype` computes in it, as flax's `dtype` does. It also stores its weights
-in `dtype`: rounding fp32 weights to bf16 once, at load, gives the values
-that flax's cast at every use gives, without a cast kernel per call. The
+`dtype` computes in it, as flax's `dtype` does, and stores its weights in
+`param_dtype` (flax's name), which defaults to `dtype`. For serving that
+default is right: rounding fp32 weights to bf16 once, at load, gives the
+values that flax's cast at every use gives, without a cast kernel per call.
+Training keeps fp32 parameters (`param_dtype=torch.float32`) and casts each
+weight to `dtype` at every use, explicitly (not through `torch.autocast`,
+whose cast rules differ from flax's), as the JAX trainer does. The
 norms, the rotary embedding, the time features and the adaptive-norm
 projections compute in fp32 whatever the model's dtype, as in the JAX
 package. The tanh GELU is the denoiser's (the vocoder uses the exact one).
@@ -37,18 +41,35 @@ __all__ = [
 ]
 
 
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """nn.Linear with its weights in `dtype`, computing in `dtype`."""
+    """nn.Linear with its weights in `param_dtype` (default `dtype`),
+    computing in `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=torch.float32, param_dtype=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv1d(nn.Conv1d):
-    """nn.Conv1d on channels-first input, weights and compute in `dtype`."""
+    """nn.Conv1d on channels-first input, weights in `param_dtype` (default
+    `dtype`), computing in `dtype`."""
+
+    def __init__(self, *args, dtype=torch.float32, param_dtype=None, **kwargs):
+        super().__init__(*args, dtype=param_dtype or dtype, **kwargs)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -100,12 +121,12 @@ class ConvPositionEmbed(nn.Module):
     after. The caller adds the residual."""
 
     def __init__(self, dim: int, kernel_size: int = 31, groups: Optional[int] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
         assert kernel_size % 2 == 1
         self.dw_conv1d = nn.Sequential(
             Conv1d(dim, dim, kernel_size, groups=groups or dim,
-                   padding=kernel_size // 2, dtype=dtype),
+                   padding=kernel_size // 2, dtype=dtype, param_dtype=param_dtype),
             nn.GELU(approximate="tanh"),
         )
 
@@ -170,13 +191,13 @@ class GEGLU(nn.Module):
 
 
 def FeedForward(dim: int, mult: float = 4.0, dropout: float = 0.0,
-                dtype=torch.float32) -> nn.Sequential:
+                dtype=torch.float32, param_dtype=None) -> nn.Sequential:
     """GEGLU MLP with inner dim int(dim * mult * 2 / 3). A Sequential, so the
     projections sit at the reference's keys `0` and `3`."""
     dim_inner = int(dim * mult * 2 / 3)
     return nn.Sequential(
-        Linear(dim, dim_inner * 2, dtype=dtype),
+        Linear(dim, dim_inner * 2, dtype=dtype, param_dtype=param_dtype),
         GEGLU(),
         nn.Dropout(dropout),
-        Linear(dim_inner, dim, dtype=dtype),
+        Linear(dim_inner, dim, dtype=dtype, param_dtype=param_dtype),
     )

@@ -39,7 +39,10 @@ class Transformer(nn.Module):
         adaptive_rmsnorm_cond_dim_in: Optional[int] = None,
         use_unet_skip_connection: bool = False,
         attn_qk_norm: bool = False,
+        attn_dropout: float = 0.0,
+        ff_dropout: float = 0.0,
         dtype=torch.float32,
+        param_dtype=None,
     ):
         super().__init__()
         assert depth % 2 == 0, "depth must be even (U-Net skip symmetry)"
@@ -58,13 +61,15 @@ class Transformer(nn.Module):
         for ind in range(depth):
             has_skip = use_unet_skip_connection and ind + 1 > depth // 2
             self.layers.append(nn.ModuleList([
-                Linear(dim * 2, dim, dtype=dtype) if has_skip else None,
+                Linear(dim * 2, dim, dtype=dtype, param_dtype=param_dtype)
+                if has_skip else None,
                 None,  # gateloop layer: not ported yet
                 prenorm(),
                 Attention(dim, dim_head=dim_head, heads=heads, qk_norm=attn_qk_norm,
-                          dtype=dtype),
+                          attn_dropout=attn_dropout, dtype=dtype, param_dtype=param_dtype),
                 prenorm(),
-                FeedForward(dim, mult=ff_mult, dtype=dtype),
+                FeedForward(dim, mult=ff_mult, dropout=ff_dropout, dtype=dtype,
+                            param_dtype=param_dtype),
             ]))
         self.rotary_emb = RotaryEmbedding(dim_head)
         self.final_norm = RMSNorm(dim)

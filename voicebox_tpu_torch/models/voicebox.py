@@ -1,29 +1,37 @@
 """The VoiceBox denoiser: the vector field of the conditional flow matcher.
 
-Counterpart of `voicebox_tpu/models/voicebox.py::VoiceBox` in inference
-mode: `proj_in` when a codec with another latent width is attached, input
-fusion `to_embed(cat(x, cond_emb, cond))`, the ConvPositionEmbed residual,
-the fp32 time MLP, the adaptive-norm Transformer and the linear head.
+Counterpart of `voicebox_tpu/models/voicebox.py::VoiceBox`: `proj_in` when a
+codec with another latent width is attached, input fusion
+`to_embed(cat(x, cond_emb, cond))`, the ConvPositionEmbed residual, the fp32
+time MLP, the adaptive-norm Transformer and the linear head.
 Kept from the JAX package: `cond` defaults to `target` when absent (the
 reference's quirk); ids < 0 map to the null row; classifier-free guidance
 drops the condition through an explicit `cond_drop_mask`.
+
+Training: with `train=True` the span mask (`frac_lengths_mask` of the
+sequence, the part to generate) is drawn from `generator` unless `cond_mask`
+is given, and with `cond_drop_prob > 0` so is the CFG drop unless
+`cond_drop_mask` is given. With a `target` the forward returns the masked
+mean MSE over the span and the attention mask, in fp32: per sample
+num / clamp(den, 1e-5), then the mean over the batch. The JAX package's
+128-lane padding (`pad_to_lane_multiple`) is a TPU layout rule and is not
+ported: the masked loss is the same without it.
 
 State-dict keys are the reference's (`export_voicebox_torch`), so the
 exporter's output loads with `strict=True`. The attached codec is frozen and
 holds its own weights, so it is not a registered submodule: it appears in no
 key and moves with `ConditionalFlowMatcherWrapper`, which registers it.
-
-The training loss (random span mask, random CFG drop) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.interp import interpolate_1d
+from ..ops.masks import mask_from_frac_lengths, prob_mask_like, reduce_masks_with_and, uniform
 from .primitives import ConvPositionEmbed, LearnedSinusoidalPosEmb, Linear
 from .transformer import Transformer
 
@@ -42,13 +50,17 @@ class VoiceBox(nn.Module):
         dim_head: int = 64,
         heads: int = 16,
         ff_mult: float = 4.0,
+        ff_dropout: float = 0.0,
         time_hidden_dim: Optional[int] = None,
         conv_pos_embed_kernel_size: int = 31,
         conv_pos_embed_groups: Optional[int] = None,
+        attn_dropout: float = 0.0,
         attn_qk_norm: bool = True,
         num_register_tokens: int = 16,
+        frac_lengths_mask: Tuple[float, float] = (0.7, 1.0),
         condition_on_text: bool = True,
         dtype=torch.float32,
+        param_dtype=None,
     ):
         super().__init__()
         assert depth % 2 == 0, "depth must be even (U-Net skip symmetry)"
@@ -61,6 +73,7 @@ class VoiceBox(nn.Module):
         self.num_cond_tokens = num_cond_tokens
         self.condition_on_text = condition_on_text
         self.dtype = dtype
+        self.frac_lengths_mask = tuple(frac_lengths_mask)
         if audio_enc_dec is not None:
             self.latent_dim = audio_enc_dec.latent_dim
         else:
@@ -70,27 +83,28 @@ class VoiceBox(nn.Module):
         needs_proj = audio_enc_dec is not None and dim != self.latent_dim
         x_dim = dim if needs_proj else self.latent_dim
         self.register_buffer("null_cond", torch.zeros(x_dim))
-        self.proj_in = Linear(self.latent_dim, dim, dtype=dtype) if needs_proj else None
+        lin = dict(dtype=dtype, param_dtype=param_dtype)
+        self.proj_in = Linear(self.latent_dim, dim, **lin) if needs_proj else None
         self.sinu_pos_emb = nn.Sequential(
             LearnedSinusoidalPosEmb(dim), nn.Linear(dim, time_hidden_dim), nn.SiLU()
         )
         self.to_cond_emb = (
-            nn.Embedding(num_cond_tokens + 1, dim_cond_emb, dtype=dtype)
+            nn.Embedding(num_cond_tokens + 1, dim_cond_emb, dtype=param_dtype or dtype)
             if condition_on_text else None
         )
         dim_cond = dim_cond_emb if condition_on_text else 0
-        self.to_embed = Linear(x_dim * 2 + dim_cond, dim, dtype=dtype)
+        self.to_embed = Linear(x_dim * 2 + dim_cond, dim, **lin)
         self.conv_embed = ConvPositionEmbed(
             dim, kernel_size=conv_pos_embed_kernel_size,
-            groups=conv_pos_embed_groups, dtype=dtype,
+            groups=conv_pos_embed_groups, **lin,
         )
         self.transformer = Transformer(
             dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             num_register_tokens=num_register_tokens, adaptive_rmsnorm=True,
             adaptive_rmsnorm_cond_dim_in=time_hidden_dim, attn_qk_norm=attn_qk_norm,
-            dtype=dtype,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout, **lin,
         )
-        self.to_pred = Linear(dim, self.latent_dim, bias=False, dtype=dtype)
+        self.to_pred = Linear(dim, self.latent_dim, bias=False, **lin)
 
     @property
     def null_cond_id(self) -> int:
@@ -107,11 +121,16 @@ class VoiceBox(nn.Module):
         times,  # float, () or (b,)
         cond_token_ids: Optional[torch.Tensor] = None,  # (b, n_cond) int
         self_attn_mask: Optional[torch.Tensor] = None,  # (b, n) bool
+        cond_drop_prob: float = 0.0,
         cond_drop_mask: Optional[torch.Tensor] = None,  # (b,) bool, True = drop
-        target: Optional[torch.Tensor] = None,
+        target: Optional[torch.Tensor] = None,  # (b, n, latent_dim) flow target
         cond: Optional[torch.Tensor] = None,  # (b, n, latent_dim)
         cond_mask: Optional[torch.Tensor] = None,  # (b, n) bool, True = generate
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """The vector field (b, n, latent_dim), or with `target` the scalar
+        masked-MSE loss."""
         x = self._proj_in(x)
         if cond is None:  # the reference's quirk: cond defaults to the target
             cond = target
@@ -123,11 +142,17 @@ class VoiceBox(nn.Module):
         if times.dim() == 0 or times.numel() == 1:
             times = times.reshape(1).expand(batch)
 
-        if cond_mask is None:
+        if cond_mask is None and train:
+            lo, hi = self.frac_lengths_mask
+            frac = (uniform((batch,), generator, x.device) * (hi - lo) + lo).clamp_min(lo)
+            cond_mask = mask_from_frac_lengths(seq_len, frac, generator)
+        elif cond_mask is None:
             cond_mask = torch.ones(batch, seq_len, dtype=torch.bool, device=x.device)
         cond = cond * (~cond_mask[..., None]).to(cond.dtype)
 
         cond_ids = cond_token_ids
+        if cond_drop_mask is None and cond_drop_prob > 0:
+            cond_drop_mask = prob_mask_like((batch,), cond_drop_prob, generator, x.device)
         if cond_drop_mask is not None:
             cond = cond.masked_fill(cond_drop_mask[:, None, None], 0.0)
             if cond_ids is not None:
@@ -149,7 +174,15 @@ class VoiceBox(nn.Module):
 
         time_emb = self.sinu_pos_emb(times)  # fp32
         x = self.transformer(x, mask=self_attn_mask, adaptive_rmsnorm_cond=time_emb)
-        return self.to_pred(x)
+        x = self.to_pred(x)
+        if target is None:
+            return x
+
+        loss_mask = reduce_masks_with_and(cond_mask, self_attn_mask)
+        loss = (x.float() - target.float()).square().mean(dim=-1)
+        loss = torch.where(loss_mask, loss, 0.0)
+        den = loss_mask.sum(dim=-1).to(loss.dtype).clamp_min(1e-5)
+        return (loss.sum(dim=-1) / den).mean()
 
     def forward_with_cond_scale(self, x: torch.Tensor, *, times, cond_scale: float = 1.0,
                                 **kwargs) -> torch.Tensor:

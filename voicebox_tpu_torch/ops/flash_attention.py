@@ -1,25 +1,39 @@
-"""Bidirectional attention: the plain PyTorch version and the K1 wrapper.
+"""Bidirectional attention: the plain PyTorch versions and the wrappers of
+K1 (forward), K2 and K3 (backward).
 
 Counterpart of `voicebox_tpu/ops/flash_attention.py`. Two functions compute
-the same thing:
+the same forward:
 
 * `reference_attention` is the plain version (the JAX package's
   `reference_attention`): fp32 logits times `scale`, masked keys filled with
   -0.7 * f32max, an fp32 softmax, probabilities cast to v's dtype for the
   second product. With `return_lse=True` it also gives the per-row
   log-sum-exp of the filled logits, from `torch.logsumexp`.
-* `flash_attention` is the wrapper of K1, the hand-written forward kernel in
-  `csrc/flash_attention_fwd.cu`. On a CPU tensor it runs the plain version;
-  on a CUDA tensor it launches K1 or raises. It never falls back.
+* `flash_attention` runs K1, the hand-written forward kernel in
+  `csrc/flash_attention_fwd.cu`, on CUDA tensors, inside an autograd
+  Function whose backward is `attention_delta` (a torch op, as the JAX
+  package leaves it to XLA) then K2 (`flash_attention_bwd_dq`) and K3
+  (`flash_attention_bwd_dkv`) from `csrc/flash_attention_bwd.cu`. The
+  forward saves out and lse and the backward recomputes nothing of it. On
+  CPU tensors it runs the plain version, and autograd differentiates that.
+  On a CUDA tensor it launches the kernels or raises; it never falls back.
+
+`reference_attention_backward` is the plain version of K2 + K3: the
+FlashAttention-2 backward from the saved lse, with the kernels' roundings
+(P and dS cast to the input dtype before their products).
 
 The JAX package sends every call with kv <= 4096 to XLA's einsum (a rule
 measured on a TPU); here every attention call on a CUDA tensor goes through
-K1.
+K1, and every backward through K2 and K3.
 
-A row whose keys are all masked has one defined answer on both paths: every
+A row whose keys are all masked has one defined answer on every path: every
 real key gets the same filled logit, so the row is mean(V) over the real
-keys, and its lse is fill + log(kv). (The JAX Pallas kernel gives
-sum(V) / kv_padded there, which depends on its block size.)
+keys and its lse is fill + log(kv), which rounds to the fill. Its gradient
+is that of the plain softmax: dQ = dK = 0 (the filled logits do not depend
+on q or k) and every real key's dV gains dO / kv. (The JAX Pallas kernels
+give sum(V) / kv_padded forward and NaN backward there.) Masked keys get
+p = 0 by a select, never exp(s - lse) * 0, which is NaN once the unmasked
+logit overflows exp.
 """
 
 from __future__ import annotations
@@ -32,13 +46,22 @@ import torch
 
 from .. import kernels
 
-__all__ = ["MASK_FILL", "flash_attention", "reference_attention"]
+__all__ = [
+    "MASK_FILL",
+    "attention_delta",
+    "flash_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "reference_attention",
+    "reference_attention_backward",
+]
 
 MASK_FILL = -0.7 * torch.finfo(torch.float32).max
 
 _K1 = "flash_attention_fwd"
-_K1_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_K1_HEAD_DIMS = (64, 128)
+_BWD = "flash_attention_bwd"  # K2 and K3
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
 
 
 def reference_attention(
@@ -65,66 +88,201 @@ def reference_attention(
     return out, torch.logsumexp(sim, dim=-1).unsqueeze(2)
 
 
+def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (b, h, n): the backward's correction
+    term (the JAX package computes it in XLA outside its kernels)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def reference_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K2 + K3: dq, dk, dv from the forward's out and lse
+    (b, h, 1, n) and the output gradient do, each in its input's dtype.
+    p = exp(s * scale - lse) on kept keys (a select: 0 elsewhere), 1 / kv on
+    every key of a fully-masked row; ds = p (dO.v - delta) scale, 0 on a
+    fully-masked row."""
+    return _plain_backward(q, k, v, mask, lse, do, attention_delta(do, out), scale)
+
+
+def _plain_backward(q, k, v, mask, lse, do, delta, scale):
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    lse_col = lse.reshape(*q.shape[:3], 1)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse_col)
+    if mask is not None:
+        p = torch.where(mask[:, None, None, :], p, 0.0)
+    empty = lse_col < MASK_FILL / 2
+    p = torch.where(empty, 1.0 / k.shape[2], p)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = torch.where(empty, 0.0, p * (dp - delta.reshape(lse_col.shape)) * scale)
+    # the kernels round P and dS to the input dtype for their products
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
-def _k1_entry():
-    fn = kernels.load(_K1).vb_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+def _entry(source: str, symbol: str, n_ptrs: int):
+    fn = getattr(kernels.load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_k1_operands(q, k, v, mask):
+def _check_operands(kernel, q, k, v, mask):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
-            f"K1 needs q, k, v on one CUDA device; got {q.device}, {k.device}, {v.device}"
+            f"{kernel} needs q, k, v on one CUDA device; got {q.device}, {k.device}, {v.device}"
         )
-    if q.dtype not in _K1_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"K1 takes float32 or bfloat16 q, k, v of one dtype; got "
+            f"{kernel} takes float32 or bfloat16 q, k, v of one dtype; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"K1 shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+        raise ValueError(
+            f"{kernel} shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
     b, h, n_q, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"K1 shapes: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in _K1_HEAD_DIMS:
-        raise ValueError(f"K1 takes head dim 64 or 128, got {d}")
+        raise ValueError(f"{kernel} shapes: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{kernel} takes head dim 64 or 128, got {d}")
     if n_q == 0 or k.shape[2] == 0 or h > 65535 or b > 65535:
-        raise ValueError(f"K1 cannot launch for q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise ValueError(f"{kernel} cannot launch for q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"K1 needs {name} contiguous and 16-byte aligned")
+            raise ValueError(f"{kernel} needs {name} contiguous and 16-byte aligned")
     if mask is not None:
         if mask.dtype != torch.bool or tuple(mask.shape) != (b, k.shape[2]):
             raise ValueError(
-                f"K1 mask must be bool (b, kv) = {(b, k.shape[2])}, got "
+                f"{kernel} mask must be bool (b, kv) = {(b, k.shape[2])}, got "
                 f"{mask.dtype} {tuple(mask.shape)}"
             )
         if mask.device != q.device or not mask.is_contiguous():
-            raise ValueError("K1 mask must be contiguous and on q's device")
+            raise ValueError(f"{kernel} mask must be contiguous and on q's device")
+
+
+def _check_backward_operands(kernel, q, k, v, mask, do, lse, delta):
+    _check_operands(kernel, q, k, v, mask)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"{kernel} needs do like q {tuple(q.shape)} {q.dtype}; got "
+            f"{tuple(do.shape)} {do.dtype} on {do.device}"
+        )
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError(f"{kernel} needs do contiguous and 16-byte aligned")
+    rows = q.shape[0] * q.shape[1] * q.shape[2]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous()
+                or t.numel() != rows):
+            raise ValueError(
+                f"{kernel} needs {name} float32, contiguous, one value per query row "
+                f"on q's device; got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch_k1(q, k, v, mask, scale):
-    _check_k1_operands(q, k, v, mask)
+    _check_operands("K1", q, k, v, mask)
     b, h, n_q, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, 1, n_q), dtype=torch.float32, device=q.device)
-    entry = _k1_entry()
+    entry = _entry(_K1, "vb_flash_attention_fwd", 6)
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            b, h, n_q, k.shape[2], d, _K1_DTYPES[q.dtype], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            b, h, n_q, k.shape[2], d, _DTYPES[q.dtype], float(scale), _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
     flash_attention.launches += 1
     return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale) -> torch.Tensor:
+    """K2: dq (b, h, n, d) in q's dtype from the forward's operands, its lse
+    (b, h, 1, n), the output gradient do and delta = `attention_delta(do,
+    out)`. CPU tensors take the plain version. `.launches` counts K2
+    launches."""
+    if q.device.type == "cpu":
+        return _plain_backward(q, k, v, mask, lse, do, delta, scale)[0]
+    _check_backward_operands("K2", q, k, v, mask, do, lse, delta)
+    b, h, n_q, d = q.shape
+    dq = torch.empty_like(q)
+    entry = _entry(_BWD, "vb_flash_attention_bwd_dq", 8)
+    with torch.cuda.device(q.device):
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, h, n_q, k.shape[2], d, _DTYPES[q.dtype], float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: dk, dv (b, h, kv, d) in k's dtype, from the same operands as K2.
+    CPU tensors take the plain version. `.launches` counts K3 launches."""
+    if q.device.type == "cpu":
+        return _plain_backward(q, k, v, mask, lse, do, delta, scale)[1:]
+    _check_backward_operands("K3", q, k, v, mask, do, lse, delta)
+    b, h, n_q, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    entry = _entry(_BWD, "vb_flash_attention_bwd_dkv", 9)
+    with torch.cuda.device(q.device):
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n_q, k.shape[2], d, _DTYPES[q.dtype], float(scale), _stream(q),
+        )
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError_t {err}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; backward delta -> K2 -> K3 from the saved out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        out, lse = _launch_k1(q, k, v, mask, scale)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        do = dout.contiguous()
+        delta = attention_delta(do, out)
+        dq = flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -135,9 +293,10 @@ def flash_attention(
     scale: Optional[float] = None,
     return_lse: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Attention forward, same contract as `reference_attention`. CUDA
-    tensors go through K1 (contiguous float32 or bfloat16, head dim 64 or
-    128, else ValueError); CPU tensors through the plain version.
+    """Attention forward, same contract as `reference_attention`, and
+    differentiable in q, k and v. CUDA tensors go through K1 and, backward,
+    K2 + K3 (contiguous float32 or bfloat16, head dim 64 or 128, else
+    ValueError); CPU tensors through the plain version.
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -145,8 +304,10 @@ def flash_attention(
         return reference_attention(q, k, v, mask, scale, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no attention path for device {q.device}")
-    out, lse = _launch_k1(q, k, v, mask, scale)
+    out, lse = _FlashAttention.apply(q, k, v, mask, float(scale))
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -1,0 +1,94 @@
+"""Probabilistic and span mask builders of the training loss, and the
+draws of the port's random numbers.
+
+Counterpart of `voicebox_tpu/ops/masks.py`. Every random draw takes an
+explicit `torch.Generator`, or is handed its uniforms directly
+(`uniform_draw=`), so that a test can feed the very numbers another
+framework drew.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "prob_mask_like",
+    "reduce_masks_with_and",
+    "mask_from_start_end_indices",
+    "mask_from_frac_lengths",
+    "coin_flip",
+    "normal",
+    "uniform",
+]
+
+
+def uniform(shape, generator: Optional[torch.Generator] = None, device=None,
+            dtype=torch.float32) -> torch.Tensor:
+    """U[0, 1) of `shape`, drawn on the generator's device, then moved."""
+    gen_device = generator.device if generator is not None else device
+    return torch.rand(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+
+
+def normal(shape, generator: Optional[torch.Generator] = None, device=None,
+           dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1) of `shape`, drawn on the generator's device, then moved."""
+    gen_device = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+
+
+def prob_mask_like(shape, prob: float, generator: Optional[torch.Generator] = None,
+                   device=None, uniform_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bernoulli(prob) bool mask: `uniform < prob`. p = 0 and p = 1 draw
+    nothing (the result is then independent of the generator)."""
+    if prob == 1:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    if prob == 0:
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    u = uniform_draw if uniform_draw is not None else uniform(shape, generator, device)
+    return u < prob
+
+
+def reduce_masks_with_and(*masks):
+    """AND of the masks that are not None; None when all are."""
+    masks = [m for m in masks if m is not None]
+    if not masks:
+        return None
+    out = masks[0]
+    for m in masks[1:]:
+        out = out & m
+    return out
+
+
+def mask_from_start_end_indices(seq_len: int, start: torch.Tensor,
+                                end: torch.Tensor) -> torch.Tensor:
+    """Bool mask over [start, end) per batch element; indices truncate to
+    int32 toward zero."""
+    seq = torch.arange(seq_len, dtype=torch.int32, device=start.device)
+    start = start[..., None].to(torch.int32)
+    end = end[..., None].to(torch.int32)
+    return (seq >= start) & (seq < end)
+
+
+def mask_from_frac_lengths(seq_len: int, frac_lengths: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           uniform_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A random contiguous span covering `frac` of the sequence (the infilling
+    mask): lengths truncate toward zero, the start is uniform in
+    [0, seq_len - length]."""
+    lengths = (frac_lengths * seq_len).to(torch.int32)
+    max_start = (seq_len - lengths).to(frac_lengths.dtype)
+    rand = (uniform_draw if uniform_draw is not None
+            else uniform(frac_lengths.shape, generator, frac_lengths.device,
+                         frac_lengths.dtype))
+    start = (max_start * rand).clamp_min(0)
+    end = start + lengths.to(start.dtype)
+    return mask_from_start_end_indices(seq_len, start, end)
+
+
+def coin_flip(generator: Optional[torch.Generator] = None, device=None,
+              uniform_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A 0-d bool tensor, True with probability 1/2."""
+    u = uniform_draw if uniform_draw is not None else uniform((), generator, device)
+    return u < 0.5

@@ -1,9 +1,10 @@
-"""Fixed-grid ODE solvers: explicit midpoint (the paper's), Euler and RK4.
+"""Fixed-grid ODE solvers (explicit midpoint, the paper's, Euler and RK4) and
+the flow-matching interpolant of the training loss.
 
-Counterpart of `voicebox_tpu/ops/ode.py::odeint`. A solver steps over the
-given grid of times; `steps=3` in the sampler is `linspace(0, 1, 3)`, two
-midpoint intervals, four evaluations of the vector field. The adaptive Tsit5
-of the JAX package is not ported yet.
+Counterpart of `voicebox_tpu/ops/ode.py::odeint` and `::cfm_interpolant`. A
+solver steps over the given grid of times; `steps=3` in the sampler is
+`linspace(0, 1, 3)`, two midpoint intervals, four evaluations of the vector
+field. The adaptive Tsit5 of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,7 +13,21 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["odeint"]
+__all__ = ["cfm_interpolant", "odeint"]
+
+
+def cfm_interpolant(x1: torch.Tensor, x0: torch.Tensor, times: torch.Tensor,
+                    sigma: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The conditional-flow-matching interpolant and its target vector field,
+    for per-sample times (b,) and x0, x1 (b, n, d):
+
+        w    = (1 - (1 - sigma) t) x0 + t x1
+        flow = x1 - (1 - sigma) x0
+    """
+    t = times[:, None, None].to(x1.dtype)
+    w = (1.0 - (1.0 - sigma) * t) * x0 + t * x1
+    flow = x1 - (1.0 - sigma) * x0
+    return w, flow
 
 
 def _midpoint_step(fn, y, t, h):

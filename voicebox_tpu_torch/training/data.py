@@ -1,0 +1,196 @@
+"""Host-side batching of latent datasets, numpy only.
+
+Counterpart of the parts of `voicebox_tpu/training/data.py` that train on
+latents: `ArrayDataset`, `collate_with_mask` with its bucket grid,
+`DataLoader` (without multi-process sharding), `AlignedPairedDataLoader` for
+(latents, frame-aligned ids) pairs, and `random_split`. Shuffling uses
+numpy's `RandomState(seed)`, as the JAX package does, so both visit the
+items in the same order. Batches are padded to bucketed lengths: the bucket
+grid `k * multiple - offset` keeps frames + registers on the 128 boundary
+(752 frames + 16 registers = 768 tokens). The audio datasets, prefetching
+and multi-host sharding are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = [
+    "AlignedPairedDataLoader",
+    "ArrayDataset",
+    "DataLoader",
+    "collate_with_mask",
+    "random_split",
+]
+
+
+class ArrayDataset:
+    """In-memory dataset of numpy arrays (latents (n, d)) or of tuples of
+    them ((latents (n, d), frame-aligned ids (n,)) pairs)."""
+
+    def __init__(self, items: Sequence):
+        self.items = [
+            tuple(np.asarray(f) for f in it) if isinstance(it, (tuple, list)) else np.asarray(it)
+            for it in items
+        ]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+
+class _Subset:
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+
+def random_split(dataset, valid_frac: float, seed: int = 42):
+    """(train, valid) subsets: a seeded permutation, the first
+    int((1 - valid_frac) n) items for training."""
+    n = len(dataset)
+    n_train = int((1 - valid_frac) * n)
+    perm = np.random.RandomState(seed).permutation(n)
+    return _Subset(dataset, perm[:n_train]), _Subset(dataset, perm[n_train:])
+
+
+def _pad_to_multiple(length: int, multiple: int) -> int:
+    return int(math.ceil(length / multiple)) * multiple
+
+
+def _bucket_target(max_len: int, multiple: int, offset: int, align: int) -> int:
+    """The bucket length for a batch whose longest item is `max_len`: of the
+    grids k * multiple and k * multiple - offset, the one whose model length
+    (bucket + offset, padded to `align`) is smaller, then the shorter."""
+    t0 = _pad_to_multiple(max_len, multiple)
+    if offset <= 0:
+        return t0
+    t1 = _pad_to_multiple(max_len + offset, multiple) - offset
+    return min((t0, t1), key=lambda t: (_pad_to_multiple(t + offset, align), t))
+
+
+def _capped(target: int, max_length: Optional[int], multiple: int, offset: int) -> int:
+    """`target` capped at `max_length`, snapped down onto the offset grid."""
+    if max_length is None or target <= max_length:
+        return target
+    snapped = (max_length + offset) // multiple * multiple - offset
+    return snapped if snapped > 0 else max_length
+
+
+def collate_with_mask(
+    items: List[np.ndarray],
+    bucket_multiple: int = 256,
+    pad_to_longest: bool = True,
+    max_length: Optional[int] = None,
+    bucket_offset: int = 0,
+    align_multiple: int = 128,
+    force_target: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack variable-length items into (batch, mask): padded with zeros to
+    the bucketed longest length (or `force_target`), or with
+    `pad_to_longest=False` cut to the shortest."""
+    lengths = [it.shape[0] for it in items]
+    if force_target is not None:
+        target = _capped(force_target, max_length, bucket_multiple, bucket_offset)
+    elif pad_to_longest:
+        target = _bucket_target(max(lengths), bucket_multiple, bucket_offset, align_multiple)
+        target = _capped(target, max_length, bucket_multiple, bucket_offset)
+    else:
+        target = min(lengths)
+    batch = []
+    mask = np.zeros((len(items), target), dtype=bool)
+    for i, it in enumerate(items):
+        n = min(it.shape[0], target)
+        batch.append(np.pad(it[:n], [(0, target - n)] + [(0, 0)] * (it.ndim - 1)))
+        mask[i, :n] = True
+    return np.stack(batch), mask
+
+
+class DataLoader:
+    """Shuffling batch iterator yielding (batch, mask) numpy pairs with
+    bucketed shapes. A short last batch wraps around to the full batch size
+    unless `drop_last`."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        pad_to_longest: bool = True,
+        bucket_multiple: int = 256,
+        max_length: Optional[int] = None,
+        drop_last: bool = False,
+        bucket_offset: int = 0,
+        align_multiple: int = 128,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.pad_to_longest = pad_to_longest
+        self.bucket_multiple = bucket_multiple
+        self.max_length = max_length
+        self.drop_last = drop_last
+        self.bucket_offset = bucket_offset
+        self.align_multiple = align_multiple
+
+    def _batches(self) -> Iterator[np.ndarray]:
+        n = len(self.dataset)
+        order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+        for start in range(0, n, self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if len(idx) < self.batch_size:
+                if self.drop_last:
+                    return
+                idx = np.concatenate([idx, np.resize(order, self.batch_size - len(idx))])
+            yield idx
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        for idx in self._batches():
+            yield collate_with_mask(
+                [np.asarray(self.dataset[int(i)]) for i in idx],
+                bucket_multiple=self.bucket_multiple, pad_to_longest=self.pad_to_longest,
+                max_length=self.max_length, bucket_offset=self.bucket_offset,
+                align_multiple=self.align_multiple,
+            )
+
+    def cycle(self):
+        while True:
+            yield from iter(self)
+
+
+class AlignedPairedDataLoader(DataLoader):
+    """Batches (latents (n, d), frame-aligned ids (n,)) pairs on one shared
+    bucket grid, so the ids keep their alignment through padding. Yields
+    ((latents, mask), (ids, mask)); ids pad with -1 (the null row)."""
+
+    def __iter__(self):
+        for idx in self._batches():
+            rows = [self.dataset[int(i)] for i in idx]
+            for x, ids in rows:
+                if np.shape(x)[0] != np.shape(ids)[0]:
+                    raise ValueError(
+                        f"aligned pairs must have equal lengths per item, got "
+                        f"latents {np.shape(x)[0]} vs ids {np.shape(ids)[0]}"
+                    )
+            target = _bucket_target(max(np.shape(x)[0] for x, _ in rows), self.bucket_multiple,
+                                    self.bucket_offset, self.align_multiple)
+            target = _capped(target, self.max_length, self.bucket_multiple, self.bucket_offset)
+            xs, mask = collate_with_mask([np.asarray(x) for x, _ in rows], force_target=target)
+            ids = np.full((len(rows), target), -1, dtype=np.int32)
+            for i, (_, row_ids) in enumerate(rows):
+                m = min(np.shape(row_ids)[0], target)
+                ids[i, :m] = np.asarray(row_ids)[:m]
+            yield (xs, mask), (ids, mask)

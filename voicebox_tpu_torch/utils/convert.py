@@ -10,6 +10,11 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 * `transformer_state_dict`, `attention_state_dict`: its parts;
 * `vocos_state_dict`: the upstream Vocos layout;
 * `encodec_voco_state_dict`: RVQ codebooks + Vocos, for `EncodecVoco`.
+
+The mappings are linear in the leaves (transposes and reshapes), so JAX
+gradients, optimizer updates and trained parameters go through
+`voicebox_state_dict` as the weights do and compare key by key with the
+port's `.grad` and parameters.
 """
 
 from __future__ import annotations
