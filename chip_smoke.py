@@ -7,12 +7,13 @@ imports nothing of JAX. Its phases print one line each or more:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matmuls and cuDNN;
-2. build: K1 (`csrc/flash_attention_fwd.cu`) and K2 + K3
-   (`csrc/flash_attention_bwd.cu`) built by nvcc for sm_90a from the
-   checkout, both at once, with the build time and ptxas's registers and
-   spills;
+2. build: K1 (`csrc/flash_attention_fwd.cu`), K2 + K3
+   (`csrc/flash_attention_bwd.cu`) and K4 (`csrc/w8a16_matmul.cu`) built by
+   nvcc for sm_90a from the checkout, all at once, with the build time and
+   ptxas's registers and spills;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
-   serving and training shapes and on masked and ragged inputs, each case
+   serving and training shapes, at the quantized engine's denoiser and
+   duration-predictor shapes, and on masked and ragged inputs, each case
    with its tolerance; CUDA-event times of K1, the plain version and SDPA;
 4. K2/K3 check: K2 and K3 against the plain backward and against autograd
    of the plain forward, by the largest error and by the error's norm, at
@@ -21,28 +22,51 @@ imports nothing of JAX. Its phases print one line each or more:
    scale 10; CUDA-event times of K2, K3, the plain backward and SDPA's
    backward (each of the two gives dq, dk and dv together), and attention
    forward + backward through K1/K2/K3 beside SDPA's;
-5. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
+5. K4 check: K4 against its plain version at the flagship's four quantized
+   (k, n) with the engine's m = 544, 2112 and 8320 rows and m = 1532, in
+   bf16 and fp32, and at ragged m;
+   CUDA-event times of K4, the plain version, cuBLAS on the weight
+   dequantized to bf16 ahead of time and, where it runs on CUDA,
+   `torch._weight_int8pack_mm`;
+6. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
    and on the CPU (the plain version) from the same weights and noise;
-   latents, RVQ codes and audio compared;
-6. train, card vs CPU: the same small fp32 denoiser takes 3 optimizer steps
+   latents, RVQ codes and audio compared; then the same sampled with
+   `quantize="w8a16"` (K4 on the card);
+7. train, card vs CPU: the same small fp32 denoiser takes 3 optimizer steps
    through `VoiceBoxTrainer` on the card (K1/K2/K3) and on the CPU, from
    the same weights, batches, noise, times and masks; losses and every
    parameter compared;
-7. serve: the flagship geometry in bf16 (dim 512, depth 24, 4 x 128 heads,
+8. serve: the flagship geometry in bf16 (dim 512, depth 24, 4 x 128 heads,
    EncodecVoco with RVQ 8 x 1024 x 128 and the vocos-encodec-24khz
    geometry) answers requests of 750 frames (10 s of 24 kHz audio) at
    batch 1 and 2; each must give finite (b, 1, 240000) audio through
    exactly depth x 4 = 96 K1 launches;
-8. train: the flagship geometry trains at full width (bf16 compute, fp32
+9. engine: quantized duration-mode serving at full width: the flagship
+   denoiser (its cond tokens the phoneme vocabulary) with the reference
+   DurationPredictor (dim 512, depth 10, 8 x 64 heads, fp32) behind
+   `TTSEngine(quantize="w8a16")` (text buckets 32/64/128, batch buckets
+   1/2/4, 8 frames per token, 3 steps, CFG 1.3): `warmup()`, five requests
+   at batch 1 and five at batch 2, then three rounds of four concurrent
+   `DynamicBatcher.submit`s. Each bucket group (one predictor forward, one
+   sampling call) makes exactly 4 x 24 x 4 = 384 K4 and 96 + 10 = 106 K1
+   launches and gives finite audio whose lengths are the masked duration
+   sums x 320; the shapes of every K1 and K4 launch are tallied, and each
+   must be one that phases 3 and 5 checked and timed; latency and RTF (min
+   and median), the predictor's share and a profiled idle share; each
+   attention and feed-forward module of the quantized denoiser on the
+   input its bf16 counterpart saw, against bf16 and beside the floor of
+   bf16 against fp32; one whole forward at qk gains 0.5, for information;
+10. train: the flagship geometry trains at full width (bf16 compute, fp32
    parameters and AdamW, batch 8 x 752 frames + 16 registers) through
    `VoiceBoxTrainer`: 2 warm-up steps, then timed steps, each with exactly
    24 K1, 24 K2 and 24 K3 launches and a finite loss and gradient norm;
    steps/s, the profiled idle share of one step and peak memory;
-9. witness: the flagship's gradient on the trained weights through
+11. witness: the flagship's gradient on the trained weights through
    K1/K2/K3 against the plain attention on the card, same batch and draws,
    in bf16 and fp32 compute, with unit qk gains and gains of 0.25, beside
    the noise floor of the plain version against itself;
-10. one JSON line for the kernels (one row per kernel and main path), then
+12. one JSON line for the kernels (one row per kernel and main path; on the
+   quantized path, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the process exits nonzero and prints no result.
@@ -51,10 +75,13 @@ Weights are random, made from a seed.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -77,17 +104,22 @@ from voicebox_tpu_torch.ops.flash_attention import (
     reference_attention,
     reference_attention_backward,
 )
+from voicebox_tpu_torch.ops.quant import QuantLinear, w8a16_matmul, w8a16_matmul_reference
+from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 
 SEED = 0
 SOURCES = {"k1": "voicebox_tpu_torch/csrc/flash_attention_fwd.cu",
            "k2": "voicebox_tpu_torch/csrc/flash_attention_bwd.cu",
-           "k3": "voicebox_tpu_torch/csrc/flash_attention_bwd.cu"}
+           "k3": "voicebox_tpu_torch/csrc/flash_attention_bwd.cu",
+           "k4": "voicebox_tpu_torch/csrc/w8a16_matmul.cu"}
 REPLACES = {"k1": "voicebox_tpu/ops/flash_attention.py:105",
             "k2": "voicebox_tpu/ops/flash_attention.py:166",
-            "k3": "voicebox_tpu/ops/flash_attention.py:215"}
+            "k3": "voicebox_tpu/ops/flash_attention.py:215",
+            "k4": "voicebox_tpu/ops/quant.py:145"}
 NAMES = {"k1": "flash_attention_fwd", "k2": "flash_attention_bwd_dq",
-         "k3": "flash_attention_bwd_dkv"}
-WRAPPERS = {"k1": flash_attention, "k2": flash_attention_bwd_dq, "k3": flash_attention_bwd_dkv}
+         "k3": "flash_attention_bwd_dkv", "k4": "w8a16_matmul"}
+WRAPPERS = {"k1": flash_attention, "k2": flash_attention_bwd_dq, "k3": flash_attention_bwd_dkv,
+            "k4": w8a16_matmul}
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): the bound of a call
 # is the larger of its operations over the peak and its bytes over HBM's rate
@@ -111,8 +143,19 @@ K1_CASES = [
     ("mask_empty_row_f32", (3, 4, 300, 300, 64), torch.float32, "randn", "empty_row", 1e-5, 1e-5),
     ("ragged_257_bf16", (2, 4, 257, 257, 64), torch.bfloat16, "randn", "random", 1e-2, 1e-2),
     ("ragged_257_f32", (2, 4, 257, 200, 128), torch.float32, "randn", "random", 1e-5, 1e-5),
+    # the quantized engine's denoiser (phase 9): batch bucket x 2 for CFG,
+    # frame bucket 256 / 512 / 1024 + 16 registers, no mask
+    ("engine_b1_bf16", (2, 4, 272, 272, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("engine_b2_bf16", (4, 4, 528, 528, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("engine_b4_bf16", (8, 4, 1040, 1040, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    # the engine's duration predictor: fp32, 8 x 64 heads, n = the text
+    # bucket, text padding masked (a batch bucket's padding rows fully)
+    ("dp_b1_f32", (1, 8, 32, 32, 64), torch.float32, "qk", "random", 1e-3, 1e-3),
+    ("dp_b2_f32", (2, 8, 64, 64, 64), torch.float32, "qk", "random", 1e-3, 1e-3),
+    ("dp_b4_f32", (4, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-3, 1e-3),
 ]
-K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16")
+K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
+            "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32")
 
 # (name, (b, h, n, kv, d), dtype, inputs, mask, tol): K2/K3 hold when, for
 # each of dq, dk, dv, against the plain backward and against autograd of the
@@ -242,7 +285,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    sources = ("flash_attention_fwd", "flash_attention_bwd")
+    sources = ("flash_attention_fwd", "flash_attention_bwd", "w8a16_matmul")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         libs = list(pool.map(kernels.build, sources))
@@ -304,7 +347,8 @@ def phase_k1_check(smi: str) -> dict:
             line += f" empty_row_vs_mean_v={row_err:.3e}"
         log("k1", line)
         assert ok and lse_ok, f"K1 disagrees with the plain version on {name}"
-        results[name] = {"max_abs_err": err.max().item(), "shape": shape, "dtype": dtype}
+        results[name] = {"max_abs_err": err.max().item(), "shape": shape, "dtype": dtype,
+                         "masked": mask is not None}
         if name in K1_TIMED:
             sm = _sdpa_mask(mask)
             t = in_turns({
@@ -414,6 +458,114 @@ def phase_k23_check(smi: str) -> dict:
     return results
 
 
+# the flagship's four quantized matmuls per block, (k, n): to_qkv, to_out,
+# the feed-forward's proj_in (GEGLU, 2 x 1365) and proj_out. m is batch x 2
+# for CFG x (frames + 16 registers): the engine's groups give 544 (batch 1,
+# 256 frames), 2112 (batch 2, 512) and 8320 (batch 4, 1024); 1532 is
+# batch 1 at 750 frames
+K4_SHAPES = {"to_qkv": (512, 1536), "to_out": (512, 512), "ff_proj_in": (512, 2730),
+             "ff_proj_out": (1365, 512)}
+K4_ROWS = (544, 1532, 2112, 8320)
+K4_RAGGED_ROWS = (37, 1)
+# tolerance of |K4 - plain| <= rtol |plain| + atol max|plain|. Both sum exact
+# products (bf16 x int8, or fp32 x int8 in fp32) in fp32, in another order
+# (atol); bf16 outputs also round to bf16 after the scale, which moves a
+# value by one bf16 step (2^-8 relative) where the sums straddle a boundary
+K4_TOL = {torch.bfloat16: (2 ** -7, 1e-4), torch.float32: (1e-5, 1e-5)}
+
+
+def k4_times(m: int, k: int, n: int, dtype) -> tuple:
+    """(operations ms, bytes ms) of one K4 call: 2 m n k operations at the
+    peak of x's type; bytes of x, the int8 weight, the fp32 scale and y,
+    each once."""
+    e = torch.finfo(dtype).bits // 8
+    moved = m * k * e + n * k + 4 * n + m * n * e
+    return 2 * m * n * k / PEAK_FLOPS[dtype] * 1e3, moved / HBM_BYTES_PER_S * 1e3
+
+
+def k4_bound(m: int, k: int, n: int, dtype) -> tuple:
+    """(bound_ms, bound_by) of one K4 call: the larger of k4_times."""
+    t_ops, t_bytes = k4_times(m, k, n, dtype)
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _k4_operands(m, k, n, dtype, gen):
+    layer = torch.nn.Linear(k, n, bias=False, device="cuda")
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5)
+    ql = QuantLinear(layer, "w8a16")
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    return x, ql
+
+
+def _int8pack_mm(x, ql):
+    """`torch._weight_int8pack_mm` on the same product where this build has
+    a CUDA kernel for it, else None and why (the yardstick only: the port
+    never calls it). Its CPU kernel crashes on a k that is not a multiple of
+    32, so such shapes are not tried."""
+    n, k = ql.out_features, ql.in_features
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        return None, "no CUDA kernel in this build"
+    if k % 32:
+        return None, f"k = {k} not a multiple of 32"
+    w = ql.weight_q[:n, :k].contiguous()
+    scales = ql.weight_scale.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, w, scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+    return (lambda: torch._weight_int8pack_mm(x, w, scales)), None
+
+
+def phase_k4_check(smi: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    results = {}
+    cases = [(name, m, dtype) for name in K4_SHAPES for m in K4_ROWS
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("ff_proj_out", m, dtype) for m in K4_RAGGED_ROWS
+              for dtype in (torch.bfloat16, torch.float32)]
+    for name, m, dtype in cases:
+        k, n = K4_SHAPES[name]
+        x, ql = _k4_operands(m, k, n, dtype, gen)
+        y = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
+        ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+        torch.cuda.synchronize()
+        rtol, atol = K4_TOL[dtype]
+        err = (y.float() - ref.float()).abs()
+        peak = ref.float().abs().max().item()
+        ok = bool(torch.isfinite(y).all()) and bool(
+            (err <= rtol * ref.float().abs() + atol * peak).all())
+        log("k4", f"{name} (m, k, n) = ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err "
+                  f"{err.max().item():.3e} (max |plain| {peak:.3e}; tol rtol {rtol:g} + atol "
+                  f"{atol:g} x max|plain|)")
+        assert ok, f"K4 disagrees with the plain version on {name} m={m} {dtype}"
+        if dtype != torch.bfloat16 or m not in K4_ROWS:
+            continue
+        w_deq = (ql.weight_q[:n, :k].float() * ql.weight_scale[:, None]).to(dtype)
+        fns = {
+            "plain": lambda: w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale),
+            "k4": lambda: w8a16_matmul(x, ql.weight_q, ql.weight_scale),
+            "cublas": lambda: F.linear(x, w_deq),
+        }
+        int8pack, why = _int8pack_mm(x, ql)
+        if int8pack is not None:
+            fns["int8pack"] = int8pack
+        t = in_turns(fns)
+        bound_ms, bound_by = k4_bound(m, k, n, dtype)
+        results[(m, k, n)] = dict(shape=(m, k, n), ms=t["k4"], plain_ms=t["plain"],
+                                  library_ms=t["cublas"], int8pack_ms=t.get("int8pack"),
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  max_abs_err=err.max().item())
+        pack = (f"{t['int8pack']:.4f} ms" if int8pack is not None
+                else f"not run ({why})")
+        log("k4", f"time {name} ({m}, {k}, {n}) bf16: K4 {t['k4']:.4f} ms, plain "
+                  f"{t['plain']:.4f} ms, cuBLAS on the bf16-dequantized weight "
+                  f"{t['cublas']:.4f} ms, _weight_int8pack_mm {pack}, bound {bound_ms:.4f} ms "
+                  f"({bound_by}) (CUDA events, mean of 2 x 20, in turns) on {smi}")
+    return results
+
+
 def _small_slice(device):
     codec = EncodecVoco(
         quantizer=ResidualVQ(num_quantizers=4, codebook_size=64, dim=32),
@@ -427,17 +579,19 @@ def _small_slice(device):
     return vbt.ConditionalFlowMatcherWrapper(vb, device=device)
 
 
-def _soften_qk_gains(vb):
+def _soften_qk_gains(vb, gain: float = 0.25):
     # qk-norm scales q and k to norm sqrt(d) and the logits by 10, so with unit
     # gains they reach 10 d = 640 and the softmax is nearly an argmax: a 1e-6
     # change of y0 then moves the latents by 1e-2 (measured on the CPU). Gains
     # of 0.25 (logits up to 40) keep the comparison about rounding, not ties.
     for name, p in vb.named_parameters():
         if name.endswith(("q_norm.gamma", "k_norm.gamma")):
-            torch.nn.init.constant_(p, 0.25)
+            torch.nn.init.constant_(p, gain)
 
 
-def phase_slice_card_vs_cpu() -> None:
+def phase_slice_card_vs_cpu(quantize=None) -> None:
+    """With `quantize="w8a16"` both sides sample through the quantized copy
+    of the same weights: K4 on the card, its plain version on the CPU."""
     cfm_cpu = seeded(lambda: _small_slice("cpu"), SEED).eval()
     cfm_gpu = seeded(lambda: _small_slice("cuda"), SEED).eval()
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -446,15 +600,18 @@ def phase_slice_card_vs_cpu() -> None:
     ids = torch.randint(0, 100, (b, n), generator=gen)
     y0 = torch.randn(b, n, 32, generator=gen)
     kw = dict(semantic_token_ids=ids, cond=cond, steps=STEPS, cond_scale=CFG_SCALE,
-              noise=y0, decode_to_audio=False)
+              noise=y0, decode_to_audio=False, quantize=quantize)
 
-    before = flash_attention.launches
+    before = read_launches()
     lat_cpu = cfm_cpu.sample(**kw)
-    assert flash_attention.launches == before, "the CPU run must not launch K1"
+    assert read_launches() == before, "the CPU run must launch no kernel"
     lat_gpu = cfm_gpu.sample(**{k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()})
     torch.cuda.synchronize()
-    launches = flash_attention.launches - before
-    assert launches == 2 * EVALS_PER_REQUEST, f"expected {2 * EVALS_PER_REQUEST} K1 launches, got {launches}"
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    depth = SMALL["depth"]
+    want = {"k1": depth * EVALS_PER_REQUEST, "k2": 0, "k3": 0,
+            "k4": 0 if quantize is None else 4 * depth * EVALS_PER_REQUEST}
+    assert launches == want, f"launched {launches}, expected {want}"
     lat_err = (lat_gpu.cpu() - lat_cpu).abs().max().item()
 
     codes_cpu = cfm_cpu.codec.decode_to_codes(lat_cpu)
@@ -466,7 +623,8 @@ def phase_slice_card_vs_cpu() -> None:
     peak = audio_cpu.abs().max().item()
     audio_err = (audio_gpu - audio_cpu).abs().max().item()
     log("slice", f"card vs CPU, fp32, dim 128 depth 2 heads 2x64, {n} frames, steps {STEPS}, "
-                 f"cfg {CFG_SCALE}: K1 launches {launches}, latents max_abs_err {lat_err:.3e} "
+                 f"cfg {CFG_SCALE}, quantize {quantize}: K1/K4 launches {launches['k1']}/"
+                 f"{launches['k4']}, latents max_abs_err {lat_err:.3e} "
                  f"(tol 1e-3), RVQ codes equal {code_agree:.4f} (tol >= 0.99), audio from "
                  f"the same latents max_abs_err {audio_err:.3e} (tol 1e-3 x peak {peak:.3e})")
     assert math.isfinite(lat_err) and lat_err <= 1e-3, "latents disagree card vs CPU"
@@ -509,7 +667,7 @@ def phase_train_card_vs_cpu() -> None:
         gpu_loss = gpu.train_step(**{k: torch.from_numpy(v).cuda() for k, v in draws.items()})
         torch.cuda.synchronize()
         # step 0 also evaluates one validation batch: one more forward
-        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth}
+        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth, "k4": 0}
         assert read_launches() == want, f"step {step} launched {read_launches()}, want {want}"
         losses.append((gpu_loss["loss"].item(), cpu_loss.item()))
     loss_err = max(abs(g - c) / abs(c) for g, c in losses)
@@ -584,23 +742,316 @@ def phase_serve(smi: str) -> int:
                      f"{launches}, audio finite {(batch, 1, FRAMES * 320)} on {smi}")
     counts = read_launches()
     assert counts["k2"] == counts["k3"] == 0, "serving launched the backward"
+    assert counts["k4"] == 0, "unquantized serving launched K4"
     del cfm
     torch.cuda.empty_cache()
     return counts["k1"]
 
 
-def _profile_step(trainer) -> dict:
-    """One training step under torch.profiler: the host wall time, the
-    union of the device's kernel intervals (busy), the idle share
-    1 - busy / wall, the number of device kernels and the largest kernels by
-    device time. The idle share is None when the profiler saw no device
-    activity."""
+# quantized duration-mode serving at full width (phase 9)
+ENGINE = dict(text_buckets=(32, 64, 128), batch_buckets=(1, 2, 4), frames_per_token=8,
+              steps=STEPS, cond_scale=CFG_SCALE, quantize="w8a16")
+DP_DEPTH = 10  # the reference DurationPredictor: dim 512, depth 10, 8 x 64 heads
+K4_PER_GROUP = EVALS_PER_REQUEST * FLAGSHIP["depth"] * 4  # 4 quantized matmuls a block
+K1_PER_GROUP = EVALS_PER_REQUEST * FLAGSHIP["depth"] + DP_DEPTH
+ENGINE_REQUESTS = (  # one bucket group each: batch 1 at text bucket 32, batch 2 at 64
+    ["hello from the port on the card"],
+    ["a second request, some forty characters", "and a shorter one beside it"],
+)
+BATCHER_TEXTS = (  # four concurrent submits, all in text bucket 128 (1024 frames)
+    "the batcher gathers these four requests from four threads into one bucket group of four",
+    "each of them is longer than sixty four characters and at most one hundred and twenty",
+    "so that the group runs the largest buckets: four rows, a thousand and twenty four frames",
+    "and the denoiser's matrix products see eight thousand three hundred and twenty rows",
+)
+
+
+def _engine_flagship():
+    tok = GraphemeTokenizer()
+    codec = EncodecVoco()
+    dp = vbt.DurationPredictor(audio_enc_dec=codec, tokenizer=tok)  # the reference's defaults
+    vb = vbt.VoiceBox(audio_enc_dec=codec, dtype=torch.bfloat16,
+                      **{**FLAGSHIP, "num_cond_tokens": tok.vocab_size})
+    return vbt.ConditionalFlowMatcherWrapper(vb, duration_predictor=dp)
+
+
+def _group_ids(engine, texts) -> np.ndarray:
+    """The bucket-padded ids `engine.synthesize` makes for one group."""
+    ids = np.asarray(engine._tokenizer().texts_to_tensor_ids(list(texts)))
+    ids = ids[:, : max(1, int((ids >= 0).sum(axis=1).max()))]
+    return engine._pad_ids(ids, engine._bucket(len(texts), engine.batch_buckets),
+                           engine._bucket(ids.shape[1], engine.text_buckets))
+
+
+def _expected_lengths(engine, texts) -> list:
+    """Samples of audio per text: the masked duration sum x hop, clamped to
+    the largest frame bucket where the engine warns."""
+    per = engine._predict_durations(_group_ids(engine, texts))
+    frames = np.minimum(np.maximum(per.sum(axis=1), 1), engine.frame_buckets[-1])
+    hop = engine.wrapper.codec.downsample_factor
+    return [int(f) * hop for f in frames[: len(texts)]]
+
+
+def _host_times_ms(fn, repeats: int) -> list:
+    """Host-clock time of each of `repeats` calls of fn, in ms, the device
+    synchronized around each."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _min_median(times) -> str:
+    return f"min {min(times):.2f} ms, median {float(np.median(times)):.2f} ms"
+
+
+@contextlib.contextmanager
+def shape_tally():
+    """Count by operand shape, while the block runs, the calls of K1's
+    wrapper from the attention modules and of the w8a16 `QuantLinear`s
+    (each one call of K4's wrapper): {("k1", (b, h, n, kv, d), dtype,
+    masked) or ("k4", (m, k, n), dtype): calls}. On CUDA tensors each call
+    is one launch."""
+    tally = collections.Counter()
+    k1, forward = attention_module.flash_attention, QuantLinear.forward
+
+    def attend(q, k, v, mask=None, scale=None, **kw):
+        tally["k1", (*q.shape[:3], k.shape[2], q.shape[3]), q.dtype, mask is not None] += 1
+        return k1(q, k, v, mask=mask, scale=scale, **kw)
+
+    def quant_forward(layer, x):
+        if layer.mode == "w8a16":
+            m = x.numel() // layer.in_features
+            tally["k4", (m, layer.in_features, layer.out_features), layer.compute_dtype] += 1
+        return forward(layer, x)
+
+    attention_module.flash_attention, QuantLinear.forward = attend, quant_forward
+    try:
+        yield tally
+    finally:
+        attention_module.flash_attention, QuantLinear.forward = k1, forward
+
+
+# per quantized module, ||quantized - bf16|| / ||bf16|| <= QUANT_MODULE_TOL x
+# ||bf16 - fp32|| / ||fp32||. At full width on the CPU (dim 512, 2 x 272
+# frames) the ratio reads 1.6-2.3 (attention ~0.05 against a floor of ~0.03
+# at unit qk gains, feed-forward 0.009 against 0.004); a module that returns
+# zeros reads 1.0, far above 4 x either floor
+QUANT_MODULE_TOL = 4.0
+
+
+def _quantized_gap(cfm, smi: str) -> None:
+    """The quantized denoiser against the bf16 one it was made from, beside
+    the floor of the bf16 model against the same weights computing in fp32.
+
+    The check is per module: the input each attention and feed-forward
+    module (2 x 24, every quantized matmul) sees in one bf16 forward (batch 1
+    with its CFG null half, 750 frames) goes through the bf16 module, its
+    quantized copy (K4) and the fp32 copy, so no module's error compounds
+    through the depth. Then one whole forward at qk gains 0.5, printed for
+    information only: at random weights and depth 24 any perturbation
+    decorrelates the output (PERF.md section 7)."""
+    vb = cfm.voicebox
+    vocab = vb.num_cond_tokens
+    with torch.device("cuda"):
+        vb32 = vbt.VoiceBox(audio_enc_dec=cfm.codec,
+                            **{**FLAGSHIP, "num_cond_tokens": vocab}).eval()
+    vb32.load_state_dict(vb.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x, cond = (torch.randn(2, FRAMES, 128, generator=gen, device="cuda") for _ in range(2))
+    kw = dict(times=torch.full((2,), 0.5, device="cuda"), cond=cond,
+              cond_token_ids=torch.randint(0, vocab, (2, FRAMES), generator=gen, device="cuda"),
+              cond_drop_mask=torch.tensor([False, True], device="cuda"))
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    qvb = cfm._serving_voicebox("w8a16", None)
+    inputs = []
+    hooks = [block[j].register_forward_pre_hook(
+                 lambda _, args, kwargs, at=(i, j): inputs.append((at, args, kwargs)),
+                 with_kwargs=True)
+             for i, block in enumerate(vb.transformer.layers) for j in (3, 5)]
+    rows = []  # (ratio, module, quantized vs bf16, floor, quantized vs fp32)
+    with torch.no_grad():
+        try:
+            vb(x, **kw)
+        finally:
+            for h in hooks:
+                h.remove()
+        before = w8a16_matmul.launches
+        for (i, j), args, kwargs in inputs:
+            y16 = vb.transformer.layers[i][j](*args, **kwargs)
+            yq = qvb.transformer.layers[i][j](*args, **kwargs)
+            y32 = vb32.transformer.layers[i][j](*(a.float() for a in args), **kwargs)
+            q_err, floor = rel(yq, y16), rel(y16, y32)
+            rows.append((q_err / floor, f"layers.{i}.{'attn' if j == 3 else 'ff'}", q_err,
+                         floor, rel(yq, y32)))
+        launched = w8a16_matmul.launches - before
+    torch.cuda.synchronize()
+    del inputs
+    for kind in ("attn", "ff"):
+        part = [r for r in rows if r[1].endswith(kind)]
+        worst = max(part)
+        log("engine", f"per module, {kind} x {len(part)} (2 x {FRAMES} frames, unit qk gains, "
+                      f"same input each): quantized w8a16 vs bf16 ||err|| / ||ref|| max "
+                      f"{max(r[2] for r in part):.4f}, vs fp32 max {max(r[4] for r in part):.4f}; "
+                      f"floor bf16 vs fp32 {min(r[3] for r in part):.4f}-"
+                      f"{max(r[3] for r in part):.4f}; largest ratio {worst[0]:.2f} at {worst[1]} "
+                      f"({worst[2]:.4f} vs floor {worst[3]:.4f}; tol {QUANT_MODULE_TOL:g} x floor)")
+    log("engine", f"per-module check: K4 launches {launched} on {smi}")
+    assert launched == 4 * FLAGSHIP["depth"], f"{launched} K4 launches over the modules"
+    assert all(math.isfinite(r[2]) and r[0] <= QUANT_MODULE_TOL for r in rows), (
+        f"a quantized module is further from bf16 than {QUANT_MODULE_TOL:g} x the floor: "
+        f"{max(rows)}"
+    )
+
+    gain = 0.5
+    for model in (vb, vb32):
+        _soften_qk_gains(model, gain)  # in place: the next quantized copy is made anew
+    qvb = cfm._serving_voicebox("w8a16", None)
+    with torch.no_grad():
+        yq, y16, y32 = (model(x, **kw) for model in (qvb, vb, vb32))
+    q_err, floor, q32 = rel(yq, y16), rel(y16, y32), rel(yq, y32)
+    log("engine", f"one whole denoiser forward (2 x {FRAMES} frames, qk gains {gain}), for "
+                  f"information: quantized w8a16 vs bf16 ||err|| / ||ref|| {q_err:.4f}, vs fp32 "
+                  f"{q32:.4f}; bf16 vs fp32 on the same weights {floor:.4f}")
+    assert all(math.isfinite(v) for v in (q_err, floor, q32)), "non-finite forward"
+    del vb32, qvb
+    cfm._serving_copy = None
+
+
+ENGINE_REPEATS = 5  # requests per bucket group: latency reads as min and median
+BATCHER_ROUNDS = 3  # rounds of four concurrent submits
+
+
+def phase_engine(smi: str) -> tuple:
+    cfm = seeded(_engine_flagship, SEED + 12).eval()
+    engine = vbt.TTSEngine(cfm, **ENGINE)
+    codec = cfm.codec
+    sr = codec.sampling_rate
+    t_warm = engine.warmup()
+    log("engine", f"flagship bf16 denoiser (dim 512 depth 24 4x128, "
+                  f"{engine._tokenizer().vocab_size} phoneme tokens) + DurationPredictor (dim "
+                  f"512 depth {DP_DEPTH} 8x64 fp32) behind TTSEngine({ENGINE}): warmup of "
+                  f"{len(engine.batch_buckets) * len(engine.text_buckets)} buckets in "
+                  f"{t_warm:.2f} s (kernel builds done in phase 2)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    # what the predictor gives each group, and its time, before the counted run
+    expected = [_expected_lengths(engine, texts) for texts in ENGINE_REQUESTS]
+    dp_ms = [_host_times_ms(lambda t=texts: engine._predict_durations(_group_ids(engine, t)),
+                            ENGINE_REPEATS) for texts in ENGINE_REQUESTS]
+    per_group = {"k1": K1_PER_GROUP, "k2": 0, "k3": 0, "k4": K4_PER_GROUP}
+
+    calls = []  # (texts, clips) of each engine call the batcher makes
+    synthesize = engine.synthesize
+
+    def recorded(texts, **kw):
+        out = synthesize(texts, **kw)
+        calls.append((list(texts), out))
+        return out
+
+    def request(texts, want_lens):
+        """(latency ms, horizon s) of one bucket group, checked."""
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, lens = synthesize(texts, generator=gen, return_lengths=True)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in read_launches().items()}
+        assert launched == per_group, f"a bucket group launched {launched}, want {per_group}"
+        assert bool(torch.isfinite(audio).all()), "non-finite audio"
+        assert lens.tolist() == want_lens, f"lengths {lens.tolist()} != {want_lens}"
+        return dt, audio.shape[-1] / sr
+
+    def batcher_round(batcher):
+        futures = {}
+        threads = [threading.Thread(target=lambda t=t: futures.__setitem__(t, batcher.submit(t)))
+                   for t in BATCHER_TEXTS]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert len(futures) == len(BATCHER_TEXTS)
+        for f in futures.values():
+            f.result(timeout=600)
+
+    reset_launches()  # the quantized duration-mode path's run starts here
+    with shape_tally() as tally:
+        runs = [[request(texts, want_lens) for _ in range(ENGINE_REPEATS)]
+                for texts, want_lens in zip(ENGINE_REQUESTS, expected)]
+        engine.synthesize = recorded
+        with vbt.DynamicBatcher(engine, max_wait_ms=100.0, seed=SEED) as batcher:
+            batcher_ms = _host_times_ms(lambda: batcher_round(batcher), BATCHER_ROUNDS)
+        del engine.synthesize
+    counts = read_launches()  # the path's run ends here
+    groups = len(ENGINE_REQUESTS) * ENGINE_REPEATS + batcher.stats["batches"]
+    assert counts == {k: v * groups for k, v in per_group.items()}, (
+        f"{groups} bucket groups launched {counts}, want {per_group} each"
+    )
+    for kernel in ("k1", "k4"):
+        tallied = sum(c for key, c in tally.items() if key[0] == kernel)
+        assert tallied == counts[kernel], f"{kernel}: {tallied} calls, {counts[kernel]} launches"
+
+    for texts, want_lens, run, dp in zip(ENGINE_REQUESTS, expected, runs, dp_ms):
+        lat, horizon_s = [dt for dt, _ in run], run[0][1]
+        valid_s = sum(want_lens) / sr
+        med = float(np.median(lat))
+        log("engine", f"request batch {len(texts)}: horizon {horizon_s:.2f} s, lengths "
+                      f"{want_lens} = masked duration sums x {codec.downsample_factor}; latency "
+                      f"over {ENGINE_REPEATS} requests {_min_median(lat)} (all "
+                      f"{[round(t, 2) for t in lat]}), RTF of the horizon min "
+                      f"{min(lat) / 1e3 / horizon_s:.5f} median {med / 1e3 / horizon_s:.5f}, of "
+                      f"the valid audio ({valid_s:.2f} s) median {med / 1e3 / valid_s:.5f}; "
+                      f"duration predictor alone {_min_median(dp)} = {np.median(dp) / med:.3f} "
+                      f"of the median request; K1/K4 launches {per_group['k1']}/"
+                      f"{per_group['k4']} each on {smi}")
+
+    assert batcher.stats["batches"] == len(calls) >= BATCHER_ROUNDS
+    assert sum(len(texts) for texts, _ in calls) == BATCHER_ROUNDS * len(BATCHER_TEXTS)
+    for texts, clips in calls:  # the predictor runs again here, after the counted run
+        for clip, n in zip(clips, _expected_lengths(engine, texts)):
+            assert bool(torch.isfinite(clip).all()) and clip.shape[-1] == n, (
+                f"clip of {tuple(clip.shape)}, expected {n} samples"
+            )
+    log("engine", f"DynamicBatcher: {BATCHER_ROUNDS} rounds of {len(BATCHER_TEXTS)} concurrent "
+                  f"submits served as {batcher.stats['batches']} bucket group(s) "
+                  f"{[len(texts) for texts, _ in calls]} (mean occupancy "
+                  f"{batcher.mean_occupancy:.2f}); a round {_min_median(batcher_ms)} (all "
+                  f"{[round(t, 2) for t in batcher_ms]}); first group's clips "
+                  f"{[clip.shape[-1] for clip in calls[0][1]]} samples = masked "
+                  f"duration sums x {codec.downsample_factor}; path totals {counts}; launches by "
+                  f"shape { {(k[0], k[1], str(k[2])[6:]): c for k, c in tally.items()} }")
+
+    prof = _profile(lambda: engine.synthesize(list(ENGINE_REQUESTS[0]), generator=gen))
+    idle = prof["idle"]
+    log("engine", f"profiled batch-1 request: wall {prof['wall_ms']:.2f} ms, device busy "
+                  f"{prof['busy_ms']:.2f} ms over {prof['kernels']} kernels, idle share "
+                  f"{'not measured' if idle is None else f'{idle:.3f}'}; largest (name, ms, "
+                  f"calls): {'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
+    _quantized_gap(cfm, smi)
+    del cfm, engine
+    torch.cuda.empty_cache()
+    return counts, tally
+
+
+def _profile(step) -> dict:
+    """One call of `step` (a training step, a request) under torch.profiler:
+    the host wall time, the union of the device's kernel intervals (busy),
+    the idle share 1 - busy / wall, the number of device kernels and the
+    largest kernels by device time. The idle share is None when the profiler
+    saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step()
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device activity only: the profiler also puts each record_function range
@@ -660,7 +1111,7 @@ def phase_train(smi: str) -> dict:
         host_s.append(time.perf_counter() - t0)
         after = read_launches()
         step_launches = {k: after[k] - before[k] for k in after}
-        assert step_launches == {"k1": depth, "k2": depth, "k3": depth}, (
+        assert step_launches == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
             f"a training step launched {step_launches}, expected {depth} of each"
         )
     end.record()
@@ -676,7 +1127,7 @@ def phase_train(smi: str) -> dict:
     moved = {n: (p.detach() - watched[n]).abs().max().item() for n, p in trainer.named_params
              if n in watched}
     assert all(m > 0 for m in moved.values()), f"parameters did not change: {moved}"
-    prof = _profile_step(trainer)
+    prof = _profile(trainer.train_step)
     idle = prof["idle"]
     log("train", f"flagship: dim 512 depth 24 heads 4x128, bf16 compute, fp32 params "
                  f"({n_params / 1e6:.1f} M) and AdamW, batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
@@ -835,10 +1286,65 @@ def phase_grad_witness(trainer, smi: str) -> None:
                        f"attention: {failed}"
 
 
-def kernel_line(k1, k23, serve_k1, train_counts) -> str:
+def _path_row(kernel: str, name: str, parts) -> dict:
+    """The row of one kernel on the quantized duration-mode path from the
+    shapes that path gave it: parts is [(launches, timed result)]. Times and
+    bounds are means per launch, weighted by each shape's launches, so that
+    launches x ms is the kernel's device time on the path; bound_by is that
+    of the shape that holds most of the weighted bound."""
+    total = sum(c for c, _ in parts)
+
+    def mean(key):
+        return sum(c * r[key] for c, r in parts) / total
+
+    heaviest = max(parts, key=lambda p: p[0] * p[1]["bound_ms"])[1]
+    return {
+        "name": name, "path": "serve_w8a16", "route": "cuda", "source": SOURCES[kernel],
+        "replaces": REPLACES[kernel], "launches": total,
+        "max_abs_err": max(r["max_abs_err"] for _, r in parts),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": heaviest["bound_by"], "library_ms": mean("library_ms"),
+        "timed_as": "mean per launch over the path's shapes, weighted by their launches",
+        "per_shape": [{"shape": list(r["shape"]), "dtype": str(r["dtype"])[6:], "launches": c,
+                       **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by", "max_abs_err", "int8pack_ms")
+                          if k in r}}
+                      for c, r in parts],
+    }
+
+
+def engine_rows(k1: dict, k4: dict, tally) -> list:
+    """The K1 rows (the denoiser's bf16 calls, the duration predictor's fp32
+    calls) and the K4 row of the quantized duration-mode path, each from the
+    shapes the path launched it at (`shape_tally`). Fails if the path ran a
+    kernel at a shape that phases 3 and 5 did not hold against the plain
+    version and time."""
+    by_role = {"denoiser": [], "predictor": [], "k4": []}
+    for key, count in sorted(tally.items(), key=str):
+        if key[0] == "k1":
+            _, shape, dtype, masked = key
+            found = [r for r in k1.values() if tuple(r["shape"]) == shape
+                     and r["dtype"] == dtype and r["masked"] == masked and "ms" in r]
+            role = "denoiser" if dtype == torch.bfloat16 else "predictor"
+        else:
+            _, shape, dtype = key
+            found = [k4[shape]] if dtype == torch.bfloat16 and shape in k4 else []
+            role = "k4"
+        assert found, f"the path ran {key[0]} at {shape} {dtype}, which no check timed"
+        by_role[role].append((count, {**found[0], "dtype": dtype}))
+    return [_path_row("k1", f"{NAMES['k1']}[serve_w8a16]", by_role["denoiser"]),
+            _path_row("k1", f"{NAMES['k1']}[serve_w8a16_duration_predictor]",
+                      by_role["predictor"]),
+            {**_path_row("k4", NAMES["k4"], by_role["k4"]),
+             "library": "cuBLAS bf16 on the weight dequantized ahead of time"}]
+
+
+def kernel_line(k1, k23, serve_k1, engine, train_counts) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
-    serving shape) and on the training path (at the training shape), K2 and
-    K3 on the training path."""
+    serving shape), on the quantized duration-mode path (`engine_rows`: the
+    denoiser's and the duration predictor's calls) and on the training path
+    (at the training shape); K2 and K3 on the training path; K4 on the
+    quantized duration-mode path."""
     rows = []
     for path, case, launches in (("serve", "flagship_cfg_bf16", serve_k1),
                                  ("train", "train_bf16", train_counts["k1"])):
@@ -848,8 +1354,10 @@ def kernel_line(k1, k23, serve_k1, train_counts) -> str:
             "source": SOURCES["k1"], "replaces": REPLACES["k1"], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "shape": list(r["shape"]),
+            "dtype": str(r["dtype"])[6:],
         })
+    rows += engine[:2]
     train = k23["train_bf16"]
     t = train["times"]
     for kk in ("k2", "k3"):
@@ -865,6 +1373,7 @@ def kernel_line(k1, k23, serve_k1, train_counts) -> str:
             "plain_and_library_compute": "dq, dk and dv together",
             "fwd_bwd_ms": t["ours_fwd_bwd"], "library_fwd_bwd_ms": t["sdpa_fwd_bwd"],
         })
+    rows.append(engine[2])
     return json.dumps({"kernels": rows})
 
 
@@ -878,15 +1387,24 @@ def main() -> int:
     phase_build()
     k1 = phase_k1_check(smi)
     k23 = phase_k23_check(smi)
+    k4 = phase_k4_check(smi)
     phase_slice_card_vs_cpu()
+    phase_slice_card_vs_cpu(quantize="w8a16")
     phase_train_card_vs_cpu()
     serve_k1 = phase_serve(smi)
     assert serve_k1 > 0, "the serving path launched K1 no time"
+    engine_counts, tally = phase_engine(smi)
+    assert engine_counts["k1"] > 0 and engine_counts["k4"] > 0, (
+        f"the quantized duration-mode path skipped a kernel: {engine_counts}"
+    )
+    engine = engine_rows(k1, k4, tally)
     train_counts, trainer = phase_train(smi)
-    assert min(train_counts.values()) > 0, f"the training path skipped a kernel: {train_counts}"
+    assert min(train_counts[k] for k in ("k1", "k2", "k3")) > 0, (
+        f"the training path skipped a kernel: {train_counts}"
+    )
     phase_grad_witness(trainer, smi)
     del trainer
-    print(kernel_line(k1, k23, serve_k1, train_counts), flush=True)
+    print(kernel_line(k1, k23, serve_k1, engine, train_counts), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,7 @@
-"""K1, K2, K3 and the port's attention on an NVIDIA GPU, against the plain
-PyTorch versions. Marked `cuda`: every test skips without a card. The file
-imports no jax, so on a GPU machine without jax it runs with
+"""K1, K2, K3, K4 and the port's attention and quantized denoiser on an
+NVIDIA GPU, against the plain PyTorch versions. Marked `cuda`: every test
+skips without a card. The file imports no jax, so on a GPU machine without
+jax it runs with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
 """
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from voicebox_tpu_torch.models.attention import Attention
+from voicebox_tpu_torch.models.voicebox import VoiceBox
 from voicebox_tpu_torch.ops.flash_attention import (
     attention_delta,
     flash_attention,
@@ -18,6 +20,13 @@ from voicebox_tpu_torch.ops.flash_attention import (
     reference_attention,
     reference_attention_backward,
 )
+from voicebox_tpu_torch.ops.quant import (
+    QuantLinear,
+    int8_matmul,
+    quantize_voicebox,
+    w8a16_matmul,
+    w8a16_matmul_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +34,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("K1, K2 and K3 run only on an NVIDIA GPU (sm_90a)")
+        pytest.skip("K1, K2, K3 and K4 run only on an NVIDIA GPU (sm_90a)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -147,3 +156,83 @@ def test_k2_k3_reject_what_they_do_not_take(cuda_device):
         flash_attention_bwd_dq(q, k, v, mask, q.bfloat16(), lse, delta, 1.0)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd_dkv(q, k, v, mask, q, lse[..., :-1].contiguous(), delta, 1.0)
+
+
+def _k4_operands(device, m, k, n, dtype, seed=2):
+    gen = torch.Generator().manual_seed(seed)
+    layer = torch.nn.Linear(k, n, bias=False)
+    layer.weight.data = torch.randn(n, k, generator=gen) / k ** 0.5
+    ql = QuantLinear(layer, "w8a16").to(device)
+    x = torch.randn(m, k, generator=gen).to(device=device, dtype=dtype)
+    return x, ql
+
+
+# fp32: the sums' order only; bf16: also one bf16 step (2^-8 relative) of
+# the output's rounding where the fp32 sums straddle a boundary
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 2 ** -7, 1e-4)])
+@pytest.mark.parametrize("m,k,n", [(37, 200, 300), (1532, 1365, 512), (1, 512, 2730),
+                                   (130, 64, 8)])
+def test_k4_matches_plain(cuda_device, dtype, rtol, atol, m, k, n):
+    x, ql = _k4_operands(cuda_device, m, k, n, dtype)
+    before = w8a16_matmul.launches
+    y = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
+    ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+    torch.cuda.synchronize()
+    assert w8a16_matmul.launches == before + 1
+    assert y.dtype == dtype and y.shape == (m, n)
+    scale = ref.float().abs().max().item()
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol * scale)
+
+
+def test_k4_rejects_what_it_does_not_take(cuda_device):
+    x, ql = _k4_operands(cuda_device, 40, 96, 64, torch.bfloat16)
+    before = w8a16_matmul.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        w8a16_matmul(x, ql.weight_q.cpu(), ql.weight_scale)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        w8a16_matmul(x.half(), ql.weight_q, ql.weight_scale)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a16_matmul(x[:, :90].contiguous(), ql.weight_q[:, :90].contiguous(), ql.weight_scale)
+    with pytest.raises(ValueError, match="int8"):
+        w8a16_matmul(x, ql.weight_q.float(), ql.weight_scale)
+    assert w8a16_matmul.launches == before  # no launch, and no plain fallback
+
+
+def test_quantized_voicebox_card_matches_cpu(cuda_device):
+    torch.manual_seed(3)
+    vb = VoiceBox(num_cond_tokens=20, dim_in=24, dim_cond_emb=16, dim=64, depth=2,
+                  dim_head=64, heads=1, num_register_tokens=2).eval()
+    for name, p in vb.named_parameters():
+        if name.endswith(("q_norm.gamma", "k_norm.gamma")):
+            torch.nn.init.constant_(p, 0.25)  # logits up to 10 d gain^2 = 40
+    qvb = quantize_voicebox(vb, "w8a16")
+    x, cond = torch.randn(2, 50, 24), torch.randn(2, 50, 24)
+    ids = torch.randint(0, 20, (2, 50))
+    kw = dict(times=torch.tensor([0.2, 0.7]), cond_token_ids=ids,
+              cond_drop_mask=torch.tensor([False, True]))
+    with torch.no_grad():
+        ref = qvb(x, cond=cond, **kw)
+        card = copy.deepcopy(qvb).to(cuda_device)
+        before = w8a16_matmul.launches
+        out = card(x.to(cuda_device), cond=cond.to(cuda_device),
+                   **{k: v.to(cuda_device) for k, v in kw.items()})
+        torch.cuda.synchronize()
+    assert w8a16_matmul.launches == before + 2 * 4  # depth x 4 quantized matmuls
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+# int8 mode runs `torch._int_mm` on the card (m > 16, k and n multiples of
+# 8 there): x's codes are padded per call, the weight at quantization. The
+# s32 sums are exact on both devices, so only the fp32 products round.
+@pytest.mark.parametrize("m,k,n", [(5, 1365, 2730), (40, 512, 1536)])
+def test_int8_matmul_card_matches_cpu(cuda_device, m, k, n):
+    gen = torch.Generator().manual_seed(4)
+    layer = torch.nn.Linear(k, n, bias=False)
+    layer.weight.data = torch.randn(n, k, generator=gen)
+    ql = QuantLinear(layer, "int8")
+    x = torch.randn(m, k, generator=gen)
+    ref = int8_matmul(x, ql.weight_q, ql.weight_scale)
+    card = copy.deepcopy(ql).to(cuda_device)
+    out = int8_matmul(x.to(cuda_device), card.weight_q, card.weight_scale)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)

@@ -122,7 +122,7 @@ def test_unported_branches_raise(kwargs):
     with pytest.raises(NotImplementedError):
         cfm.sample(**kwargs)
     with pytest.raises(NotImplementedError):
-        ConditionalFlowMatcherWrapper(cfm.voicebox, duration_predictor=object())
+        ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object())
 
 
 @pytest.mark.parametrize("method", ["midpoint", "euler", "rk4"])
@@ -177,4 +177,4 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 7"
+    assert proc.stdout.strip() == "ok 10"

@@ -1,1 +1,1 @@
-"""The port's modules: denoiser, sampler and codec."""
+"""The port's modules: denoiser, sampler, duration predictor and codec."""

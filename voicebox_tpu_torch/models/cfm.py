@@ -1,7 +1,7 @@
 """Conditional flow matching wrapper: the training loss and the sampler.
 
 Counterpart of `voicebox_tpu/models/cfm.py::ConditionalFlowMatcherWrapper`
-on latents, with precomputed semantic (or phoneme) token ids:
+on latents:
 
 * `loss_fn` / calling the wrapper: the CFM objective, x0 ~ N(0, I) and
   t ~ U(0, 1) per sample, w = (1 - (1 - sigma) t) x0 + t x1, flow =
@@ -13,25 +13,36 @@ on latents, with precomputed semantic (or phoneme) token ids:
   field, classifier-free guidance as ONE forward at batch 2b
   (`null + (cond - null) * cond_scale`), then the codec's decode
   (RVQ -> Vocos -> iSTFT) in the same call. y0 comes from `noise=` or from
-  `generator=`.
+  `generator=`. The conditioning ids are `semantic_token_ids`, or, with a
+  `DurationPredictor` attached, phonemes (`phoneme_ids=` or `texts=`)
+  aligned to the frame rate by the predicted durations.
+* quantized serving: `sample(quantize="w8a16" | "int8",
+  param_store_dtype=...)` samples through a copy of the denoiser whose
+  parameters are cast first, then whose transformer matmuls are quantized
+  (`ops/quant.py`; "w8a16" runs K4 on the card). The copy is made once per
+  weights version (each parameter's storage and version counter), so an
+  update of the weights is always served.
 
-The wrapper is an nn.Module holding `voicebox` and the frozen codec, and it
-moves both to `device` when it is built: the card unless the caller asks for
-the CPU. Not ported yet: raw audio in (the SEANet encoder), the text /
-TextToSemantic / duration branches, Tsit5, quantized serving, long-form
-sampling.
+The wrapper is an nn.Module holding `voicebox`, the frozen codec and the
+duration predictor, and it moves them to `device` when it is built: the
+card unless the caller asks for the CPU. Not ported yet: raw audio in (the
+SEANet encoder), the TextToSemantic front end, Tsit5, long-form sampling.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops.interp import curtail_or_pad
 from ..ops.masks import normal, uniform
 from ..ops.ode import cfm_interpolant, odeint
+from ..ops.quant import QUANT_MODES, cast_float_params, quantize_voicebox
+from .duration import masked_frame_durations
 from .voicebox import VoiceBox
 
 __all__ = ["ConditionalFlowMatcherWrapper", "is_probably_audio_from_shape", "resolve_device"]
@@ -67,18 +78,20 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         device="cuda",
     ):
         super().__init__()
-        if text_to_semantic is not None or duration_predictor is not None:
+        if text_to_semantic is not None:
             raise NotImplementedError(
-                "TextToSemantic and DurationPredictor front ends are not ported "
-                "yet (ROADMAP Queue 1: item 10 the duration branch, item 11 the "
-                "semantic stack); pass semantic_token_ids to sample()"
+                "the TextToSemantic front end is not ported yet (ROADMAP Queue 1, item "
+                "11); attach a DurationPredictor or pass semantic_token_ids to sample()"
             )
         self.voicebox = voicebox
         self.codec = voicebox.audio_enc_dec  # registered: moves with .to()
+        self.text_to_semantic = None
+        self.duration_predictor = duration_predictor
         self.sigma = sigma
         self.ode_method = ode_method
         self.cond_drop_prob = cond_drop_prob
         self.condition_on_text = voicebox.condition_on_text
+        self._serving_copy = None  # (weights key, cast and/or quantized VoiceBox)
         self.to(resolve_device(device))
 
     @property
@@ -147,22 +160,61 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         return self.loss_fn(x1, mask=mask, cond_token_ids=cond_token_ids, cond=cond,
                             cond_mask=cond_mask, **randomness)
 
-    def _vector_field(self, t, x, cond, cond_token_ids, cond_scale):
+    def _serving_voicebox(self, quantize: Optional[str], param_store_dtype) -> VoiceBox:
+        """The denoiser that `sample` runs: the wrapper's own, or a copy with
+        its parameters cast to `param_store_dtype` and then its transformer
+        matmuls quantized for `quantize` (the JAX package's order). The copy
+        is cached per weights version: each parameter's storage and in-place
+        version counter, so a load or an optimizer step makes a new one."""
+        if quantize is None and param_store_dtype is None:
+            return self.voicebox
+        if quantize is not None and quantize not in QUANT_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r} (use one of {QUANT_MODES})")
+        vb = self.voicebox
+        key = (quantize, param_store_dtype,
+               tuple((p.data_ptr(), p._version) for p in vb.parameters()))
+        if self._serving_copy is not None and self._serving_copy[0] == key:
+            return self._serving_copy[1]
+        self._serving_copy = None  # drop the stale copy before building the next
+        served = vb if param_store_dtype is None else cast_float_params(vb, param_store_dtype)
+        if quantize is not None:
+            served = quantize_voicebox(served, quantize)
+        self._serving_copy = (key, served.eval())
+        return served
+
+    @staticmethod
+    def _vector_field(vb, t, x, cond, cond_token_ids, cond_scale):
         b = x.shape[0]
         if cond_scale == 1.0:
             drop = torch.zeros(b, dtype=torch.bool, device=x.device)
-            out = self.voicebox(x, times=t, cond=cond, cond_token_ids=cond_token_ids,
-                                cond_drop_mask=drop)
+            out = vb(x, times=t, cond=cond, cond_token_ids=cond_token_ids, cond_drop_mask=drop)
             return out.to(x.dtype)
         # CFG: the conditioned half and the null half as one 2b forward
         ids2 = None if cond_token_ids is None else torch.cat([cond_token_ids] * 2)
         drop2 = torch.arange(2 * b, device=x.device) >= b
-        out2 = self.voicebox(
+        out2 = vb(
             torch.cat([x, x]), times=t.reshape(1).expand(2 * b),
             cond=torch.cat([cond, cond]), cond_token_ids=ids2, cond_drop_mask=drop2,
         ).to(x.dtype)
         logits, null_logits = out2[:b], out2[b:]
         return null_logits + (logits - null_logits) * cond_scale
+
+    def _duration_ids(self, cond, texts, phoneme_ids, frame_length, device):
+        """Frame-rate ids from the duration predictor and each row's speech
+        span in frames (the masked duration sum)."""
+        dp = self.duration_predictor
+        if phoneme_ids is None:
+            if texts is None:
+                raise ValueError("pass texts, phoneme_ids or semantic_token_ids")
+            phoneme_ids = dp.tokenizer.texts_to_tensor_ids(texts)
+        if not torch.is_tensor(phoneme_ids):
+            phoneme_ids = torch.from_numpy(np.asarray(phoneme_ids))
+        phoneme_ids = phoneme_ids.to(device).long()
+        durations, aligned = dp.forward_with_cond_scale(
+            cond=cond, phoneme_ids=phoneme_ids, return_aligned_phoneme_ids=True,
+            total_length=frame_length,
+        )
+        return aligned, masked_frame_durations(phoneme_ids, durations).sum(dim=-1)
 
     @torch.no_grad()
     def sample(
@@ -177,20 +229,45 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         cond_scale: float = 1.0,
         decode_to_audio: bool = True,
         return_lengths: bool = False,
+        frame_length: Optional[int] = None,
+        duration_seconds: Optional[float] = None,
+        quantize: Optional[str] = None,
+        param_store_dtype: Optional[torch.dtype] = None,
+        ids_at_frame_rate: bool = False,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ):
         """Sample latents by integrating the ODE from y0, then decode them to
         audio `(b, 1, n * downsample_factor)` when a codec is attached and
         `decode_to_audio`. y0 is `noise` if given, else a standard normal
-        draw from `generator`. With `return_lengths` also returns per-sample
-        valid lengths (samples of audio, or frames of latents)."""
-        if texts is not None or text_token_ids is not None or phoneme_ids is not None:
+        draw from `generator`.
+
+        Conditioning: `semantic_token_ids`, or with a duration predictor
+        `phoneme_ids` / `texts`, aligned at the predicted durations over
+        `frame_length` frames (default: the longest row's span;
+        `duration_seconds` sets it). A `frame_length` that cuts a predicted
+        span warns. `ids_at_frame_rate` says the ids are already one per
+        latent frame; the JAX sampler reads it only to skip the TextToSemantic
+        front end's rate conversion, so here, with no such front end, it
+        changes nothing, as there without one.
+
+        `quantize` ("w8a16" or "int8") and `param_store_dtype` serve from a
+        cached cast and quantized copy of the denoiser. With
+        `return_lengths` also returns per-sample valid lengths (samples of
+        audio, or frames of latents): the masked duration sum, clamped to
+        the horizon, in the duration branch; the whole horizon otherwise."""
+        if text_token_ids is not None or (texts is not None and self.duration_predictor is None):
             raise NotImplementedError(
-                "sampling from text or phonemes needs the TextToSemantic or "
-                "duration front end, not ported yet (ROADMAP Queue 1, items 10 "
-                "and 11); pass semantic_token_ids"
+                "sampling from text needs a DurationPredictor attached; the "
+                "TextToSemantic front end is not ported yet (ROADMAP Queue 1, item 11)"
             )
+        if phoneme_ids is not None and self.duration_predictor is None:
+            raise NotImplementedError(
+                "phoneme_ids need a DurationPredictor attached (duration_predictor=); "
+                "the TextToSemantic front end is not ported yet (ROADMAP Queue 1, item 11)"
+            )
+        if sum(x is not None for x in (texts, semantic_token_ids, phoneme_ids)) > 1:
+            raise ValueError("pass one of texts, semantic_token_ids or phoneme_ids")
         codec = self.audio_enc_dec
         vb = self.voicebox
         device = next(vb.parameters()).device
@@ -202,13 +279,34 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                     "ported yet (ROADMAP Queue 1, item 9); pass cond latents "
                     "(b, n, latent_dim)"
                 )
+        want_frames = None
+        if duration_seconds is not None:
+            if codec is None:
+                raise ValueError(
+                    "duration_seconds needs an audio_enc_dec to define seconds per "
+                    "frame; pass cond latents of the desired length instead"
+                )
+            want_frames = codec.frames_for_seconds(duration_seconds)
 
-        cond_token_ids = None
+        cond_token_ids, dp_frames = None, None
         if self.condition_on_text:
-            assert semantic_token_ids is not None, (
-                "semantic_token_ids required (the text front ends are not ported yet)"
-            )
-            cond_token_ids = torch.as_tensor(semantic_token_ids, device=device)
+            if semantic_token_ids is not None:
+                if want_frames is not None:
+                    raise ValueError(
+                        "duration_seconds conflicts with semantic-token conditioning: "
+                        "the latent length follows the token count"
+                    )
+                cond_token_ids = torch.as_tensor(semantic_token_ids, device=device)
+            elif self.duration_predictor is not None:
+                if want_frames is not None and frame_length is None:
+                    frame_length = want_frames
+                cond_token_ids, dp_frames = self._duration_ids(cond, texts, phoneme_ids,
+                                                               frame_length, device)
+            else:
+                raise ValueError(
+                    "semantic_token_ids required (or attach a DurationPredictor and pass "
+                    "texts or phoneme_ids)"
+                )
             n_frames = cond_token_ids.shape[-1]
             if cond is not None:
                 cond = curtail_or_pad(cond, n_frames)
@@ -216,10 +314,17 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                 cond = torch.zeros(cond_token_ids.shape[0], n_frames, vb.latent_dim,
                                    device=device)
         else:
-            assert semantic_token_ids is None, (
-                "no conditioning ids should be given if not conditioning on text"
-            )
-            assert cond is not None, "cond latents required to sample"
+            if semantic_token_ids is not None:
+                raise ValueError(
+                    "no conditioning ids should be given if not conditioning on text"
+                )
+            if want_frames is not None:
+                raise NotImplementedError(
+                    "duration_seconds without text conditioning is not ported yet "
+                    "(ROADMAP Queue 1, item 6); pass cond latents of the desired length"
+                )
+            if cond is None:
+                raise ValueError("cond latents required to sample")
 
         if noise is not None:
             y0 = torch.as_tensor(noise, device=device, dtype=cond.dtype)
@@ -227,17 +332,33 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         else:
             y0 = normal(cond.shape, generator, device, cond.dtype)
 
+        served = self._serving_voicebox(quantize, param_store_dtype)
         times = torch.linspace(0.0, 1.0, steps, device=device)
         latents, _ = odeint(
-            lambda t, x: self._vector_field(t, x, cond, cond_token_ids, cond_scale),
+            lambda t, x: self._vector_field(served, t, x, cond, cond_token_ids, cond_scale),
             y0, times, method=self.ode_method,
         )
+
+        if dp_frames is not None and frame_length is not None:
+            # a static horizon that cuts the predicted speech is never silent
+            over = int((dp_frames - cond.shape[1]).max())
+            if over > 0:
+                warnings.warn(
+                    f"predicted durations span up to {over} frames beyond "
+                    f"frame_length={cond.shape[1]}; the generated speech is truncated: "
+                    "raise frame_length",
+                    stacklevel=2,
+                )
 
         out_is_audio = decode_to_audio and codec is not None
         out = codec.decode(latents) if out_is_audio else latents
         if not return_lengths:
             return out
-        frames = torch.full((out.shape[0],), cond.shape[1], dtype=torch.int32, device=device)
+        n_frames = cond.shape[1]
+        if dp_frames is not None:
+            frames = dp_frames.clamp(max=n_frames).to(torch.int32)
+        else:
+            frames = torch.full((out.shape[0],), n_frames, dtype=torch.int32, device=device)
         if out_is_audio:
             return out, frames * codec.downsample_factor
         return out, frames

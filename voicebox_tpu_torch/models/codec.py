@@ -27,6 +27,17 @@ class AudioEncoderDecoder(nn.Module):
     latent_dim: int
     downsample_factor: int
 
+    @property
+    def seconds_per_frame(self) -> float:
+        """Audio seconds one latent frame covers (hop / sampling rate)."""
+        return self.downsample_factor / self.sampling_rate
+
+    def frames_for_seconds(self, seconds: float) -> int:
+        """Latent frames spanning `seconds` of audio, at least 1."""
+        if seconds <= 0:
+            raise ValueError(f"duration must be positive, got {seconds}")
+        return max(1, round(seconds / self.seconds_per_frame))
+
     def encode(self, audio: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

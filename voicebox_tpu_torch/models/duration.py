@@ -1,0 +1,262 @@
+"""The duration predictor's inference: phoneme ids -> per-phoneme frame
+counts -> frame-rate phoneme ids.
+
+Counterpart of the inference half of `voicebox_tpu/models/duration.py`:
+
+* `DurationPredictorNet` (eval): the phoneme embedding fused with the
+  (span-masked, optionally dropped) conditioning latents by `to_embed`, the
+  ConvPositionEmbed residual, a plain-RMSNorm `Transformer` with qk-norm
+  (its attention runs K1 on the card, in fp32 at the reference widths) and
+  a Linear(dim, 1) head. Pad id -1 masks attention; a batch row of pads
+  only is fully masked, and its durations are zeroed downstream.
+* `masked_frame_durations`: THE rounding rule, `clip(round(d), 1)` per real
+  phoneme and 0 at pads, shared by alignment, `sample`'s lengths and the
+  serving engine's horizon.
+* `align_phoneme_ids_with_durations`: each id repeated for its duration,
+  0 past a row's total.
+* `DurationPredictor`: the tokenizer, eval `forward` and
+  `forward_with_cond_scale` (CFG as one 2b forward; no cond means zero
+  cond, fully dropped).
+
+State-dict keys are the reference's (`export_duration_predictor_torch`,
+without the aligner): `DurationPredictor.net` loads
+`utils.convert.duration_predictor_state_dict` with `strict=True`.
+
+Training is not ported yet: the aligner, monotonic alignment search, the
+forward-sum loss and `loss_fn` raise NotImplementedError (ROADMAP Queue 1,
+item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.interp import curtail_or_pad
+from ..utils.tokenizer import Tokenizer
+from .primitives import ConvPositionEmbed, Linear
+from .transformer import Transformer
+
+__all__ = [
+    "DurationPredictor",
+    "DurationPredictorNet",
+    "align_phoneme_ids_with_durations",
+    "masked_frame_durations",
+]
+
+_TRAINING = (
+    "training the duration predictor (the aligner, monotonic alignment search, "
+    "the forward-sum loss, loss_fn) is not ported yet (ROADMAP Queue 1, item 10); "
+    "the port runs its inference"
+)
+
+
+class DurationPredictorNet(nn.Module):
+    """The network: phoneme embedding + cond -> transformer -> durations."""
+
+    def __init__(
+        self,
+        num_phoneme_tokens: int,
+        dim_phoneme_emb: int = 512,
+        dim: int = 512,
+        latent_dim: Optional[int] = None,
+        depth: int = 10,
+        dim_head: int = 64,
+        heads: int = 8,
+        ff_mult: float = 4.0,
+        ff_dropout: float = 0.0,
+        conv_pos_embed_kernel_size: int = 31,
+        conv_pos_embed_groups: Optional[int] = None,
+        attn_dropout: float = 0.0,
+        attn_qk_norm: bool = True,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.dim = dim
+        self.register_buffer("null_cond", torch.zeros(dim))  # the reference's key
+        lin = dict(dtype=dtype)
+        needs_proj = latent_dim is not None and latent_dim != dim
+        self.proj_in = Linear(latent_dim, dim, **lin) if needs_proj else None
+        self.to_phoneme_emb = nn.Embedding(num_phoneme_tokens, dim_phoneme_emb, dtype=dtype)
+        self.to_embed = Linear(dim_phoneme_emb + dim, dim, **lin)
+        self.conv_embed = ConvPositionEmbed(dim, kernel_size=conv_pos_embed_kernel_size,
+                                            groups=conv_pos_embed_groups, **lin)
+        self.transformer = Transformer(
+            dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
+            attn_qk_norm=attn_qk_norm, attn_dropout=attn_dropout, ff_dropout=ff_dropout, **lin,
+        )
+        self.to_pred = nn.Sequential(Linear(dim, 1, **lin))
+
+    def forward(
+        self,
+        *,
+        cond: torch.Tensor,  # (b, t, latent_dim | dim)
+        phoneme_ids: torch.Tensor,  # (b, t_ph) int, pad = -1
+        cond_drop_mask: Optional[torch.Tensor] = None,  # (b,) bool, True = drop
+        cond_mask: Optional[torch.Tensor] = None,  # (b, t) bool, True = masked out
+        self_attn_mask: Optional[torch.Tensor] = None,  # (b, t_ph) bool
+        train: bool = False,
+    ) -> torch.Tensor:
+        """Durations (b, t_ph), in the net's dtype."""
+        if train:
+            raise NotImplementedError(_TRAINING)
+        batch, seq_len, _ = cond.shape
+        if self.proj_in is not None:
+            cond = self.proj_in(cond)
+        if cond_mask is None:
+            cond_mask = torch.zeros(batch, seq_len, dtype=torch.bool, device=cond.device)
+        cond = cond * (~cond_mask[..., None]).to(cond.dtype)
+        if cond_drop_mask is not None:
+            cond = cond.masked_fill(cond_drop_mask[:, None, None], 0.0)
+
+        if self_attn_mask is None:
+            self_attn_mask = phoneme_ids != -1
+        phoneme_emb = self.to_phoneme_emb(phoneme_ids.clamp_min(0))
+        cond = curtail_or_pad(cond, phoneme_ids.shape[-1])
+        x = self.to_embed(torch.cat([phoneme_emb, cond.to(phoneme_emb.dtype)], dim=-1))
+        x = self.conv_embed(x, mask=self_attn_mask) + x
+        x = self.transformer(x, mask=self_attn_mask)
+        return self.to_pred(x)[..., 0]
+
+
+def masked_frame_durations(phoneme_ids, durations):
+    """`clip(round(d), 1)` per position as int32 (every real phoneme speaks
+    for at least one frame; round half to even), then 0 at pad positions
+    (id < 0). numpy in, numpy out (the engine's host math); torch in, torch
+    out."""
+    if isinstance(durations, torch.Tensor):
+        per = torch.round(durations).clamp_min(1).to(torch.int32)
+        ids = torch.as_tensor(phoneme_ids, device=durations.device)
+        return torch.where(ids >= 0, per, torch.zeros_like(per))
+    per = np.clip(np.round(durations), 1, None).astype(np.int32)
+    return np.where(np.asarray(phoneme_ids) >= 0, per, 0)
+
+
+def align_phoneme_ids_with_durations(phoneme_ids: torch.Tensor, durations: torch.Tensor,
+                                     total_length: Optional[int] = None) -> torch.Tensor:
+    """Phoneme ids at the frame rate (b, total_length): frame j takes the
+    phoneme i with cumsum[i-1] <= j < cumsum[i] of the masked durations,
+    and frames past a row's total take id 0 (the reference's one-hot sum).
+    `total_length` defaults to the longest row's total."""
+    per = masked_frame_durations(phoneme_ids, durations)
+    boundaries = torch.cumsum(per, dim=-1)
+    if total_length is None:
+        total_length = int(boundaries[:, -1].max())
+    frames = torch.arange(total_length, device=boundaries.device, dtype=boundaries.dtype)
+    frames = frames.expand(boundaries.shape[0], -1).contiguous()
+    idx = torch.searchsorted(boundaries, frames, right=True)  # boundaries <= frame
+    idx = idx.clamp(max=phoneme_ids.shape[-1] - 1)
+    aligned = torch.gather(phoneme_ids, -1, idx)
+    return torch.where(frames < boundaries[:, -1:], aligned, torch.zeros_like(aligned))
+
+
+class DurationPredictor(nn.Module):
+    """The reference's module surface: tokenizer, eval forward and
+    CFG-scaled inference over `net`. The attached codec sets the width of
+    the conditioning latents; it is not a registered submodule."""
+
+    def __init__(
+        self,
+        *,
+        audio_enc_dec=None,
+        tokenizer=None,
+        num_phoneme_tokens: Optional[int] = None,
+        dim_phoneme_emb: int = 512,
+        dim: int = 512,
+        depth: int = 10,
+        aligner_dim_in: int = 80,
+        aligner_attn_channels: int = 80,
+        **net_kwargs,
+    ):
+        super().__init__()
+        if tokenizer is not None and num_phoneme_tokens is not None:
+            raise ValueError("when a tokenizer is given, num_phoneme_tokens is not needed")
+        if tokenizer is None and num_phoneme_tokens is None:
+            tokenizer = Tokenizer()
+        if tokenizer is not None:
+            num_phoneme_tokens = tokenizer.vocab_size
+        self.tokenizer = tokenizer
+        self.__dict__["audio_enc_dec"] = audio_enc_dec
+        # the aligner's sizes: kept for the training half (not ported yet)
+        self.aligner_dim_in = aligner_dim_in
+        self.aligner_attn_channels = aligner_attn_channels
+        latent_dim = None
+        if audio_enc_dec is not None and audio_enc_dec.latent_dim != dim:
+            latent_dim = audio_enc_dec.latent_dim
+        self.net = DurationPredictorNet(
+            num_phoneme_tokens=num_phoneme_tokens, dim_phoneme_emb=dim_phoneme_emb, dim=dim,
+            latent_dim=latent_dim, depth=depth, **net_kwargs,
+        )
+
+    @property
+    def cond_dim(self) -> int:
+        """Width of the conditioning latents the net takes."""
+        codec = self.audio_enc_dec
+        return codec.latent_dim if codec is not None else self.net.dim
+
+    def _device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    def _phoneme_ids(self, texts, phoneme_ids) -> torch.Tensor:
+        if phoneme_ids is None:
+            if self.tokenizer is None or texts is None:
+                raise ValueError("pass phoneme_ids, or texts with a tokenizer attached")
+            phoneme_ids = self.tokenizer.texts_to_tensor_ids(texts)
+        if not torch.is_tensor(phoneme_ids):
+            phoneme_ids = torch.from_numpy(np.asarray(phoneme_ids))
+        return phoneme_ids.to(self._device()).long()
+
+    def loss_fn(self, *args, **kwargs):
+        raise NotImplementedError(_TRAINING)
+
+    def forward(self, *, cond, texts=None, phoneme_ids=None, train: bool = False, **kwargs):
+        """Durations (b, t_ph) of the phonemes under `cond` latents."""
+        if train:
+            raise NotImplementedError(_TRAINING)
+        ids = self._phoneme_ids(texts, phoneme_ids)
+        cond = torch.as_tensor(cond, device=ids.device)
+        with torch.no_grad():
+            return self.net(cond=cond, phoneme_ids=ids, **kwargs)
+
+    @torch.no_grad()
+    def forward_with_cond_scale(
+        self,
+        *,
+        cond=None,
+        texts=None,
+        phoneme_ids=None,
+        cond_scale: float = 1.0,
+        return_aligned_phoneme_ids: bool = False,
+        total_length: Optional[int] = None,
+        **kwargs,
+    ):
+        """CFG-scaled durations, `null + (cond - null) * cond_scale`, with
+        the conditioned and the null half as one 2b forward. Without `cond`
+        (no voice prompt) the cond is zero and fully dropped and the scale
+        is 1. With `return_aligned_phoneme_ids` also returns the ids at the
+        frame rate, `total_length` frames long (default: the longest row)."""
+        ids = self._phoneme_ids(texts, phoneme_ids)
+        b = ids.shape[0]
+        if cond is None:
+            cond = torch.zeros(b, ids.shape[1], self.cond_dim, device=ids.device)
+            kwargs.setdefault("cond_drop_mask", torch.ones(b, dtype=torch.bool,
+                                                           device=ids.device))
+            cond_scale = 1.0
+        cond = torch.as_tensor(cond, device=ids.device)
+        b = cond.shape[0]
+        if cond_scale == 1.0:
+            drop = kwargs.pop("cond_drop_mask", torch.zeros(b, dtype=torch.bool,
+                                                            device=ids.device))
+            durations = self.net(cond=cond, phoneme_ids=ids, cond_drop_mask=drop, **kwargs)
+        else:
+            drop2 = torch.arange(2 * b, device=ids.device) >= b
+            out2 = self.net(cond=torch.cat([cond, cond]), phoneme_ids=torch.cat([ids, ids]),
+                            cond_drop_mask=drop2, **kwargs)
+            durations, null_durations = out2[:b], out2[b:]
+            durations = null_durations + (durations - null_durations) * cond_scale
+        if not return_aligned_phoneme_ids:
+            return durations
+        return durations, align_phoneme_ids_with_durations(ids, durations, total_length)

@@ -153,14 +153,16 @@ class RMSNorm(nn.Module):
 
 class AdaptiveRMSNorm(nn.Module):
     """RMSNorm whose gain and bias are fp32 projections of a condition
-    vector, zero-initialised so the module starts as the identity norm."""
+    vector, zero-initialised so the module starts as the identity norm.
+    The projections compute in fp32 whatever their storage dtype: weights
+    stored in bf16 (`cast_float_params`) are upcast at use, as flax does."""
 
     def __init__(self, dim: int, cond_dim: Optional[int] = None):
         super().__init__()
         cond_dim = cond_dim or dim
         self.scale = dim ** 0.5
-        self.to_gamma = nn.Linear(cond_dim, dim)
-        self.to_beta = nn.Linear(cond_dim, dim)
+        self.to_gamma = Linear(cond_dim, dim)
+        self.to_beta = Linear(cond_dim, dim)
         for lin, bias in ((self.to_gamma, 1.0), (self.to_beta, 0.0)):
             nn.init.zeros_(lin.weight)
             nn.init.constant_(lin.bias, bias)

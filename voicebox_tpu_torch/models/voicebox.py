@@ -85,8 +85,9 @@ class VoiceBox(nn.Module):
         self.register_buffer("null_cond", torch.zeros(x_dim))
         lin = dict(dtype=dtype, param_dtype=param_dtype)
         self.proj_in = Linear(self.latent_dim, dim, **lin) if needs_proj else None
+        # the time MLP computes in fp32 whatever its storage dtype
         self.sinu_pos_emb = nn.Sequential(
-            LearnedSinusoidalPosEmb(dim), nn.Linear(dim, time_hidden_dim), nn.SiLU()
+            LearnedSinusoidalPosEmb(dim), Linear(dim, time_hidden_dim), nn.SiLU()
         )
         self.to_cond_emb = (
             nn.Embedding(num_cond_tokens + 1, dim_cond_emb, dtype=param_dtype or dtype)

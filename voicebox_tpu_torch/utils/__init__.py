@@ -1,1 +1,2 @@
-"""Host-side helpers: parameter conversion from the JAX package."""
+"""Host-side helpers: parameter conversion from the JAX package and the
+phoneme tokenizers."""

@@ -8,6 +8,8 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 * `voicebox_state_dict`: the reference layout, the same mapping as
   `voicebox_tpu/utils/port_weights.py::export_voicebox_torch`;
 * `transformer_state_dict`, `attention_state_dict`: its parts;
+* `duration_predictor_state_dict`: the same mapping as
+  `export_duration_predictor_torch` (the net, without the aligner);
 * `vocos_state_dict`: the upstream Vocos layout;
 * `encodec_voco_state_dict`: RVQ codebooks + Vocos, for `EncodecVoco`.
 
@@ -26,6 +28,7 @@ import torch
 
 __all__ = [
     "attention_state_dict",
+    "duration_predictor_state_dict",
     "transformer_state_dict",
     "voicebox_state_dict",
     "vocos_state_dict",
@@ -138,6 +141,25 @@ def voicebox_state_dict(params: Mapping, dim_head: Optional[int] = None) -> Stat
     out.update(transformer_state_dict(params["transformer"], prefix="transformer.",
                                       dim_head=dim_head))
     _dense(out, "to_pred", params["to_pred"], bias=False)
+    return out
+
+
+def duration_predictor_state_dict(params: Mapping, dim_head: Optional[int] = None) -> StateDict:
+    """JAX `DurationPredictorNet` params -> the reference `DurationPredictor`
+    layout, the same mapping as `export_duration_predictor_torch`: the
+    aligner (training only) is left out, `null_cond` is synthesised zeros,
+    and the head is `to_pred.0`."""
+    out: StateDict = {}
+    dim = np.asarray(params["to_embed"]["kernel"]).shape[1]
+    out["null_cond"] = torch.zeros(dim)
+    if "proj_in" in params:
+        _dense(out, "proj_in", params["proj_in"])
+    out["to_phoneme_emb.weight"] = _t(params["to_phoneme_emb"]["embedding"])
+    _dense(out, "to_embed", params["to_embed"])
+    _conv(out, "conv_embed.dw_conv1d.0", params["conv_embed"]["dw_conv1d"])
+    out.update(transformer_state_dict(params["transformer"], prefix="transformer.",
+                                      dim_head=dim_head))
+    _dense(out, "to_pred.0", params["to_pred"])
     return out
 
 
