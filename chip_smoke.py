@@ -10,11 +10,18 @@ imports nothing of JAX. Its phases print one line each or more:
 2. build: K1 (`csrc/flash_attention_fwd.cu`), K2 + K3
    (`csrc/flash_attention_bwd.cu`) and K4 (`csrc/w8a16_matmul.cu`) built by
    nvcc for sm_90a from the checkout, all at once, with the build time and
-   ptxas's registers and spills;
+   ptxas's registers and spills (K1's per instantiation); fails unless every
+   bf16 instantiation of K1 was compiled to wgmma (`HGMMA`) and TMA loads
+   (`UTMALDG`), counted in `cuobjdump -sass` of the built library;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
    serving and training shapes, at the quantized engine's denoiser and
-   duration-predictor shapes, and on masked and ragged inputs, each case
-   with its tolerance; CUDA-event times of K1, the plain version and SDPA;
+   duration-predictor shapes, on masked and ragged inputs and at the edges
+   of K1's design (kv off the 128-key tile and off 8, a kv that wraps the
+   K/V ring many times, masked keys inside a tile, n under one 64-row
+   tile), each case with its tolerance; CUDA-event times of K1, the plain
+   version and SDPA; bf16 K1 at each tile height it can take (the host's
+   choice marked); the host time of one bf16 K1 call, and what encoding its
+   tensor maps adds to it;
 4. K2/K3 check: K2 and K3 against the plain backward and against autograd
    of the plain forward, by the largest error and by the error's norm, at
    the training shape (bf16 qk-normed and randn, fp32), the reference head
@@ -77,8 +84,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib.util
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -97,10 +108,12 @@ from voicebox_tpu_torch.models.encodec import ResidualVQ
 from voicebox_tpu_torch.models.primitives import l2norm
 from voicebox_tpu_torch.models.vocos import Vocos
 from voicebox_tpu_torch.ops.flash_attention import (
+    _launch_k1,
     attention_delta,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    k1_block_q,
     reference_attention,
     reference_attention_backward,
 )
@@ -153,9 +166,19 @@ K1_CASES = [
     ("dp_b1_f32", (1, 8, 32, 32, 64), torch.float32, "qk", "random", 1e-3, 1e-3),
     ("dp_b2_f32", (2, 8, 64, 64, 64), torch.float32, "qk", "random", 1e-3, 1e-3),
     ("dp_b4_f32", (4, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-3, 1e-3),
+    # the edges of K1's design: kv off the 128-key tile and off 8 (TMA's zero
+    # fill, a random mask); a kv that wraps the 2-stage K/V ring 17 times;
+    # masked keys inside tiles under the two-warpgroup tile; n under one
+    # 64-row tile
+    ("ragged_tma_bf16", (2, 4, 257, 131, 128), torch.bfloat16, "randn", "random", 1e-2, 1e-2),
+    ("long_kv_bf16", (1, 4, 4100, 4100, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("mid_tile_mask_bf16", (8, 4, 600, 600, 128), torch.bfloat16, "qk", "middle", 1e-2, 1e-2),
+    ("short_q_bf16", (1, 4, 40, 300, 64), torch.bfloat16, "randn", None, 1e-2, 1e-2),
 ]
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32")
+K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
+K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 
 # (name, (b, h, n, kv, d), dtype, inputs, mask, tol): K2/K3 hold when, for
 # each of dq, dk, dv, against the plain backward and against autograd of the
@@ -293,6 +316,10 @@ def phase_build() -> None:
         kernels.load(name)
     dt = time.perf_counter() - t0
     for name, lib in zip(sources, libs):
+        if name == "flash_attention_fwd":
+            for fn, lines in _ptxas_by_kernel(f"{lib}.log").items():
+                log("build", f"{name} {fn}: ptxas: {' | '.join(lines)}")
+            continue
         ptxas = [
             line.strip() for line in open(f"{lib}.log")
             if "registers" in line or "spill" in line
@@ -300,6 +327,56 @@ def phase_build() -> None:
         log("build", f"{name}: {lib.name}; ptxas: {' | '.join(ptxas)}")
     log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)}: {len(sources)} sources in "
                  f"{dt:.2f} s, built in parallel")
+    tool, counts = _sass_counts(libs[0])
+    log("build", f"flash_attention_fwd SASS ({tool}): (HGMMA, UTMALDG) per instantiation {counts}")
+    bf16 = {fn: c for fn, c in counts.items() if fn.startswith("bf16")}
+    assert len(bf16) == 4 and all(min(c) > 0 for c in bf16.values()), (
+        f"K1's bf16 code is not wgmma + TMA: {counts}"
+    )
+
+
+_K1_KERNEL = re.compile(r"flash_fwd_(bf16|f32)ILi(\d+)E(?:Li(\d+)E)?")
+
+
+def _k1_instance(mangled: str):
+    """`bf16 d=128 rows=128` from a mangled K1 instantiation, or None."""
+    m = _K1_KERNEL.search(mangled)
+    if m is None:
+        return None
+    kind, d, tile = m.groups()
+    rows = int(tile) * 64 if kind == "bf16" else 16
+    return f"{kind} d={d} rows={rows}"
+
+
+def _ptxas_by_kernel(log_path) -> dict:
+    """ptxas's registers, spill and shared-memory lines of each K1
+    instantiation, from the build's log."""
+    found, current = {}, None
+    for line in open(log_path):
+        if "Compiling entry function" in line:
+            current = _k1_instance(line)
+        elif current and ("registers" in line or "spill" in line):
+            found.setdefault(current, []).append(line.strip().replace("ptxas info    : ", ""))
+    return found
+
+
+def _sass_counts(lib) -> tuple:
+    """(tool, {K1 instantiation: (HGMMA, UTMALDG) instructions}) from
+    `cuobjdump -sass` of the built library: the toolkit's, or Triton's copy."""
+    candidates = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(f"{spec.origin.rsplit('/', 1)[0]}/backends/nvidia/bin/cuobjdump")
+    tool = next((c for c in candidates if c and os.path.exists(c)), None)
+    assert tool is not None, f"no cuobjdump among {candidates}"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = _k1_instance(part.split("\n", 1)[0])
+        if name is not None:
+            counts[name] = (part.count("HGMMA"), part.count("UTMALDG"))
+    return tool, counts
 
 
 def _attn_inputs(shape, dtype, inputs, mask_kind, gen):
@@ -314,6 +391,10 @@ def _attn_inputs(shape, dtype, inputs, mask_kind, gen):
     mask = None
     if mask_kind == "all":  # the denoiser's mask when no frame is padding
         mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
+    elif mask_kind == "middle":  # runs of masked keys inside 128-key tiles
+        mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
+        mask[:, 50:180] = False
+        mask[1::2, 300:310] = False
     elif mask_kind is not None:
         mask = torch.rand(b, kv, generator=gen, device=dev) < 0.7
         if mask_kind == "empty_row":
@@ -325,8 +406,26 @@ def _sdpa_mask(mask):
     return None if mask is None else mask[:, None, None, :]
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of fn in microseconds: the host clock over
+    `calls` calls queued behind a device sleep, with no synchronize between
+    them, so the device never holds the host back."""
+    with torch.no_grad():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def phase_k1_check(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, shape, dtype, inputs, mask_kind, atol, rtol in K1_CASES:
         q, k, v, _, mask, scale = _attn_inputs(shape, dtype, inputs, mask_kind, gen)
@@ -363,7 +462,40 @@ def phase_k1_check(smi: str) -> dict:
             log("k1", f"time {name}: K1 {t['k1']:.4f} ms, plain {t['plain']:.4f} ms, SDPA "
                       f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (CUDA "
                       f"events, mean of 2 x 20, order plain/K1/SDPA/SDPA/K1/plain) on {smi}")
+        if name in K1_TIMED and dtype == torch.bfloat16:
+            b, h, n = shape[:3]
+            chosen = k1_block_q(b, h, n, shape[4], dtype, sms)
+            tiles = in_turns({rows: lambda rows=rows: _launch_k1(q, k, v, mask, scale, rows)
+                              for rows in K1_BF16_HEIGHTS})
+            log("k1", f"tile height {name}: " + ", ".join(
+                f"{rows} rows {ms:.4f} ms ({-(-n // rows) * b * h} blocks)"
+                + (" <- chosen" if rows == chosen else "") for rows, ms in tiles.items())
+                + f" (CUDA events, in turns, {sms} SMs)")
+        if name in K1_HOST_TIMED:
+            phase_k1_host_time(name, q, k, v, mask, scale)
     return results
+
+
+def phase_k1_host_time(name, q, k, v, mask, scale, rounds: int = 5) -> None:
+    """Host microseconds of one bf16 K1 call, in turns: `flash_attention`
+    (what the model calls), `_launch_k1` (which encodes three tensor maps),
+    and `_launch_k1` on fp32 copies of the same operands (the same host path,
+    no tensor map)."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    calls = {
+        "flash_attention bf16": lambda: flash_attention(q, k, v, mask, scale),
+        "_launch_k1 bf16 (3 tensor maps encoded)": lambda: _launch_k1(q, k, v, mask, scale),
+        "_launch_k1 fp32 (no tensor map)": lambda: _launch_k1(qf, kf, vf, mask, scale),
+    }
+    us = {label: [] for label in calls}
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            us[label].append(host_us(fn))
+    log("k1", f"host time of one call {name}: " + "; ".join(
+        f"{label} median {np.median(t):.2f} us, min {min(t):.2f}"
+        for label, t in us.items())
+        + f" (host clock over 200 calls queued behind a device sleep, no synchronize, "
+          f"{rounds} rounds in turns)")
 
 
 def _rel_err(got, ref) -> float:

@@ -22,6 +22,7 @@ from voicebox_tpu_torch.models.attention import Attention
 from voicebox_tpu_torch.ops.flash_attention import (
     MASK_FILL,
     flash_attention,
+    k1_block_q,
     reference_attention,
 )
 from voicebox_tpu_torch.utils.convert import attention_state_dict
@@ -120,3 +121,27 @@ def test_other_devices_raise():
     q = torch.empty(1, 1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="no attention path"):
         flash_attention(q, q, q)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,h,n,d,dtype,rows", [
+    (2, 4, 272, 128, torch.bfloat16, 64),    # the engine's batch 1: 24 blocks of 128 rows
+    (2, 4, 766, 128, torch.bfloat16, 64),    # serving: 48 blocks of 128 rows
+    (4, 4, 528, 128, torch.bfloat16, 128),   # the engine's batch 2: 80 blocks of 128 rows
+    (8, 4, 768, 128, torch.bfloat16, 128),   # training: 192
+    (8, 4, 1040, 128, torch.bfloat16, 128),  # the engine's batch 4: 288
+    (2, 16, 1040, 64, torch.bfloat16, 64),   # the reference's 16 x 64 heads
+    (8, 4, 600, 128, torch.bfloat16, 128),   # the masked-tile check: 160
+    (1, 4, 4100, 128, torch.bfloat16, 128),  # the long-kv check: 132
+    (1, 4, 40, 64, torch.bfloat16, 64),      # n under one tile
+    (3, 1, 1, 128, torch.bfloat16, 64),      # one query row
+    (1, 8, 32, 64, torch.float32, 16),       # the duration predictor, batch 1 to 4
+    (2, 8, 64, 64, torch.float32, 16),
+    (4, 8, 128, 64, torch.float32, 16),
+    (2, 4, 766, 128, torch.float32, 16),     # fp32 slices of larger grids
+    (8, 16, 1040, 64, torch.float32, 16),
+])
+def test_k1_tile_height_at_the_paths_shapes(b, h, n, d, dtype, rows):
+    assert k1_block_q(b, h, n, d, dtype, H100_SMS) == rows

@@ -13,6 +13,7 @@ import torch
 from voicebox_tpu_torch.models.attention import Attention
 from voicebox_tpu_torch.models.voicebox import VoiceBox
 from voicebox_tpu_torch.ops.flash_attention import (
+    _launch_k1,
     attention_delta,
     flash_attention,
     flash_attention_bwd_dkv,
@@ -44,7 +45,8 @@ def _qkv(device, b=2, h=4, n=257, kv=200, d=128, seed=0):
     q = torch.randn(b, h, n, d, generator=gen, device=device)
     k, v = (torch.randn(b, h, kv, d, generator=gen, device=device) for _ in range(2))
     mask = torch.rand(b, kv, generator=gen, device=device) < 0.7
-    mask[-1] = False  # the last batch element's rows are fully masked
+    if b > 1:
+        mask[-1] = False  # the last batch element's rows are fully masked
     return q, k, v, mask
 
 
@@ -62,11 +64,19 @@ def _backward(q, k, v, mask, seed=1):
     return (dq, dk, dv), reference_attention_backward(q, k, v, mask, out, lse, do), do
 
 
+# (b, h, n, kv): ragged n and kv; kv off K1's 128-key tile and off 8 (TMA's
+# zero fill); n under one 64-row tile; a grid that takes two consumer
+# warpgroups per block; a kv that wraps the 2-stage K/V ring many times
+K1_SHAPES = [(2, 4, 257, 200), (2, 4, 257, 131), (1, 4, 40, 300), (8, 4, 600, 600),
+             (1, 4, 4100, 4100)]
+
+
 # bf16: P and out are each rounded to bf16 on both sides, in another order
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
-def test_k1_matches_plain(cuda_device, dtype, tol, d):
-    q, k, v, mask = _qkv(cuda_device, d=d)
+@pytest.mark.parametrize("b,h,n,kv", K1_SHAPES)
+def test_k1_matches_plain(cuda_device, dtype, tol, d, b, h, n, kv):
+    q, k, v, mask = _qkv(cuda_device, b, h, n, kv, d=d)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     before = flash_attention.launches
     out, lse = flash_attention(q, k, v, mask, return_lse=True)
@@ -75,8 +85,23 @@ def test_k1_matches_plain(cuda_device, dtype, tol, d):
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
-    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand_as(out[-1])
-    torch.testing.assert_close(out[-1].float(), mean_v, atol=tol, rtol=tol)
+    if b > 1:
+        mean_v = v[-1].float().mean(dim=1, keepdim=True).expand_as(out[-1])
+        torch.testing.assert_close(out[-1].float(), mean_v, atol=tol, rtol=tol)
+
+
+# both bf16 query-tile heights, whichever the host would choose (fp32 takes
+# one, 16 rows, and test_k1_matches_plain runs it)
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
+    q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in _qkv(cuda_device, 3, 2, 150, 259, d=d))
+    out, lse = _launch_k1(q, k, v, mask, d ** -0.5, rows)
+    ref, ref_lse = reference_attention(q, k, v, mask, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
 
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
@@ -89,6 +114,10 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
         flash_attention(strided_q, k, v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(RuntimeError, match="K1 launch failed"):
+        _launch_k1(q, k, v, None, 1.0, block_q=48)  # no such tile height
+    with pytest.raises(RuntimeError, match="K1 launch failed"):
+        _launch_k1(q.float(), k.float(), v.float(), None, 1.0, block_q=32)  # fp32 takes 16
 
 
 def test_attention_module_card_matches_cpu(cuda_device):

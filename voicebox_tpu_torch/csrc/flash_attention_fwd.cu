@@ -6,304 +6,765 @@
 // -0.7 * FLT_MAX, a running max and sum per query row, out = acc / l in the
 // input dtype, and lse = m + log(l) in fp32 per row.
 //
-// What bounds it on the H100. At the serving shape (CFG batch 2, 4 heads,
-// 766 rows, head dim 128, bf16) one call does 2.4 GFLOP over 6.3 MB of q, k,
-// v and out: about 380 FLOP per byte, above the card's bf16 ridge (~295), so
-// on paper it is bound by the tensor cores. This first version is bound by
-// latency instead: the logits and the output accumulator make a round trip
-// through shared memory on every K/V tile (WMMA fragments are opaque, so the
-// per-row rescale happens there), the tile loads are not overlapped with
-// the math, and the grid of 12 x 4 x 2 = 96 blocks leaves 36 of 132 SMs idle.
+// What bounds it on the H100, at the shapes the port runs:
+//  * bf16, serving and training (b x 4 heads, 766-1040 rows, head dim 128):
+//    ~380 operations per byte of q, k, v and out, above the card's bf16
+//    ridge (~295), so the tensor cores bound it. The design feeds them:
+//    one producer warp keeps TMA loads of 128-key K and V tiles in flight
+//    through a 2-stage ring in shared memory (128-byte swizzle, "full" and
+//    "empty" mbarriers), and gives its registers to the consumers
+//    (setmaxnreg); each consumer warpgroup runs S = Q K^T and O += P V as
+//    wgmma with fp32 accumulators in registers, and the online softmax on
+//    the accumulator of S in registers (row max and sum across a quad by
+//    shuffles, O rescaled in registers, P converted to bf16 in registers as
+//    the A operand of the second product). No logit, probability or output
+//    tile passes through shared memory.
+//  * bf16, the quantized engine's batch-1 shape (2 x 4 heads, 272 rows):
+//    latency, with 3 key tiles per block and a grid of a few dozen blocks.
+//    The host picks 64 query rows per block (one consumer warpgroup) where
+//    128-row blocks would not fill the card's SMs, 128 rows (two consumer
+//    warpgroups sharing each K/V tile) where they would.
+//  * fp32, the duration predictor (1-4 x 8 heads, 32-128 rows, head dim
+//    64): latency. wgmma has no fp32 mode and TF32 would break the fp32
+//    contract, so both products stay on CUDA-core FMAs, register-tiled: each
+//    of 128 threads owns a micro-tile of 2 rows x 2 keys of S and 2 rows x
+//    D/16 columns of O and reads 16-byte vectors from shared memory; 16-row
+//    query tiles, so that the predictor's batch 1 still runs 16 blocks;
+//    32-key tiles, double-buffered with cp.async, and a key loop bounded by
+//    the real kv, so kv = 32 computes 32 keys.
 //
-// What the design does about it, and what it keeps simple:
-//  * one block = one (batch, head, 64-row query tile), 4 warps of 16 rows;
-//    a loop inside the block streams 64-key K/V tiles through shared memory
-//    (the TPU's sequential grid axis becomes this loop);
-//  * bf16: both products on the tensor cores (WMMA 16x16x16, fp32 sums);
-//    fp32: scalar FMAs, so an fp32 call stays exact to fp32 rounding;
-//  * ragged n and kv are masked here: rows past n are not stored, keys past
-//    kv get p = 0 (and zeros in shared memory), so no operand is padded;
-//  * the mask fill stays fp32. A row whose keys are all masked gets the same
-//    logit on every real key, so it comes out as mean(V) over the real
-//    keys, as the plain softmax gives;
-//  * it launches on the caller's stream and allocates nothing.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// Both paths mask ragged n and kv here, with no padding copies: TMA (bf16)
+// and cp.async (fp32) fill rows past n or kv with zeros, keys past kv get
+// p = 0 by a select, rows past n are not stored. The mask fill stays fp32:
+// a row whose keys are all masked gets the same logit on every real key, so
+// it comes out as mean(V) over the real keys and its lse as fill + log(kv),
+// as the plain softmax gives. The kernel launches on the caller's stream and
+// allocates nothing; the host encodes the three tensor maps on each call.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockK = 64;                      // keys per K/V tile
 constexpr float kMaskFill = -0.7f * 3.402823466e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Shared-memory layout, in bytes. Row pitches are padded: by 8 bf16 (16 B)
-// or 4 floats, which keeps WMMA's 32-byte alignment and 16-byte vector stores.
-template <typename T, int D>
-struct Layout {
-  static constexpr int kPad = sizeof(T) == 2 ? 8 : 4;
-  static constexpr int kLdIn = D + kPad;       // q, k, v tiles (input dtype)
-  static constexpr int kLdS = kBlockK + 4;     // logits (fp32)
-  static constexpr int kLdP = kBlockK + kPad;  // probabilities (input dtype)
-  static constexpr int kLdO = D + 4;           // output accumulator (fp32)
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// --------------------------------------------------------------------- TMA
+
+// box at (c0, c1, c2) of a 3-D tensor map into shared memory; completion
+// (the box's bytes, zero-filled out of bounds) is counted on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from touching an accumulator before the wgmma that
+// writes it has retired (call after wgmma_wait_all)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, fp32) += A (64 x 16, smem, K-major) * B (16 x 128, smem,
+// K-major); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x N, fp32) += A (64 x 16, bf16 in registers) * B (16 x N, smem,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, desc_b, 1);
+  } else {
+    wgmma_rs_n128(d, a, desc_b, 1);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ----------------------------------------------------------- bf16: layout
+
+constexpr int kBlockN = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kSwizzleCols = 64;  // bf16 columns in one 128-byte swizzle row
+
+// Shared memory in bytes. Each operand tile is stored as D / 64 column
+// chunks of (rows x 64) bf16, 128 bytes a row, as TMA's 128-byte swizzle
+// lays them out; every chunk starts on a 1024-byte boundary.
+template <int D, int NWG>
+struct Bf16Smem {
+  static constexpr int kChunks = D / kSwizzleCols;
+  static constexpr int kRowsQ = NWG * 64;
+  static constexpr int kQChunk = kRowsQ * 128;
+  static constexpr int kKVChunk = kBlockN * 128;
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kTile = kChunks * kKVChunk;  // one K or one V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + align128(kBlockQ * kLdIn * (int)sizeof(T));
-  static constexpr int kV = kK + align128(kBlockK * kLdIn * (int)sizeof(T));
-  static constexpr int kS = kV + align128(kBlockK * kLdIn * (int)sizeof(T));
-  static constexpr int kP = kS + align128(kBlockQ * kLdS * 4);
-  static constexpr int kO = kP + align128(kBlockQ * kLdP * (int)sizeof(T));
-  static constexpr int kAlpha = kO + align128(kBlockQ * kLdO * 4);
-  static constexpr int kL = kAlpha + align128(kBlockQ * 4);
-  static constexpr int kKeep = kL + align128(kBlockQ * 4);
-  static constexpr int kBytes = kKeep + align128(kBlockK * 4);
+  static constexpr int kK = kQBytes;               // kStages K tiles
+  static constexpr int kV = kK + kStages * kTile;  // kStages V tiles
+  static constexpr int kBytes = kV + kStages * kTile;
+  static constexpr int kAlloc = kBytes + 1024;     // room to align the base
+  // consumer warpgroups, then the producer: with two consumers a whole
+  // warpgroup, whose registers (setmaxnreg) pay for the consumers' 240;
+  // with one, registers are not scarce and a single warp will do
+  static constexpr int kProducerThreads = NWG == 2 ? 128 : 32;
+  static constexpr int kThreads = NWG * 128 + kProducerThreads;
 };
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
+// ----------------------------------------------------------- bf16: kernel
+
+// grid: (query tiles of NWG x 64 rows, heads, batch). Warpgroups 0..NWG-1
+// consume; warp 4 NWG issues the loads. q/out (b, h, n_q, D), k/v (b, h, n_kv, D)
+// through 3-D tensor maps (D, rows, b h); mask (b, n_kv) bytes or null;
+// lse (b, h, n_q) fp32.
+template <int D, int NWG>
+__global__ void __launch_bounds__(Bf16Smem<D, NWG>::kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const uint8_t* __restrict__ mask,
+                   bf16* __restrict__ out, float* __restrict__ lse, int heads, int n_q,
+                   int n_kv, float scale) {
+  using L = Bf16Smem<D, NWG>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  __shared__ __align__(8) uint64_t q_bar;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int wg = threadIdx.x / 128;
+  const int batch = blockIdx.z;
+  const int bh = batch * heads + blockIdx.y;
+  const int n_tiles = (n_kv + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], NWG * 128);
+    }
+    mbar_init(&q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // producer warp: Q once, then K and V tiles through the ring
+    if constexpr (NWG == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * 128) {
+      mbar_expect_tx(&q_bar, L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c) {
+        tma_load_3d(smem + L::kQ + c * L::kQChunk, &tm_q, &q_bar, c * kSwizzleCols,
+                    blockIdx.x * L::kRowsQ, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty_bar[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full_bar[s], 2 * L::kTile);
+#pragma unroll
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_3d(smem + L::kK + s * L::kTile + c * L::kKVChunk, &tm_k, &full_bar[s],
+                      c * kSwizzleCols, t * kBlockN, bh);
+          tma_load_3d(smem + L::kV + s * L::kTile + c * L::kKVChunk, &tm_v, &full_bar[s],
+                      c * kSwizzleCols, t * kBlockN, bh);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: 64 query rows. In wgmma's accumulator layout
+    // this thread owns rows r and r + 8 and, in each 8-column block i,
+    // columns 8 i + 2 (lane % 4) + {0, 1}: element [4 i + 2 j + c].
+    if constexpr (NWG == 2) setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int quad = lane % 4;
+    const int row = blockIdx.x * L::kRowsQ + wg * 64 + (tid / 32) * 16 + lane / 4;
+    const uint32_t q_base = smem_u32(smem + L::kQ) + wg * 64 * 128;
+    const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.0f, 0.0f};  // this thread's part of the row sums
+
+    mbar_wait(&q_bar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full_bar[s], (t / kStages) & 1);
+      const uint32_t k_base = smem_u32(smem + L::kK + s * L::kTile);
+      const uint32_t v_base = smem_u32(smem + L::kV + s * L::kTile);
+
+      // S = Q K^T over D in steps of 16: 32 bytes along a 128-byte row
+      float sc[kBlockN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        const uint64_t da = sw128_desc(q_base + (kk / 4) * L::kQChunk + off, 16, 1024);
+        const uint64_t db = sw128_desc(k_base + (kk / 4) * L::kKVChunk + off, 16, 1024);
+        wgmma_ss_n128(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // logits: scale; masked keys get the fill, keys past kv -inf (p = 0)
+      const int k0 = t * kBlockN;
+      if (mask_b != nullptr || k0 + kBlockN > n_kv) {
+#pragma unroll
+        for (int i = 0; i < kBlockN / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + 8 * i + 2 * quad + c;
+            const bool past = key >= n_kv;
+            const bool masked = !past && mask_b != nullptr && !mask_b[key];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              float& x = sc[4 * i + 2 * j + c];
+              x = past ? -INFINITY : masked ? kMaskFill : x * scale;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBlockN / 2; ++i) sc[i] *= scale;
+      }
+
+      // online softmax, rows r (j = 0) and r + 8 (j = 1)
+      float alpha[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = m_run[j];
+#pragma unroll
+        for (int i = 0; i < kBlockN / 8; ++i) {
+          mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * j], sc[4 * i + 2 * j + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // every tile holds a key before kv, so mx is finite; the first
+        // tile's alpha is exp(-inf) = 0
+        alpha[j] = exp2f((m_run[j] - mx) * kLog2e);
+        m_run[j] = mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kBlockN / 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = sc[4 * i + 2 * j + c];
+            x = exp2f((x - mx) * kLog2e);  // the fill against a real max: 0
+            sum += x;
+          }
+        }
+        l_run[j] = l_run[j] * alpha[j] + sum;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          o[4 * i + 2 * j] *= alpha[j];
+          o[4 * i + 2 * j + 1] *= alpha[j];
+        }
+      }
+
+      // P in bf16: the accumulator layout of S is the A-register layout
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      // O += P V over the tile's keys in steps of 16 rows of V
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const uint64_t db = sw128_desc(v_base + kk * 16 * 128, L::kKVChunk, 1024);
+        wgmma_rs<D>(o, pa[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
+    }
+
+    bf16* out_bh = out + (size_t)bh * n_q * D;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float l = l_run[j];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int r = row + 8 * j;
+      if (r < n_q) {
+        const float inv = 1.0f / l;
+        bf16* dst = out_bh + (size_t)r * D + 2 * quad;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+              __floats2bfloat162_rn(o[4 * i + 2 * j] * inv, o[4 * i + 2 * j + 1] * inv);
+        }
+        if (quad == 0) lse[(size_t)bh * n_q + r] = m_run[j] + logf(l);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ fp32: kernel
+
+constexpr int kF32Threads = 128;  // 8 row groups x 16 column groups
+constexpr int kF32BlockQ = 16;    // query rows per block
+constexpr int kF32BlockK = 32;    // keys per K/V tile
+
+// Shared memory in floats: rows padded by 4 floats (16 bytes), so that
+// 16-byte reads of 8 neighbouring rows fall in distinct banks.
+template <int D>
+struct F32Smem {
+  static constexpr int kLd = D + 4;
+  static constexpr int kLdP = kF32BlockK + 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kF32BlockQ * kLd;         // 2 stages
+  static constexpr int kV = kK + 2 * kF32BlockK * kLd;     // 2 stages
+  static constexpr int kP = kV + 2 * kF32BlockK * kLd;
+  static constexpr int kBytes = (kP + kF32BlockQ * kLdP) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // rows [row0, row0 + ROWS) of a (n_rows, D) matrix into a padded tile;
-// rows past n_rows are zero so that p = 0 never meets a stale value
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
+// rows past n_rows are zero-filled, so p = 0 never meets a stale value
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
                                           int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int kLd = Layout<T, D>::kLdIn;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+  constexpr int kVecs = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kVecs; i += kF32Threads) {
+    const int r = i / kVecs;
+    const int c = (i % kVecs) * 4;
+    const bool valid = row0 + r < n_rows;
+    cp_async16(dst + r * (D + 4) + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
   }
 }
 
-// S = Q K^T for this warp's 16 rows and the tile's 64 keys, unscaled fp32
+// grid: (query tiles of 16 rows, heads, batch). Thread (ty, tx) = (tid / 16,
+// tid % 16) owns rows ty RM .. ty RM + RM - 1 of the tile; of S, keys tx
+// and tx + 16 of each K tile; of O, columns 64 g + 4 tx .. + 3 for each
+// 64-column group g.
 template <int D>
-__device__ __forceinline__ void scores(const bf16* q_s, const bf16* k_s, float* s_s,
-                                       int warp, int lane) {
-  using L = Layout<bf16, D>;
-  for (int c = 0; c < kBlockK / 16; ++c) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, q_s + warp * 16 * L::kLdIn + kk * 16, L::kLdIn);
-      wmma::load_matrix_sync(b, k_s + c * 16 * L::kLdIn + kk * 16, L::kLdIn);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(s_s + warp * 16 * L::kLdS + c * 16, acc, L::kLdS,
-                            wmma::mem_row_major);
-  }
-}
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                  float* __restrict__ out, float* __restrict__ lse, int heads, int n_q, int n_kv,
+                  float scale) {
+  using L = F32Smem<D>;
+  constexpr int BQ = kF32BlockQ;
+  constexpr int RM = BQ / 8;
+  constexpr int CG = D / 64;
+  constexpr int kLd = L::kLd;
+  extern __shared__ float4 smem_f32[];
+  float* sm = reinterpret_cast<float*>(smem_f32);
+  float* q_s = sm + L::kQ;
+  float* p_s = sm + L::kP;
 
-template <int D>
-__device__ __forceinline__ void scores(const float* q_s, const float* k_s, float* s_s,
-                                       int warp, int lane) {
-  using L = Layout<float, D>;
-  for (int i = lane; i < kRowsPerWarp * kBlockK; i += 32) {
-    const int r = warp * kRowsPerWarp + i / kBlockK;
-    const int c = i % kBlockK;
-    const float* qr = q_s + r * L::kLdIn;
-    const float* kr = k_s + c * L::kLdIn;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-    s_s[r * L::kLdS + c] = acc;
-  }
-}
-
-// O = O * alpha + P V for this warp's 16 rows
-template <int D>
-__device__ __forceinline__ void accumulate_pv(const bf16* p_s, const bf16* v_s, float* o_s,
-                                              const float* alpha_s, int warp, int lane) {
-  using L = Layout<bf16, D>;
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = warp * kRowsPerWarp + i / D;
-    o_s[r * L::kLdO + i % D] *= alpha_s[r];
-  }
-  __syncwarp();
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    float* o_tile = o_s + warp * 16 * L::kLdO + j * 16;
-    wmma::load_matrix_sync(acc, o_tile, L::kLdO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, p_s + warp * 16 * L::kLdP + kk * 16, L::kLdP);
-      wmma::load_matrix_sync(b, v_s + kk * 16 * L::kLdIn + j * 16, L::kLdIn);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o_tile, acc, L::kLdO, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void accumulate_pv(const float* p_s, const float* v_s, float* o_s,
-                                              const float* alpha_s, int warp, int lane) {
-  using L = Layout<float, D>;
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = warp * kRowsPerWarp + i / D;
-    const int c = i % D;
-    const float* pr = p_s + r * L::kLdP;
-    float acc = o_s[r * L::kLdO + c] * alpha_s[r];
-#pragma unroll 8
-    for (int kk = 0; kk < kBlockK; ++kk) acc = fmaf(pr[kk], v_s[kk * L::kLdIn + c], acc);
-    o_s[r * L::kLdO + c] = acc;
-  }
-}
-
-// grid: (query tiles, heads, batch); q/out (b, h, n_q, D), k/v (b, h, n_kv, D),
-// mask (b, n_kv) bytes or null, lse (b, h, n_q) fp32; all contiguous
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                     T* __restrict__ out, float* __restrict__ lse, int heads, int n_q,
-                     int n_kv, float scale) {
-  using L = Layout<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::kQ);
-  T* k_s = reinterpret_cast<T*>(smem + L::kK);
-  T* v_s = reinterpret_cast<T*>(smem + L::kV);
-  float* s_s = reinterpret_cast<float*>(smem + L::kS);
-  T* p_s = reinterpret_cast<T*>(smem + L::kP);
-  float* o_s = reinterpret_cast<float*>(smem + L::kO);
-  float* alpha_s = reinterpret_cast<float*>(smem + L::kAlpha);
-  float* l_s = reinterpret_cast<float*>(smem + L::kL);
-  int* keep_s = reinterpret_cast<int*>(smem + L::kKeep);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int q0 = blockIdx.x * BQ;
   const int batch = blockIdx.z;
   const size_t bh = (size_t)batch * heads + blockIdx.y;
-  const T* k_bh = k + bh * n_kv * D;
-  const T* v_bh = v + bh * n_kv * D;
+  const float* k_bh = k + bh * n_kv * D;
+  const float* v_bh = v + bh * n_kv * D;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+  const int n_tiles = (n_kv + kF32BlockK - 1) / kF32BlockK;
 
-  load_tile<T, D, kBlockQ>(q_s, q + bh * n_q * D, q0, n_q);
-  for (int i = threadIdx.x; i < kBlockQ * L::kLdO; i += kThreads) o_s[i] = 0.0f;
+  load_rows<D, BQ>(q_s, q + bh * n_q * D, q0, n_q);
+  load_rows<D, kF32BlockK>(sm + L::kK, k_bh, 0, n_kv);
+  load_rows<D, kF32BlockK>(sm + L::kV, v_bh, 0, n_kv);
+  cp_async_commit();
 
-  // lanes 2r and 2r+1 own row r of the warp's 16, each over half the keys
-  const int row = warp * kRowsPerWarp + lane / 2;
-  const int half = lane % 2;
-  float m_run = -INFINITY;
-  float l_run = 0.0f;
+  float o[RM][CG][4];
+  float m_run[RM], l_run[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < CG; ++g) o[i][g][0] = o[i][g][1] = o[i][g][2] = o[i][g][3] = 0.0f;
+  }
 
-  for (int k0 = 0; k0 < n_kv; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K, V and keep flags are consumed
-    load_tile<T, D, kBlockK>(k_s, k_bh, k0, n_kv);
-    load_tile<T, D, kBlockK>(v_s, v_bh, k0, n_kv);
-    if (threadIdx.x < kBlockK) {
-      const int key = k0 + threadIdx.x;
-      // 1 keep, 0 masked (fill), -1 past the end (p = 0)
-      keep_s[threadIdx.x] =
-          key >= n_kv ? -1 : (mask == nullptr || mask[(size_t)batch * n_kv + key]) ? 1 : 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile streams in while this one computes
+      load_rows<D, kF32BlockK>(sm + L::kK + (st ^ 1) * kF32BlockK * kLd, k_bh,
+                               (t + 1) * kF32BlockK, n_kv);
+      load_rows<D, kF32BlockK>(sm + L::kV + (st ^ 1) * kF32BlockK * kLd, v_bh,
+                               (t + 1) * kF32BlockK, n_kv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* k_s = sm + L::kK + st * kF32BlockK * kLd;
+    const float* v_s = sm + L::kV + st * kF32BlockK * kLd;
+    const int k0 = t * kF32BlockK;
 
-    scores<D>(q_s, k_s, s_s, warp, lane);
-    __syncwarp();
-
-    float s[kBlockK / 2];
-    float m_tile = -INFINITY;
+    float s[RM][2];
 #pragma unroll
-    for (int j = 0; j < kBlockK / 2; ++j) {
-      const int c = half * (kBlockK / 2) + j;
-      const int keep = keep_s[c];
-      float x = s_s[row * L::kLdS + c] * scale;
-      if (keep == 0) x = kMaskFill;
-      if (keep < 0) x = -INFINITY;
-      s[j] = x;
-      m_tile = fmaxf(m_tile, x);
-    }
-    m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
-    // every tile holds at least one key before n_kv, so m_new is finite
-    const float m_new = fmaxf(m_run, m_tile);
-    const float alpha = expf(m_run - m_new);
-    float p_sum = 0.0f;
+    for (int i = 0; i < RM; ++i) s[i][0] = s[i][1] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      const float4 ka = *reinterpret_cast<const float4*>(k_s + tx * kLd + d);
+      const float4 kb = *reinterpret_cast<const float4*>(k_s + (tx + 16) * kLd + d);
 #pragma unroll
-    for (int j = 0; j < kBlockK / 2; ++j) {
-      const float p = expf(s[j] - m_new);
-      store(p_s + row * L::kLdP + half * (kBlockK / 2) + j, p);
-      p_sum += p;
+      for (int i = 0; i < RM; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + (ty * RM + i) * kLd + d);
+        // one FMA after another along d, the order of the plain version's
+        // fp32 product: at logits of ~1e3 another order moves them by ulps
+        s[i][0] = fmaf(qv.w, ka.w, fmaf(qv.z, ka.z, fmaf(qv.y, ka.y, fmaf(qv.x, ka.x, s[i][0]))));
+        s[i][1] = fmaf(qv.w, kb.w, fmaf(qv.z, kb.z, fmaf(qv.y, kb.y, fmaf(qv.x, kb.x, s[i][1]))));
+      }
     }
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
-    l_run = l_run * alpha + p_sum;
-    m_run = m_new;
-    if (half == 0) alpha_s[row] = alpha;
-    __syncwarp();
 
-    accumulate_pv<D>(p_s, v_s, o_s, alpha_s, warp, lane);
-    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + tx + 16 * c;
+      const bool past = key >= n_kv;
+      const bool masked = !past && mask_b != nullptr && !mask_b[key];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        s[i][c] = past ? -INFINITY : masked ? kMaskFill : s[i][c] * scale;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = fmaxf(s[i][0], s[i][1]);
+#pragma unroll
+      for (int w = 8; w > 0; w /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float alpha = expf(m_run[i] - m_new);
+      const float p0 = expf(s[i][0] - m_new);
+      const float p1 = expf(s[i][1] - m_new);
+      l_run[i] = l_run[i] * alpha + p0 + p1;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][g][e] *= alpha;
+      }
+      p_s[(ty * RM + i) * L::kLdP + tx] = p0;
+      p_s[(ty * RM + i) * L::kLdP + tx + 16] = p1;
+    }
+    __syncwarp();  // a row's probabilities come from the 16 lanes of one half-warp
+
+    // O += P V over the tile's real keys, rounded up to 4
+    const int kv_tile = min(kF32BlockK, n_kv - k0);
+    for (int kk = 0; kk < kv_tile; kk += 4) {
+      float4 pv[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty * RM + i) * L::kLdP + kk);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(v_s + (kk + u) * kLd + 64 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+            o[i][g][0] = fmaf(p, vv.x, o[i][g][0]);
+            o[i][g][1] = fmaf(p, vv.y, o[i][g][1]);
+            o[i][g][2] = fmaf(p, vv.z, o[i][g][2]);
+            o[i][g][3] = fmaf(p, vv.w, o[i][g][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage and p_s are consumed before they are refilled
   }
 
-  if (half == 0) {
-    l_s[row] = l_run;
-    if (q0 + row < n_q) lse[bh * n_q + q0 + row] = m_run + logf(l_run);
-  }
-  __syncwarp();
-
-  T* out_bh = out + bh * n_q * D;
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = warp * kRowsPerWarp + i / D;
-    const int c = i % D;
-    if (q0 + r < n_q) store(out_bh + (size_t)(q0 + r) * D + c, o_s[r * L::kLdO + c] / l_s[r]);
+  float* out_bh = out + bh * n_q * D;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int w = 8; w > 0; w /= 2) l += __shfl_xor_sync(0xffffffffu, l, w);
+    const int r = q0 + ty * RM + i;
+    if (r < n_q) {
+      const float inv = 1.0f / l;
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        *reinterpret_cast<float4*>(out_bh + (size_t)r * D + 64 * g + 4 * tx) =
+            make_float4(o[i][g][0] * inv, o[i][g][1] * inv, o[i][g][2] * inv, o[i][g][3] * inv);
+      }
+      if (tx == 0) lse[bh * n_q + r] = m_run[i] + logf(l);
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   void* lse, int batch, int heads, int n_q, int n_kv, float scale,
-                   cudaStream_t stream) {
-  using L = Layout<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err =
+// ------------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library links no libcuda of its own
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (b h, rows, d) bf16 as a 3-D map with boxes of 64 columns x box_rows rows,
+// 128-byte swizzle; reads past `rows` (the next head's) are zero-filled
+bool encode_bf16_3d(EncodeTiled fn, CUtensorMap* map, const void* base, int d, int rows,
+                    int bh, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {kSwizzleCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int NWG>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out,
+                        void* lse, int batch, int heads, int n_q, int n_kv, float scale,
+                        cudaStream_t stream) {
+  using L = Bf16Smem<D, NWG>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int bh = batch * heads;
+  if (!encode_bf16_3d(fn, &tm_q, q, D, n_q, bh, L::kRowsQ) ||
+      !encode_bf16_3d(fn, &tm_k, k, D, n_kv, bh, kBlockN) ||
+      !encode_bf16_3d(fn, &tm_v, v, D, n_kv, bh, kBlockN)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_bf16<D, NWG>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_q + L::kRowsQ - 1) / L::kRowsQ, heads, batch);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      static_cast<float*>(lse), heads, n_q, n_kv, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       void* lse, int batch, int heads, int n_q, int n_kv, float scale,
+                       cudaStream_t stream) {
+  using L = F32Smem<D>;
+  auto kernel = flash_fwd_f32<D>;
+  const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse),
+  const dim3 grid((n_q + kF32BlockQ - 1) / kF32BlockQ, heads, batch);
+  kernel<<<grid, kF32Threads, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse),
       heads, n_q, n_kv, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   void* lse, int batch, int heads, int n_q, int n_kv, int dtype, int block_q,
+                   float scale, cudaStream_t s) {
+  if (dtype == 1 && block_q == 64) {
+    return launch_bf16<D, 1>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
+  }
+  if (dtype == 1 && block_q == 128) {
+    return launch_bf16<D, 2>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
+  }
+  if (dtype == 0 && block_q == kF32BlockQ) {
+    return launch_f32<D>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns 0 or the cudaError_t of the launch.
+// block_q: query rows per block, 64 or 128 for bfloat16 (one or two
+// consumer warpgroups), 16 for float32. Returns 0 or the cudaError_t of the
+// launch.
 extern "C" int vb_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, void* lse, int batch,
                                       int heads, int n_q, int n_kv, int head_dim, int dtype,
-                                      float scale, void* stream) {
+                                      int block_q, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (head_dim == 64 && dtype == 1) {
-    err = launch<bf16, 64>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
-  } else if (head_dim == 128 && dtype == 1) {
-    err = launch<bf16, 128>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
-  } else if (head_dim == 64 && dtype == 0) {
-    err = launch<float, 64>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
-  } else if (head_dim == 128 && dtype == 0) {
-    err = launch<float, 128>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
+  if (head_dim == 64) {
+    err = launch<64>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
+  } else if (head_dim == 128) {
+    err = launch<128>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
   }
   return static_cast<int>(err);
 }

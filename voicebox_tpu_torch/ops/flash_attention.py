@@ -10,7 +10,8 @@ the same forward:
   second product. With `return_lse=True` it also gives the per-row
   log-sum-exp of the filled logits, from `torch.logsumexp`.
 * `flash_attention` runs K1, the hand-written forward kernel in
-  `csrc/flash_attention_fwd.cu`, on CUDA tensors, inside an autograd
+  `csrc/flash_attention_fwd.cu` (its query-tile height from `k1_block_q`),
+  on CUDA tensors, inside an autograd
   Function whose backward is `attention_delta` (a torch op, as the JAX
   package leaves it to XLA) then K2 (`flash_attention_bwd_dq`) and K3
   (`flash_attention_bwd_dkv`) from `csrc/flash_attention_bwd.cu`. The
@@ -52,6 +53,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",
+    "k1_block_q",
     "reference_attention",
     "reference_attention_backward",
 ]
@@ -132,9 +134,9 @@ def _plain_backward(q, k, v, mask, lse, do, delta, scale):
 
 
 @functools.cache
-def _entry(source: str, symbol: str, n_ptrs: int):
+def _entry(source: str, symbol: str, n_ptrs: int, n_ints: int = 6):
     fn = getattr(kernels.load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -198,18 +200,38 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_k1(q, k, v, mask, scale):
+def k1_block_q(b: int, h: int, n: int, d: int, dtype: torch.dtype, sms: int) -> int:
+    """Query rows per K1 block for a (b, h, n, d) call on a card of `sms`
+    SMs. bf16 takes 128 rows (two consumer warpgroups sharing each K/V
+    tile) at head dim 128 where that grid of ceil(n / 128) x h x b blocks
+    covers at least half the SMs, else 64 (one warpgroup; at head dim 64
+    two of its blocks share an SM). fp32 always takes 16. Measured on the
+    H100 (PERF.md, "K1's tile height")."""
+    if dtype == torch.bfloat16:
+        return 128 if d == 128 and 2 * -(-n // 128) * b * h >= sms else 64
+    return 16
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_k1(q, k, v, mask, scale, block_q=None):
+    """One K1 launch; `block_q` overrides `k1_block_q`'s tile height."""
     _check_operands("K1", q, k, v, mask)
     b, h, n_q, d = q.shape
+    if block_q is None:
+        block_q = k1_block_q(b, h, n_q, d, q.dtype, _sm_count(q.device.index))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, 1, n_q), dtype=torch.float32, device=q.device)
-    entry = _entry(_K1, "vb_flash_attention_fwd", 6)
+    entry = _entry(_K1, "vb_flash_attention_fwd", 6, 7)
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            b, h, n_q, k.shape[2], d, _DTYPES[q.dtype], float(scale), _stream(q),
+            b, h, n_q, k.shape[2], d, _DTYPES[q.dtype], block_q, float(scale), _stream(q),
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
