@@ -10,9 +10,10 @@ imports nothing of JAX. Its phases print one line each or more:
 2. build: K1 (`csrc/flash_attention_fwd.cu`), K2 + K3
    (`csrc/flash_attention_bwd.cu`) and K4 (`csrc/w8a16_matmul.cu`) built by
    nvcc for sm_90a from the checkout, all at once, with the build time and
-   ptxas's registers and spills (K1's per instantiation); fails unless every
-   bf16 instantiation of K1 was compiled to wgmma (`HGMMA`) and TMA loads
-   (`UTMALDG`), counted in `cuobjdump -sass` of the built library;
+   ptxas's registers and spills (K1's, K2's and K3's per instantiation);
+   fails unless every bf16 instantiation of K1, K2 and K3 was compiled to
+   wgmma (`HGMMA`) and TMA loads (`UTMALDG`), counted in `cuobjdump -sass`
+   of the built library, and spills no byte;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
    serving and training shapes, at the quantized engine's denoiser and
    duration-predictor shapes, on masked and ragged inputs and at the edges
@@ -25,10 +26,15 @@ imports nothing of JAX. Its phases print one line each or more:
 4. K2/K3 check: K2 and K3 against the plain backward and against autograd
    of the plain forward, by the largest error and by the error's norm, at
    the training shape (bf16 qk-normed and randn, fp32), the reference head
-   split, ragged n/kv and a fully-masked batch element under qk-norm's
-   scale 10; CUDA-event times of K2, K3, the plain backward and SDPA's
-   backward (each of the two gives dq, dk and dv together), and attention
-   forward + backward through K1/K2/K3 beside SDPA's;
+   split, ragged n/kv, a fully-masked batch element under qk-norm's scale
+   10, and the edges of the bf16 design at head dims 64 and 128 (kv off the
+   64-row tile and off 8, n under one tile, n and kv of 4100 that wrap the
+   ring many times, masked runs inside tiles); a second launch on the same
+   inputs must give bit-identical dq, dk and dv; CUDA-event times of K2,
+   K3, the plain backward and SDPA's backward (each of the two gives dq, dk
+   and dv together) and attention forward + backward through K1/K2/K3
+   beside SDPA's, at the training shape and the reference head split (bf16
+   K2 and K3 have one tile height, 64 owned rows a block);
 5. K4 check: K4 against its plain version at the flagship's four quantized
    (k, n) with the engine's m = 544, 2112 and 8320 rows and m = 1532, in
    bf16 and fp32, and at ragged m;
@@ -190,7 +196,7 @@ K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 # out (2^-8 relative each), in the same places as in the plain backward but
 # not in autograd's fp32, where the rounding of dS, whose row sums cancel,
 # weighs more; fp32: the logits' rounding at scale 10, as for K1.
-# "train_randn_bf16" holds the bf16 (WMMA) code at the training shape on a
+# "train_randn_bf16" holds the bf16 (wgmma) code at the training shape on a
 # soft softmax, where no entry dominates. The empty-row cases mask every key
 # of the last batch element and run qk-normed logits at scale 10, where a
 # masked key's exp(s - lse) overflows.
@@ -203,6 +209,19 @@ K23_CASES = [
     ("ragged_f32", (2, 4, 257, 200, 64), torch.float32, "randn", "random", 1e-4),
     ("empty_row_qk_bf16", (3, 4, 300, 300, 128), torch.bfloat16, "qk", "empty_row", 2e-2),
     ("empty_row_qk_f32", (3, 4, 300, 300, 64), torch.float32, "qk", "empty_row", 1e-4),
+    # the edges of the bf16 design, at both head dims: kv off the 64-row tile
+    # and off 8 (TMA's zero fill, a random mask); n under one 64-row tile; a
+    # kv (K2) and an n (K3) that wrap the 2-stage ring many times; masked
+    # runs inside tiles; a fully-masked element under qk-norm's scale 10
+    *[(f"{case}_d{d}_bf16", (*shape, d), torch.bfloat16, inputs, mask, 2e-2)
+      for d in (64, 128)
+      for case, shape, inputs, mask in (
+          ("ragged_tma", (2, 4, 257, 131), "randn", "random"),
+          ("short_q", (1, 4, 40, 300), "randn", None),
+          ("long_kv", (1, 4, 4100, 4100), "qk", None),
+          ("mid_tile_mask", (8, 4, 600, 600), "qk", "middle"),
+          ("empty_row_qk", (3, 4, 300, 300), "qk", "empty_row"),
+      ) if (case, d) != ("empty_row_qk", 128)],  # "empty_row_qk_bf16" above
 ]
 K23_TIMED = ("train_bf16", "reference_split_bf16")
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
@@ -307,6 +326,12 @@ def phase_device() -> str:
     return smi
 
 
+# the attention sources, the kernels each holds and their bf16
+# instantiations (K1: d 64 and 128 x 64 and 128 query rows; K2, K3: d 64 and
+# 128), every one of which must be wgmma + TMA, with no spill
+ATTENTION_SOURCES = {"flash_attention_fwd": {"k1": 4}, "flash_attention_bwd": {"k2": 2, "k3": 2}}
+
+
 def phase_build() -> None:
     sources = ("flash_attention_fwd", "flash_attention_bwd", "w8a16_matmul")
     t0 = time.perf_counter()
@@ -316,52 +341,65 @@ def phase_build() -> None:
         kernels.load(name)
     dt = time.perf_counter() - t0
     for name, lib in zip(sources, libs):
-        if name == "flash_attention_fwd":
-            for fn, lines in _ptxas_by_kernel(f"{lib}.log").items():
-                log("build", f"{name} {fn}: ptxas: {' | '.join(lines)}")
+        if name not in ATTENTION_SOURCES:
+            ptxas = [
+                line.strip() for line in open(f"{lib}.log")
+                if "registers" in line or "spill" in line
+            ]
+            log("build", f"{name}: {lib.name}; ptxas: {' | '.join(ptxas)}")
             continue
-        ptxas = [
-            line.strip() for line in open(f"{lib}.log")
-            if "registers" in line or "spill" in line
-        ]
-        log("build", f"{name}: {lib.name}; ptxas: {' | '.join(ptxas)}")
+        ptxas = _ptxas_by_kernel(f"{lib}.log")
+        for fn, lines in ptxas.items():
+            log("build", f"{name} {fn}: ptxas: {' | '.join(lines)}")
+        tool, counts = _sass_counts(lib)
+        log("build", f"{name} SASS ({tool}): (HGMMA, UTMALDG) per instantiation {counts}")
+        for kernel, expected in ATTENTION_SOURCES[name].items():
+            bf16 = {fn: c for fn, c in counts.items() if fn.startswith(f"{kernel} bf16")}
+            assert len(bf16) == expected and all(min(c) > 0 for c in bf16.values()), (
+                f"{kernel}'s bf16 code is not wgmma + TMA: {counts}"
+            )
+            spills = {fn: _spill_bytes(ptxas.get(fn, [])) for fn in bf16}
+            assert all(s == 0 for s in spills.values()), f"{kernel} spills: {spills}"
     log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)}: {len(sources)} sources in "
                  f"{dt:.2f} s, built in parallel")
-    tool, counts = _sass_counts(libs[0])
-    log("build", f"flash_attention_fwd SASS ({tool}): (HGMMA, UTMALDG) per instantiation {counts}")
-    bf16 = {fn: c for fn, c in counts.items() if fn.startswith("bf16")}
-    assert len(bf16) == 4 and all(min(c) > 0 for c in bf16.values()), (
-        f"K1's bf16 code is not wgmma + TMA: {counts}"
-    )
 
 
-_K1_KERNEL = re.compile(r"flash_fwd_(bf16|f32)ILi(\d+)E(?:Li(\d+)E)?")
+_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_(bf16|f32)ILi(\d+)E(?:Li(\d+)E)?")
+_KERNEL_TAG = {"fwd": "k1", "bwd_dq": "k2", "bwd_dkv": "k3"}
 
 
-def _k1_instance(mangled: str):
-    """`bf16 d=128 rows=128` from a mangled K1 instantiation, or None."""
-    m = _K1_KERNEL.search(mangled)
+def _instance(mangled: str):
+    """`k2 bf16 d=128 rows=128` from a mangled K1, K2 or K3 instantiation
+    (rows: those a block owns), or None."""
+    m = _KERNEL.search(mangled)
     if m is None:
         return None
-    kind, d, tile = m.groups()
-    rows = int(tile) * 64 if kind == "bf16" else 16
-    return f"{kind} d={d} rows={rows}"
+    which, kind, d, tile = m.groups()
+    kernel = _KERNEL_TAG[which]
+    rows = 16 if (kernel, kind) == ("k1", "f32") else 64 * int(tile or 1)
+    return f"{kernel} {kind} d={d} rows={rows}"
 
 
 def _ptxas_by_kernel(log_path) -> dict:
-    """ptxas's registers, spill and shared-memory lines of each K1
-    instantiation, from the build's log."""
+    """ptxas's registers, spill and shared-memory lines of each attention
+    kernel instantiation, from the build's log."""
     found, current = {}, None
     for line in open(log_path):
         if "Compiling entry function" in line:
-            current = _k1_instance(line)
+            current = _instance(line)
         elif current and ("registers" in line or "spill" in line):
             found.setdefault(current, []).append(line.strip().replace("ptxas info    : ", ""))
     return found
 
 
+def _spill_bytes(lines) -> int:
+    """Spill stores plus loads, in bytes, from ptxas's lines of one kernel."""
+    return sum(int(a) + int(b) for line in lines
+               for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line))
+
+
 def _sass_counts(lib) -> tuple:
-    """(tool, {K1 instantiation: (HGMMA, UTMALDG) instructions}) from
+    """(tool, {attention instantiation: (HGMMA, UTMALDG) instructions}) from
     `cuobjdump -sass` of the built library: the toolkit's, or Triton's copy."""
     candidates = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
     spec = importlib.util.find_spec("triton")
@@ -373,7 +411,7 @@ def _sass_counts(lib) -> tuple:
                           timeout=300, check=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        name = _k1_instance(part.split("\n", 1)[0])
+        name = _instance(part.split("\n", 1)[0])
         if name is not None:
             counts[name] = (part.count("HGMMA"), part.count("UTMALDG"))
     return tool, counts
@@ -549,6 +587,14 @@ def phase_k23_check(smi: str) -> dict:
             line += (f"; fully-masked element: nonzero dq+dk {zero} (want 0), dv vs "
                      f"sum(dO)/kv {dv_err:.2e}")
             ok = ok and zero == 0 and dv_err <= tol
+        # each block owns its outputs and sums in a fixed order: a second
+        # launch on the same inputs gives the same bits
+        again = (flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale),
+                 *flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        line += f"; second launch bit-identical {same}"
+        ok = ok and same
+        del again
         log("k23", line)
         assert ok, f"K2/K3 disagree with the plain backward on {name}"
         results[name] = {"max_abs_err": abs_err, "shape": shape, "dtype": dtype}
@@ -581,12 +627,16 @@ def phase_k23_check(smi: str) -> dict:
             results[name]["bounds"] = {kk: attention_bound(kk, shape, dtype)
                                        for kk in ("k2", "k3")}
             b2, b3 = (results[name]["bounds"][kk][0] for kk in ("k2", "k3"))
-            log("k23", f"time {name}: K2 {t['k2']:.4f} ms (bound {b2:.4f}), K3 "
-                       f"{t['k3']:.4f} ms (bound {b3:.4f}), K2+K3 {t['k2'] + t['k3']:.4f} ms; "
+            pair = t["k2"] + t["k3"]
+            log("k23", f"time {name}: K2 {t['k2']:.4f} ms (bound {b2:.4f}, "
+                       f"{b2 / t['k2']:.1%}), K3 {t['k3']:.4f} ms (bound {b3:.4f}, "
+                       f"{b3 / t['k3']:.1%}), K2+K3 {pair:.4f} ms = "
+                       f"{pair / t['sdpa_bwd']:.2f}x SDPA's backward; "
                        f"dq, dk, dv together: plain backward {t['plain']:.4f} ms, SDPA "
                        f"backward ({sdpa_node}) {t['sdpa_bwd']:.4f} ms; forward + backward: "
                        f"K1+K2+K3 {t['ours_fwd_bwd']:.4f} ms, SDPA {t['sdpa_fwd_bwd']:.4f} ms "
-                       f"(CUDA events, mean of 2 x 10, in turns) on {smi}")
+                       f"(CUDA events, mean of 2 x 10, in turns; bf16 K2/K3 blocks own 64 "
+                       f"rows) on {smi}")
     return results
 
 
@@ -1354,7 +1404,10 @@ def phase_grad_witness(trainer, smi: str) -> None:
     the loss, in the last layer's gradient norm and in the global norm's
     order of magnitude. In fp32 with the qk gains set to 0.25 (logits up to
     80) the gradient is well conditioned and the kernels must match the
-    plain version within WITNESS_TOL."""
+    plain version within WITNESS_TOL; the global norm within the larger of
+    its tolerance and the floor's own distance from 1: at the weights phase
+    10 trains, a 2^-20 change of the plain version's scale can move the
+    global norm by more than 1e-4."""
     batch = trainer._next_batch(trainer.dl_iter)
     names = [n for n, _ in trainer.named_params]
     state = trainer.cfm_wrapper.voicebox.state_dict()
@@ -1404,11 +1457,13 @@ def phase_grad_witness(trainer, smi: str) -> None:
                              and 1e-2 <= gap["norm"] <= 1e2)
             else:
                 loss_tol, norm_tol, cos_tol = WITNESS_TOL
+                norm_tol = max(norm_tol, *(abs(f["norm"] - 1) for f in floors))
                 ok = ok and (gap["loss"] <= loss_tol and abs(gap["norm"] - 1) <= norm_tol
                              and gap["cos"] > cos_tol
                              and min(c for _, c in gap["leaves"].values()) > cos_tol)
-                log("witness", f"{name}: tol loss {loss_tol:g}, global norm {norm_tol:g}, "
-                               f"cosines > {cos_tol:g}")
+                log("witness", f"{name}: tol loss {loss_tol:g}, global norm {norm_tol:.3g} "
+                               f"(the larger of {WITNESS_TOL[1]:g} and the floor's), cosines > "
+                               f"{cos_tol:g}")
             if not ok:
                 failed.append(name)
             del plain
@@ -1471,6 +1526,17 @@ def engine_rows(k1: dict, k4: dict, tally) -> list:
              "library": "cuBLAS bf16 on the weight dequantized ahead of time"}]
 
 
+def _k23_timed_row(r: dict, kernel: str) -> dict:
+    """K2's or K3's numbers at one timed shape of phase 4 (the plain version
+    and SDPA's backward give dq, dk and dv together)."""
+    bound_ms, bound_by = r["bounds"][kernel]
+    t = r["times"]
+    return {"shape": list(r["shape"]), "dtype": str(r["dtype"])[6:], "ms": t[kernel],
+            "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t["sdpa_bwd"], "fwd_bwd_ms": t["ours_fwd_bwd"],
+            "library_fwd_bwd_ms": t["sdpa_fwd_bwd"]}
+
+
 def kernel_line(k1, k23, serve_k1, engine, train_counts) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
     serving shape), on the quantized duration-mode path (`engine_rows`: the
@@ -1491,19 +1557,16 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts) -> str:
         })
     rows += engine[:2]
     train = k23["train_bf16"]
-    t = train["times"]
     for kk in ("k2", "k3"):
-        bound_ms, bound_by = train["bounds"][kk]
         rows.append({
             "name": NAMES[kk], "path": "train", "route": "cuda", "source": SOURCES[kk],
             "replaces": REPLACES[kk], "launches": train_counts[kk],
             # K3's error is the larger of dk's and dv's
             "max_abs_err": train["max_abs_err"][0] if kk == "k2" else max(
                 train["max_abs_err"][1:]),
-            "ms": t[kk], "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": t["sdpa_bwd"],
+            **_k23_timed_row(train, kk),
             "plain_and_library_compute": "dq, dk and dv together",
-            "fwd_bwd_ms": t["ours_fwd_bwd"], "library_fwd_bwd_ms": t["sdpa_fwd_bwd"],
+            "reference_split": _k23_timed_row(k23["reference_split_bf16"], kk),
         })
     rows.append(engine[2])
     return json.dumps({"kernels": rows})

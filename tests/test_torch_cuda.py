@@ -137,17 +137,31 @@ def test_attention_module_card_matches_cpu(cuda_device):
 
 
 # bf16: P and dS are rounded to bf16 before their products, in another order
-# than the plain version's sums; fp32: rounding only
+# than the plain version's sums; fp32: rounding only. The shapes are K1's
+# edges: K2 streams 64-key tiles and K3 64-row query tiles through the same
+# kind of TMA ring, with the same zero fill past n and kv
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
-def test_k2_k3_match_plain_backward(cuda_device, dtype, tol, d):
+@pytest.mark.parametrize("b,h,n,kv", K1_SHAPES)
+def test_k2_k3_match_plain_backward(cuda_device, dtype, tol, d, b, h, n, kv):
     q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
-                     for t in _qkv(cuda_device, d=d))
+                     for t in _qkv(cuda_device, b, h, n, kv, d=d))
     got, ref, _ = _backward(q, k, v, mask)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
         torch.testing.assert_close(a.float(), b.float(), atol=tol * b.float().abs().max().item(),
                                    rtol=tol, msg=name)
+
+
+# each block owns its output rows and sums in a fixed order: no atomics
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_are_deterministic(cuda_device, dtype):
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _qkv(cuda_device, 2, 4, 600, 600, d=128))
+    first, _, _ = _backward(q, k, v, mask)
+    second, _, _ = _backward(q, k, v, mask)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_k2_k3_fully_masked_rows_follow_the_plain_softmax(cuda_device):

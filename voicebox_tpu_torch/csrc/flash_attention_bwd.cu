@@ -27,108 +27,96 @@
 // What bounds them on the H100. At the training shape (batch 8, 4 heads, 768
 // rows and keys, head dim 128, bf16) K2 does 6 b h n kv d = 14.5 GFLOP over
 // ~31 MB (q, k, v, dO read, dQ written) and K3 8 b h n kv d = 19.3 GFLOP over
-// ~38 MB: both far above the card's bf16 ridge (~295 FLOP per byte), so on
-// paper bound by the tensor cores (~15 and ~20 us at 989 TFLOP/s). This
-// first version is bound by latency instead: WMMA 16x16x16 (not wgmma), the
-// scores make a round trip through shared memory for the elementwise pass,
-// and the tile loads are not overlapped with the math.
+// ~38 MB: both far above the card's bf16 ridge (~295 FLOP per byte), so the
+// tensor cores bound them (~15 and ~20 us at 989 TFLOP/s).
 //
-// What the design does about it, and what it keeps simple:
-//  * K2 is one block per (batch, head, 64-row query tile) and loops over
-//    64-key K/V tiles; K3 is one block per (batch, head, 64-key tile) and
-//    loops over 64-row Q/dO tiles. Each block owns its output rows: no
-//    atomics, deterministic sums. At the training shape each launches
-//    12 x 4 x 8 = 384 blocks of 4 warps (16 rows each) over 132 SMs;
-//  * there is no running max to rescale, so in bf16 the dQ, dK and dV
-//    accumulators stay in WMMA fragments (fp32) across the whole loop and
-//    leave through shared memory once, at the end;
-//  * fp32 inputs use scalar FMAs (exact to fp32 rounding, for the card-vs-CPU
-//    checks) and accumulate straight into their fp32 outputs, which each
-//    block owns: no fragment or staging buffer;
-//  * shared memory holds the block's own two tiles, the two streamed tiles,
-//    the fp32 S and dP tiles and the P and dS tiles in the input dtype
-//    (aliased onto S and dP in fp32): 124 KB in bf16 and 171 KB in fp32 at
-//    d = 128, so the launch raises the dynamic shared-memory limit first and
-//    returns its error code;
-//  * it launches on the caller's stream and allocates nothing.
-// wgmma, TMA, a pipelined tile ring and fusing K2 into K3 with atomic dQ are
-// later work.
+// bf16, what the design does about it (K1's building blocks, hopper.cuh):
+//  * two kernels and no atomics: K2 is one block per (batch, head, 64 query
+//    rows), K3 one block per (batch, head, 64 keys); each block owns its
+//    output rows, so dQ, dK and dV are the same bit for bit from run to run.
+//    One consumer warpgroup a block: at the training shape and the
+//    reference head split, 128 owned rows on two warpgroups (a whole
+//    producer warpgroup and setmaxnreg, as K1 has) lost to the 64-row
+//    blocks or tied with them, so only the 64-row blocks are built;
+//  * the owned tiles (K2: Q and dO; K3: K and V) arrive once by TMA; a
+//    producer warp streams the other two (K2: K and V; K3: Q and dO) in
+//    64-row tiles through a 2-stage ring of full/empty mbarriers, 128-byte
+//    swizzle, zero fill past n or kv. In K3 the producer warp also puts the
+//    tile's 64 lse and delta values into the stage with plain loads, and
+//    each of its 32 lanes arrives on the full barrier after its stores;
+//  * each consumer warpgroup runs the two score products as SS wgmma
+//    (m64n64k16, both operands K-major): K2 S = Q K^T and dP = dO V^T, K3
+//    S^T = K Q^T and dP^T = V dO^T. P and dS are computed on the fp32
+//    accumulators in registers, repacked to bf16 A registers, and fed to
+//    the RS wgmma that accumulates the gradients with the streamed tile read
+//    MN-major (the transpose bit): K2 dQ += dS K, K3 dV += P^T dO and
+//    dK += dS^T Q. The one swizzled tile serves as a K-major B and as an
+//    MN-major B. No score, probability or gradient tile passes through
+//    shared memory;
+//  * dQ, dK and dV stay in fp32 registers across the whole loop and are
+//    stored once, as bf16 pairs; rows past n or kv are not stored.
+// fp32 keeps the scalar code of the first port (exact to fp32 rounding, for
+// the card-vs-CPU checks): 64-row tiles of 4 warps, scalar FMAs, the
+// gradients accumulated straight into their fp32 outputs, which each block
+// owns. Both launch on the caller's stream and allocate nothing; the host
+// encodes the four tensor maps of a bf16 launch on each call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int kBlockM = kWarps * kRowsPerWarp;  // rows a block owns
-constexpr int kBlockN = 64;                      // rows of each streamed tile
 constexpr float kMaskFill = -0.7f * 3.402823466e38f;
 constexpr float kEmptyRowLse = 0.5f * kMaskFill;  // below: every key was masked
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------ fp32: kernels
+
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = kF32Warps * 32;
+constexpr int kRowsPerWarp = 16;
+constexpr int kF32BlockM = kF32Warps * kRowsPerWarp;  // rows a block owns
+constexpr int kF32BlockN = 64;                         // rows of each streamed tile
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Shared-memory layout, in bytes. Row pitches are padded by 8 bf16 (16 B) or
-// 4 floats, which keeps WMMA's 32-byte alignment and 16-byte vector stores.
-// A and B are the block's own tiles (K2: Q, dO; K3: K, V), C and D the
-// streamed ones (K2: K, V; K3: Q, dO). S and dP are fp32 (kBlockM x kBlockN);
-// P and dS hold the same tiles in the input dtype, on top of S and dP in fp32
-// (each element is read and rewritten by the one thread that owns it).
-// Row state: per streamed row (K2: keys, K3: query rows) a flag, and in K3
-// the query rows' lse and delta.
-template <typename T, int D>
-struct Layout {
-  static constexpr bool kAlias = sizeof(T) == 4;
-  static constexpr int kPad = sizeof(T) == 2 ? 8 : 4;
-  static constexpr int kLdIn = D + kPad;
-  static constexpr int kLdS = kBlockN + 4;
-  static constexpr int kLdP = kBlockN + kPad;  // == kLdS in fp32
-  static constexpr int kLdStage = D + 4;       // fp32 accumulators on the way out
-  static constexpr int kTile = align128(kBlockM * kLdIn * (int)sizeof(T));
+// Shared-memory layout, in bytes. Row pitches are padded by 4 floats. A and
+// B are the block's own tiles (K2: Q, dO; K3: K, V), C and D the streamed
+// ones (K2: K, V; K3: Q, dO). S and dP (kF32BlockM x kF32BlockN); P and dS
+// overwrite them (each element is read and rewritten by the one thread that
+// owns it). Row state: per streamed row (K2: keys, K3: query rows) a flag,
+// and in K3 the query rows' lse and delta.
+template <int D>
+struct F32Layout {
+  static constexpr int kLdIn = D + 4;
+  static constexpr int kLdS = kF32BlockN + 4;
+  static constexpr int kTile = align128(kF32BlockM * kLdIn * 4);
   static constexpr int kA = 0;
   static constexpr int kB = kA + kTile;
   static constexpr int kC = kB + kTile;
   static constexpr int kD = kC + kTile;
-  static constexpr int kS = kD + kTile;
-  static constexpr int kDP = kS + align128(kBlockM * kLdS * 4);
-  static constexpr int kFp32End = kDP + align128(kBlockM * kLdS * 4);
-  static constexpr int kP = kAlias ? kS : kFp32End;
-  static constexpr int kDS = kAlias ? kDP : kP + align128(kBlockM * kLdP * (int)sizeof(T));
-  static constexpr int kFlag = kAlias ? kFp32End : kDS + align128(kBlockM * kLdP * (int)sizeof(T));
-  static constexpr int kOwnFlag = kFlag + align128(kBlockN * 4);
-  static constexpr int kLse = kOwnFlag + align128(kBlockM * 4);
-  static constexpr int kDelta = kLse + align128(kBlockN * 4);
-  static constexpr int kBytes = kDelta + align128(kBlockN * 4);
-  // bf16 accumulators leave through the tile regions: one staged matrix
-  // fits over A and B, two over A..D
-  static_assert(kAlias || kBlockM * kLdStage * 4 <= kC, "staging exceeds A and B");
-  static_assert(kAlias || 2 * kBlockM * kLdStage * 4 <= kS, "staging exceeds A..D");
-  static_assert(kLdP == kLdS || !kAlias, "fp32 P and dS must alias S and dP");
+  static constexpr int kS = kD + kTile;  // S, then P
+  static constexpr int kDP = kS + align128(kF32BlockM * kLdS * 4);  // dP, then dS
+  static constexpr int kFlag = kDP + align128(kF32BlockM * kLdS * 4);
+  static constexpr int kOwnFlag = kFlag + align128(kF32BlockN * 4);
+  static constexpr int kLse = kOwnFlag + align128(kF32BlockM * 4);
+  static constexpr int kDelta = kLse + align128(kF32BlockN * 4);
+  static constexpr int kBytes = kDelta + align128(kF32BlockN * 4);
 };
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
 
 // rows [row0, row0 + ROWS) of a (n_rows, D) matrix into a padded tile; rows
 // past n_rows are zero so that p = 0 never meets a stale value
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int kLd = Layout<T, D>::kLdIn;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+  constexpr int kChunks = D / 4;
+  constexpr int kLd = F32Layout<D>::kLdIn;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kF32Threads) {
     const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
+    const int c = (i % kChunks) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows) {
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
@@ -137,31 +125,13 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
   }
 }
 
-// c (16 x kBlockN, fp32) = a (16 rows) . b (kBlockN rows)^T over D
-template <int D>
-__device__ __forceinline__ void gemm_abt(const bf16* a, const bf16* b, float* c, int lane) {
-  using L = Layout<bf16, D>;
-  for (int j = 0; j < kBlockN / 16; ++j) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, L::kLdIn);
-      wmma::load_matrix_sync(fb, b + j * 16 * L::kLdIn + kk * 16, L::kLdIn);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + j * 16, acc, L::kLdS, wmma::mem_row_major);
-  }
-}
-
+// c (16 x kF32BlockN) = a (16 rows) . b (kF32BlockN rows)^T over D
 template <int D>
 __device__ __forceinline__ void gemm_abt(const float* a, const float* b, float* c, int lane) {
-  using L = Layout<float, D>;
-  for (int i = lane; i < kRowsPerWarp * kBlockN; i += 32) {
-    const int r = i / kBlockN;
-    const int col = i % kBlockN;
+  using L = F32Layout<D>;
+  for (int i = lane; i < kRowsPerWarp * kF32BlockN; i += 32) {
+    const int r = i / kF32BlockN;
+    const int col = i % kF32BlockN;
     const float* ar = a + r * L::kLdIn;
     const float* br = b + col * L::kLdIn;
     float acc = 0.0f;
@@ -171,39 +141,22 @@ __device__ __forceinline__ void gemm_abt(const float* a, const float* b, float* 
   }
 }
 
-// acc (16 x D, fragments) += p (16 x kBlockN) . b (kBlockN x D)
-template <int D>
-__device__ __forceinline__ void gemm_ab_acc(const bf16* p, const bf16* b, Acc (&acc)[D / 16]) {
-  using L = Layout<bf16, D>;
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, p + kk * 16, L::kLdP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * L::kLdIn + j * 16, L::kLdIn);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// fp32: out rows [row0, row0 + 16) of an (n_rows, D) fp32 matrix += p . b.
+// out rows [row0, row0 + 16) of an (n_rows, D) fp32 matrix += p . b.
 // Lane i always owns the same elements, so the read-modify-write needs no
 // synchronisation.
 template <int D>
 __device__ __forceinline__ void gemm_ab_acc_out(const float* p, const float* b,
                                                 float* __restrict__ out, int row0,
                                                 int n_rows, int lane) {
-  using L = Layout<float, D>;
+  using L = F32Layout<D>;
   for (int i = lane; i < kRowsPerWarp * D; i += 32) {
     const int r = i / D;
     const int c = i % D;
     if (row0 + r >= n_rows) continue;
-    const float* pr = p + r * L::kLdP;
+    const float* pr = p + r * L::kLdS;
     float acc = 0.0f;
 #pragma unroll 8
-    for (int kk = 0; kk < kBlockN; ++kk) acc = fmaf(pr[kk], b[kk * L::kLdIn + c], acc);
+    for (int kk = 0; kk < kF32BlockN; ++kk) acc = fmaf(pr[kk], b[kk * L::kLdIn + c], acc);
     out[(size_t)(row0 + r) * D + c] += acc;
   }
 }
@@ -215,24 +168,6 @@ __device__ __forceinline__ void zero_rows(float* __restrict__ out, int row0, int
   for (int i = lane; i < kRowsPerWarp * D; i += 32) {
     const int r = i / D;
     if (row0 + r < n_rows) out[(size_t)(row0 + r) * D + i % D] = 0.0f;
-  }
-}
-
-// the warp's 16 rows of fragments -> rows [row0, row0 + 16) of out (n_rows, D),
-// through an fp32 staging tile in shared memory
-template <int D>
-__device__ __forceinline__ void store_acc(Acc (&acc)[D / 16], float* stage, bf16* out,
-                                          int row0, int n_rows, int lane) {
-  using L = Layout<bf16, D>;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage + j * 16, acc[j], L::kLdStage, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = i / D;
-    const int c = i % D;
-    if (row0 + r < n_rows) store(out + (size_t)(row0 + r) * D + c, stage[r * L::kLdStage + c]);
   }
 }
 
@@ -264,40 +199,39 @@ __device__ __forceinline__ void p_ds(float s, float dp, int row, int key, float 
   ds = p * (dp - delta) * scale;
 }
 
-// K2: grid (query tiles, heads, batch). q, dout, dq (b, h, n_q, D); k, v
+// K2, fp32: grid (query tiles, heads, batch). q, dout, dq (b, h, n_q, D); k, v
 // (b, h, n_kv, D); mask (b, n_kv) bytes or null; lse, delta (b, h, n_q) fp32.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int heads,
-                        int n_q, int n_kv, float scale) {
-  using L = Layout<T, D>;
-  constexpr bool kF32 = L::kAlias;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::kA);
-  T* do_s = reinterpret_cast<T*>(smem + L::kB);
-  T* k_s = reinterpret_cast<T*>(smem + L::kC);
-  T* v_s = reinterpret_cast<T*>(smem + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem + L::kDP);
-  T* ds_s = reinterpret_cast<T*>(smem + L::kDS);
-  int* key_s = reinterpret_cast<int*>(smem + L::kFlag);
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq, int heads,
+                     int n_q, int n_kv, float scale) {
+  using L = F32Layout<D>;
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* q_s = reinterpret_cast<float*>(smem_f32 + L::kA);
+  float* do_s = reinterpret_cast<float*>(smem_f32 + L::kB);
+  float* k_s = reinterpret_cast<float*>(smem_f32 + L::kC);
+  float* v_s = reinterpret_cast<float*>(smem_f32 + L::kD);
+  float* s_s = reinterpret_cast<float*>(smem_f32 + L::kS);
+  float* dp_s = reinterpret_cast<float*>(smem_f32 + L::kDP);
+  float* ds_s = dp_s;
+  int* key_s = reinterpret_cast<int*>(smem_f32 + L::kFlag);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = blockIdx.x * kF32BlockM;
   const int batch = blockIdx.z;
   const size_t bh = (size_t)batch * heads + blockIdx.y;
-  const T* k_bh = k + bh * n_kv * D;
-  const T* v_bh = v + bh * n_kv * D;
-  T* dq_bh = dq + bh * n_q * D;
+  const float* k_bh = k + bh * n_kv * D;
+  const float* v_bh = v + bh * n_kv * D;
+  float* dq_bh = dq + bh * n_q * D;
   const int wrow0 = q0 + warp * kRowsPerWarp;  // the warp's first query row
   const float inv_kv = 1.0f / (float)n_kv;
 
-  load_tile<T, D, kBlockM>(q_s, q + bh * n_q * D, q0, n_q);
-  load_tile<T, D, kBlockM>(do_s, dout + bh * n_q * D, q0, n_q);
+  load_tile<D, kF32BlockM>(q_s, q + bh * n_q * D, q0, n_q);
+  load_tile<D, kF32BlockM>(do_s, dout + bh * n_q * D, q0, n_q);
 
   // lanes 2r and 2r+1 own query row r of the warp's 16, each over half the keys
   const int row = warp * kRowsPerWarp + lane / 2;
@@ -307,19 +241,15 @@ __global__ void __launch_bounds__(kThreads)
   const float delta_r = valid ? delta[bh * n_q + q0 + row] : 0.0f;
   const int rflag = row_flag(lse_r, valid);
 
-  Acc acc[D / 16];
-  if constexpr (kF32) {
-    zero_rows<D>(reinterpret_cast<float*>(dq_bh), wrow0, n_q, lane);
-  } else {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  }
+  zero_rows<D>(dq_bh, wrow0, n_q, lane);
 
-  for (int k0 = 0; k0 < n_kv; k0 += kBlockN) {
+  for (int k0 = 0; k0 < n_kv; k0 += kF32BlockN) {
     __syncthreads();  // the previous tile's K, V and flags are consumed
-    load_tile<T, D, kBlockN>(k_s, k_bh, k0, n_kv);
-    load_tile<T, D, kBlockN>(v_s, v_bh, k0, n_kv);
-    if (threadIdx.x < kBlockN) key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
+    load_tile<D, kF32BlockN>(k_s, k_bh, k0, n_kv);
+    load_tile<D, kF32BlockN>(v_s, v_bh, k0, n_kv);
+    if (threadIdx.x < kF32BlockN) {
+      key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
+    }
     __syncthreads();
 
     const int wr = warp * kRowsPerWarp;
@@ -328,82 +258,61 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
 
 #pragma unroll 4
-    for (int j = 0; j < kBlockN / 2; ++j) {
-      const int c = half * (kBlockN / 2) + j;
+    for (int j = 0; j < kF32BlockN / 2; ++j) {
+      const int c = half * (kF32BlockN / 2) + j;
       float p, ds;
       p_ds(s_s[row * L::kLdS + c], dp_s[row * L::kLdS + c], rflag, key_s[c], lse_r, delta_r,
            scale, inv_kv, p, ds);
-      store(ds_s + row * L::kLdP + c, ds);
+      ds_s[row * L::kLdS + c] = ds;
     }
     __syncwarp();
 
-    if constexpr (kF32) {
-      gemm_ab_acc_out<D>(reinterpret_cast<const float*>(ds_s) + wr * L::kLdP,
-                         reinterpret_cast<const float*>(k_s),
-                         reinterpret_cast<float*>(dq_bh), wrow0, n_q, lane);
-    } else {
-      gemm_ab_acc<D>(ds_s + wr * L::kLdP, k_s, acc);
-    }
-  }
-
-  if constexpr (!kF32) {
-    __syncthreads();  // every warp is done with Q and dO: stage over them
-    float* stage = reinterpret_cast<float*>(smem + L::kA) + warp * kRowsPerWarp * L::kLdStage;
-    store_acc<D>(acc, stage, dq_bh, wrow0, n_q, lane);
+    gemm_ab_acc_out<D>(ds_s + wr * L::kLdS, k_s, dq_bh, wrow0, n_q, lane);
   }
 }
 
-// K3: grid (key tiles, heads, batch); same operands, dk and dv (b, h, n_kv, D).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int heads, int n_q, int n_kv, float scale) {
-  using L = Layout<T, D>;
-  constexpr bool kF32 = L::kAlias;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem + L::kA);
-  T* v_s = reinterpret_cast<T*>(smem + L::kB);
-  T* q_s = reinterpret_cast<T*>(smem + L::kC);
-  T* do_s = reinterpret_cast<T*>(smem + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem + L::kDP);
-  T* p_s = reinterpret_cast<T*>(smem + L::kP);
-  T* ds_s = reinterpret_cast<T*>(smem + L::kDS);
-  int* row_s = reinterpret_cast<int*>(smem + L::kFlag);
-  int* own_key_s = reinterpret_cast<int*>(smem + L::kOwnFlag);
-  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::kDelta);
+// K3, fp32: grid (key tiles, heads, batch); same operands, dk and dv (b, h, n_kv, D).
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int heads, int n_q, int n_kv, float scale) {
+  using L = F32Layout<D>;
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  float* k_s = reinterpret_cast<float*>(smem_f32 + L::kA);
+  float* v_s = reinterpret_cast<float*>(smem_f32 + L::kB);
+  float* q_s = reinterpret_cast<float*>(smem_f32 + L::kC);
+  float* do_s = reinterpret_cast<float*>(smem_f32 + L::kD);
+  float* s_s = reinterpret_cast<float*>(smem_f32 + L::kS);
+  float* dp_s = reinterpret_cast<float*>(smem_f32 + L::kDP);
+  float* p_s = s_s;
+  float* ds_s = dp_s;
+  int* row_s = reinterpret_cast<int*>(smem_f32 + L::kFlag);
+  int* own_key_s = reinterpret_cast<int*>(smem_f32 + L::kOwnFlag);
+  float* lse_s = reinterpret_cast<float*>(smem_f32 + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(smem_f32 + L::kDelta);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * kBlockM;
+  const int k0 = blockIdx.x * kF32BlockM;
   const int batch = blockIdx.z;
   const size_t bh = (size_t)batch * heads + blockIdx.y;
-  const T* q_bh = q + bh * n_q * D;
-  const T* do_bh = dout + bh * n_q * D;
-  T* dk_bh = dk + bh * n_kv * D;
-  T* dv_bh = dv + bh * n_kv * D;
+  const float* q_bh = q + bh * n_q * D;
+  const float* do_bh = dout + bh * n_q * D;
+  float* dk_bh = dk + bh * n_kv * D;
+  float* dv_bh = dv + bh * n_kv * D;
   const int wkey0 = k0 + warp * kRowsPerWarp;  // the warp's first key
   const float inv_kv = 1.0f / (float)n_kv;
 
-  load_tile<T, D, kBlockM>(k_s, k + bh * n_kv * D, k0, n_kv);
-  load_tile<T, D, kBlockM>(v_s, v + bh * n_kv * D, k0, n_kv);
-  if (threadIdx.x < kBlockM) own_key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
-
-  Acc acc_dk[D / 16], acc_dv[D / 16];
-  if constexpr (kF32) {
-    zero_rows<D>(reinterpret_cast<float*>(dk_bh), wkey0, n_kv, lane);
-    zero_rows<D>(reinterpret_cast<float*>(dv_bh), wkey0, n_kv, lane);
-  } else {
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fill_fragment(acc_dk[j], 0.0f);
-      wmma::fill_fragment(acc_dv[j], 0.0f);
-    }
+  load_tile<D, kF32BlockM>(k_s, k + bh * n_kv * D, k0, n_kv);
+  load_tile<D, kF32BlockM>(v_s, v + bh * n_kv * D, k0, n_kv);
+  if (threadIdx.x < kF32BlockM) {
+    own_key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
   }
+  zero_rows<D>(dk_bh, wkey0, n_kv, lane);
+  zero_rows<D>(dv_bh, wkey0, n_kv, lane);
   __syncthreads();
 
   // lanes 2r and 2r+1 own key r of the warp's 16, each over half the query rows
@@ -411,11 +320,11 @@ __global__ void __launch_bounds__(kThreads)
   const int half = lane % 2;
   const int kflag = own_key_s[key];
 
-  for (int q0 = 0; q0 < n_q; q0 += kBlockN) {
+  for (int q0 = 0; q0 < n_q; q0 += kF32BlockN) {
     __syncthreads();  // the previous tile's Q, dO and row state are consumed
-    load_tile<T, D, kBlockN>(q_s, q_bh, q0, n_q);
-    load_tile<T, D, kBlockN>(do_s, do_bh, q0, n_q);
-    if (threadIdx.x < kBlockN) {
+    load_tile<D, kF32BlockN>(q_s, q_bh, q0, n_q);
+    load_tile<D, kF32BlockN>(do_s, do_bh, q0, n_q);
+    if (threadIdx.x < kF32BlockN) {
       const int r = q0 + threadIdx.x;
       const bool valid = r < n_q;
       const float l = valid ? lse[bh * n_q + r] : 0.0f;
@@ -431,38 +340,421 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
 
 #pragma unroll 4
-    for (int j = 0; j < kBlockN / 2; ++j) {
-      const int c = half * (kBlockN / 2) + j;
+    for (int j = 0; j < kF32BlockN / 2; ++j) {
+      const int c = half * (kF32BlockN / 2) + j;
       float p, ds;
       p_ds(s_s[key * L::kLdS + c], dp_s[key * L::kLdS + c], row_s[c], kflag, lse_s[c],
            delta_s[c], scale, inv_kv, p, ds);
-      store(p_s + key * L::kLdP + c, p);
-      store(ds_s + key * L::kLdP + c, ds);
+      p_s[key * L::kLdS + c] = p;
+      ds_s[key * L::kLdS + c] = ds;
     }
     __syncwarp();
 
-    if constexpr (kF32) {
-      gemm_ab_acc_out<D>(reinterpret_cast<const float*>(p_s) + wk * L::kLdP,
-                         reinterpret_cast<const float*>(do_s),
-                         reinterpret_cast<float*>(dv_bh), wkey0, n_kv, lane);
-      gemm_ab_acc_out<D>(reinterpret_cast<const float*>(ds_s) + wk * L::kLdP,
-                         reinterpret_cast<const float*>(q_s),
-                         reinterpret_cast<float*>(dk_bh), wkey0, n_kv, lane);
-    } else {
-      gemm_ab_acc<D>(p_s + wk * L::kLdP, do_s, acc_dv);
-      gemm_ab_acc<D>(ds_s + wk * L::kLdP, q_s, acc_dk);
-    }
-  }
-
-  if constexpr (!kF32) {
-    __syncthreads();  // every warp is done with the tiles: stage over them
-    float* stage = reinterpret_cast<float*>(smem + L::kA);
-    float* stage_dk = stage + warp * kRowsPerWarp * L::kLdStage;
-    float* stage_dv = stage + (kBlockM + warp * kRowsPerWarp) * L::kLdStage;
-    store_acc<D>(acc_dk, stage_dk, dk_bh, wkey0, n_kv, lane);
-    store_acc<D>(acc_dv, stage_dv, dv_bh, wkey0, n_kv, lane);
+    gemm_ab_acc_out<D>(p_s + wk * L::kLdS, do_s, dv_bh, wkey0, n_kv, lane);
+    gemm_ab_acc_out<D>(ds_s + wk * L::kLdS, q_s, dk_bh, wkey0, n_kv, lane);
   }
 }
+
+// ------------------------------------------------------------ bf16: layout
+
+constexpr int kRows = 64;    // rows of every tile, owned or streamed
+constexpr int kStages = 2;   // ring depth
+constexpr int kThreads = 128 + 32;  // one consumer warpgroup, then the producer warp
+
+// Shared memory in bytes, at a 1024-byte aligned base. Each 64-row operand
+// tile is stored as D / 64 column chunks of (64 x 64) bf16, 128 bytes a row,
+// in TMA's 128-byte swizzle: the two owned tiles (K2: Q, dO; K3: K, V), then
+// kStages stages, each a streamed pair (K2: K, V; K3: Q, dO) and, in K3, the
+// pair's 64 lse and 64 delta values.
+template <int D>
+struct Bf16Smem {
+  static constexpr int kChunks = D / kSwizzleCols;
+  static constexpr int kChunk = kRows * 128;
+  static constexpr int kTile = kChunks * kChunk;
+  static constexpr int kRowState = 1024;  // lse, delta: 2 x 64 floats, padded
+  static constexpr int kStage = 2 * kTile + kRowState;
+  static constexpr int kRing = 2 * kTile;  // after the owned pair
+  static constexpr int kBytes = kRing + kStages * kStage;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+// 64 x 64 scores: acc = A (the 64 owned rows, K-major) times B^T (a
+// streamed 64-row tile, K-major), over D in steps of 16
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[32], uint32_t a_base, uint32_t b_base) {
+  using L = Bf16Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;  // 32 bytes along a 128-byte row
+    wgmma_ss_n64(acc, sw128_desc(a_base + (kk / 4) * L::kChunk + off, 16, 1024),
+                 sw128_desc(b_base + (kk / 4) * L::kChunk + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x D) += A (64 x 64, bf16 registers) times a streamed 64-row tile
+// read MN-major, in steps of 16 of its rows
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b_base) {
+  using L = Bf16Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<D>(acc, a[kk], sw128_desc(b_base + kk * 16 * 128, L::kChunk, 1024));
+  }
+}
+
+// a 64 x 64 fp32 accumulator as four bf16 A operands of 16 columns each: the
+// accumulator layout is the A-register layout
+__device__ __forceinline__ void repack(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+  }
+}
+
+// rows r and r + 8 of the warpgroup's 64 x D accumulator (this thread's part)
+// into out (n_rows, D) as bf16 pairs; rows past n_rows are not stored
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* __restrict__ out,
+                                           int r, int quad, int n_rows) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (r + 8 * j >= n_rows) continue;
+    bf16* dst = out + (size_t)(r + 8 * j) * D + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * j], acc[4 * i + 2 * j + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p of one element from its unscaled logit s, with scale_l2 = scale log2(e)
+// and lse_l2 = lse log2(e) (-inf on a fully-masked row: the fill overflows,
+// but no such row reaches the exp). keep: a real, unmasked key of a valid
+// row that has one; uniform: a real key of a fully-masked row
+__device__ __forceinline__ float prob(float s, float scale_l2, float lse_l2, bool keep,
+                                      bool uniform, float inv_kv) {
+  return keep ? ex2(fmaf(s, scale_l2, -lse_l2)) : (uniform ? inv_kv : 0.0f);
+}
+
+// ------------------------------------------------------------- bf16: K2
+
+// grid: (query tiles of 64 rows, heads, batch). Warpgroup 0 consumes; warp 4
+// issues the loads. q, dout, dq (b, h, n_q, D) and k, v (b, h, n_kv, D)
+// through 3-D tensor maps (D, rows, b h); mask (b, n_kv) bytes or null; lse,
+// delta (b, h, n_q) fp32. Two blocks share an SM (at most 204 registers a
+// thread).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq, int heads,
+                      int n_q, int n_kv, float scale) {
+  using L = Bf16Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  __shared__ __align__(8) uint64_t own_bar;
+  uint8_t* smem = align1024(smem_raw);
+
+  const int batch = blockIdx.z;
+  const int bh = batch * heads + blockIdx.y;
+  const int n_tiles = (n_kv + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 128);
+    }
+    mbar_init(&own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: Q and dO once, then K and V tiles through the ring
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(&own_bar, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c) {
+        const int row0 = blockIdx.x * kRows;
+        tma_load_3d(smem + c * L::kChunk, &tm_q, &own_bar, c * kSwizzleCols, row0, bh);
+        tma_load_3d(smem + L::kTile + c * L::kChunk, &tm_do, &own_bar, c * kSwizzleCols,
+                    row0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        uint8_t* stage = smem + L::kRing + s * L::kStage;
+        mbar_wait(&empty_bar[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full_bar[s], 2 * L::kTile);
+#pragma unroll
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_3d(stage + c * L::kChunk, &tm_k, &full_bar[s], c * kSwizzleCols,
+                      t * kRows, bh);
+          tma_load_3d(stage + L::kTile + c * L::kChunk, &tm_v, &full_bar[s],
+                      c * kSwizzleCols, t * kRows, bh);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 query rows. In wgmma's accumulator layout this
+    // thread owns rows r and r + 8 and, in each 8-column block i, columns
+    // 8 i + 2 (lane % 4) + {0, 1}: element [4 i + 2 j + c].
+    const int lane = threadIdx.x % 32;
+    const int quad = lane % 4;
+    const int r = blockIdx.x * kRows + (threadIdx.x / 32) * 16 + lane / 4;
+    uint32_t q_base = smem_u32(smem);
+    uint32_t do_base = smem_u32(smem + L::kTile);
+    const float scale_l2 = scale * kLog2e;
+    const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+
+    // this thread's two rows: lse log2(e), delta; rows past n and
+    // fully-masked rows (uniform p, ds = 0) take no part in dQ
+    float lse_r[2], delta_r[2];
+    bool live[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = r + 8 * j;
+      const bool valid = row < n_q;
+      lse_r[j] = valid ? lse[(size_t)bh * n_q + row] * kLog2e : 0.0f;
+      delta_r[j] = valid ? delta[(size_t)bh * n_q + row] : 0.0f;
+      live[j] = valid && !(lse_r[j] < kEmptyRowLse);
+    }
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+
+    mbar_wait(&own_bar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      // the owned tiles' descriptors are made anew in each tile, not held
+      // in registers across the loop
+      asm volatile("" : "+r"(q_base), "+r"(do_base));
+      mbar_wait(&full_bar[s], (t / kStages) & 1);
+      const uint32_t k_base = smem_u32(smem + L::kRing + s * L::kStage);
+      const uint32_t v_base = k_base + L::kTile;
+
+      float sc[32], dp[32];
+      wgmma_fence();
+      scores<D>(sc, q_base, k_base);   // S = Q K^T
+      scores<D>(dp, do_base, v_base);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP - delta) scale on kept keys of live rows, 0 elsewhere
+      const int k0 = t * kRows;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + 8 * i + 2 * quad + c;
+          const bool kept = key < n_kv && (mask_b == nullptr || mask_b[key]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = 4 * i + 2 * j + c;
+            const bool keep = kept && live[j];
+            const float p = prob(sc[e], scale_l2, lse_r[j], keep, false, 0.0f);
+            dp[e] = keep ? p * (dp[e] - delta_r[j]) * scale : 0.0f;
+          }
+        }
+      }
+      uint32_t ds_a[4][4];
+      repack(dp, ds_a);
+
+      wgmma_fence();
+      accumulate<D>(dq_acc, ds_a, k_base);  // dQ += dS K, K read MN-major
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
+    }
+    store_rows<D>(dq_acc, dq + (size_t)bh * n_q * D, r, quad, n_q);
+  }
+}
+
+// ------------------------------------------------------------- bf16: K3
+
+// grid: (key tiles of 64 keys, heads, batch); the same operands, dk and dv
+// (b, h, n_kv, D). Two blocks share an SM at d = 64; at d = 128 dK and dV
+// alone take 128 registers a thread, and one block takes the SM.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int heads, int n_q, int n_kv, float scale) {
+  using L = Bf16Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  __shared__ __align__(8) uint64_t own_bar;
+  uint8_t* smem = align1024(smem_raw);
+
+  const int batch = blockIdx.z;
+  const int bh = batch * heads + blockIdx.y;
+  const int n_tiles = (n_q + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA's expect_tx and one arrival from each producer lane after
+      // its lse and delta stores
+      mbar_init(&full_bar[s], 1 + 32);
+      mbar_init(&empty_bar[s], 128);
+    }
+    mbar_init(&own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: K and V once, then Q and dO tiles and their rows'
+    // lse and delta through the ring
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(&own_bar, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c) {
+        const int row0 = blockIdx.x * kRows;
+        tma_load_3d(smem + c * L::kChunk, &tm_k, &own_bar, c * kSwizzleCols, row0, bh);
+        tma_load_3d(smem + L::kTile + c * L::kChunk, &tm_v, &own_bar, c * kSwizzleCols,
+                    row0, bh);
+      }
+    }
+    const float* lse_bh = lse + (size_t)bh * n_q;
+    const float* delta_bh = delta + (size_t)bh * n_q;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      uint8_t* stage = smem + L::kRing + s * L::kStage;
+      float* lse_s = reinterpret_cast<float*>(stage + 2 * L::kTile);
+      mbar_wait(&empty_bar[s], ((t / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * lane + e;
+        const int row = t * kRows + i;
+        const bool valid = row < n_q;
+        lse_s[i] = valid ? lse_bh[row] * kLog2e : 0.0f;
+        lse_s[kRows + i] = valid ? delta_bh[row] : 0.0f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full_bar[s], 2 * L::kTile);
+#pragma unroll
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_3d(stage + c * L::kChunk, &tm_q, &full_bar[s], c * kSwizzleCols,
+                      t * kRows, bh);
+          tma_load_3d(stage + L::kTile + c * L::kChunk, &tm_do, &full_bar[s],
+                      c * kSwizzleCols, t * kRows, bh);
+        }
+      }
+      mbar_arrive(&full_bar[s]);  // releases this lane's stores
+    }
+  } else {
+    // consumer warpgroup: 64 keys, rows r and r + 8 of the accumulators
+    // (keys); the columns are query rows
+    const int lane = threadIdx.x % 32;
+    const int quad = lane % 4;
+    const int r = blockIdx.x * kRows + (threadIdx.x / 32) * 16 + lane / 4;
+    uint32_t k_base = smem_u32(smem);
+    uint32_t v_base = smem_u32(smem + L::kTile);
+    const float scale_l2 = scale * kLog2e;
+    const float inv_kv = 1.0f / (float)n_kv;
+
+    bool real[2], kept[2];  // this thread's two keys
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = r + 8 * j;
+      real[j] = key < n_kv;
+      kept[j] = real[j] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
+    }
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+    mbar_wait(&own_bar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      asm volatile("" : "+r"(k_base), "+r"(v_base));  // as in K2
+      mbar_wait(&full_bar[s], (t / kStages) & 1);
+      const uint8_t* stage = smem + L::kRing + s * L::kStage;
+      const uint32_t q_base = smem_u32(stage);
+      const uint32_t do_base = q_base + L::kTile;
+      const float* lse_s = reinterpret_cast<const float*>(stage + 2 * L::kTile);
+      const float* delta_s = lse_s + kRows;
+
+      float st[32], dpt[32];
+      wgmma_fence();
+      scores<D>(st, k_base, q_base);    // S^T = K Q^T
+      scores<D>(dpt, v_base, do_base);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T; column 8 i + 2 quad + c is query row row0 + that, its
+      // lse (times log2(e), from the producer) and delta in the stage
+      const int row0 = t * kRows;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * quad;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float l = c ? l2.y : l2.x;
+          const float dl = c ? d2.y : d2.x;
+          const bool valid = row0 + col + c < n_q;
+          const bool empty = l < kEmptyRowLse;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = 4 * i + 2 * j + c;
+            const bool keep = valid && !empty && kept[j];
+            const float p = prob(st[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
+            dpt[e] = keep ? p * (dpt[e] - dl) * scale : 0.0f;
+            st[e] = p;
+          }
+        }
+      }
+      uint32_t p_a[4][4], ds_a[4][4];
+      repack(st, p_a);
+      repack(dpt, ds_a);
+
+      wgmma_fence();
+      accumulate<D>(dv_acc, p_a, do_base);  // dV += P^T dO, dO read MN-major
+      accumulate<D>(dk_acc, ds_a, q_base);  // dK += dS^T Q, Q read MN-major
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
+    }
+    store_rows<D>(dk_acc, dk + (size_t)bh * n_kv * D, r, quad, n_kv);
+    store_rows<D>(dv_acc, dv + (size_t)bh * n_kv * D, r, quad, n_kv);
+  }
+}
+
+// ------------------------------------------------------------------- host
 
 struct Args {
   const void *q, *k, *v, *mask, *dout, *lse, *delta;
@@ -471,35 +763,84 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  using L = Layout<T, D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+// the four maps of a bf16 launch, each in boxes of 64 rows
+template <int D>
+cudaError_t encode_maps(const Args& a, CUtensorMap (&m)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const int bh = a.batch * a.heads;
+  const bool ok = encode_bf16_3d(fn, &m[0], a.q, D, a.n_q, bh, kRows) &&
+                  encode_bf16_3d(fn, &m[1], a.k, D, a.n_kv, bh, kRows) &&
+                  encode_bf16_3d(fn, &m[2], a.v, D, a.n_kv, bh, kRows) &&
+                  encode_bf16_3d(fn, &m[3], a.dout, D, a.n_q, bh, kRows);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a, void* dq) {
+  using L = Bf16Smem<D>;
+  CUtensorMap m[4];
+  cudaError_t err = encode_maps<D>(a, m);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_q + kBlockM - 1) / kBlockM, a.heads, a.batch);
-  kernel<<<grid, kThreads, L::kBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+  auto kernel = flash_bwd_dq_bf16<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_q + kRows - 1) / kRows, a.heads, a.batch);
+  kernel<<<grid, kThreads, L::kAlloc, a.stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dq), a.heads, a.n_q, a.n_kv, a.scale);
+      static_cast<bf16*>(dq), a.heads, a.n_q, a.n_kv, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  using L = Layout<T, D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+template <int D>
+cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
+  using L = Bf16Smem<D>;
+  CUtensorMap m[4];
+  cudaError_t err = encode_maps<D>(a, m);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dkv_bf16<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_kv + kRows - 1) / kRows, a.heads, a.batch);
+  kernel<<<grid, kThreads, L::kAlloc, a.stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.heads, a.n_q, a.n_kv, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_f32(const Args& a, void* dq) {
+  using L = F32Layout<D>;
+  auto kernel = flash_bwd_dq_f32<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_kv + kBlockM - 1) / kBlockM, a.heads, a.batch);
-  kernel<<<grid, kThreads, L::kBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), a.heads, a.n_q, a.n_kv, a.scale);
+  const dim3 grid((a.n_q + kF32BlockM - 1) / kF32BlockM, a.heads, a.batch);
+  kernel<<<grid, kF32Threads, L::kBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<float*>(dq), a.heads, a.n_q, a.n_kv,
+      a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
+  using L = F32Layout<D>;
+  auto kernel = flash_bwd_dkv_f32<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_kv + kF32BlockM - 1) / kF32BlockM, a.heads, a.batch);
+  kernel<<<grid, kF32Threads, L::kBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      a.heads, a.n_q, a.n_kv, a.scale);
   return cudaGetLastError();
 }
 
@@ -514,10 +855,10 @@ extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   const Args a{q, k, v, mask, dout, lse, delta, batch, heads, n_q, n_kv, scale,
                static_cast<cudaStream_t>(stream)};
-  if (head_dim == 64 && dtype == 1) return launch_dq<bf16, 64>(a, dq);
-  if (head_dim == 128 && dtype == 1) return launch_dq<bf16, 128>(a, dq);
-  if (head_dim == 64 && dtype == 0) return launch_dq<float, 64>(a, dq);
-  if (head_dim == 128 && dtype == 0) return launch_dq<float, 128>(a, dq);
+  if (head_dim == 64 && dtype == 1) return launch_dq_bf16<64>(a, dq);
+  if (head_dim == 128 && dtype == 1) return launch_dq_bf16<128>(a, dq);
+  if (head_dim == 64 && dtype == 0) return launch_dq_f32<64>(a, dq);
+  if (head_dim == 128 && dtype == 0) return launch_dq_f32<128>(a, dq);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -528,9 +869,9 @@ extern "C" int vb_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                                           int dtype, float scale, void* stream) {
   const Args a{q, k, v, mask, dout, lse, delta, batch, heads, n_q, n_kv, scale,
                static_cast<cudaStream_t>(stream)};
-  if (head_dim == 64 && dtype == 1) return launch_dkv<bf16, 64>(a, dk, dv);
-  if (head_dim == 128 && dtype == 1) return launch_dkv<bf16, 128>(a, dk, dv);
-  if (head_dim == 64 && dtype == 0) return launch_dkv<float, 64>(a, dk, dv);
-  if (head_dim == 128 && dtype == 0) return launch_dkv<float, 128>(a, dk, dv);
+  if (head_dim == 64 && dtype == 1) return launch_dkv_bf16<64>(a, dk, dv);
+  if (head_dim == 128 && dtype == 1) return launch_dkv_bf16<128>(a, dk, dv);
+  if (head_dim == 64 && dtype == 0) return launch_dkv_f32<64>(a, dk, dv);
+  if (head_dim == 128 && dtype == 0) return launch_dkv_f32<128>(a, dk, dv);
   return static_cast<int>(cudaErrorInvalidValue);
 }

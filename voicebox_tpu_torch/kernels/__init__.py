@@ -3,8 +3,9 @@
 Each kernel is one `.cu` file under `voicebox_tpu_torch/csrc/` with a plain C
 entry point. At first use it is compiled with nvcc for `sm_90a` into a shared
 library under `build/kernels/` at the root of the checkout and loaded with
-ctypes. The library's file name carries a hash of the source and the flags,
-so an edited source never loads a stale library. Nothing is built or loaded
+ctypes. The library's file name carries a hash of the source, of the headers
+it includes (`#include "..."`, found beside it) and of the flags, so an
+edited source or header never loads a stale library. Nothing is built or loaded
 when this module is imported: the CPU tests import every module, and a
 machine without nvcc never reaches a build.
 """
@@ -15,11 +16,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "source_digest"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,15 +46,36 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path) -> str:
+    """The key of a kernel library: a hash of the source, of every header it
+    includes with quotes (resolved beside the including file, recursively,
+    each once) and of the nvcc flags."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(path: Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + data + b"\0")
+        for inc in _INCLUDE.findall(data):
+            add((path.parent / inc.decode()).resolve())
+
+    add(Path(src).resolve())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless a library of the same source and flags
-    exists; returns the library's path. The compiler's report (ptxas -v) is
-    written beside it as `<library>.log`."""
+    """Compile `csrc/<name>.cu` unless a library of the same source, headers
+    and flags exists; returns the library's path. The compiler's report
+    (ptxas -v) is written beside it as `<library>.log`."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_digest(src)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
