@@ -10,10 +10,10 @@ imports nothing of JAX. Its phases print one line each or more:
 2. build: K1 (`csrc/flash_attention_fwd.cu`), K2 + K3
    (`csrc/flash_attention_bwd.cu`) and K4 (`csrc/w8a16_matmul.cu`) built by
    nvcc for sm_90a from the checkout, all at once, with the build time and
-   ptxas's registers and spills (K1's, K2's and K3's per instantiation);
-   fails unless every bf16 instantiation of K1, K2 and K3 was compiled to
-   wgmma (`HGMMA`) and TMA loads (`UTMALDG`), counted in `cuobjdump -sass`
-   of the built library, and spills no byte;
+   ptxas's registers and spills per instantiation; fails unless every bf16
+   instantiation of K1, K2, K3 and K4 was compiled to wgmma (`HGMMA`) and
+   TMA loads (`UTMALDG`), counted in `cuobjdump -sass` of the built
+   library, and spills no byte;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
    serving and training shapes, at the quantized engine's denoiser and
    duration-predictor shapes, on masked and ragged inputs and at the edges
@@ -36,11 +36,15 @@ imports nothing of JAX. Its phases print one line each or more:
    beside SDPA's, at the training shape and the reference head split (bf16
    K2 and K3 have one tile height, 64 owned rows a block);
 5. K4 check: K4 against its plain version at the flagship's four quantized
-   (k, n) with the engine's m = 544, 2112 and 8320 rows and m = 1532, in
-   bf16 and fp32, and at ragged m;
-   CUDA-event times of K4, the plain version, cuBLAS on the weight
-   dequantized to bf16 ahead of time and, where it runs on CUDA,
-   `torch._weight_int8pack_mm`;
+   (k, n) with the engine's m = 544, 2112 and 8320 rows, m = 1532 and the
+   ragged m = 37 and 1, in bf16 and fp32, bf16 at every tile `k4_tile`
+   can pick; x as the engine hands it over (rows at the GEGLU's pitch of
+   1376 at k = 1365) at the front of a buffer that is NaN in the pitch and
+   past its end, and a contiguous (1, 1365) x; n = 2730 (y's rows off 16
+   bytes); a second launch must give the same bits; CUDA-event times of
+   K4 at the host's tile and at each tile, the plain version, cuBLAS on the
+   weight dequantized to bf16 ahead of time and, where it runs on CUDA,
+   `torch._weight_int8pack_mm`, with K4's share of its bound;
 6. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
    and on the CPU (the plain version) from the same weights and noise;
    latents, RVQ codes and audio compared; then the same sampled with
@@ -74,10 +78,11 @@ imports nothing of JAX. Its phases print one line each or more:
    `VoiceBoxTrainer`: 2 warm-up steps, then timed steps, each with exactly
    24 K1, 24 K2 and 24 K3 launches and a finite loss and gradient norm;
    steps/s, the profiled idle share of one step and peak memory;
-11. witness: the flagship's gradient on the trained weights through
-   K1/K2/K3 against the plain attention on the card, same batch and draws,
-   in bf16 and fp32 compute, with unit qk gains and gains of 0.25, beside
-   the noise floor of the plain version against itself;
+11. witness: the flagship's gradient through K1/K2/K3 against the plain
+   attention on the card, on the seeded weights as they were before phase
+   10 trained them, same batch and draws, in bf16 and fp32 compute, with
+   unit qk gains and gains of 0.25, beside the noise floor of the plain
+   version against itself;
 12. one JSON line for the kernels (one row per kernel and main path; on the
    quantized path, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
@@ -111,7 +116,7 @@ from voicebox_tpu_torch import kernels
 from voicebox_tpu_torch.models import attention as attention_module
 from voicebox_tpu_torch.models.codec import EncodecVoco
 from voicebox_tpu_torch.models.encodec import ResidualVQ
-from voicebox_tpu_torch.models.primitives import l2norm
+from voicebox_tpu_torch.models.primitives import GEGLU, l2norm
 from voicebox_tpu_torch.models.vocos import Vocos
 from voicebox_tpu_torch.ops.flash_attention import (
     _launch_k1,
@@ -123,7 +128,15 @@ from voicebox_tpu_torch.ops.flash_attention import (
     reference_attention,
     reference_attention_backward,
 )
-from voicebox_tpu_torch.ops.quant import QuantLinear, w8a16_matmul, w8a16_matmul_reference
+from voicebox_tpu_torch.ops.quant import (
+    K4_TILES,
+    QuantLinear,
+    _launch_k4,
+    _x_rows,
+    k4_tile,
+    w8a16_matmul,
+    w8a16_matmul_reference,
+)
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 
 SEED = 0
@@ -326,14 +339,16 @@ def phase_device() -> str:
     return smi
 
 
-# the attention sources, the kernels each holds and their bf16
-# instantiations (K1: d 64 and 128 x 64 and 128 query rows; K2, K3: d 64 and
-# 128), every one of which must be wgmma + TMA, with no spill
-ATTENTION_SOURCES = {"flash_attention_fwd": {"k1": 4}, "flash_attention_bwd": {"k2": 2, "k3": 2}}
+# the kernel sources, the kernels each holds and their bf16 instantiations
+# (K1: d 64 and 128 x 64 and 128 query rows; K2, K3: d 64 and 128; K4: 64
+# and 128 channels x 64, 128 and 256 rows), every one of which must be
+# wgmma + TMA, with no spill
+SOURCES_BF16 = {"flash_attention_fwd": {"k1": 4}, "flash_attention_bwd": {"k2": 2, "k3": 2},
+                "w8a16_matmul": {"k4": len(K4_TILES[torch.bfloat16])}}
 
 
 def phase_build() -> None:
-    sources = ("flash_attention_fwd", "flash_attention_bwd", "w8a16_matmul")
+    sources = tuple(SOURCES_BF16)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         libs = list(pool.map(kernels.build, sources))
@@ -341,19 +356,12 @@ def phase_build() -> None:
         kernels.load(name)
     dt = time.perf_counter() - t0
     for name, lib in zip(sources, libs):
-        if name not in ATTENTION_SOURCES:
-            ptxas = [
-                line.strip() for line in open(f"{lib}.log")
-                if "registers" in line or "spill" in line
-            ]
-            log("build", f"{name}: {lib.name}; ptxas: {' | '.join(ptxas)}")
-            continue
         ptxas = _ptxas_by_kernel(f"{lib}.log")
         for fn, lines in ptxas.items():
             log("build", f"{name} {fn}: ptxas: {' | '.join(lines)}")
         tool, counts = _sass_counts(lib)
         log("build", f"{name} SASS ({tool}): (HGMMA, UTMALDG) per instantiation {counts}")
-        for kernel, expected in ATTENTION_SOURCES[name].items():
+        for kernel, expected in SOURCES_BF16[name].items():
             bf16 = {fn: c for fn, c in counts.items() if fn.startswith(f"{kernel} bf16")}
             assert len(bf16) == expected and all(min(c) > 0 for c in bf16.values()), (
                 f"{kernel}'s bf16 code is not wgmma + TMA: {counts}"
@@ -366,14 +374,20 @@ def phase_build() -> None:
 
 _KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_(bf16|f32)ILi(\d+)E(?:Li(\d+)E)?")
 _KERNEL_TAG = {"fwd": "k1", "bwd_dq": "k2", "bwd_dkv": "k3"}
+_K4_KERNEL = re.compile(r"w8a16_(bf16|f32)(?:ILi(\d+)ELi(\d+)E)?")
 
 
 def _instance(mangled: str):
     """`k2 bf16 d=128 rows=128` from a mangled K1, K2 or K3 instantiation
-    (rows: those a block owns), or None."""
+    (rows: those a block owns), `k4 bf16 channels=128 rows=256` from a K4
+    one (its tile of y), or None."""
     m = _KERNEL.search(mangled)
     if m is None:
-        return None
+        m = _K4_KERNEL.search(mangled)
+        if m is None:
+            return None
+        kind, wgs, rows = m.groups()
+        return f"k4 {kind} channels={64 * int(wgs or 1)} rows={rows or 64}"
     which, kind, d, tile = m.groups()
     kernel = _KERNEL_TAG[which]
     rows = 16 if (kernel, kind) == ("k1", "f32") else 64 * int(tile or 1)
@@ -381,8 +395,8 @@ def _instance(mangled: str):
 
 
 def _ptxas_by_kernel(log_path) -> dict:
-    """ptxas's registers, spill and shared-memory lines of each attention
-    kernel instantiation, from the build's log."""
+    """ptxas's registers, spill and shared-memory lines of each kernel
+    instantiation, from the build's log."""
     found, current = {}, None
     for line in open(log_path):
         if "Compiling entry function" in line:
@@ -399,7 +413,7 @@ def _spill_bytes(lines) -> int:
 
 
 def _sass_counts(lib) -> tuple:
-    """(tool, {attention instantiation: (HGMMA, UTMALDG) instructions}) from
+    """(tool, {kernel instantiation: (HGMMA, UTMALDG) instructions}) from
     `cuobjdump -sass` of the built library: the toolkit's, or Triton's copy."""
     candidates = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
     spec = importlib.util.find_spec("triton")
@@ -671,13 +685,33 @@ def k4_bound(m: int, k: int, n: int, dtype) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _k4_operands(m, k, n, dtype, gen):
+# x as the engine hands it to K4: rows at the pitch a w8a16 copy's GEGLU
+# writes (16 elements: 1376 for k = 1365, k itself for k = 512), at the
+# front of a buffer whose pitch columns and tail are NaN, so that a read
+# past k or past m shows as NaN in y. Pitch 1 gives a contiguous x.
+K4_PITCH = 16
+K4_NAN_TAIL = 4096  # NaN elements past x's last row
+
+
+def _k4_operands(m, k, n, dtype, gen, pitch=K4_PITCH):
     layer = torch.nn.Linear(k, n, bias=False, device="cuda")
     with torch.no_grad():
         layer.weight.copy_(torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5)
     ql = QuantLinear(layer, "w8a16")
-    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    ldx = -(-k // pitch) * pitch
+    buf = torch.full((m * ldx + K4_NAN_TAIL,), float("nan"), dtype=dtype, device="cuda")
+    x = buf[: m * ldx].view(m, ldx)[:, :k]
+    x.copy_(torch.randn(m, k, generator=gen, device="cuda"))
     return x, ql
+
+
+def _k4_call(x, ql, tile=None):
+    """One call of K4 on (x, ql): through `w8a16_matmul` at the host's tile,
+    or at `tile` (rows, channels)."""
+    if tile is None:
+        return lambda: w8a16_matmul(x, ql.weight_q, ql.weight_scale)
+    x2, ldx = _x_rows(x)
+    return lambda: _launch_k4(x2, ldx, ql.weight_q, ql.weight_scale, tile)
 
 
 def _int8pack_mm(x, ql):
@@ -700,51 +734,116 @@ def _int8pack_mm(x, ql):
     return (lambda: torch._weight_int8pack_mm(x, w, scales)), None
 
 
+def phase_k4_host_time(rounds: int = 5) -> None:
+    """Host microseconds of one K4 call at the engine's batch-1 to_out shape
+    (544, 512, 512), in turns: `w8a16_matmul` (what `QuantLinear` calls),
+    `_launch_k4` on bf16 operands (which encodes two tensor maps) and on fp32
+    copies of them (the same host path, no tensor map); and the feed-forward's
+    GEGLU at batch 1 (2 x 272 tokens, 2 x 1365 wide) at the w8a16 copy's row
+    pitch of 16 beside the contiguous one."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x, ql = _k4_operands(544, 512, 512, torch.bfloat16, gen)
+    x2, ldx = _x_rows(x)
+    xf = x2.float()
+    w, sc = ql.weight_q, ql.weight_scale
+    h = torch.randn(2, 272, 2730, generator=gen, device="cuda").to(torch.bfloat16)
+    pitched, plain = GEGLU(row_pitch=16), GEGLU()
+    calls = {
+        "w8a16_matmul bf16": lambda: w8a16_matmul(x, w, sc),
+        "_launch_k4 bf16 (2 tensor maps encoded)": lambda: _launch_k4(x2, ldx, w, sc),
+        "_launch_k4 fp32 (no tensor map)": lambda: _launch_k4(xf, 512, w, sc),
+        "GEGLU pitched": lambda: pitched(h),
+        "GEGLU contiguous": lambda: plain(h),
+    }
+    us = {label: [] for label in calls}
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            us[label].append(host_us(fn))
+    log("k4", "host time of one call (544, 512, 512): " + "; ".join(
+        f"{label} median {np.median(t):.2f} us, min {min(t):.2f}" for label, t in us.items())
+        + f" (host clock over 200 calls queued behind a device sleep, no synchronize, "
+          f"{rounds} rounds in turns)")
+
+
 def phase_k4_check(smi: str) -> dict:
+    """K4 against its plain version: every (k, n) of K4_SHAPES at every m of
+    K4_ROWS and K4_RAGGED_ROWS, bf16 and fp32, x pitched (k = 1365) and
+    NaN past its end, bf16 at every tile the C entry point takes; a second
+    launch must give the same bits. A contiguous (1, 1365) x and, in fp32,
+    a contiguous (37, 1365) one. Times at the bf16 shapes of K4_ROWS: K4 at
+    the host's tile, the plain version, cuBLAS on the weight dequantized to
+    bf16 ahead of time, `_weight_int8pack_mm` where it runs, and K4 at each
+    tile, in turns."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
-    cases = [(name, m, dtype) for name in K4_SHAPES for m in K4_ROWS
-             for dtype in (torch.bfloat16, torch.float32)]
-    cases += [("ff_proj_out", m, dtype) for m in K4_RAGGED_ROWS
-              for dtype in (torch.bfloat16, torch.float32)]
-    for name, m, dtype in cases:
+    cases = [(name, m, dtype, K4_PITCH) for name in K4_SHAPES
+             for m in K4_ROWS + K4_RAGGED_ROWS for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("ff_proj_out", 1, torch.bfloat16, 1), ("ff_proj_out", 1, torch.float32, 1),
+              ("ff_proj_out", 37, torch.float32, 1)]
+    for name, m, dtype, pitch in cases:
         k, n = K4_SHAPES[name]
-        x, ql = _k4_operands(m, k, n, dtype, gen)
-        y = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
-        ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
-        torch.cuda.synchronize()
+        x, ql = _k4_operands(m, k, n, dtype, gen, pitch)
+        ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale).float()
         rtol, atol = K4_TOL[dtype]
-        err = (y.float() - ref.float()).abs()
-        peak = ref.float().abs().max().item()
-        ok = bool(torch.isfinite(y).all()) and bool(
-            (err <= rtol * ref.float().abs() + atol * peak).all())
-        log("k4", f"{name} (m, k, n) = ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err "
-                  f"{err.max().item():.3e} (max |plain| {peak:.3e}; tol rtol {rtol:g} + atol "
-                  f"{atol:g} x max|plain|)")
+        peak = ref.abs().max().item()
+        chosen = k4_tile(m, n, dtype, sms)
+        errs, ok = {}, True
+        for tile in K4_TILES[dtype]:
+            call = _k4_call(x, ql, None if tile == chosen else tile)
+            y, again = call(), call()
+            torch.cuda.synchronize()
+            err = (y.float() - ref).abs()
+            same = torch.equal(y, again)
+            good = bool(torch.isfinite(y).all()) and bool((err <= rtol * ref.abs()
+                                                           + atol * peak).all())
+            errs[tile] = err.max().item()
+            ok = ok and good and same
+            if not (good and same):
+                log("k4", f"FAIL {name} m={m} {str(dtype)[6:]} tile {tile}: max_abs_err "
+                          f"{errs[tile]:.3e}, finite {bool(torch.isfinite(y).all())}, second "
+                          f"launch bit-identical {same}")
+        x_kind = (f"x rows {x.stride(0)} apart, NaN past them" if pitch > 1 or m == 1
+                  else "x contiguous, NaN past it")
+        log("k4", f"{name} (m, k, n) = ({m}, {k}, {n}) {str(dtype)[6:]}, {x_kind}: max_abs_err "
+                  f"by tile (rows x channels) "
+                  + ", ".join(f"{r}x{c} {e:.3e}" + (" <- chosen" if (r, c) == chosen else "")
+                              for (r, c), e in errs.items())
+                  + f" (max |plain| {peak:.3e}; tol rtol {rtol:g} + atol {atol:g} x max|plain|);"
+                    f" second launches bit-identical")
         assert ok, f"K4 disagrees with the plain version on {name} m={m} {dtype}"
         if dtype != torch.bfloat16 or m not in K4_ROWS:
             continue
         w_deq = (ql.weight_q[:n, :k].float() * ql.weight_scale[:, None]).to(dtype)
         fns = {
             "plain": lambda: w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale),
-            "k4": lambda: w8a16_matmul(x, ql.weight_q, ql.weight_scale),
+            "k4": _k4_call(x, ql),
             "cublas": lambda: F.linear(x, w_deq),
         }
         int8pack, why = _int8pack_mm(x, ql)
         if int8pack is not None:
             fns["int8pack"] = int8pack
         t = in_turns(fns)
+        tiles = in_turns({tile: _k4_call(x, ql, tile) for tile in K4_TILES[dtype]})
         bound_ms, bound_by = k4_bound(m, k, n, dtype)
-        results[(m, k, n)] = dict(shape=(m, k, n), ms=t["k4"], plain_ms=t["plain"],
-                                  library_ms=t["cublas"], int8pack_ms=t.get("int8pack"),
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  max_abs_err=err.max().item())
+        results[(m, k, n)] = dict(
+            shape=(m, k, n), ms=t["k4"], plain_ms=t["plain"], library_ms=t["cublas"],
+            int8pack_ms=t.get("int8pack"), bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=errs[chosen], tile=list(chosen), share_of_bound=bound_ms / t["k4"],
+            vs_library=t["k4"] / t["cublas"],
+            tile_ms={f"{r}x{c}": ms for (r, c), ms in tiles.items()})
         pack = (f"{t['int8pack']:.4f} ms" if int8pack is not None
                 else f"not run ({why})")
-        log("k4", f"time {name} ({m}, {k}, {n}) bf16: K4 {t['k4']:.4f} ms, plain "
+        log("k4", f"time {name} ({m}, {k}, {n}) bf16: K4 {t['k4']:.4f} ms at tile "
+                  f"{chosen[0]}x{chosen[1]} ({bound_ms / t['k4']:.1%} of the bound "
+                  f"{bound_ms:.4f} ms, {bound_by}; {t['k4'] / t['cublas']:.2f}x cuBLAS), plain "
                   f"{t['plain']:.4f} ms, cuBLAS on the bf16-dequantized weight "
-                  f"{t['cublas']:.4f} ms, _weight_int8pack_mm {pack}, bound {bound_ms:.4f} ms "
-                  f"({bound_by}) (CUDA events, mean of 2 x 20, in turns) on {smi}")
+                  f"{t['cublas']:.4f} ms, _weight_int8pack_mm {pack}; K4 by tile (rows x "
+                  f"channels, blocks): " + ", ".join(
+                      f"{r}x{c} {ms:.4f} ms ({-(-m // r) * -(-n // c)})"
+                      for (r, c), ms in tiles.items())
+                  + f" (CUDA events, mean of 2 x 20, in turns, {sms} SMs) on {smi}")
+    phase_k4_host_time()
     return results
 
 
@@ -1263,6 +1362,9 @@ def phase_train(smi: str) -> dict:
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
 
     cfm = seeded(build, SEED + 6)
+    # the weights before any step, for the gradient witness (phase 11): the
+    # kernels under test train them here
+    untrained = {k: v.detach().to("cpu", copy=True) for k, v in cfm.voicebox.state_dict().items()}
     rs = np.random.RandomState(SEED + 7)
     items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
               rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
@@ -1325,7 +1427,7 @@ def phase_train(smi: str) -> dict:
     log("train", f"profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
                  f"{prof['busy_ms']:.2f} ms over {prof['kernels']} kernels; largest (name, "
                  f"ms, calls): {'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
-    return counts, trainer
+    return counts, trainer, untrained
 
 
 WITNESS_DELTA = 2.0 ** -20  # the noise floor's change of the attention scale
@@ -1389,13 +1491,15 @@ def _fmt_gap(g: dict) -> str:
 WITNESS_TOL = (1e-5, 1e-4, 0.9999)
 
 
-def phase_grad_witness(trainer, smi: str) -> None:
+def phase_grad_witness(trainer, untrained: dict, smi: str) -> None:
     """The flagship's gradient through K1/K2/K3 against the plain attention
-    on the card: the trainer's weights, one training batch and the same
-    draws, computing in bf16 (the trained configuration) and in fp32 (the
-    same weights in a VoiceBox computing in fp32). The noise floor is the
-    plain attention against itself with its scale moved by 2^-20 either way,
-    a change the size of the logits' summation-order rounding.
+    on the card: the seeded flagship's weights as they were before phase 10
+    trained them through the kernels under test (`untrained`), one training
+    batch and the same draws, computing in bf16 (the trained configuration)
+    and in fp32 (the same weights in a VoiceBox computing in fp32). The
+    noise floor is the plain attention against itself with its scale moved
+    by 2^-20 either way, a change the size of the logits' summation-order
+    rounding.
 
     With unit qk gains (logits up to 10 d), and in bf16 whatever the gains,
     the floor shows that no two computations of this gradient agree in its
@@ -1404,13 +1508,12 @@ def phase_grad_witness(trainer, smi: str) -> None:
     the loss, in the last layer's gradient norm and in the global norm's
     order of magnitude. In fp32 with the qk gains set to 0.25 (logits up to
     80) the gradient is well conditioned and the kernels must match the
-    plain version within WITNESS_TOL; the global norm within the larger of
-    its tolerance and the floor's own distance from 1: at the weights phase
-    10 trains, a 2^-20 change of the plain version's scale can move the
-    global norm by more than 1e-4."""
+    plain version within WITNESS_TOL. The floor's own distance from 1 in
+    the global norm is printed beside its limit; should it exceed the limit
+    at these weights, the check holds the norm to the floor and says so."""
     batch = trainer._next_batch(trainer.dl_iter)
     names = [n for n, _ in trainer.named_params]
-    state = trainer.cfm_wrapper.voicebox.state_dict()
+    trainer.cfm_wrapper.voicebox.load_state_dict(untrained)
 
     def build_f32():
         vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.float32, param_dtype=torch.float32,
@@ -1418,7 +1521,7 @@ def phase_grad_witness(trainer, smi: str) -> None:
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
 
     cfm32 = seeded(build_f32, SEED + 8)
-    cfm32.voicebox.load_state_dict(state)
+    cfm32.voicebox.load_state_dict(untrained)
     cfm32.train()
     params32 = [p for _, p in cfm32.voicebox.named_parameters() if p.requires_grad]
     depth = FLAGSHIP["depth"]
@@ -1457,13 +1560,16 @@ def phase_grad_witness(trainer, smi: str) -> None:
                              and 1e-2 <= gap["norm"] <= 1e2)
             else:
                 loss_tol, norm_tol, cos_tol = WITNESS_TOL
-                norm_tol = max(norm_tol, *(abs(f["norm"] - 1) for f in floors))
+                floor_norm = max(abs(f["norm"] - 1) for f in floors)
+                held = "the fixed limit" if floor_norm <= norm_tol else "the floor, above the limit"
+                norm_tol = max(norm_tol, floor_norm)
                 ok = ok and (gap["loss"] <= loss_tol and abs(gap["norm"] - 1) <= norm_tol
                              and gap["cos"] > cos_tol
                              and min(c for _, c in gap["leaves"].values()) > cos_tol)
                 log("witness", f"{name}: tol loss {loss_tol:g}, global norm {norm_tol:.3g} "
-                               f"(the larger of {WITNESS_TOL[1]:g} and the floor's), cosines > "
-                               f"{cos_tol:g}")
+                               f"({held}; limit {WITNESS_TOL[1]:g}, the floor's own distance "
+                               f"{floor_norm:.3g}), cosines > {cos_tol:g}; kernels' distance "
+                               f"{abs(gap['norm'] - 1):.3g}")
             if not ok:
                 failed.append(name)
             del plain
@@ -1494,7 +1600,8 @@ def _path_row(kernel: str, name: str, parts) -> dict:
         "timed_as": "mean per launch over the path's shapes, weighted by their launches",
         "per_shape": [{"shape": list(r["shape"]), "dtype": str(r["dtype"])[6:], "launches": c,
                        **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by", "max_abs_err", "int8pack_ms")
+                                            "bound_by", "max_abs_err", "int8pack_ms", "tile",
+                                            "share_of_bound", "vs_library", "tile_ms")
                           if k in r}}
                       for c, r in parts],
     }
@@ -1593,11 +1700,11 @@ def main() -> int:
         f"the quantized duration-mode path skipped a kernel: {engine_counts}"
     )
     engine = engine_rows(k1, k4, tally)
-    train_counts, trainer = phase_train(smi)
+    train_counts, trainer, untrained = phase_train(smi)
     assert min(train_counts[k] for k in ("k1", "k2", "k3")) > 0, (
         f"the training path skipped a kernel: {train_counts}"
     )
-    phase_grad_witness(trainer, smi)
+    phase_grad_witness(trainer, untrained, smi)
     del trainer
     print(kernel_line(k1, k23, serve_k1, engine, train_counts), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ from voicebox_tpu_torch.ops.flash_attention import (
     reference_attention_backward,
 )
 from voicebox_tpu_torch.ops.quant import (
+    K4_TILES,
     QuantLinear,
+    _launch_k4,
+    _x_rows,
     int8_matmul,
     quantize_voicebox,
     w8a16_matmul,
@@ -201,31 +204,65 @@ def test_k2_k3_reject_what_they_do_not_take(cuda_device):
         flash_attention_bwd_dkv(q, k, v, mask, q, lse[..., :-1].contiguous(), delta, 1.0)
 
 
-def _k4_operands(device, m, k, n, dtype, seed=2):
+def _k4_operands(device, m, k, n, dtype, seed=2, pitch=16):
+    """A quantized (n, k) layer and x (m, k) at the row pitch a w8a16 copy's
+    GEGLU writes (16 elements), at the front of a buffer that is NaN in the
+    pitch and past x's end: a read past k or m shows as NaN in y."""
     gen = torch.Generator().manual_seed(seed)
     layer = torch.nn.Linear(k, n, bias=False)
     layer.weight.data = torch.randn(n, k, generator=gen) / k ** 0.5
     ql = QuantLinear(layer, "w8a16").to(device)
-    x = torch.randn(m, k, generator=gen).to(device=device, dtype=dtype)
+    ldx = -(-k // pitch) * pitch
+    buf = torch.full((m * ldx + 4096,), float("nan"), dtype=dtype, device=device)
+    x = buf[: m * ldx].view(m, ldx)[:, :k]
+    x.copy_(torch.randn(m, k, generator=gen))
     return x, ql
 
 
 # fp32: the sums' order only; bf16: also one bf16 step (2^-8 relative) of
 # the output's rounding where the fp32 sums straddle a boundary
-@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
-                                             (torch.bfloat16, 2 ** -7, 1e-4)])
+K4_TOLS = [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 2 ** -7, 1e-4)]
+
+
+def _assert_k4_close(y, x, ql, rtol, atol):
+    ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+    scale = ref.float().abs().max().item()
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", K4_TOLS)
 @pytest.mark.parametrize("m,k,n", [(37, 200, 300), (1532, 1365, 512), (1, 512, 2730),
-                                   (130, 64, 8)])
+                                   (130, 64, 8), (1, 1365, 2730), (544, 1365, 2730),
+                                   (40, 136, 273)])  # an odd n: y's rows take 2-byte stores
 def test_k4_matches_plain(cuda_device, dtype, rtol, atol, m, k, n):
     x, ql = _k4_operands(cuda_device, m, k, n, dtype)
     before = w8a16_matmul.launches
     y = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
-    ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+    again = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
     torch.cuda.synchronize()
-    assert w8a16_matmul.launches == before + 1
+    assert w8a16_matmul.launches == before + 2
     assert y.dtype == dtype and y.shape == (m, n)
-    scale = ref.float().abs().max().item()
-    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol, atol=atol * scale)
+    assert torch.equal(y, again)  # no atomics: the same bits every launch
+    _assert_k4_close(y, x, ql, rtol, atol)
+
+
+@pytest.mark.parametrize("tile", K4_TILES[torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(544, 512, 1536), (2112, 1365, 512), (37, 512, 2730)])
+def test_k4_every_tile_matches_plain(cuda_device, tile, m, k, n):
+    _, rtol, atol = K4_TOLS[1]
+    x, ql = _k4_operands(cuda_device, m, k, n, torch.bfloat16)
+    x2, ldx = _x_rows(x)
+    y = _launch_k4(x2, ldx, ql.weight_q, ql.weight_scale, tile)
+    torch.cuda.synchronize()
+    _assert_k4_close(y, x, ql, rtol, atol)
+
+
+def test_k4_takes_one_contiguous_row_at_an_odd_k(cuda_device):
+    """One row has no row stride to align: a contiguous (1, 1365) bf16 x,
+    NaN past its end, goes through TMA."""
+    _, rtol, atol = K4_TOLS[1]
+    x, ql = _k4_operands(cuda_device, 1, 1365, 512, torch.bfloat16, pitch=1)
+    _assert_k4_close(w8a16_matmul(x, ql.weight_q, ql.weight_scale), x, ql, rtol, atol)
 
 
 def test_k4_rejects_what_it_does_not_take(cuda_device):
@@ -239,6 +276,19 @@ def test_k4_rejects_what_it_does_not_take(cuda_device):
         w8a16_matmul(x[:, :90].contiguous(), ql.weight_q[:, :90].contiguous(), ql.weight_scale)
     with pytest.raises(ValueError, match="int8"):
         w8a16_matmul(x, ql.weight_q.float(), ql.weight_scale)
+    # bf16 x is read through TMA: its rows must start on 16-byte boundaries
+    x_odd, ql_odd = _k4_operands(cuda_device, 3, 1365, 64, torch.bfloat16, pitch=1)
+    with pytest.raises(ValueError, match="16-byte"):
+        w8a16_matmul(x_odd, ql_odd.weight_q, ql_odd.weight_scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        w8a16_matmul(x.flatten()[1:3745].view(39, 96), ql.weight_q, ql.weight_scale)
+    # x is never copied: rows that are not one stride apart, or not unit
+    # stride along k, are refused
+    wide = torch.zeros(2, 50, 96, dtype=x.dtype, device=x.device)
+    with pytest.raises(ValueError, match="one stride apart"):
+        w8a16_matmul(wide[:, :40], ql.weight_q, ql.weight_scale)
+    with pytest.raises(ValueError, match="unit stride"):
+        w8a16_matmul(x.t().contiguous().t(), ql.weight_q, ql.weight_scale)
     assert w8a16_matmul.launches == before  # no launch, and no plain fallback
 
 

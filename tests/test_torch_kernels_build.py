@@ -25,7 +25,7 @@ def _append(path: Path, text: str) -> None:
     path.write_text(path.read_text() + text)
 
 
-@pytest.mark.parametrize("name", ["flash_attention_fwd", "flash_attention_bwd"])
+@pytest.mark.parametrize("name", ["flash_attention_fwd", "flash_attention_bwd", "w8a16_matmul"])
 def test_digest_moves_with_the_shared_header(csrc, name):
     src = csrc / f"{name}.cu"
     before = kernels.source_digest(src)
@@ -39,7 +39,9 @@ def test_digest_moves_with_the_shared_header(csrc, name):
 
 
 def test_digest_ignores_a_header_the_source_does_not_include(csrc):
-    src = csrc / "w8a16_matmul.cu"
+    # every kernel source includes hopper.cuh: a source of its own that does not
+    src = csrc / "standalone.cu"
+    src.write_text('#include <cuda_runtime.h>\n\nextern "C" int vb_noop() { return 0; }\n')
     before = kernels.source_digest(src)
     _append(csrc / "hopper.cuh", "\n// an edit\n")
     assert kernels.source_digest(src) == before

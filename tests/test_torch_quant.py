@@ -76,8 +76,14 @@ def _quant_linear_weights(rs, k, n):
     return w, ql
 
 
+# the flagship's four quantized (k, n) (to_qkv, to_out, the feed-forward's
+# proj_in and proj_out) at small m, beside ragged shapes
+FLAGSHIP_KN = [(512, 1536), (512, 512), (512, 2730), (1365, 512)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(37, 200, 300), (16, 136, 273), (5, 1365, 40)])
+@pytest.mark.parametrize("m,k,n", [(37, 200, 300), (16, 136, 273), (5, 1365, 40)]
+                         + [(m, k, n) for k, n in FLAGSHIP_KN for m in (3, 17)])
 def test_w8a16_plain_matches_jax_interpret(m, k, n, dtype):
     rs = np.random.RandomState(m + k + n)
     w, ql = _quant_linear_weights(rs, k, n)
@@ -88,14 +94,83 @@ def test_w8a16_plain_matches_jax_interpret(m, k, n, dtype):
         x = _bf16_round(x)
     q_j, s_j = jq.quantize_kernel(jnp.asarray(w.T))
     ref = jq.w8a16_matmul(jnp.asarray(x, getattr(jnp, dtype)), q_j, s_j, interpret=True)
-    got = tq.w8a16_matmul(torch.from_numpy(x).to(getattr(torch, dtype)), ql.weight_q,
-                          ql.weight_scale)
+    # x at the row pitch a w8a16 copy's GEGLU writes (16 elements), NaN in
+    # the pitch: the product reads only x's k columns
+    k_pad = ql.weight_q.shape[1]
+    buf = torch.full((m, k_pad), float("nan"), dtype=getattr(torch, dtype))
+    xt = buf[:, :k]
+    xt.copy_(torch.from_numpy(x))
+    got = tq.w8a16_matmul(xt, ql.weight_q, ql.weight_scale)
     assert got.dtype == getattr(torch, dtype) and got.shape == (m, n)
     ref = np.asarray(ref.astype(jnp.float32))
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
     else:
         np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-4, rtol=2**-7)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (544, 1536, (64, 64)), (544, 512, (64, 64)), (544, 2730, (64, 64)),  # the engine, batch 1
+    (2112, 1536, (256, 128)), (2112, 512, (128, 64)), (2112, 2730, (256, 128)),  # batch 2
+    (8320, 1536, (256, 128)), (8320, 512, (256, 128)), (8320, 2730, (256, 128)),  # batch 4
+    (1532, 512, (128, 64)), (1532, 2730, (256, 128)),  # serving's batch 1 at 750 frames
+    (37, 512, (64, 64)), (1, 2730, (64, 64)),  # m under one tile
+])
+def test_k4_tile_at_the_engines_shapes(m, n, tile):
+    assert tq.k4_tile(m, n, torch.bfloat16, H100_SMS) == tile
+    assert tq.k4_tile(m, n, torch.float32, H100_SMS) == (64, 64)
+
+
+def test_k4_tile_rule():
+    """Every choice is a tile the C entry point takes; where a tile's grid
+    covers half the SMs, the chosen one's does too; the choice depends on
+    (m, n, dtype, sms) alone."""
+    rs = np.random.RandomState(0)
+    shapes = [(int(m), int(n), int(sms)) for m, n, sms in zip(
+        rs.randint(1, 20000, 300), rs.randint(1, 6000, 300), rs.choice([66, 114, 132], 300))]
+    for m, n, sms in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            tile = tq.k4_tile(m, n, dtype, sms)
+            assert tile in tq.K4_TILES[dtype]
+            assert tq.k4_tile(m, n, dtype, sms) == tile
+
+            def blocks(t):
+                return -(-m // t[0]) * -(-n // t[1])
+
+            if any(blocks(t) >= sms / 2 for t in tq.K4_TILES[dtype]):
+                assert blocks(tile) >= sms / 2, (m, n, sms, tile)
+
+
+def test_w8a16_copy_feeds_proj_out_pitched_rows():
+    """A w8a16 copy's GEGLUs write at a row pitch of 16 elements, so its
+    feed-forward down projection gets x rows that TMA can address; the
+    caller's module and an int8 copy keep contiguous rows."""
+    _, params = _models()
+    vb = _port_voicebox(params)
+    seen = {}
+
+    def record(tag):
+        def hook(module, args):
+            seen[tag] = (args[0].shape[-1], args[0].stride(-2))
+        return hook
+
+    x, cond, ids, times = _inputs()
+    kw = dict(times=torch.from_numpy(times), cond=torch.from_numpy(cond),
+              cond_token_ids=torch.from_numpy(ids).long())
+    for tag, model in (("float", vb), ("w8a16", tq.quantize_voicebox(vb, "w8a16")),
+                       ("int8", tq.quantize_voicebox(vb, "int8"))):
+        handle = model.get_submodule("transformer.layers.0.5.3").register_forward_pre_hook(
+            record(tag))
+        with torch.no_grad():
+            model(torch.from_numpy(x), **kw)
+        handle.remove()
+    inner = seen["float"][0]
+    assert inner % 16 and seen["float"] == (inner, inner) == seen["int8"]
+    assert seen["w8a16"] == (inner, -(-inner // 16) * 16)
+    assert all(block[5][1].row_pitch == 1 for block in vb.transformer.layers)
 
 
 @pytest.mark.parametrize("lead,k,n", [((3, 17), 96, 128), ((33,), 130, 257)])

@@ -117,6 +117,46 @@ def test_geglu():
     np.testing.assert_allclose(tp.GEGLU()(_t(x)).numpy(), ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("width,pitch", [(53, 16), (1365, 16), (24, 16), (53, 8)])
+def test_geglu_pitched_rows(width, pitch):
+    """With a row pitch and no gradient to record, GEGLU writes into rows
+    padded to a multiple of the pitch: the same values as the JAX module and
+    as the contiguous product, at a row stride TMA can address."""
+    x = np.random.RandomState(width).randn(2, 5, 2 * width).astype(np.float32)
+    ref = np.asarray(jp.GEGLU().apply({}, jnp.asarray(x)))
+    out = tp.GEGLU(row_pitch=pitch)(_t(x))
+    assert out.shape == (2, 5, width) and out.stride() == (5 * out.stride(1), -(-width // pitch)
+                                                           * pitch, 1)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(out, tp.GEGLU()(_t(x)), rtol=0, atol=0)
+    # where autograd records the product it stays contiguous, and differentiable
+    xg = _t(x).requires_grad_(True)
+    out = tp.GEGLU(row_pitch=pitch)(xg)
+    assert out.is_contiguous()
+    out.sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+
+
+@pytest.mark.parametrize("mult", [4.0, 2.0])
+def test_feed_forward_pitched_matches_jax(mult):
+    """The feed-forward of a w8a16 copy (its GEGLU at a row pitch of 16)
+    against the JAX module, at a width whose inner dim is off 16."""
+    rs = np.random.RandomState(6)
+    x = rs.randn(2, 5, 20).astype(np.float32)
+    mod = jp.FeedForward(20, mult=mult)
+    params = _perturbed(mod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], rs)
+    ref = _apply(mod, params, jnp.asarray(x))
+    state = {}
+    for name, idx in (("proj_in", 0), ("proj_out", 3)):
+        state[f"{idx}.weight"] = _t(params[name]["kernel"].T)
+        state[f"{idx}.bias"] = _t(params[name]["bias"])
+    ff = tp.FeedForward(20, mult=mult)
+    assert ff[3].in_features % 16
+    ff[1].row_pitch = 16
+    out = _torch(ff, state, _t(x))
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("mult", [4.0, 2.0])
 def test_feed_forward(mult):
     rs = np.random.RandomState(5)

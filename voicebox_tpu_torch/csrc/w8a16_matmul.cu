@@ -6,203 +6,344 @@
 // with the sum in fp32 and the per-output-channel scale applied after the
 // sum. The int8 weight is stored as a torch Linear keeps it, (n, k_pad) row
 // major, its rows padded with zeros to k_pad, a multiple of 16, once, at
-// quantization; x is (m, k) row major and is never padded or copied.
+// quantization. x is (m, k) with its rows `ldx` elements apart and is never
+// padded or copied here; y is (m, n) row major.
 //
-// What bounds it on the H100. At the flagship's serving shape (m = 1532
-// rows: batch 1, CFG x 2, 750 frames + 16 registers) the four products of a
-// block, (k, n) = (512, 1536), (512, 512), (512, 2730) and (1365, 512), do
-// 2 m n k = 0.8-4.3 GFLOP over 2.6-10.5 MB of x, int8 w, scale and y: about
-// 300-400 operations per byte, at or above the card's bf16 ridge (~295), so
-// on paper they are bound by the tensor cores (2.4 us for the first at
-// 989 TFLOP/s). This first version is bound by latency instead: the x and w
-// tiles are staged through shared memory with no overlap of loads and
-// math, and the int8 -> bf16 conversion runs on the CUDA cores in the load.
+// What bounds it on the H100. The quantized engine's products, (k, n) =
+// (512, 1536), (512, 512), (512, 2730) and (1365, 512) at m = 544, 2112 and
+// 8320 rows, do 2 m n k = 0.3-23 GFLOP over 0.8-24 MB: at m = 8320 about
+// 700-1000 operations per byte, above the card's bf16 ridge (~295), so the
+// tensor cores bound them (4.4-23.5 us at 989 TFLOP/s); at m = 544 the
+// bounds are 1.6 us or less and a launch is bound by its latency.
 //
-// What the design does, and what it keeps simple:
-//  * one block = one 64 x 64 tile of y, 4 warps; a loop inside the block
-//    walks k in steps of 32 (the TPU's whole-k block becomes this loop);
-//  * bf16 x: the int8 tile is converted to bf16 on its way into shared
-//    memory (exact: |q| <= 127), then WMMA 16x16x16 bf16 with fp32 sums,
-//    each warp a 32 x 32 quarter of the tile; the sums make one trip
-//    through shared memory so that the scale and the cast happen in a
-//    coalesced store;
-//  * fp32 x: scalar FMAs over the same tiles, 32 outputs per thread, so an
-//    fp32 call stays exact to fp32 rounding;
-//  * ragged m, n and k are masked here: x's rows past m and columns past k
-//    and w's rows past n load as zeros, and stores past m or n are skipped.
-//    x takes 16-byte loads when its rows allow them (k a multiple of 8 bf16
-//    or 4 floats, 16-byte aligned), else element loads (k = 1365);
-//  * it launches on the caller's stream and allocates nothing.
-// wgmma, TMA, a pipelined k ring and int8 kept in shared memory (half the
-// bytes of a bf16 tile) are later work.
+// The bf16 design: wgmma with the operands swapped. wgmma takes only A from
+// registers, so the weight is A and each consumer warpgroup computes a
+// 64-channel x BN-row tile of y^T = W_q x^T:
+//  * a producer warp keeps a 4-stage ring of TMA loads in flight, guarded
+//    by full/empty mbarriers: per stage the int8 weight tile (BM channels x
+//    64 k-bytes, 64-byte swizzle) and the bf16 x tile (BN rows x 64 k,
+//    128-byte swizzle), both from 2-D tensor maps that zero-fill past k, n
+//    and m; the weight stays int8 in shared memory (half a bf16 tile);
+//  * each consumer thread reads its A fragment's int8 bytes with 4-byte
+//    loads (the 64-byte swizzle puts the 8 rows a warp reads on distinct
+//    banks), picks its byte pairs with one byte permute and converts them in
+//    registers: the byte ^ 0x80 in the mantissa of 2^23, minus 2^23 + 128,
+//    is q exactly, and its upper 16 bits are bf16 q exactly (|q| <= 127);
+//  * x is wgmma's B, read from shared memory K-major (x's row-major layout
+//    is K-major for this product); m64nBNk16, 4 a stage, with fp32 sums in
+//    registers; the next stage's weight converts while they run;
+//  * epilogue: the scale is per channel, a row of the accumulator, so one
+//    multiply a value; the bf16 tile is transposed through shared memory
+//    (padded rows, no bank conflicts) and stored as coalesced rows of y,
+//    16 bytes a store where n allows it (n = 2730 gives 4-byte stores);
+//    rows past m and channels past n are not stored;
+//  * three tiles of y (rows x channels): 256 x 128 (two consumer
+//    warpgroups, 1 block an SM), 128 x 64 and 64 x 64 (one), chosen per
+//    shape by the host (`k4_tile` in ops/quant.py) so that the small
+//    engine shapes still cover the SMs; the larger tile converts each weight
+//    byte once per 256 rows of x instead of 64.
+// x's rows must be 16-byte aligned for TMA (ldx a multiple of 8): the
+// port's GEGLU writes the feed-forward's 1365-wide activation at a row pitch
+// of 1376 for it. The last k-stage reads x past k as zeros, never the
+// memory there (a pitched row's tail, or another row).
+//
+// fp32 x runs only in the card-vs-CPU checks: scalar FMAs over 64 x 64 tiles
+// staged through shared memory, exact to fp32 rounding (wgmma has no fp32
+// mode). Both paths launch on the caller's stream and allocate nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kThreads = 128;
-constexpr int kBM = 64;  // rows of y per block
-constexpr int kBN = 64;  // columns of y per block
-constexpr int kBK = 32;  // k per step
+// ------------------------------------------------------------ bf16: layout
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
-template <typename T>
-__device__ __forceinline__ T from_int8(int8_t q);
-template <>
-__device__ __forceinline__ float from_int8<float>(int8_t q) { return static_cast<float>(q); }
-template <>
-__device__ __forceinline__ bf16 from_int8<bf16>(int8_t q) {
-  return __float2bfloat16_rn(static_cast<float>(q));
+constexpr int kBK = 64;     // k per stage: 64 weight bytes, 128 x bytes a row
+constexpr int kStages = 4;  // ring depth
+
+template <int NWG, int BN>
+struct K4Smem {
+  static constexpr int kBM = NWG * 64;      // channels per block
+  static constexpr int kWTile = kBM * kBK;  // int8
+  static constexpr int kXTile = BN * kBK * 2;
+  static constexpr int kW = 0;
+  static constexpr int kX = kStages * kWTile;  // a multiple of 1024
+  static constexpr int kRing = kX + kStages * kXTile;
+  // the epilogue's bf16 y tile, BN rows x kBM channels, padded by 16 bytes
+  // a row, in the ring once every stage is consumed
+  static constexpr int kLdY = kBM + 8;
+  static constexpr int kBytes = kRing > BN * kLdY * 2 ? kRing : BN * kLdY * 2;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  // as in K1: two consumers take a producer warpgroup (setmaxnreg), one a warp
+  static constexpr int kProducerThreads = NWG == 2 ? 128 : 32;
+  static constexpr int kThreads = NWG * 128 + kProducerThreads;
+};
+
+// four int8 codes -> two bf16x2 registers (bytes 0, 1 and bytes 2, 3), exact
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;  // q + 128 in each byte
+  constexpr uint32_t kMagic = 0x4B000000u;  // 2^23
+  constexpr float kBias = 8388736.0f;       // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, kMagic, 0x7650)) - kBias;
+  const float f1 = __uint_as_float(__byte_perm(u, kMagic, 0x7651)) - kBias;
+  const float f2 = __uint_as_float(__byte_perm(u, kMagic, 0x7652)) - kBias;
+  const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - kBias;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// rows [m0, m0 + kBM) and columns [k0, k0 + kBK) of x (m, k) into x_s (row
-// pitch LD), zero outside (m, k)
-template <typename T, int LD>
-__device__ __forceinline__ void load_x_tile(T* x_s, const T* __restrict__ x, int m0, int k0,
-                                            int m, int k, bool vec) {
-  if (vec) {  // k is a multiple of kVec: a chunk lies wholly inside k or outside it
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kChunks = kBK / kVec;
-    for (int i = threadIdx.x; i < kBM * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c = (i % kChunks) * kVec;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < m && k0 + c < k) {
-        raw = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * k + k0 + c);
-      }
-      const T* vals = reinterpret_cast<const T*>(&raw);
+// The A fragments of one stage (4 steps of k16) for this thread: in wgmma's
+// layout, rows `row` and `row` + 8 of the warpgroup's 64 and, in each k16
+// step, k = 2q, 2q + 1 (registers 0, 1) and 2q + 8, 2q + 9 (2, 3). The
+// weight tile has 64-byte rows under TMA's 64-byte swizzle: the 16-byte
+// chunk c of row r sits at chunk c ^ ((r >> 1) & 3).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const uint8_t* w_tile, int row,
+                                       int q) {
+  const uint32_t sel = (q & 1) ? 0x7632u : 0x5410u;
+  const int word = 4 * (q >> 1);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) x_s[r * LD + c + j] = vals[j];
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    const uint8_t* base = w_tile + r * kBK + word;
+    const int sw = (r >> 1) & 3;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      const uint8_t* chunk = base + ((ks ^ sw) << 4);
+      const uint32_t lo = *reinterpret_cast<const uint32_t*>(chunk);
+      const uint32_t hi = *reinterpret_cast<const uint32_t*>(chunk + 8);
+      int8x4_to_bf16(__byte_perm(lo, hi, sel), a[ks][h], a[ks][2 + h]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16: kernel
+
+// grid: (row tiles of BN, channel tiles of NWG x 64). Warpgroups 0..NWG-1
+// consume; warp 4 NWG issues the loads. w through a 2-D map (k, n) of
+// k_pad-byte rows, x through a 2-D map (k, m) of ldx-element rows.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(K4Smem<NWG, BN>::kThreads, 1)
+    w8a16_bf16(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
+               const float* __restrict__ scale, bf16* __restrict__ y, int m, int n, int k,
+               int y_vec) {
+  using L = K4Smem<NWG, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * BN;
+  const int n0 = blockIdx.y * L::kBM;
+  const int n_kb = (k + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // producer: the weight and x tiles of each k-stage through the ring
+    if constexpr (NWG == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x == NWG * 128) {
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % kStages;
+        mbar_wait(&empty_bar[s], ((kb / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full_bar[s], L::kWTile + L::kXTile);
+        tma_load_2d(smem + L::kW + s * L::kWTile, &tm_w, &full_bar[s], kb * kBK, n0);
+        tma_load_2d(smem + L::kX + s * L::kXTile, &tm_x, &full_bar[s], kb * kBK, m0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: channels [64 wg, 64 wg + 64) of the block. In
+  // the accumulator's layout this thread owns channels row and row + 8 and,
+  // in each 8-row block i of x, rows 8 i + 2 q + {0, 1}: element [4 i + 2 j + c].
+  if constexpr (NWG == 2) setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int q = lane % 4;
+  const int row = wg * 64 + (tid / 32) * 16 + lane / 4;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  uint32_t a_cur[4][4], a_nxt[4][4];
+
+  mbar_wait(&full_bar[0], 0);
+  load_a(a_cur, smem + L::kW, row, q);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int s = kb % kStages;
+    const uint32_t x_base = smem_u32(smem + L::kX + s * L::kXTile);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      wgmma_rs_k<BN>(acc, a_cur[ks], sw128_desc(x_base + ks * 32, 16, 1024));
+    }
+    wgmma_commit();
+    if (kb + 1 < n_kb) {  // the next stage's weight converts while the products run
+      const int s1 = (kb + 1) % kStages;
+      mbar_wait(&full_bar[s1], ((kb + 1) / kStages) & 1);
+      load_a(a_nxt, smem + L::kW + s1 * L::kWTile, row, q);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) fence_regs(a_cur[ks]);
+    mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a_cur[ks][r] = a_nxt[ks][r];
+    }
+  }
+
+  // epilogue: scale, bf16, the tile transposed through shared memory once
+  // every consumer is done with the ring
+  float sc[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int ch = n0 + row + 8 * j;
+    sc[j] = ch < n ? scale[ch] : 0.0f;
+  }
+  named_bar_sync(1, NWG * 128);
+  bf16* tile = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        tile[(8 * i + 2 * q + c) * L::kLdY + row + 8 * j] =
+            __float2bfloat16_rn(acc[4 * i + 2 * j + c] * sc[j]);
+      }
+    }
+  }
+  named_bar_sync(1, NWG * 128);
+
+  const int t = threadIdx.x;
+  constexpr int kT = NWG * 128;
+  if (y_vec == 8) {
+    constexpr int kChunks = L::kBM / 8;
+    for (int idx = t; idx < BN * kChunks; idx += kT) {
+      const int r = idx / kChunks;
+      const int c = (idx % kChunks) * 8;
+      if (m0 + r < m && n0 + c < n) {
+        *reinterpret_cast<uint4*>(y + (size_t)(m0 + r) * n + n0 + c) =
+            *reinterpret_cast<const uint4*>(tile + r * L::kLdY + c);
+      }
+    }
+  } else if (y_vec == 2) {
+    constexpr int kPairs = L::kBM / 2;
+    for (int idx = t; idx < BN * kPairs; idx += kT) {
+      const int r = idx / kPairs;
+      const int c = (idx % kPairs) * 2;
+      if (m0 + r < m && n0 + c < n) {
+        *reinterpret_cast<uint32_t*>(y + (size_t)(m0 + r) * n + n0 + c) =
+            *reinterpret_cast<const uint32_t*>(tile + r * L::kLdY + c);
+      }
     }
   } else {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK;
-      const int c = i % kBK;
-      T v = from_int8<T>(0);
-      if (m0 + r < m && k0 + c < k) v = x[(size_t)(m0 + r) * k + k0 + c];
+    for (int idx = t; idx < BN * L::kBM; idx += kT) {
+      const int r = idx / L::kBM;
+      const int c = idx % L::kBM;
+      if (m0 + r < m && n0 + c < n) y[(size_t)(m0 + r) * n + n0 + c] = tile[r * L::kLdY + c];
+    }
+  }
+}
+
+// ------------------------------------------------------------ fp32: kernel
+
+constexpr int kF32Threads = 128;
+constexpr int kF32BM = 64;  // rows of y per block
+constexpr int kF32BN = 64;  // columns of y per block
+constexpr int kF32BK = 32;  // k per step
+
+// rows [m0, m0 + 64) and columns [k0, k0 + 32) of x (rows ldx apart) into
+// x_s (row pitch LD), zero outside (m, k)
+template <int LD>
+__device__ __forceinline__ void load_x_tile(float* x_s, const float* __restrict__ x, int m0,
+                                            int k0, int m, int k, int ldx, bool vec) {
+  if (vec) {  // k is a multiple of 4: a 16-byte chunk lies wholly inside k or outside it
+    constexpr int kChunks = kF32BK / 4;
+    for (int i = threadIdx.x; i < kF32BM * kChunks; i += kF32Threads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (m0 + r < m && k0 + c < k) {
+        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * ldx + k0 + c);
+      }
+      x_s[r * LD + c] = v.x;
+      x_s[r * LD + c + 1] = v.y;
+      x_s[r * LD + c + 2] = v.z;
+      x_s[r * LD + c + 3] = v.w;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kF32BM * kF32BK; i += kF32Threads) {
+      const int r = i / kF32BK;
+      const int c = i % kF32BK;
+      float v = 0.0f;
+      if (m0 + r < m && k0 + c < k) v = x[(size_t)(m0 + r) * ldx + k0 + c];
       x_s[r * LD + c] = v;
     }
   }
 }
 
-// rows [n0, n0 + kBN) and columns [k0, k0 + kBK) of w_q (n, k_pad) into w_s
-// (row pitch LD) converted to T, zero outside (n, k_pad); k_pad is a multiple
-// of 16 and the rows are 16-byte aligned, so each 16-byte chunk is whole
-template <typename T, int LD>
-__device__ __forceinline__ void load_w_tile(T* w_s, const int8_t* __restrict__ w_q, int n0,
+// rows [n0, n0 + 64) and columns [k0, k0 + 32) of w_q (n, k_pad) into w_s
+// (row pitch LD) as floats, zero outside (n, k_pad); k_pad is a multiple of
+// 16 and the rows are 16-byte aligned, so each 16-byte chunk is whole
+template <int LD>
+__device__ __forceinline__ void load_w_tile(float* w_s, const int8_t* __restrict__ w_q, int n0,
                                             int k0, int n, int k_pad) {
-  constexpr int kChunks = kBK / 16;
-  for (int i = threadIdx.x; i < kBN * kChunks; i += kThreads) {
+  constexpr int kChunks = kF32BK / 16;
+  for (int i = threadIdx.x; i < kF32BN * kChunks; i += kF32Threads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 16;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (n0 + r < n && k0 + c < k_pad) {
       raw = *reinterpret_cast<const uint4*>(w_q + (size_t)(n0 + r) * k_pad + k0 + c);
     }
-    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+    const int8_t* qv = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) w_s[r * LD + c + j] = from_int8<T>(q[j]);
-  }
-}
-
-// bf16: WMMA over the tile, each warp a 32 x 32 quarter as 2 x 2 fragments
-__global__ void __launch_bounds__(kThreads)
-    w8a16_bf16_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w_q,
-                      const float* __restrict__ scale, bf16* __restrict__ y, int m, int n,
-                      int k, int k_pad, bool vec) {
-  constexpr int kLd = kBK + 8;   // 80-byte rows: 16-byte stores, 32-byte fragment rows
-  constexpr int kLdC = kBN + 4;  // fp32 staging of the sums
-  __shared__ __align__(128) bf16 x_s[kBM * kLd];
-  __shared__ __align__(128) bf16 w_s[kBN * kLd];
-  __shared__ __align__(128) float c_s[kBM * kLdC];
-
-  const int warp = threadIdx.x / 32;
-  const int warp_m = warp / 2;
-  const int warp_n = warp % 2;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    __syncthreads();  // the previous step's tiles are consumed
-    load_x_tile<bf16, kLd>(x_s, x, m0, k0, m, k, vec);
-    load_w_tile<bf16, kLd>(w_s, w_q, n0, k0, n, k_pad);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(a[i], x_s + (warp_m * 32 + i * 16) * kLd + kk * 16, kLd);
-        // w_s holds w as [n][k]: the (k, n) operand in column-major order
-        wmma::load_matrix_sync(b[i], w_s + (warp_n * 32 + i * 16) * kLd + kk * 16, kLd);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c_s + (warp_m * 32 + i * 16) * kLdC + warp_n * 32 + j * 16,
-                              acc[i][j], kLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int r = i / kBN;
-    const int c = i % kBN;
-    if (m0 + r < m && n0 + c < n) {
-      store(y + (size_t)(m0 + r) * n + n0 + c, c_s[r * kLdC + c] * scale[n0 + c]);
-    }
+    for (int j = 0; j < 16; ++j) w_s[r * LD + c + j] = static_cast<float>(qv[j]);
   }
 }
 
 // fp32: scalar FMAs; thread (tx, ty) owns rows ty + 8 i (i < 8) and columns
 // tx + 16 j (j < 4) of the tile. An odd row pitch keeps the 16 distinct w
 // rows a warp reads on 16 distinct banks.
-__global__ void __launch_bounds__(kThreads)
-    w8a16_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_q,
-                     const float* __restrict__ scale, float* __restrict__ y, int m, int n,
-                     int k, int k_pad, bool vec) {
-  constexpr int kLd = kBK + 1;
-  __shared__ float x_s[kBM * kLd];
-  __shared__ float w_s[kBN * kLd];
+__global__ void __launch_bounds__(kF32Threads)
+    w8a16_f32(const float* __restrict__ x, const int8_t* __restrict__ w_q,
+              const float* __restrict__ scale, float* __restrict__ y, int m, int n, int k,
+              int k_pad, int ldx, bool vec) {
+  constexpr int kLd = kF32BK + 1;
+  __shared__ float x_s[kF32BM * kLd];
+  __shared__ float w_s[kF32BN * kLd];
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.x * kF32BM;
+  const int n0 = blockIdx.y * kF32BN;
   float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < k; k0 += kBK) {
+  for (int k0 = 0; k0 < k; k0 += kF32BK) {
     __syncthreads();
-    load_x_tile<float, kLd>(x_s, x, m0, k0, m, k, vec);
-    load_w_tile<float, kLd>(w_s, w_q, n0, k0, n, k_pad);
+    load_x_tile<kLd>(x_s, x, m0, k0, m, k, ldx, vec);
+    load_w_tile<kLd>(w_s, w_q, n0, k0, n, k_pad);
     __syncthreads();
 #pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
+    for (int kk = 0; kk < kF32BK; ++kk) {
       float a[8], b[4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] = x_s[(ty + 8 * i) * kLd + kk];
@@ -226,30 +367,70 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------------- host
+
+template <int NWG, int BN>
+cudaError_t launch_bf16(const void* x, const void* w_q, const void* scale, void* y, int m,
+                        int n, int k, int k_pad, int ldx, cudaStream_t stream) {
+  using L = K4Smem<NWG, BN>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tm_w, tm_x;
+  if (!encode_2d(fn, &tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w_q, k, n, k_pad, kBK, L::kBM,
+                 CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_2d(fn, &tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m, 2ll * ldx, kBK, BN,
+                 CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = w8a16_bf16<NWG, BN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const uintptr_t y_addr = reinterpret_cast<uintptr_t>(y);
+  const int y_vec = n % 8 == 0 && y_addr % 16 == 0 ? 8 : n % 2 == 0 && y_addr % 4 == 0 ? 2 : 1;
+  const dim3 grid((m + BN - 1) / BN, (n + L::kBM - 1) / L::kBM);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(tm_w, tm_x, static_cast<const float*>(scale),
+                                                   static_cast<bf16*>(y), m, n, k, y_vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// x (m, k), w_q (n, k_pad) int8 with k_pad a multiple of 16 and k <= k_pad,
-// scale (n,) fp32, y (m, n) in x's dtype; all contiguous, x, w_q 16-byte
-// aligned. Returns 0 or the cudaError_t of the launch.
+// x (m, k) with rows ldx >= k elements apart, w_q (n, k_pad) int8 with k_pad
+// a multiple of 16 and k <= k_pad, scale (n,) fp32, y (m, n) contiguous in
+// x's dtype; w_q 16-byte aligned. The tile of y a block computes is block_m
+// rows x block_n columns: bfloat16 takes 64 x 64, 128 x 64 (one consumer
+// warpgroup) or 256 x 128 (two), and x 16-byte aligned with ldx a multiple
+// of 8 (TMA's 16-byte row stride); float32 takes 64 x 64.
+// Returns 0 or the cudaError_t of the launch.
 extern "C" int vb_w8a16_matmul(const void* x, const void* w_q, const void* scale, void* y,
-                               int m, int n, int k, int k_pad, int dtype, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k > k_pad || k_pad % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w_q) % 16 != 0 || (dtype != 0 && dtype != 1)) {
+                               int m, int n, int k, int k_pad, int ldx, int dtype, int block_m,
+                               int block_n, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k > k_pad || k_pad % 16 != 0 || ldx < k ||
+      reinterpret_cast<uintptr_t>(w_q) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  const int elems_per_16_bytes = dtype == 1 ? 8 : 4;
-  const bool vec = k % elems_per_16_bytes == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1) {
-    w8a16_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const int8_t*>(w_q),
-        static_cast<const float*>(scale), static_cast<bf16*>(y), m, n, k, k_pad, vec);
-  } else {
-    w8a16_f32_kernel<<<grid, kThreads, 0, s>>>(
+    if (ldx % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (block_m == 64 && block_n == 64) {
+      err = launch_bf16<1, 64>(x, w_q, scale, y, m, n, k, k_pad, ldx, s);
+    } else if (block_m == 128 && block_n == 64) {
+      err = launch_bf16<1, 128>(x, w_q, scale, y, m, n, k, k_pad, ldx, s);
+    } else if (block_m == 256 && block_n == 128) {
+      err = launch_bf16<2, 256>(x, w_q, scale, y, m, n, k, k_pad, ldx, s);
+    }
+  } else if (dtype == 0 && block_m == kF32BM && block_n == kF32BN) {
+    const dim3 grid((m + kF32BM - 1) / kF32BM, (n + kF32BN - 1) / kF32BN);
+    const bool vec = k % 4 == 0 && ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    w8a16_f32<<<grid, kF32Threads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
-        static_cast<const float*>(scale), static_cast<float*>(y), m, n, k, k_pad, vec);
+        static_cast<const float*>(scale), static_cast<float*>(y), m, n, k, k_pad, ldx, vec);
+    err = cudaGetLastError();
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -187,9 +187,25 @@ class MultiheadRMSNorm(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """gelu(gate) * x over the two halves of the last axis. With `row_pitch`
+    > 1 and no gradient to record, the product is written straight into a
+    buffer whose rows are padded to a multiple of `row_pitch` elements, and
+    the unpadded view of it is returned: the same values, rows that a TMA
+    load can address (K4 reads the 1365-wide flagship activation at a pitch
+    of 1376). `quantize_voicebox` sets it on a w8a16 copy."""
+
+    def __init__(self, row_pitch: int = 1):
+        super().__init__()
+        self.row_pitch = row_pitch
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, gate = x.chunk(2, dim=-1)
-        return F.gelu(gate, approximate="tanh") * x
+        if self.row_pitch == 1 or (torch.is_grad_enabled() and x.requires_grad):
+            return F.gelu(gate, approximate="tanh") * x
+        n = x.shape[-1]
+        pitched = -(-n // self.row_pitch) * self.row_pitch
+        out = x.new_empty(*x.shape[:-1], pitched)[..., :n]
+        return torch.mul(F.gelu(gate, approximate="tanh"), x, out=out)
 
 
 def FeedForward(dim: int, mult: float = 4.0, dropout: float = 0.0,

@@ -10,7 +10,11 @@ per weights version by `quantize_voicebox`.
   to x's dtype inside the kernel and the product sums in fp32, then the
   scale applies. CPU tensors take the plain version,
   `w8a16_matmul_reference`, the same arithmetic in torch ops. On a CUDA
-  tensor it launches K4 or raises; it never falls back.
+  tensor it launches K4 or raises; it never falls back. bf16 K4 reads x
+  through TMA, which needs x's rows 16-byte aligned: a quantized copy's
+  GEGLUs write their output at a row pitch of 16 elements for it
+  (`quantize_voicebox`), and the tile of y each block computes comes from
+  `k4_tile`.
 * `"int8"`: dynamic activation quantization, per token (symmetric absmax
   over the features), then s8 x s8 -> s32 through `torch._int_mm`, a
   library product (the JAX package leaves it to XLA, outside any kernel).
@@ -21,7 +25,7 @@ kernel). `QuantLinear` stores the codes as (out_pad, in_pad) int8, zero
 padded once: in to a multiple of 16 (K4's 16-byte weight rows, and
 `_int_mm`'s multiple of 8) and out to a multiple of 8 (`_int_mm`). K4 reads
 only the first `out` rows and masks x's ragged k itself, so no activation
-is padded on the w8a16 path.
+is padded or copied on the w8a16 path.
 
 Scope. Only the transformer's weight matmuls are quantized: per block the
 attention's `to_qkv` and `to_out`, the feed-forward's two projections and
@@ -48,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from .flash_attention import _sm_count
 
 __all__ = [
     "DEFAULT_QUANT_LAYERS",
@@ -55,7 +60,9 @@ __all__ = [
     "QuantLinear",
     "SCOPE",
     "cast_float_params",
+    "K4_TILES",
     "int8_matmul",
+    "k4_tile",
     "quantize_kernel",
     "quantize_voicebox",
     "quantized_layer_names",
@@ -76,6 +83,15 @@ _BLOCK_PLACES = {"to_qkv": "3.to_qkv", "to_out": "3.to_out", "proj_in": "5.0",
 _K4 = "w8a16_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _K_ALIGN, _N_ALIGN = 16, 8
+_X_ROW_ALIGN = 16  # bytes: TMA's global stride and base alignment (bf16 x)
+
+# the (rows of y, columns of y) tiles of one K4 block that the C entry point
+# takes, largest first: bf16 has 256 rows of x x 128 output channels (two
+# consumer warpgroups), 128 x 64 and 64 x 64 (one); fp32 one tile
+K4_TILES = {
+    torch.bfloat16: ((256, 128), (128, 64), (64, 64)),
+    torch.float32: ((64, 64),),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -109,15 +125,51 @@ def w8a16_matmul_reference(x: torch.Tensor, weight_q: torch.Tensor,
     return y.to(x.dtype)
 
 
+def k4_tile(m: int, n: int, dtype: torch.dtype, sms: int) -> tuple:
+    """The (rows, channels) tile of y that each K4 block computes for an
+    (m, k) x (k, n) product on a card of `sms` SMs: the largest bf16 tile
+    whose grid of ceil(m / rows) x ceil(n / channels) blocks covers at least
+    half the SMs and whose rows past m waste at most an eighth of its row
+    tiles, else 64 x 64. fp32 has one tile. Measured on the H100 at the
+    engine's shapes (PERF.md, "K4's tile")."""
+    if dtype != torch.bfloat16:
+        return K4_TILES[torch.float32][0]
+    for rows, cols in K4_TILES[dtype]:
+        row_tiles = -(-m // rows)
+        if row_tiles * -(-n // cols) >= sms / 2 and 8 * m >= 7 * row_tiles * rows:
+            return rows, cols
+    return K4_TILES[dtype][-1]
+
+
 @functools.cache
 def _k4_entry():
     fn = getattr(kernels.load(_K4), "vb_w8a16_matmul")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_k4_operands(x2, weight_q, weight_scale):
+def _x_rows(x: torch.Tensor) -> tuple:
+    """x (..., k) as (m, k) rows, without a copy, and the elements between
+    its rows (ldx). Raises ValueError where x's rows do not lie one stride
+    apart with unit stride inside a row."""
+    k = x.shape[-1]
+    try:
+        x2 = x.view(-1, k)
+    except RuntimeError:
+        raise ValueError(
+            f"K4 takes x whose rows lie one stride apart; got shape {tuple(x.shape)}, strides "
+            f"{x.stride()}"
+        ) from None
+    m = x2.shape[0]
+    if k > 1 and x2.stride(1) != 1:
+        raise ValueError(f"K4 takes x with unit stride along k; got strides {x2.stride()}")
+    # one row has no row stride: TMA gets the smallest 16-byte aligned one
+    ldx = x2.stride(0) if m > 1 else _round_up(k, _X_ROW_ALIGN // x.element_size())
+    return x2, ldx
+
+
+def _check_k4_operands(x2, ldx, weight_q, weight_scale):
     if not (x2.is_cuda and weight_q.device == x2.device and weight_scale.device == x2.device):
         raise ValueError(
             f"K4 needs x, weight_q, weight_scale on one CUDA device; got {x2.device}, "
@@ -144,37 +196,59 @@ def _check_k4_operands(x2, weight_q, weight_scale):
         )
     if m == 0 or n == 0 or k == 0 or m >= 2**31 or n > 65535 * 64:
         raise ValueError(f"K4 cannot launch for x {tuple(x2.shape)}, n = {n}")
-    if not (x2.is_contiguous() and weight_q.is_contiguous() and weight_scale.is_contiguous()):
-        raise ValueError("K4 needs contiguous x, weight_q and weight_scale")
+    if ldx < k or ldx >= 2**31:
+        raise ValueError(f"K4 takes x rows at least k = {k} elements apart; got {ldx}")
+    if not (weight_q.is_contiguous() and weight_scale.is_contiguous()):
+        raise ValueError("K4 needs contiguous weight_q and weight_scale")
     if weight_q.data_ptr() % 16:
         raise ValueError("K4 needs weight_q 16-byte aligned")
+    if x2.dtype == torch.bfloat16 and (x2.data_ptr() % _X_ROW_ALIGN
+                                       or ldx * x2.element_size() % _X_ROW_ALIGN):
+        raise ValueError(
+            f"bf16 K4 reads x through TMA: its rows must start on {_X_ROW_ALIGN}-byte "
+            f"boundaries (a row pitch that is a multiple of 8 elements, as the GEGLUs of a "
+            f"quantized copy write); got a row pitch of {ldx} elements at address "
+            f"{x2.data_ptr():#x}"
+        )
+
+
+def _launch_k4(x2, ldx, weight_q, weight_scale, tile=None):
+    """One K4 launch on x2 (m, k) with rows ldx apart; `tile` (rows,
+    channels) overrides `k4_tile`'s choice."""
+    m, k = x2.shape
+    n = weight_scale.shape[0]
+    if tile is None:
+        tile = k4_tile(m, n, x2.dtype, _sm_count(x2.device.index))
+    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    with torch.cuda.device(x2.device):
+        err = _k4_entry()(
+            x2.data_ptr(), weight_q.data_ptr(), weight_scale.data_ptr(), y.data_ptr(),
+            m, n, k, weight_q.shape[1], ldx, _DTYPES[x2.dtype], *tile,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: cudaError_t {err}")
+    w8a16_matmul.launches += 1
+    return y
 
 
 def w8a16_matmul(x: torch.Tensor, weight_q: torch.Tensor,
                  weight_scale: torch.Tensor) -> torch.Tensor:
     """x (..., k) @ dequant(weight_q)^T in x's dtype, with fp32 sums and the
-    scale applied after them. CUDA tensors go through K4 (float32 or
-    bfloat16 x; else ValueError), CPU tensors through the plain version.
-    `w8a16_matmul.launches` counts K4 launches."""
+    scale applied after them. CUDA tensors go through K4 (float32 x, or
+    bfloat16 x whose rows are 16-byte aligned; else ValueError), CPU tensors
+    through the plain version. x's rows may lie further apart than k (a
+    pitched view); x is never copied. `w8a16_matmul.launches` counts K4
+    launches."""
     if x.device.type == "cpu":
         return w8a16_matmul_reference(x, weight_q, weight_scale)
     if x.device.type != "cuda":
         raise ValueError(f"no w8a16 path for device {x.device}")
     *lead, k = x.shape
-    x2 = x.reshape(-1, k)
-    _check_k4_operands(x2, weight_q, weight_scale)
-    m, n = x2.shape[0], weight_scale.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _k4_entry()(
-            x2.data_ptr(), weight_q.data_ptr(), weight_scale.data_ptr(), y.data_ptr(),
-            m, n, k, weight_q.shape[1], _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError_t {err}")
-    w8a16_matmul.launches += 1
-    return y.reshape(*lead, n)
+    x2, ldx = _x_rows(x)
+    _check_k4_operands(x2, ldx, weight_q, weight_scale)
+    y = _launch_k4(x2, ldx, weight_q, weight_scale)
+    return y.reshape(*lead, weight_scale.shape[0])
 
 
 w8a16_matmul.launches = 0
@@ -266,10 +340,16 @@ def quantize_voicebox(voicebox: nn.Module, mode: str) -> nn.Module:
     """A copy of `voicebox` whose in-scope Linears (`quantized_layer_names`)
     are `QuantLinear`s holding `weight_q`, `weight_scale` and the bias. The
     copy shares every other parameter with the original; the caller's
-    module is never changed."""
+    module is never changed. In "w8a16" the copy's feed-forward GEGLUs
+    write their output at a row pitch of 16 elements, so that K4 reads the
+    down projection's x through TMA without a copy (1365 -> 1376 at the
+    flagship's width)."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantize mode {mode!r} (use one of {QUANT_MODES})")
     out = _share_parameters_copy(voicebox)
+    if mode == "w8a16":
+        for block in getattr(out, SCOPE).layers:
+            block[5][1].row_pitch = _K_ALIGN  # ff = [proj_in, GEGLU, Dropout, proj_out]
     for name in quantized_layer_names(out):
         parent_name, _, child = name.rpartition(".")
         parent = out.get_submodule(parent_name)
