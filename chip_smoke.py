@@ -83,7 +83,21 @@ imports nothing of JAX. Its phases print one line each or more:
    10 trained them, same batch and draws, in bf16 and fp32 compute, with
    unit qk gains and gains of 0.25, beside the noise floor of the plain
    version against itself;
-12. one JSON line for the kernels (one row per kernel and main path; on the
+12. levers: the flagship step of phase 10 under five configurations
+   trained in turns: (a) as phase 10; (b) bf16 live parameters over the
+   fp32 master and bf16 Adam moments; (c) (b) with an EMA (decay 0.999);
+   (d) full remat; (e) remat saving the matmuls and K1's outputs
+   ("dots+attn_out+attn_lse"). Each step must launch 24 K1 (48 under full
+   remat), 24 K2 and 24 K3; steps/s and device ms per step from CUDA
+   events, host steps/s and peak memory per configuration. The EMA of (c)
+   samples through adaptive Tsit5 (`use_torchode=True`, loose tolerances;
+   its step count printed) and fixed-grid Tsit5: finite latents through 24
+   K1 launches per evaluation. Then (c) saves after 2 steps and a trainer
+   built from other weights loads the file: its third step's loss, every
+   parameter, both moments and the EMA must equal the uninterrupted run's
+   to the bit. Last, phase 7's small fp32 denoiser with bf16 moments and
+   full remat, card against CPU;
+13. one JSON line for the kernels (one row per kernel and main path; on the
    quantized path, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -917,16 +931,16 @@ SMALL_TRAIN = dict(lr=1e-3, initial_lr=1e-4, num_warmup_steps=1, wd=1e-2, max_gr
                    save_results_every=1000)
 
 
-def _small_trainer(device, items):
+def _small_trainer(device, items, model=None, trainer=None):
     def build():
-        vb = vbt.VoiceBox(dim_in=32, **SMALL)
+        vb = vbt.VoiceBox(dim_in=32, **SMALL, **(model or {}))
         _soften_qk_gains(vb)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device=device)
 
     cfm = seeded(build, SEED + 4)
     return vbt.VoiceBoxTrainer(cfm, batch_size=2, dataset=vbt.ArrayDataset(items),
                                num_train_steps=3, valid_frac=0.0, bucket_multiple=128,
-                               log_every=1000, device=device, **SMALL_TRAIN)
+                               log_every=1000, device=device, **SMALL_TRAIN, **(trainer or {}))
 
 
 def phase_train_card_vs_cpu() -> None:
@@ -934,6 +948,12 @@ def phase_train_card_vs_cpu() -> None:
     items = [(rs.randn(n, 32).astype(np.float32), rs.randint(0, 100, n).astype(np.int32))
              for n in (96, 90, 93, 96)]
     cpu, gpu = _small_trainer("cpu", items), _small_trainer("cuda", items)
+    _compare_small_runs(cpu, gpu, rs, k1_per_step=SMALL["depth"])
+
+
+def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW") -> None:
+    """3 steps of the small trainers on the same batches and draws; losses
+    and parameter updates held card against CPU."""
     init = {n: p.detach().clone() for n, p in cpu.cfm_wrapper.voicebox.named_parameters()}
     frames = 124  # 90-96 frames + 4 registers: the bucket grid gives 124 + 4 = 128 tokens
     depth = SMALL["depth"]
@@ -948,7 +968,8 @@ def phase_train_card_vs_cpu() -> None:
         gpu_loss = gpu.train_step(**{k: torch.from_numpy(v).cuda() for k, v in draws.items()})
         torch.cuda.synchronize()
         # step 0 also evaluates one validation batch: one more forward
-        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth, "k4": 0}
+        want = {"k1": k1_per_step + (depth if step == 0 else 0), "k2": depth, "k3": depth,
+                "k4": 0}
         assert read_launches() == want, f"step {step} launched {read_launches()}, want {want}"
         losses.append((gpu_loss["loss"].item(), cpu_loss.item()))
     loss_err = max(abs(g - c) / abs(c) for g, c in losses)
@@ -966,9 +987,9 @@ def phase_train_card_vs_cpu() -> None:
                                                           1e-30))
     frac_off = n_off / total
     log("train", f"card vs CPU, fp32, dim 128 depth 2 heads 2x64, batch 2 x {frames} frames, "
-                 f"3 AdamW steps (lr {lr:g}, clip 0.5): losses card/CPU "
+                 f"3 {label} steps (lr {lr:g}, clip 0.5): losses card/CPU "
                  f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
-                 f"{loss_err:.2e} (tol 1e-4); K1/K2/K3 launches per step {depth}/{depth}/"
+                 f"{loss_err:.2e} (tol 1e-4); K1/K2/K3 launches per step {k1_per_step}/{depth}/"
                  f"{depth}; parameter updates: min per-tensor cosine {cos_min:.6f} (tol > "
                  f"0.999), max abs diff {worst:.3e} (tol 6 lr = {6 * lr:g}), weights off by "
                  f"> 0.01 lr {n_off} of {total} (tol 1e-3 of them)")
@@ -1579,6 +1600,242 @@ def phase_grad_witness(trainer, untrained: dict, smi: str) -> None:
                        f"attention: {failed}"
 
 
+# phase 12: the training levers at full width. Each configuration is the
+# flagship step of phase 10 (bf16 compute, fp32 parameters) with one change.
+LEVERS = {
+    "a_baseline": ({}, {}),
+    "b_bf16_params_moments": ({}, dict(param_dtype=torch.bfloat16, moment_dtype=torch.bfloat16)),
+    "c_b_plus_ema": ({}, dict(param_dtype=torch.bfloat16, moment_dtype=torch.bfloat16,
+                              ema_decay=0.999)),
+    "d_remat_full": (dict(remat=True), {}),
+    "e_remat_dots_attn": (dict(remat=True, remat_policy="dots+attn_out+attn_lse"), {}),
+}
+LEVER_WARMUP, LEVER_TURN_STEPS = 2, 3  # steps before timing; steps per turn
+ODE_LOOSE = 5e-2  # atol = rtol of the adaptive Tsit5 sample
+SAMPLE_FRAMES = 300
+
+
+def _levers_trainer(model_kw: dict, trainer_kw: dict, items, seed: int, **extra):
+    def build():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          **FLAGSHIP, **model_kw)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, **extra)
+
+    cfm = seeded(build, seed)
+    return vbt.VoiceBoxTrainer(
+        cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(items), num_train_steps=1000,
+        lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0, log_every=1000,
+        save_results_every=1000, seed=SEED, **trainer_kw,
+    )
+
+
+def _state_bytes(trainer) -> int:
+    """Bytes the trainer keeps on the card between steps: parameters, their
+    bf16 live copies, the optimizer's moments and the EMA."""
+    tensors = list(trainer.params) + list(trainer._live or [])
+    tensors += list(trainer.ema.shadow) if trainer.ema is not None else []
+    for st in trainer.optimizer.state.values():
+        tensors += [v for v in st.values() if torch.is_tensor(v) and v.is_cuda]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _k1_per_step(model_kw: dict) -> int:
+    """K1 launches of one flagship step: the forward, and again in the
+    backward's recompute unless the remat policy saves K1's outputs."""
+    depth = FLAGSHIP["depth"]
+    policy = model_kw.get("remat_policy") or ""
+    saved = {"attn_out", "attn_lse"} <= set(policy.split("+"))
+    return 2 * depth if model_kw.get("remat") and not saved else depth
+
+
+def phase_levers(smi: str) -> dict:
+    """The five configurations trained in turns (a, b, c, d, e, e, d, c, b,
+    a; each turn LEVER_TURN_STEPS steps after LEVER_WARMUP warm-up steps):
+    per configuration steps/s and device ms per step from CUDA events, host
+    steps/s, launches per step (asserted) and peak memory (its state on the
+    card between steps plus the transient peak of its steps). Then the EMA
+    of configuration (c) samples 300 frames through adaptive Tsit5
+    (`use_torchode=True`, atol = rtol = ODE_LOOSE) and through fixed-grid
+    Tsit5: finite latents and 24 K1 launches per evaluation. Returns the
+    launch counts of the timed turns and each configuration's launches per
+    step."""
+    rs = np.random.RandomState(SEED + 7)
+    items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
+              rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
+             for _ in range(40)]
+    depth = FLAGSHIP["depth"]
+    trainers, expected = {}, {}
+    for i, (name, (model_kw, trainer_kw)) in enumerate(LEVERS.items()):
+        extra = dict(use_torchode=True, ode_atol=ODE_LOOSE, ode_rtol=ODE_LOOSE) \
+            if name == "c_b_plus_ema" else {}
+        trainers[name] = _levers_trainer(model_kw, trainer_kw, items, SEED + 6, **extra)
+        expected[name] = {"k1": _k1_per_step(model_kw), "k2": depth, "k3": depth, "k4": 0}
+        for _ in range(LEVER_WARMUP):  # step 0 also runs the validation batch
+            trainers[name].train_step()
+    torch.cuda.synchronize()
+
+    stats = {n: {"gpu_ms": [], "host_s": [], "peak": 0, "losses": []} for n in trainers}
+    reset_launches()  # the levers path's run starts here
+    for name in list(trainers) + list(trainers)[::-1]:
+        trainer, st = trainers[name], stats[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(LEVER_TURN_STEPS):
+            before = read_launches()
+            st["losses"].append(trainer.train_step()["loss"])
+            after = read_launches()
+            got = {k: after[k] - before[k] for k in after}
+            assert got == expected[name], f"{name}: a step launched {got}, want {expected[name]}"
+        end.record()
+        torch.cuda.synchronize()
+        st["host_s"].append(time.perf_counter() - t0)
+        st["gpu_ms"].append(start.elapsed_time(end))
+        transient = torch.cuda.max_memory_allocated() - base
+        st["peak"] = max(st["peak"], _state_bytes(trainer) + transient)
+    counts = read_launches()
+    results = {}
+    for name, st in stats.items():
+        prof = _profile(trainers[name].train_step)  # after the counted run
+        losses = torch.stack(st["losses"]).tolist()
+        assert all(math.isfinite(x) for x in losses), f"{name}: non-finite loss {losses}"
+        steps = LEVER_TURN_STEPS * len(st["gpu_ms"])
+        ms = sum(st["gpu_ms"]) / steps
+        results[name] = {"steps_per_s": 1e3 / ms, "device_ms_per_step": ms,
+                         "host_steps_per_s": steps / sum(st["host_s"]),
+                         "peak_gib": st["peak"] / 2**30, "launches_per_step": expected[name],
+                         "state_gib": _state_bytes(trainers[name]) / 2**30,
+                         "busy_ms": prof["busy_ms"], "idle": prof["idle"],
+                         "kernels": prof["kernels"]}
+        log("levers", f"{name}: steps/s {results[name]['steps_per_s']:.3f} (CUDA events, "
+                      f"{ms:.2f} ms/step over {steps} steps in 2 turns), host clock "
+                      f"{results[name]['host_steps_per_s']:.3f} steps/s, launches per step "
+                      f"K1/K2/K3 {expected[name]['k1']}/{depth}/{depth}, peak memory "
+                      f"{results[name]['peak_gib']:.2f} GiB (state on the card "
+                      f"{results[name]['state_gib']:.2f} GiB + the steps' transient peak), "
+                      f"losses {[round(x, 4) for x in losses]} on {smi}")
+        idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.3f}"
+        log("levers", f"{name}: profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
+                      f"{prof['busy_ms']:.2f} ms over {prof['kernels']} kernels, idle share "
+                      f"{idle}; largest (name, ms, calls): "
+                      f"{'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'][:5])}")
+    ema_trainer = trainers.pop("c_b_plus_ema")
+    del trainers
+    torch.cuda.empty_cache()
+    _ema_samples(ema_trainer, smi)
+    del ema_trainer
+    torch.cuda.empty_cache()
+    return counts, {n: r["launches_per_step"] for n, r in results.items()}
+
+
+def _ema_samples(trainer, smi: str) -> None:
+    cfm = trainer.cfm_wrapper
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    cond = torch.randn(1, SAMPLE_FRAMES, LATENT_DIM, generator=gen, device="cuda")
+    ids = torch.randint(0, FLAGSHIP["num_cond_tokens"], (1, SAMPLE_FRAMES), generator=gen,
+                        device="cuda")
+    depth = FLAGSHIP["depth"]
+    for method in ("tsit5_adaptive", "tsit5"):
+        cfm.ode_method = method
+        before = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.generate(use_ema=True, cond=cond, semantic_token_ids=ids, steps=STEPS,
+                               cond_scale=CFG_SCALE, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = flash_attention.launches - before
+        evals = 7 * (cfm.ode_steps_taken if method == "tsit5_adaptive" else STEPS - 1)
+        assert tuple(out.shape) == (1, SAMPLE_FRAMES, LATENT_DIM), tuple(out.shape)
+        assert bool(torch.isfinite(out).all()), f"{method}: non-finite EMA latents"
+        assert launches == depth * evals, f"{method}: {launches} K1 launches, want {depth * evals}"
+        steps_note = (f"{cfm.ode_steps_taken} adaptive steps (atol = rtol = {ODE_LOOSE:g}, "
+                      f"max 256)" if method == "tsit5_adaptive" else f"{STEPS - 1} intervals")
+        log("levers", f"EMA (decay 0.999, fp32) sample, {method}: {steps_note}, {evals} "
+                      f"evaluations at CFG {CFG_SCALE} (batch 2 x {SAMPLE_FRAMES} frames + 16 "
+                      f"registers), K1 launches {launches} = 24 x evaluations, latents finite, "
+                      f"|latents| max {out.abs().max().item():.3f}, host {dt * 1e3:.1f} ms on "
+                      f"{smi}")
+
+
+def phase_resume(smi: str) -> None:
+    """Configuration (c) at full width: a run saves after 2 steps and takes a
+    third; a trainer built from other weights loads the file and takes the
+    same third step (same batch: every item of the dataset is the same; same
+    draws). Its loss, every parameter, both moments and the EMA must equal the
+    uninterrupted run's to the bit. cuDNN runs deterministic algorithms here
+    (ConvPositionEmbed's weight gradient), so the check is about the file."""
+    rs = np.random.RandomState(SEED + 31)
+    item = (rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
+            rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
+    model_kw, trainer_kw = LEVERS["c_b_plus_ema"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    frames = TRAIN_FRAMES
+
+    def draws():
+        m = TRAIN_BATCH
+        return dict(noise=torch.randn(m, frames, LATENT_DIM, generator=gen, device="cuda"),
+                    times=torch.rand(m, generator=gen, device="cuda"),
+                    cond_mask=torch.rand(m, frames, generator=gen, device="cuda") < 0.7,
+                    cond_drop_mask=torch.rand(m, generator=gen, device="cuda") < 0.2)
+
+    step_draws = [draws() for _ in range(3)]
+    path = kernels.BUILD_DIR.parent / "levers_resume.pt"  # in the checkout, ignored by git
+    path.parent.mkdir(parents=True, exist_ok=True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = _levers_trainer(model_kw, trainer_kw, [item] * TRAIN_BATCH, SEED + 33)
+        for d in step_draws[:2]:
+            a.train_step(**d)
+        t0 = time.perf_counter()
+        a.save(path)
+        save_s = time.perf_counter() - t0
+        loss_a = a.train_step(**step_draws[2])["loss"]
+        b = _levers_trainer(model_kw, trainer_kw, [item] * TRAIN_BATCH, SEED + 34)
+        t0 = time.perf_counter()
+        b.load(path)
+        load_s = time.perf_counter() - t0
+        assert b.steps == 2, b.steps
+        loss_b = b.train_step(**step_draws[2])["loss"]
+        torch.cuda.synchronize()
+        same = torch.equal(loss_a, loss_b)
+        differ = [n for (n, p), q in zip(a.named_params, b.params) if not torch.equal(p, q)]
+        differ += [f"{key} {n}" for (n, p), q in zip(a.named_params, b.params)
+                   for key in ("exp_avg", "exp_avg_sq")
+                   if not torch.equal(a.optimizer.state[p][key], b.optimizer.state[q][key])]
+        differ += [f"ema {n}" for (n, _), x, y in zip(a.named_params, a.ema.shadow, b.ema.shadow)
+                   if not torch.equal(x, y)]
+        size_mb = path.stat().st_size / 2**20
+        log("resume", f"configuration (c) at full width: saved after 2 steps "
+                      f"({size_mb:.0f} MiB, {save_s:.2f} s), loaded into a trainer built from "
+                      f"other weights ({load_s:.2f} s); third step loss uninterrupted "
+                      f"{loss_a.item():.6f} resumed {loss_b.item():.6f}, bit-identical "
+                      f"{same}; tensors that differ (parameters, moments, EMA): "
+                      f"{len(differ)} on {smi}")
+        assert same and not differ, f"the resumed run differs: loss {same}, {differ[:5]}"
+    finally:
+        torch.backends.cudnn.deterministic = was
+        path.unlink(missing_ok=True)
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_levers_card_vs_cpu() -> None:
+    """Phase 7's small fp32 denoiser with bf16 moments and full remat, 3
+    steps on the card and on the CPU, held to phase 7's tolerances."""
+    rs = np.random.RandomState(SEED + 35)
+    items = [(rs.randn(n, 32).astype(np.float32), rs.randint(0, 100, n).astype(np.int32))
+             for n in (96, 90, 93, 96)]
+    levers = dict(model=dict(remat=True), trainer=dict(moment_dtype=torch.bfloat16))
+    cpu, gpu = (_small_trainer(dev, items, **levers) for dev in ("cpu", "cuda"))
+    _compare_small_runs(cpu, gpu, rs, k1_per_step=2 * SMALL["depth"],
+                        label="bf16-moment Adam, full-remat")
+
+
 def _path_row(kernel: str, name: str, parts) -> dict:
     """The row of one kernel on the quantized duration-mode path from the
     shapes that path gave it: parts is [(launches, timed result)]. Times and
@@ -1644,12 +1901,14 @@ def _k23_timed_row(r: dict, kernel: str) -> dict:
             "library_fwd_bwd_ms": t["sdpa_fwd_bwd"]}
 
 
-def kernel_line(k1, k23, serve_k1, engine, train_counts) -> str:
+def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
     serving shape), on the quantized duration-mode path (`engine_rows`: the
     denoiser's and the duration predictor's calls) and on the training path
     (at the training shape); K2 and K3 on the training path; K4 on the
-    quantized duration-mode path."""
+    quantized duration-mode path; K1, K2 and K3 on the training levers' path
+    (phase 12, at the training shape, with the launches per step of each
+    configuration)."""
     rows = []
     for path, case, launches in (("serve", "flagship_cfg_bf16", serve_k1),
                                  ("train", "train_bf16", train_counts["k1"])):
@@ -1676,6 +1935,11 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts) -> str:
             "reference_split": _k23_timed_row(k23["reference_split_bf16"], kk),
         })
     rows.append(engine[2])
+    for kk in ("k1", "k2", "k3"):
+        base = next(r for r in rows if r["name"].startswith(NAMES[kk]) and r["path"] == "train")
+        rows.append({**base, "name": f"{NAMES[kk]}[train_levers]", "path": "train_levers",
+                     "launches": levers_counts[kk],
+                     "launches_per_step": {n: c[kk] for n, c in levers_per_step.items()}})
     return json.dumps({"kernels": rows})
 
 
@@ -1706,7 +1970,15 @@ def main() -> int:
     )
     phase_grad_witness(trainer, untrained, smi)
     del trainer
-    print(kernel_line(k1, k23, serve_k1, engine, train_counts), flush=True)
+    torch.cuda.empty_cache()
+    levers_counts, levers_per_step = phase_levers(smi)
+    assert min(levers_counts[k] for k in ("k1", "k2", "k3")) > 0, (
+        f"the training levers' path skipped a kernel: {levers_counts}"
+    )
+    phase_resume(smi)
+    phase_levers_card_vs_cpu()
+    print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -139,6 +139,37 @@ def test_attention_module_card_matches_cpu(cuda_device):
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("policy,k1_per_layer", [(None, 2), ("dots", 2),
+                                                 ("dots+attn_out+attn_lse", 1)])
+def test_remat_on_the_card_keeps_gradients_and_counts_k1(cuda_device, policy, k1_per_layer):
+    """Remat gives the gradients of the plain step to the bit (K2 and K3 are
+    deterministic); K1 runs again in the backward unless the policy saves
+    its outputs."""
+    cfg = dict(num_cond_tokens=20, dim_cond_emb=32, dim=128, depth=2, dim_head=64, heads=2,
+               num_register_tokens=4, dim_in=16, dtype=torch.bfloat16,
+               param_dtype=torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(2, 60, 16, generator=gen, device=cuda_device)
+    ids = torch.randint(0, 20, (2, 60), generator=gen, device=cuda_device)
+    kw = dict(times=torch.rand(2, generator=gen, device=cuda_device), cond_token_ids=ids,
+              target=x, cond_mask=torch.rand(2, 60, generator=gen, device=cuda_device) < 0.5,
+              cond_drop_mask=torch.tensor([False, True], device=cuda_device), train=True)
+
+    def grads(**remat):
+        torch.manual_seed(0)
+        vb = VoiceBox(**cfg, **remat).to(cuda_device)
+        before = flash_attention.launches
+        vb(x, **kw).backward()
+        torch.cuda.synchronize()
+        return flash_attention.launches - before, [p.grad for p in vb.parameters()]
+
+    plain_k1, plain = grads()
+    k1, ours = grads(remat=True, remat_policy=policy)
+    assert plain_k1 == cfg["depth"] and k1 == k1_per_layer * cfg["depth"]
+    for a, b in zip(ours, plain):
+        assert torch.equal(a, b)
+
+
 # bf16: P and dS are rounded to bf16 before their products, in another order
 # than the plain version's sums; fp32: rounding only. The shapes are K1's
 # edges: K2 streams 64-key tiles and K3 64-row query tiles through the same

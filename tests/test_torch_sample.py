@@ -141,7 +141,7 @@ def test_odeint_matches_jax(method):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
     np.testing.assert_allclose(traj.numpy(), np.asarray(traj_ref), atol=1e-6)
     with pytest.raises(ValueError):
-        odeint(f_t, torch.from_numpy(y0), torch.from_numpy(times), method="tsit5")
+        odeint(f_t, torch.from_numpy(y0), torch.from_numpy(times), method="dopri5")
 
 
 @pytest.mark.parametrize("shape,length", [((2, 3, 12), 30), ((2, 3, 30), 12), ((2, 12), 12),
@@ -177,4 +177,4 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 10"
+    assert proc.stdout.strip() == "ok 11"

@@ -237,18 +237,21 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="raw audio"):
         cfm(torch.zeros(2, 320), semantic_token_ids=torch.zeros(2, 4, dtype=torch.long))
     ds = data.ArrayDataset([np.zeros((20, DIM_IN), np.float32)] * 4)
-    for kw in ({"param_dtype": torch.bfloat16}, {"ema_decay": 0.999}, {"save_model_every": 10}):
-        with pytest.raises(NotImplementedError):
-            VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, device="cpu", **kw)
+    for kw in ({"mesh": object()}, {"checkpoint_backend": "orbax"}):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
+                            device="cpu", **kw)
     bf16 = ConditionalFlowMatcherWrapper(
         VoiceBox(dim_in=DIM_IN, dtype=torch.bfloat16, **CONFIG), device="cpu")
     with pytest.raises(ValueError, match="fp32 parameters"):
         VoiceBoxTrainer(bf16, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
                         device="cpu")
+    # attention dropout is ported: on in training only
     attn = Attention(32, dim_head=16, heads=2, attn_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        attn(torch.zeros(1, 4, 32))
-    attn.eval()(torch.zeros(1, 4, 32))  # off in eval mode
+    x = torch.randn(1, 4, 32, generator=torch.Generator().manual_seed(0))
+    plain = attn(x)
+    dropped = attn(x, train=True, generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(dropped).all() and not torch.equal(dropped, plain)
 
 
 def test_param_dtype_keeps_fp32_weights_and_computes_in_bf16():

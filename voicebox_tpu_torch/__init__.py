@@ -3,8 +3,10 @@
 The JAX package `voicebox_tpu` is the reference; this package mirrors its
 module names. It imports torch and never jax. Its slices so far: the
 serving path (the conditional-flow-matching sampler over the VoiceBox
-denoiser, then the Encodec/Vocos decode), the training step (the CFM loss,
-AdamW, `VoiceBoxTrainer`) and quantized duration-mode serving (the
+denoiser, fixed-grid or adaptive Tsit5, then the Encodec/Vocos decode), the
+training step (the CFM loss, AdamW or bf16-moment Adam, bf16 live
+parameters, the EMA, remat, reference-layout checkpoints, `VoiceBoxTrainer`,
+`TrainConfig`) and quantized duration-mode serving (the
 `DurationPredictor`'s inference, `TTSEngine`, `DynamicBatcher`,
 `sample(quantize=...)`). On CUDA tensors every attention call runs K1
 forward and K2 + K3 backward, and every quantized "w8a16" matmul runs K4,
@@ -19,6 +21,7 @@ from .models.transformer import Transformer
 from .models.vocos import Vocos
 from .models.voicebox import VoiceBox
 from .serving import DynamicBatcher, TTSEngine
+from .training.config import TrainConfig
 from .training.data import ArrayDataset
 from .training.trainer import VoiceBoxTrainer
 
@@ -31,6 +34,7 @@ __all__ = [
     "DynamicBatcher",
     "EncodecVoco",
     "TTSEngine",
+    "TrainConfig",
     "Transformer",
     "Vocos",
     "VoiceBox",

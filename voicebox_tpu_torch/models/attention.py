@@ -2,11 +2,13 @@
 
 Counterpart of `voicebox_tpu/models/attention.py::Attention` (the branch
 without sequence parallelism): fused QKV projection, heads split to
-(b, h, n, d), per-head qk-norm with the fixed scale 10, rotary on q and k,
-then `ops.flash_attention` (K1 forward, K2 + K3 backward on the card) and
-the output projection. Attention dropout in training is not ported yet (the
-JAX package sends it to its XLA path; every reference config uses 0): a
-module in training mode with `attn_dropout > 0` raises.
+(b, h, n, d), per-head qk-norm with the fixed scale 10, rotary on q and k
+(tagged "qk_rotary" for remat policies), then `ops.flash_attention` (K1
+forward, K2 + K3 backward on the card) and the output projection. In
+training (`train=True`) with `attn_dropout > 0` the attention weights are
+dropped, as the JAX package does on its XLA path: `reference_attention`
+with its keep mask drawn from `generator`. Every other call goes to
+`flash_attention`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, reference_attention
+from ..ops.remat import checkpoint_name
 from .primitives import Linear, MultiheadRMSNorm, apply_rotary_pos_emb
 
 __all__ = ["Attention"]
@@ -39,12 +42,8 @@ class Attention(nn.Module):
         self.to_out = Linear(dim_inner, dim, bias=False, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                rotary_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training and self.attn_dropout > 0:
-            raise NotImplementedError(
-                "attention dropout in training is not ported yet (ROADMAP Queue 1, "
-                "item 7); the reference configs use attn_dropout=0"
-            )
+                rotary_emb: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         q, k, v = (
@@ -54,11 +53,13 @@ class Attention(nn.Module):
         if self.qk_norm_scale is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if rotary_emb is not None:
-            q = apply_rotary_pos_emb(rotary_emb, q)
-            k = apply_rotary_pos_emb(rotary_emb, k)
-        # K1 takes contiguous (b, h, n, d) operands
-        out = flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            mask=mask, scale=self.qk_norm_scale,
-        )
+            q = checkpoint_name(apply_rotary_pos_emb(rotary_emb, q), "qk_rotary")
+            k = checkpoint_name(apply_rotary_pos_emb(rotary_emb, k), "qk_rotary")
+        if train and self.attn_dropout > 0:
+            out = reference_attention(q, k, v, mask, self.qk_norm_scale,
+                                      dropout=self.attn_dropout, generator=generator)
+        else:
+            # K1 takes contiguous (b, h, n, d) operands
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  mask=mask, scale=self.qk_norm_scale)
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))

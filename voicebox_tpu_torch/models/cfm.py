@@ -9,13 +9,18 @@ on latents:
   against flow, with the random span and CFG masks. Every random draw comes
   from `generator=` or is passed in (`noise=`, `times=`, `cond_mask=`,
   `cond_drop_mask=`);
-* `sample`: a fixed-grid midpoint ODE from noise y0 over the VoiceBox vector
-  field, classifier-free guidance as ONE forward at batch 2b
-  (`null + (cond - null) * cond_scale`), then the codec's decode
-  (RVQ -> Vocos -> iSTFT) in the same call. y0 comes from `noise=` or from
-  `generator=`. The conditioning ids are `semantic_token_ids`, or, with a
-  `DurationPredictor` attached, phonemes (`phoneme_ids=` or `texts=`)
-  aligned to the frame rate by the predicted durations.
+* `sample`: an ODE from noise y0 over the VoiceBox vector field, on a fixed
+  grid (midpoint by default; `torchdiffeq_ode_method` or `ode_method` picks
+  euler, rk4 or tsit5) or, with `use_torchode=True`, adaptive Tsit5 at
+  `ode_atol` / `ode_rtol` (the reference's torchode path; the steps it took
+  are left in `ode_steps_taken`). Classifier-free guidance runs as ONE
+  forward at batch 2b (`null + (cond - null) * cond_scale`), then the
+  codec's decode (RVQ -> Vocos -> iSTFT) in the same call. y0 comes from
+  `noise=` or from `generator=`. The conditioning ids are
+  `semantic_token_ids`, or, with a `DurationPredictor` attached, phonemes
+  (`phoneme_ids=` or `texts=`) aligned to the frame rate by the predicted
+  durations. Without text conditioning, `duration_seconds` sets the length:
+  of `batch_size` rows of zero cond, or of the given cond, cut or padded;
 * quantized serving: `sample(quantize="w8a16" | "int8",
   param_store_dtype=...)` samples through a copy of the denoiser whose
   parameters are cast first, then whose transformer matmuls are quantized
@@ -23,10 +28,15 @@ on latents:
   weights version (each parameter's storage and version counter), so an
   update of the weights is always served.
 
+* checkpoints in the reference trainer's layout (`torch.save({'model',
+  'optim', 'scheduler'})`, the denoiser's keys under `voicebox.`):
+  `save_torch` writes one, `load_torch` / `load` read the denoiser from one
+  (a reference, JAX-package or port trainer checkpoint).
+
 The wrapper is an nn.Module holding `voicebox`, the frozen codec and the
 duration predictor, and it moves them to `device` when it is built: the
 card unless the caller asks for the CPU. Not ported yet: raw audio in (the
-SEANet encoder), the TextToSemantic front end, Tsit5, long-form sampling.
+SEANet encoder), the TextToSemantic front end, long-form sampling.
 """
 
 from __future__ import annotations
@@ -40,8 +50,9 @@ from torch import nn
 
 from ..ops.interp import curtail_or_pad
 from ..ops.masks import normal, uniform
-from ..ops.ode import cfm_interpolant, odeint
+from ..ops.ode import cfm_interpolant, odeint, odeint_tsit5_adaptive
 from ..ops.quant import QUANT_MODES, cast_float_params, quantize_voicebox
+from ..utils.convert import denoiser_state
 from .duration import masked_frame_durations
 from .voicebox import VoiceBox
 
@@ -75,9 +86,19 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         sigma: float = 0.0,
         ode_method: str = "midpoint",
         cond_drop_prob: float = 0.0,
+        # the reference's names: torchdiffeq's method, or torchode's adaptive
+        # Tsit5, which honours the tolerances
+        ode_atol: float = 1e-5,
+        ode_rtol: float = 1e-5,
+        use_torchode: bool = False,
+        torchdiffeq_ode_method: Optional[str] = None,
         device="cuda",
     ):
         super().__init__()
+        if torchdiffeq_ode_method is not None:
+            ode_method = torchdiffeq_ode_method
+        if use_torchode:
+            ode_method = "tsit5_adaptive"
         if text_to_semantic is not None:
             raise NotImplementedError(
                 "the TextToSemantic front end is not ported yet (ROADMAP Queue 1, item "
@@ -89,6 +110,8 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         self.duration_predictor = duration_predictor
         self.sigma = sigma
         self.ode_method = ode_method
+        self.ode_atol, self.ode_rtol = ode_atol, ode_rtol
+        self.ode_steps_taken: Optional[int] = None  # of the last adaptive solve
         self.cond_drop_prob = cond_drop_prob
         self.condition_on_text = voicebox.condition_on_text
         self._serving_copy = None  # (weights key, cast and/or quantized VoiceBox)
@@ -97,6 +120,40 @@ class ConditionalFlowMatcherWrapper(nn.Module):
     @property
     def audio_enc_dec(self):
         return self.voicebox.audio_enc_dec
+
+    # ------------------------------------------------------------------
+    # checkpoints in the reference trainer's layout
+
+    def load_torch(self, path, strict: bool = True) -> dict:
+        """Load the denoiser from a reference-layout checkpoint (reference
+        trainer.py:191-197: `pkg['model']` is the wrapper's state dict, the
+        denoiser under `voicebox.`), written by the reference trainer, the
+        JAX package's `save_torch` or this package. Frozen `audio_enc_dec.*`
+        codec weights are skipped. Returns the checkpoint."""
+        pkg = torch.load(path, map_location="cpu", weights_only=False)
+        sd = pkg["model"] if isinstance(pkg, dict) and "model" in pkg else pkg
+        self.voicebox.load_state_dict(denoiser_state(sd), strict=strict)
+        return pkg
+
+    def load(self, path, strict: bool = True) -> dict:
+        """Restore the denoiser from a trainer checkpoint and return the
+        checkpoint, so a trainer can restore the rest (the port's trainer
+        writes the reference layout, so this is `load_torch`)."""
+        return self.load_torch(path, strict=strict)
+
+    def save_torch(self, path, extra_model_state: Optional[dict] = None) -> dict:
+        """Write the denoiser as a reference-layout checkpoint that the
+        reference's `ConditionalFlowMatcherWrapper.load` reads: fp32 weights
+        under `voicebox.`, an empty optimizer and scheduler.
+        `extra_model_state` entries (e.g. the frozen codec's
+        `voicebox.audio_enc_dec.*` weights) are merged in. Returns the
+        checkpoint."""
+        model = {f"voicebox.{k}": v.detach().to("cpu", torch.float32, copy=True)
+                 for k, v in self.voicebox.state_dict().items()}
+        model.update(extra_model_state or {})
+        pkg = {"model": model, "optim": {}, "scheduler": {}}
+        torch.save(pkg, str(path))
+        return pkg
 
     def loss_fn(
         self,
@@ -231,6 +288,7 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         return_lengths: bool = False,
         frame_length: Optional[int] = None,
         duration_seconds: Optional[float] = None,
+        batch_size: int = 1,
         quantize: Optional[str] = None,
         param_store_dtype: Optional[torch.dtype] = None,
         ids_at_frame_rate: bool = False,
@@ -250,6 +308,11 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         latent frame; the JAX sampler reads it only to skip the TextToSemantic
         front end's rate conversion, so here, with no such front end, it
         changes nothing, as there without one.
+
+        Without text conditioning, `duration_seconds` is the length in
+        seconds (a codec defines the frame rate): `cond` is cut or padded to
+        it, or, with no `cond`, `batch_size` rows of zero cond are
+        generated whole from noise.
 
         `quantize` ("w8a16" or "int8") and `param_store_dtype` serve from a
         cached cast and quantized copy of the denoiser. With
@@ -319,12 +382,16 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                     "no conditioning ids should be given if not conditioning on text"
                 )
             if want_frames is not None:
-                raise NotImplementedError(
-                    "duration_seconds without text conditioning is not ported yet "
-                    "(ROADMAP Queue 1, item 6); pass cond latents of the desired length"
-                )
+                # length-specified generation: zero cond, and the default
+                # all-True sampling span regenerates all of it
+                if cond is None:
+                    cond = torch.zeros(batch_size, want_frames, vb.latent_dim, device=device)
+                else:
+                    cond = curtail_or_pad(cond, want_frames)
             if cond is None:
-                raise ValueError("cond latents required to sample")
+                raise ValueError(
+                    "cond latents (or duration_seconds with a codec) required to sample"
+                )
 
         if noise is not None:
             y0 = torch.as_tensor(noise, device=device, dtype=cond.dtype)
@@ -333,11 +400,16 @@ class ConditionalFlowMatcherWrapper(nn.Module):
             y0 = normal(cond.shape, generator, device, cond.dtype)
 
         served = self._serving_voicebox(quantize, param_store_dtype)
-        times = torch.linspace(0.0, 1.0, steps, device=device)
-        latents, _ = odeint(
-            lambda t, x: self._vector_field(served, t, x, cond, cond_token_ids, cond_scale),
-            y0, times, method=self.ode_method,
-        )
+
+        def field(t, x):
+            return self._vector_field(served, t, x, cond, cond_token_ids, cond_scale)
+
+        if self.ode_method == "tsit5_adaptive":
+            latents, self.ode_steps_taken = odeint_tsit5_adaptive(
+                field, y0, 0.0, 1.0, atol=self.ode_atol, rtol=self.ode_rtol)
+        else:
+            times = torch.linspace(0.0, 1.0, steps, device=device)
+            latents, _ = odeint(field, y0, times, method=self.ode_method)
 
         if dp_frames is not None and frame_length is not None:
             # a static horizon that cuts the predicted speech is never silent

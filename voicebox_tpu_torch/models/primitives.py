@@ -11,6 +11,8 @@ whose cast rules differ from flax's), as the JAX trainer does. The
 norms, the rotary embedding, the time features and the adaptive-norm
 projections compute in fp32 whatever the model's dtype, as in the JAX
 package. The tanh GELU is the denoiser's (the vocoder uses the exact one).
+The norms' and the GEGLU's outputs carry the JAX package's remat tags
+("norm_out", "gelu_out"; `ops/remat.py`).
 
 `SimpleGateLoopLayer` is not ported yet.
 """
@@ -23,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.remat import checkpoint_name
 
 __all__ = [
     "Linear",
@@ -148,7 +152,8 @@ class RMSNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (l2norm(x.float()) * self.scale * self.gamma).to(x.dtype)
+        return checkpoint_name((l2norm(x.float()) * self.scale * self.gamma).to(x.dtype),
+                               "norm_out")
 
 
 class AdaptiveRMSNorm(nn.Module):
@@ -171,7 +176,8 @@ class AdaptiveRMSNorm(nn.Module):
         normed = l2norm(x.float()) * self.scale
         cond = cond.float()
         gamma, beta = self.to_gamma(cond), self.to_beta(cond)
-        return (normed * gamma[:, None, :] + beta[:, None, :]).to(x.dtype)
+        return checkpoint_name((normed * gamma[:, None, :] + beta[:, None, :]).to(x.dtype),
+                               "norm_out")
 
 
 class MultiheadRMSNorm(nn.Module):
@@ -201,7 +207,7 @@ class GEGLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, gate = x.chunk(2, dim=-1)
         if self.row_pitch == 1 or (torch.is_grad_enabled() and x.requires_grad):
-            return F.gelu(gate, approximate="tanh") * x
+            return checkpoint_name(F.gelu(gate, approximate="tanh") * x, "gelu_out")
         n = x.shape[-1]
         pitched = -(-n // self.row_pitch) * self.row_pitch
         out = x.new_empty(*x.shape[:-1], pitched)[..., :n]

@@ -11,15 +11,22 @@ Per block: [skip combine] -> prenorm attention + residual -> prenorm
 feed-forward + residual. Registers are prepended at rotary position -10000
 and are never masked. `VoiceBox` leaves the skip connections off; the flag
 is kept for checkpoints that carry `skip_combiner_{i}`.
+
+`remat=True` rematerialises each block (attention and feed-forward, not the
+skip combiner) in the backward under `remat_policy` (`ops/remat.py`: None is
+full recompute, "dots", "dots_no_batch" and the JAX package's tag names),
+as the JAX package's `nn.remat(_Block, policy=...)` does.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ..ops.remat import parse_policy, remat_call
 from .attention import Attention
 from .primitives import AdaptiveRMSNorm, FeedForward, Linear, RMSNorm, RotaryEmbedding
 
@@ -41,11 +48,16 @@ class Transformer(nn.Module):
         attn_qk_norm: bool = False,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype=torch.float32,
         param_dtype=None,
     ):
         super().__init__()
         assert depth % 2 == 0, "depth must be even (U-Net skip symmetry)"
+        parse_policy(remat_policy)  # unknown parts raise here
+        self.remat, self.remat_policy = remat, remat_policy
+        self.attn_dropout = attn_dropout
         self.depth = depth
         self.num_register_tokens = num_register_tokens
         if num_register_tokens > 0:
@@ -74,8 +86,23 @@ class Transformer(nn.Module):
         self.rotary_emb = RotaryEmbedding(dim_head)
         self.final_norm = RMSNorm(dim)
 
+    def _block(self, layer, x, mask, rotary_emb, norm_cond, train, generator):
+        _, _, attn_prenorm, attn, ff_prenorm, ff = layer
+        if self.adaptive:
+            def norm(m, t):
+                return m(t, cond=norm_cond)
+        else:
+            def norm(m, t):
+                return m(t)
+        x = attn(norm(attn_prenorm, x), mask=mask, rotary_emb=rotary_emb, train=train,
+                 generator=generator) + x
+        return ff(norm(ff_prenorm, x)) + x
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                adaptive_rmsnorm_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                adaptive_rmsnorm_cond: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`train` turns attention dropout on, its keep masks drawn from
+        `generator`."""
         batch, seq_len, _ = x.shape
         num_reg = self.num_register_tokens
         if num_reg > 0:
@@ -88,22 +115,21 @@ class Transformer(nn.Module):
         if num_reg > 0:
             positions = torch.cat([positions.new_full((num_reg,), -10000.0), positions])
         rotary_emb = self.rotary_emb(positions)
-
-        if self.adaptive:
-            def norm(m, t):
-                return m(t, cond=adaptive_rmsnorm_cond)
-        else:
-            def norm(m, t):
-                return m(t)
+        draws = train and self.attn_dropout > 0 and generator is not None
 
         skips = []
-        for skip_combiner, _, attn_prenorm, attn, ff_prenorm, ff in self.layers:
+        for layer in self.layers:
+            skip_combiner = layer[0]
             if skip_combiner is None:
                 skips.append(x)
             else:
                 x = skip_combiner(torch.cat([x, skips.pop() * 2 ** -0.5], dim=-1))
-            x = attn(norm(attn_prenorm, x), mask=mask, rotary_emb=rotary_emb) + x
-            x = ff(norm(ff_prenorm, x)) + x
+            block = partial(self._block, layer, mask=mask, rotary_emb=rotary_emb,
+                            norm_cond=adaptive_rmsnorm_cond, train=train, generator=generator)
+            if self.remat:
+                x = remat_call(block, x, policy=self.remat_policy, draws=draws)
+            else:
+                x = block(x)
 
         if num_reg > 0:
             x = x[:, num_reg:]

@@ -8,7 +8,8 @@ Kept from the JAX package: `cond` defaults to `target` when absent (the
 reference's quirk); ids < 0 map to the null row; classifier-free guidance
 drops the condition through an explicit `cond_drop_mask`.
 
-Training: with `train=True` the span mask (`frac_lengths_mask` of the
+Training: with `train=True` attention dropout is on (`attn_dropout`, its
+keep masks from `generator`), and the span mask (`frac_lengths_mask` of the
 sequence, the part to generate) is drawn from `generator` unless `cond_mask`
 is given, and with `cond_drop_prob > 0` so is the CFG drop unless
 `cond_drop_mask` is given. With a `target` the forward returns the masked
@@ -59,6 +60,8 @@ class VoiceBox(nn.Module):
         num_register_tokens: int = 16,
         frac_lengths_mask: Tuple[float, float] = (0.7, 1.0),
         condition_on_text: bool = True,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,  # see ops/remat.py
         dtype=torch.float32,
         param_dtype=None,
     ):
@@ -103,7 +106,8 @@ class VoiceBox(nn.Module):
             dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             num_register_tokens=num_register_tokens, adaptive_rmsnorm=True,
             adaptive_rmsnorm_cond_dim_in=time_hidden_dim, attn_qk_norm=attn_qk_norm,
-            attn_dropout=attn_dropout, ff_dropout=ff_dropout, **lin,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout, remat=remat,
+            remat_policy=remat_policy, **lin,
         )
         self.to_pred = Linear(dim, self.latent_dim, bias=False, **lin)
 
@@ -163,7 +167,10 @@ class VoiceBox(nn.Module):
         if self.condition_on_text:
             assert cond_ids is not None, "cond_token_ids required when condition_on_text"
             cond_ids = cond_ids.masked_fill(cond_ids < 0, self.null_cond_id)
-            cond_emb = self.to_cond_emb(cond_ids)
+            # the table in the compute dtype first, as flax's Embed promotes
+            # it: the backward's scatter-add then sums in that dtype and
+            # rounds once to the parameter's
+            cond_emb = nn.functional.embedding(cond_ids, self.to_cond_emb.weight.to(self.dtype))
             if cond_emb.shape[-2] != seq_len:
                 cond_emb = interpolate_1d(cond_emb.transpose(1, 2), seq_len).transpose(1, 2)
                 if self_attn_mask is not None:
@@ -174,7 +181,8 @@ class VoiceBox(nn.Module):
         x = self.conv_embed(x, mask=self_attn_mask) + x
 
         time_emb = self.sinu_pos_emb(times)  # fp32
-        x = self.transformer(x, mask=self_attn_mask, adaptive_rmsnorm_cond=time_emb)
+        x = self.transformer(x, mask=self_attn_mask, adaptive_rmsnorm_cond=time_emb,
+                             train=train, generator=generator)
         x = self.to_pred(x)
         if target is None:
             return x

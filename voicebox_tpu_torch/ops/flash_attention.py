@@ -19,6 +19,19 @@ the same forward:
   CPU tensors it runs the plain version, and autograd differentiates that.
   On a CUDA tensor it launches the kernels or raises; it never falls back.
 
+With `dropout > 0`, `reference_attention` drops attention weights after
+the softmax (kept ones scaled by 1 / (1 - dropout)), with a keep mask that
+is passed in or drawn from `generator`: the JAX package's
+`reference_attention(dropout=, dropout_rng=)`, an XLA einsum path and no
+kernel there, so ordinary torch ops here. The attention module sends a
+training call with dropout there, and every other call to
+`flash_attention`.
+
+Inside a rematerialised block whose policy saves "attn_out" and "attn_lse"
+(`ops/remat.py`), `flash_attention` runs K1 as the registered op
+`voicebox_tpu_torch::flash_attention_fwd`, with the same backward, so the
+policy can save K1's outputs instead of launching it again.
+
 `reference_attention_backward` is the plain version of K2 + K3: the
 FlashAttention-2 backward from the saved lse, with the kernels' roundings
 (P and dS cast to the input dtype before their products).
@@ -46,6 +59,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import kernels
+from .remat import checkpoint_name, saves
 
 __all__ = [
     "MASK_FILL",
@@ -73,17 +87,26 @@ def reference_attention(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    dropout: float = 0.0,
+    keep: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q (b, h, n, d), k and v (b, h, kv, d), mask (b, kv) bool (True = keep).
     Returns out (b, h, n, d) in q's dtype and, with `return_lse`, lse
-    (b, h, 1, n) fp32."""
+    (b, h, 1, n) fp32. With `dropout > 0` the softmax weights are kept
+    where `keep` (b, h, n, kv) is True, or where a uniform draw from
+    `generator` is below 1 - dropout, and scaled by 1 / (1 - dropout)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     # fp32 products of the stored values: the einsum's f32 accumulation
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         sim = sim.masked_fill(~mask[:, None, None, :], MASK_FILL)
-    attn = torch.softmax(sim, dim=-1)
+    attn = checkpoint_name(torch.softmax(sim, dim=-1), "attn_probs")
+    if dropout > 0.0:
+        if keep is None:  # jax.random.bernoulli: uniform < p
+            keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
+        attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
     out = torch.matmul(attn.to(v.dtype), v).to(q.dtype)
     if not return_lse:
         return out
@@ -299,12 +322,54 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, mask, out, lse = ctx.saved_tensors
-        do = dout.contiguous()
-        delta = attention_delta(do, out)
-        dq = flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None, None
+        return _kernel_backward(*ctx.saved_tensors, dout, ctx.scale)
+
+
+def _kernel_backward(q, k, v, mask, out, lse, dout, scale):
+    """delta -> K2 -> K3; gradients for (q, k, v, mask, scale)."""
+    do = dout.contiguous()
+    delta = attention_delta(do, out)
+    dq = flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale)
+    return dq, dk, dv, None, None
+
+
+@torch.library.custom_op("voicebox_tpu_torch::flash_attention_fwd", mutates_args=())
+def _k1_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (the plain version on the CPU) as an op that a checkpoint policy
+    can save. Its backward is `_FlashAttention`'s on the card and autograd
+    of the plain version on the CPU, the two paths `flash_attention` takes
+    outside remat."""
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return reference_attention(q, k, v, mask, scale, return_lse=True)
+    return _launch_k1(q, k, v, mask, scale)
+
+
+@_k1_op.register_fake
+def _(q, k, v, mask, scale):
+    return torch.empty_like(q), q.new_empty((*q.shape[:2], 1, q.shape[2]), dtype=torch.float32)
+
+
+def _k1_op_setup(ctx, inputs, output):
+    q, k, v, mask, scale = inputs
+    ctx.save_for_backward(q, k, v, mask, *output)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(output[1])
+
+
+def _k1_op_backward(ctx, dout, _dlse):
+    q, k, v, mask, out, lse = ctx.saved_tensors  # unpacked once: remat recomputes on unpack
+    if q.device.type != "cpu":
+        return _kernel_backward(q, k, v, mask, out, lse, dout, ctx.scale)
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = reference_attention(*qkv, mask, ctx.scale)
+        return (*torch.autograd.grad(out, qkv, dout), None, None)
+
+
+_k1_op.register_autograd(_k1_op_backward, setup_context=_k1_op_setup)
 
 
 def flash_attention(
@@ -322,11 +387,15 @@ def flash_attention(
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, mask, scale, return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {q.device}")
-    out, lse = _FlashAttention.apply(q, k, v, mask, float(scale))
+    if saves("attn_out") and saves("attn_lse"):  # a remat policy saves K1's outputs
+        out, lse = _k1_op(q, k, v, mask, float(scale))
+    elif q.device.type == "cpu":
+        out, lse = reference_attention(q, k, v, mask, scale, return_lse=True)
+    else:
+        out, lse = _FlashAttention.apply(q, k, v, mask, float(scale))
+    out = checkpoint_name(out, "attn_out")
     return (out, lse) if return_lse else out
 
 

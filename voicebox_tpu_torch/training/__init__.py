@@ -1,6 +1,8 @@
-"""Training on latents: the optimizer, the data pipeline and the trainer."""
+"""Training on latents: the optimizer, the data pipeline, checkpoints, the
+trainer and its config."""
 
-from .data import ArrayDataset
+from .config import MeshConfig, TrainConfig
+from .data import ArrayDataset, PrefetchLoader
 from .trainer import VoiceBoxTrainer
 
-__all__ = ["ArrayDataset", "VoiceBoxTrainer"]
+__all__ = ["ArrayDataset", "MeshConfig", "PrefetchLoader", "TrainConfig", "VoiceBoxTrainer"]

@@ -7,14 +7,18 @@ latents: `ArrayDataset`, `collate_with_mask` with its bucket grid,
 numpy's `RandomState(seed)`, as the JAX package does, so both visit the
 items in the same order. Batches are padded to bucketed lengths: the bucket
 grid `k * multiple - offset` keeps frames + registers on the 128 boundary
-(752 frames + 16 registers = 768 tokens). The audio datasets, prefetching
+(752 frames + 16 registers = 768 tokens). `PrefetchLoader` collates the
+next batches on a background thread (with an optional `transform`, such as
+copying into pinned host memory) while the device works. The audio datasets
 and multi-host sharding are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterator, List, Optional, Sequence, Tuple
+import queue
+import threading
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,6 +26,7 @@ __all__ = [
     "AlignedPairedDataLoader",
     "ArrayDataset",
     "DataLoader",
+    "PrefetchLoader",
     "collate_with_mask",
     "random_split",
 ]
@@ -194,3 +199,70 @@ class AlignedPairedDataLoader(DataLoader):
                 m = min(np.shape(row_ids)[0], target)
                 ids[i, :m] = np.asarray(row_ids)[:m]
             yield (xs, mask), (ids, mask)
+
+
+class PrefetchLoader:
+    """Bounded background-thread prefetch around a loader (`DataLoader`,
+    with epoch `__iter__` and infinite `cycle()`, or any iterable): up to
+    `prefetch` items are made ahead, each passed through `transform` on the
+    thread. Counterpart of `voicebox_tpu/training/data.py::PrefetchLoader`:
+    the items come in the loader's order, an exception in the producer
+    re-raises in the consumer, and abandoning (closing or dropping) the
+    iterator stops the thread."""
+
+    _END = object()
+
+    def __init__(self, loader, prefetch: int = 2, transform: Optional[Callable] = None):
+        assert prefetch >= 1
+        self.loader = loader
+        self.prefetch = prefetch
+        self.transform = transform
+
+    def _iterate(self, source) -> Iterator:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        transform = self.transform
+
+        def put(item) -> bool:  # False once the consumer is gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for item in source:
+                    if not put((None, item if transform is None else transform(item))):
+                        return
+                put((self._END, None))
+            except BaseException as e:  # re-raised in the consumer
+                put((e, None))
+
+        thread = threading.Thread(target=producer, daemon=True, name="voicebox-prefetch")
+        thread.start()
+        try:
+            while True:
+                flag, item = q.get()
+                if flag is self._END:
+                    return
+                if flag is not None:
+                    raise flag
+                yield item
+        finally:
+            stop.set()
+
+    def __iter__(self) -> Iterator:
+        return self._iterate(iter(self.loader))
+
+    def cycle(self) -> Iterator:
+        if hasattr(self.loader, "cycle"):
+            return self._iterate(self.loader.cycle())
+
+        def forever():
+            while True:
+                yield from iter(self.loader)
+
+        return self._iterate(forever())

@@ -1,29 +1,51 @@
 """The VoiceBox trainer: CFM loss, gradient accumulation, fp32 global-norm
 clip, AdamW and the warmup -> cosine schedule, on latent datasets.
 
-Counterpart of the core of `voicebox_tpu/training/trainer.py::VoiceBoxTrainer`
-(defaults, `train_step`, `train`) on one device. A step takes
-`batch_size * grad_accum_every` items, runs the loss and its backward per
-micro-batch (on the card: K1 forward, K2 + K3 backward in every attention
-layer), sums the gradients in the fp32 parameters' `.grad` and divides by
-the count, clips, steps AdamW and then the schedule. Losses stay on the
-device between log boundaries and are fetched together. Every
-`save_results_every` steps a validation batch gives a loss, with the span
-and CFG masks drawn from a generator seeded by the step.
+Counterpart of `voicebox_tpu/training/trainer.py::VoiceBoxTrainer` on one
+device. A step takes `batch_size * grad_accum_every` items, runs the loss and
+its backward per micro-batch (on the card: K1 forward, K2 + K3 backward in
+every attention layer), averages the gradients, clips, steps the optimizer
+and then the schedule. Losses stay on the device between log boundaries and
+are fetched together. Every `save_results_every` steps a validation batch
+gives a loss, with the span and CFG masks drawn from a generator seeded by
+the step.
+
+The JAX trainer's single-device options:
+
+* `moment_dtype` (bf16): Adam moments stored in bf16
+  (`optimizer.AdamLowPrecisionMoments`); None keeps `torch.optim.AdamW`;
+* `param_dtype` (bf16): bf16 live parameters over the fp32 master. The
+  module's parameters hold the fp32 master between steps; a step swaps the
+  bf16 live copies in for its forward and backward, so the gradients are
+  bf16 (accumulated in fp32 when `grad_accum_every > 1`), the clip norm
+  sums in fp32, the update lands on the master and the live copies are
+  recast from it (`mixed_step`). Validation, `generate` and checkpoints use
+  the master;
+* `ema_decay` / `ema_dtype`: an EMA of the post-step parameters
+  (`ema_params`, `generate(use_ema=True)`);
+* checkpoints in the reference trainer's `.pt` layout (`training/
+  checkpoint.py`): `save` / `load`, `save_torch` / `load_torch`, and every
+  `save_model_every` steps `results_folder/voicebox.{step}.pt`;
+* `trackers`, `metrics.jsonl` (records as the JAX trainer writes them),
+  `prefetch_batches` (a background thread collates, into pinned memory on
+  the card), the `torch.profiler` window `profile_dir` / `profile_steps`.
 
 Datasets hold latents (n, d) or (latents (n, d), frame-aligned ids (n,))
 pairs (`training.data.ArrayDataset`); raw audio needs the SEANet encoder,
-which is not ported yet. Parameters must be fp32: the denoiser computes in
-its `dtype` (bf16 on the card) and casts each weight at use, as the JAX
-trainer does. Not ported yet, though the constructor keeps their names:
-checkpoints (`save_model_every`), experiment trackers, the device mesh, the
-profiler window, bf16 moments, an EMA and bf16 live parameters
-(`param_dtype`).
+which is not ported yet, and so do the device mesh and sharded checkpoints
+(ROADMAP item 15). The module's parameters must be fp32: the denoiser
+computes in its `dtype` (bf16 on the card) and casts each weight at use, as
+the JAX trainer does. Unlike the JAX trainer, metrics and checkpoints are
+written only when a `results_folder` is given, and a checkpoint's `steps`
+counts the optimizer steps it holds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import shutil
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -31,13 +53,35 @@ import numpy as np
 import torch
 
 from ..models.cfm import ConditionalFlowMatcherWrapper, resolve_device
-from .data import AlignedPairedDataLoader, DataLoader, random_split
-from .optimizer import clip_by_global_norm_f32, get_optimizer, warmup_cosine_schedule
+from .checkpoint import check_backend, load_trainer_checkpoint, save_trainer_checkpoint
+from .data import AlignedPairedDataLoader, DataLoader, PrefetchLoader, random_split
+from .optimizer import (
+    AdamLowPrecisionMoments,
+    ParamsEMA,
+    clip_by_global_norm_f32,
+    get_optimizer,
+    warmup_cosine_schedule,
+)
 
 __all__ = ["VoiceBoxTrainer"]
 
 
+@contextlib.contextmanager
+def swapped(params, tensors):
+    """Let `params` hold `tensors` (any dtype) inside the block."""
+    saved = [p.data for p in params]
+    for p, t in zip(params, tensors):
+        p.data = t
+    try:
+        yield
+    finally:
+        for p, t in zip(params, saved):
+            p.data = t
+
+
 class VoiceBoxTrainer:
+    project_name = "voicebox"
+
     def __init__(
         self,
         cfm_wrapper: ConditionalFlowMatcherWrapper,
@@ -51,34 +95,40 @@ class VoiceBoxTrainer:
         initial_lr: float = 1e-5,
         grad_accum_every: int = 1,
         wd: float = 0.0,
+        moment_dtype=None,
+        param_dtype=None,
+        ema_decay: Optional[float] = None,
+        ema_dtype=None,
         max_grad_norm: Optional[float] = 0.5,
         valid_frac: float = 0.05,
         random_split_seed: int = 42,
         log_every: int = 10,
         save_results_every: int = 100,
+        save_model_every: Optional[int] = None,
         results_folder: Optional[str] = None,
+        force_clear_prev_results: bool = False,
+        mesh=None,
         seed: int = 0,
         bucket_multiple: int = 256,
         max_length: Optional[int] = None,
         bucket_offset: Optional[int] = None,  # None: the register count
         drop_last: bool = False,
-        device="cuda",
-        save_model_every: Optional[int] = None,
-        moment_dtype=None,
-        param_dtype=None,
-        ema_decay: Optional[float] = None,
-        mesh=None,
+        prefetch_batches: int = 2,  # 0: collate on the calling thread
         profile_dir: Optional[str] = None,
+        profile_steps: tuple = (10, 15),
+        checkpoint_backend: str = "msgpack",
+        # each a callable tracker(record, step) for every metrics record, or
+        # an object with any of init_trackers(project, config) / log(values,
+        # step) / finish()
         trackers: tuple = (),
+        device="cuda",
     ):
-        unported = dict(save_model_every=save_model_every, moment_dtype=moment_dtype,
-                        param_dtype=param_dtype, ema_decay=ema_decay, mesh=mesh,
-                        profile_dir=profile_dir, trackers=trackers or None)
-        given = sorted(k for k, v in unported.items() if v is not None)
-        if given:
+        if mesh is not None:
             raise NotImplementedError(
-                f"{', '.join(given)}: not ported yet (ROADMAP Queue 1, item 7)"
-            )
+                "mesh: multi-device layouts are not ported yet (ROADMAP Queue 1, item 15)")
+        check_backend(checkpoint_backend)
+        if save_model_every is not None and results_folder is None:
+            raise ValueError("save_model_every needs a results_folder to write to")
         self.device = resolve_device(device)
         self.cfm_wrapper = cfm_wrapper.to(self.device)
         self.batch_size = batch_size
@@ -86,6 +136,8 @@ class VoiceBoxTrainer:
         self.max_grad_norm = max_grad_norm
         self.log_every = log_every
         self.save_results_every = save_results_every
+        self.save_model_every = save_model_every
+        self.lr, self.initial_lr, self.wd = lr, initial_lr, wd
 
         self.ds, self.valid_ds = dataset, dataset
         if valid_frac > 0:
@@ -112,10 +164,16 @@ class VoiceBoxTrainer:
                 f"param_dtype=torch.float32); got {wrong[:3]}..."
             )
         self.params = [p for _, p in self.named_params]
-        self.optimizer = get_optimizer(self.named_params, lr=lr, wd=wd)
+        self.optimizer = get_optimizer(self.named_params, lr=lr, wd=wd,
+                                       moment_dtype=moment_dtype)
         self.scheduler = warmup_cosine_schedule(
             self.optimizer, lr, initial_lr, self.num_warmup_steps, self.num_train_steps
         )
+        self.ema = None if ema_decay is None else ParamsEMA(self.params, ema_decay, ema_dtype)
+        self.param_dtype = param_dtype
+        self._live = None
+        if param_dtype is not None:
+            self._live = [p.detach().to(param_dtype) for p in self.params]
 
         probe = dataset[0]
         self._paired = isinstance(probe, tuple) and len(probe) == 2
@@ -124,29 +182,56 @@ class VoiceBoxTrainer:
         loader = AlignedPairedDataLoader if self._paired else DataLoader
         kw = dict(bucket_multiple=bucket_multiple, max_length=max_length, drop_last=drop_last,
                   bucket_offset=bucket_offset)
-        self.dl_iter = loader(self.ds, batch_size * grad_accum_every, seed=seed, **kw).cycle()
-        self.valid_dl_iter = loader(self.valid_ds, batch_size, seed=seed + 1, **kw).cycle()
+        dl = loader(self.ds, batch_size * grad_accum_every, seed=seed, **kw)
+        valid_dl = loader(self.valid_ds, batch_size, seed=seed + 1, **kw)
+        if prefetch_batches > 0:
+            pin = self._pinned if self.device.type == "cuda" else None
+            self.dl_iter = PrefetchLoader(dl, prefetch_batches, pin).cycle()
+            self.valid_dl_iter = PrefetchLoader(valid_dl, 1, pin).cycle()
+        else:
+            self.dl_iter, self.valid_dl_iter = dl.cycle(), valid_dl.cycle()
 
+        self.profile_dir, self.profile_steps = profile_dir, tuple(profile_steps)
+        self._profiler = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.steps = 0
         self.metrics: list = []
-        self._metrics_path = None
+        self._metrics_path = self.results_folder = None
         if results_folder is not None:
-            Path(results_folder).mkdir(parents=True, exist_ok=True)
-            self._metrics_path = Path(results_folder) / "metrics.jsonl"
+            self.results_folder = Path(results_folder)
+            if force_clear_prev_results and self.results_folder.exists():
+                shutil.rmtree(self.results_folder)
+            self.results_folder.mkdir(parents=True, exist_ok=True)
+            self._metrics_path = self.results_folder / "metrics.jsonl"
+        self._trackers = tuple(trackers)
         self._loss_buffer: list = []
+        self.hps = {"num_train_steps": self.num_train_steps,
+                    "num_warmup_steps": self.num_warmup_steps, "learning_rate": lr,
+                    "initial_learning_rate": initial_lr, "wd": wd}
+        self._log_metrics({"event": "init_trackers", "config": self.hps})
 
     # ------------------------------------------------------------------
+    # logging
 
     def print(self, msg):
         print(msg, flush=True)
 
     def _log_metrics(self, record: dict, step: Optional[int] = None):
-        record = dict(record, step=self.steps if step is None else step)
+        step = self.steps if step is None else step
+        record = dict(record, step=step, time=time.time())
         self.metrics.append(record)
         if self._metrics_path is not None:
             with open(self._metrics_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
+                f.write(json.dumps(record, default=float) + "\n")
+        for tracker in self._trackers:
+            if callable(tracker) and not hasattr(tracker, "log"):
+                tracker(record, step)
+            elif record.get("event") == "init_trackers":
+                if hasattr(tracker, "init_trackers"):
+                    tracker.init_trackers(self.project_name, record["config"])
+            elif hasattr(tracker, "log"):
+                tracker.log({k: v for k, v in record.items() if k not in ("step", "time")},
+                            step=step)
 
     def _flush_losses(self) -> Optional[float]:
         """Fetch the buffered losses in one transfer and log them; returns the
@@ -160,6 +245,23 @@ class VoiceBoxTrainer:
         self._loss_buffer.clear()
         return values[-1]
 
+    # ------------------------------------------------------------------
+    # data
+
+    @staticmethod
+    def _pinned(item):
+        """A loader item as tensors in pinned host memory, made on the
+        prefetch thread, so the copy to the card is asynchronous."""
+        def one(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).pin_memory()
+
+        if isinstance(item[0], tuple):  # (latents, mask), (ids, ids mask)
+            (x, mask), (ids, ids_mask) = item
+            return (one(x, torch.float32), one(mask, torch.bool)), (one(ids, torch.int64),
+                                                                   ids_mask)
+        x, mask = item
+        return one(x, torch.float32), one(mask, torch.bool)
+
     def _next_batch(self, iterator):
         """(latents, mask, ids or None) as tensors on the device."""
         item = next(iterator)
@@ -167,14 +269,129 @@ class VoiceBoxTrainer:
             (x, mask), (ids, _) = item
         else:
             (x, mask), ids = item, None
-        x = torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
-        if ids is not None:
-            ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
-        return x, mask, ids
+
+        def put(a, dtype):
+            if not torch.is_tensor(a):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(self.device, dtype, non_blocking=True)
+
+        return (put(x, torch.float32), put(mask, torch.bool),
+                None if ids is None else put(ids, torch.int64))
+
+    # ------------------------------------------------------------------
+    # checkpoints
+
+    def save(self, path, extra_model_state: Optional[dict] = None) -> dict:
+        """Write the run (fp32 weights, moments, step, EMA) in the reference
+        trainer's layout (`training/checkpoint.py`); returns the
+        checkpoint."""
+        self._flush_losses()
+        return save_trainer_checkpoint(
+            path, voicebox=self.cfm_wrapper.voicebox, named_params=self.named_params,
+            optimizer=self.optimizer, steps=self.steps, lr=self.lr, wd=self.wd, ema=self.ema,
+            extra_model_state=extra_model_state)
+
+    def load(self, path) -> None:
+        """Resume from a checkpoint written by `save`, by the JAX package's
+        `save_torch` or by the reference trainer: weights, moments, step
+        count (and so the learning rate), EMA; the bf16 live copies are
+        recast from the loaded weights."""
+        self.steps = load_trainer_checkpoint(
+            path, voicebox=self.cfm_wrapper.voicebox, named_params=self.named_params,
+            optimizer=self.optimizer, ema=self.ema)
+        sched = self.scheduler  # at the loaded step, as if it had stepped there
+        sched.last_epoch = self.steps
+        for group, base, factor in zip(self.optimizer.param_groups, sched.base_lrs,
+                                       sched.lr_lambdas):
+            group["lr"] = base * factor(self.steps)
+        sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+        if self._live is not None:
+            torch._foreach_copy_(self._live, [p.detach() for p in self.params])
+
+    # the reference trainer's names: the same file
+    save_torch = save
+    load_torch = load
+
+    @property
+    def ema_params(self) -> Optional[dict]:
+        """{name: EMA tensor} (None without `ema_decay`)."""
+        if self.ema is None:
+            return None
+        return {n: e for (n, _), e in zip(self.named_params, self.ema.shadow)}
+
+    def generate(self, *args, use_ema: bool = False, **kwargs):
+        """`cfm_wrapper.sample` with the fp32 weights, or the EMA's."""
+        if not use_ema:
+            return self.cfm_wrapper.sample(*args, **kwargs)
+        if self.ema is None:
+            raise ValueError("use_ema=True needs VoiceBoxTrainer(ema_decay=...)")
+        with swapped(self.params, self.ema.shadow):
+            return self.cfm_wrapper.sample(*args, **kwargs)
+
+    # ------------------------------------------------------------------
+    # training
 
     def _loss(self, x, mask, ids, **randomness):
         return self.cfm_wrapper.loss_fn(x, mask=mask, cond_token_ids=ids, **randomness)
+
+    def _gradients(self, x, mask, ids, draws):
+        """(mean loss, gradients per parameter): fp32 in the parameters'
+        `.grad` for fp32 parameters; for bf16 live parameters, bf16 with one
+        micro-batch, else summed in fp32."""
+        accum = self.grad_accum_every
+        micro = x.shape[0] // accum
+        loss_sum = torch.zeros((), device=self.device)
+        acc = None
+        for i in range(accum):
+            sl = slice(i * micro, (i + 1) * micro)
+            loss = self._loss(x[sl], mask[sl], None if ids is None else ids[sl],
+                              generator=self.generator, **{k: v[sl] for k, v in draws.items()})
+            loss.backward()
+            loss_sum += loss.detach()
+            if self._live is not None:
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+                for p in self.params:
+                    p.grad = None
+                if accum > 1:
+                    grads = [g.float() for g in grads]
+                    if acc is None:
+                        acc = grads
+                    else:
+                        torch._foreach_add_(acc, grads)
+                else:
+                    acc = grads
+        if acc is None:  # fp32 parameters: .grad is the accumulator
+            for p in self.params:  # an unused parameter still decays, as under optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            acc = [p.grad for p in self.params]
+        if accum > 1:
+            torch._foreach_div_(acc, accum)
+        return loss_sum / accum, acc
+
+    def _profile_window(self, steps: int) -> None:
+        if self.profile_dir is None:
+            return
+        if steps == self.profile_steps[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        elif steps == self.profile_steps[1] and self._profiler is not None:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        prof, self._profiler = self._profiler, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
+        path = Path(self.profile_dir) / f"trace_{self.profile_steps[0]}_{self.steps}.json"
+        prof.export_chrome_trace(str(path))
+        self.print(f"{self.steps}: profiler trace written to {path}")
 
     def train_step(self, **draws):
         """One optimizer step. `draws` (`noise`, `times`, `cond_mask`,
@@ -182,30 +399,29 @@ class VoiceBoxTrainer:
         generator's draws, to replay a run. Returns {"loss", "grad_norm"} as
         tensors on the device."""
         steps = self.steps
+        self._profile_window(steps)
         x, mask, ids = self._next_batch(self.dl_iter)
         self.cfm_wrapper.train()
-        accum = self.grad_accum_every
-        micro = x.shape[0] // accum
-        loss_sum = torch.zeros((), device=self.device)
-        for i in range(accum):
-            sl = slice(i * micro, (i + 1) * micro)
-            loss = self._loss(x[sl], mask[sl], None if ids is None else ids[sl],
-                              generator=self.generator, **{k: v[sl] for k, v in draws.items()})
-            loss.backward()
-            loss_sum += loss.detach()
-        for p in self.params:  # an unused parameter still decays, as under optax
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        if accum > 1:  # the fp32 .grad buffers are the accumulator
-            torch._foreach_div_(grads, accum)
+        if self._live is None:
+            loss, grads = self._gradients(x, mask, ids, draws)
+        else:
+            with swapped(self.params, self._live):
+                loss, grads = self._gradients(x, mask, ids, draws)
         grad_norm = None
         if self.max_grad_norm is not None:
             grad_norm = clip_by_global_norm_f32(grads, self.max_grad_norm)
-        self.optimizer.step()
+        if isinstance(self.optimizer, AdamLowPrecisionMoments):
+            self.optimizer.step(dict(zip(self.params, grads)))
+        else:
+            for p, g in zip(self.params, grads):
+                p.grad = g if g.dtype == p.dtype else g.float()
+            self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = loss_sum / accum
+        if self.ema is not None:
+            self.ema.update()
+        if self._live is not None:  # the next step's live copies
+            torch._foreach_copy_(self._live, [p.detach() for p in self.params])
 
         self._loss_buffer.append((steps, loss))
         if steps % self.log_every == 0:
@@ -218,6 +434,10 @@ class VoiceBoxTrainer:
             self.print(f"{steps}: valid loss {valid_loss:0.3f}")
             self._log_metrics({"valid_loss": valid_loss})
         self.steps += 1
+        if self.save_model_every is not None and steps % self.save_model_every == 0:
+            path = self.results_folder / f"voicebox.{steps}.pt"
+            self.save(path)
+            self.print(f"{steps}: saving model to {path}")
         return {"loss": loss, "grad_norm": grad_norm}
 
     def train(self):
@@ -226,4 +446,9 @@ class VoiceBoxTrainer:
                 self.train_step()
         finally:
             self._flush_losses()
+            if self._profiler is not None:
+                self._stop_profiler()
         self.print("training complete")
+        for tracker in self._trackers:
+            if hasattr(tracker, "finish"):
+                tracker.finish()

@@ -11,7 +11,19 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 * `duration_predictor_state_dict`: the same mapping as
   `export_duration_predictor_torch` (the net, without the aligner);
 * `vocos_state_dict`: the upstream Vocos layout;
-* `encodec_voco_state_dict`: RVQ codebooks + Vocos, for `EncodecVoco`.
+* `encodec_voco_state_dict`: RVQ codebooks + Vocos, for `EncodecVoco`;
+* `optimizer_state_by_name`, `export_optimizer_state`,
+  `save_reference_checkpoint`: the torch halves of `load_optimizer_torch`,
+  `export_optimizer_torch` and `save_reference_checkpoint` of the JAX
+  package's `utils/port_weights.py`. The reference trainer's checkpoint is
+  `torch.save({'model', 'optim', 'scheduler'})` (reference trainer.py:
+  191-197), its optimizer state keyed by parameter index. The indices follow
+  the reference's `get_optimizer` (reference optimizer.py:3-35) over the
+  wrapper's `parameters()`: with wd > 0 the ndim >= 2 tensors, then the
+  rest; buffers (`rotary_emb.inv_freq`, `bandwidth_id`) take no index, the
+  frozen `null_cond` takes one and holds no state. So the map comes from the
+  checkpoint's model keys in state-dict order, never from a module's
+  `named_parameters()`.
 
 The mappings are linear in the leaves (transposes and reshapes), so JAX
 gradients, optimizer updates and trained parameters go through
@@ -21,13 +33,22 @@ port's `.grad` and parameters.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import os
+import warnings
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
+    "TORCH_BUFFER_SUFFIXES",
+    "TORCH_STATELESS_SUFFIXES",
     "attention_state_dict",
+    "denoiser_state",
+    "export_optimizer_state",
+    "optimizer_param_groups",
+    "optimizer_state_by_name",
+    "save_reference_checkpoint",
     "duration_predictor_state_dict",
     "transformer_state_dict",
     "voicebox_state_dict",
@@ -195,3 +216,125 @@ def encodec_voco_state_dict(quantizer_params: Mapping, vocos_params: Mapping) ->
     out: StateDict = {"quantizer.codebooks": _t(quantizer_params["codebooks"])}
     out.update({f"vocos.{k}": v for k, v in vocos_state_dict(vocos_params).items()})
     return out
+
+
+# reference state-dict keys that are buffers: they take no optimizer index
+TORCH_BUFFER_SUFFIXES = ("rotary_emb.inv_freq", "bandwidth_id")
+# frozen reference parameters: they take an index and never hold state
+TORCH_STATELESS_SUFFIXES = ("null_cond",)
+
+
+def denoiser_state(model_sd: Mapping) -> dict:
+    """The denoiser's entries of a checkpoint's model dict (a wrapper's
+    state dict: the denoiser under `voicebox.`), without the prefix and
+    without the frozen codec's `audio_enc_dec.*`."""
+    if any(k.startswith("voicebox.") for k in model_sd):
+        model_sd = {k[len("voicebox."):]: v for k, v in model_sd.items()
+                    if k.startswith("voicebox.")}
+    return {k: v for k, v in model_sd.items() if not k.startswith("audio_enc_dec.")}
+
+
+def optimizer_param_groups(model_sd: Mapping, grouped: bool) -> List[List[str]]:
+    """The parameter names of each reference optimizer group, in index
+    order: [ndim >= 2, the rest] when `grouped` (wd > 0), else one group."""
+    names = [k for k in model_sd if not k.endswith(TORCH_BUFFER_SUFFIXES)]
+    if not grouped:
+        return [names]
+    return [[k for k in names if model_sd[k].ndim >= 2],
+            [k for k in names if model_sd[k].ndim < 2]]
+
+
+def optimizer_state_by_name(pkg: Mapping) -> Tuple[dict, dict, int]:
+    """The Adam moments of a reference-layout checkpoint by model key:
+    ({name: exp_avg}, {name: exp_avg_sq}, step count). Names without state
+    (the frozen `null_cond`, parameters that never had a gradient) are left
+    out. Raises when the indices cannot be aligned with the model's keys (a
+    group layout other than the reference's, an index count or an exp_avg
+    shape that does not match)."""
+    if not (isinstance(pkg, Mapping) and "optim" in pkg and "model" in pkg):
+        raise ValueError("expected a reference trainer checkpoint with 'model' and 'optim' "
+                         "(reference trainer.py:191-197)")
+    model_sd, optim_sd = pkg["model"], pkg["optim"]
+    if not optim_sd:
+        raise ValueError("the checkpoint holds no optimizer state (a weights-only file: load "
+                         "it with ConditionalFlowMatcherWrapper.load_torch)")
+    groups = optim_sd["param_groups"]
+    if len(groups) == 2 and groups[1].get("weight_decay") == 0:
+        order = [k for g in optimizer_param_groups(model_sd, True) for k in g]
+    elif len(groups) == 1:
+        order = optimizer_param_groups(model_sd, False)[0]
+    else:
+        raise ValueError(f"unrecognised param_groups layout ({len(groups)} groups): not a "
+                         "reference get_optimizer checkpoint")
+    flat = [i for g in groups for i in g["params"]]
+    if flat != list(range(len(flat))) or len(flat) != len(order):
+        raise ValueError(
+            f"the optimizer indexes {len(flat)} parameters but the model holds {len(order)} "
+            "non-buffer tensors: cannot align the optimizer state with names")
+    state = optim_sd.get("state", {})
+    mu, nu, steps = {}, {}, set()
+    for pos, name in enumerate(order):
+        st = state.get(pos, state.get(str(pos)))
+        if st is None:
+            continue
+        shape = tuple(model_sd[name].shape)
+        if tuple(st["exp_avg"].shape) != shape:
+            raise ValueError(f"optimizer state {pos} has exp_avg {tuple(st['exp_avg'].shape)} "
+                             f"but maps to {name!r} of shape {shape}")
+        mu[name], nu[name] = torch.as_tensor(st["exp_avg"]), torch.as_tensor(st["exp_avg_sq"])
+        steps.add(int(float(st["step"])))
+    if not steps:
+        raise ValueError("the optimizer state is empty")
+    if len(steps) > 1:
+        warnings.warn(f"per-parameter step counts differ {sorted(steps)}; using the largest")
+    return mu, nu, max(steps)
+
+
+def export_optimizer_state(model_sd: Mapping, mu_sd: Mapping, nu_sd: Mapping, count: int, *,
+                           lr: float = 1e-4, wd: float = 1e-2, betas=(0.9, 0.99),
+                           eps: float = 1e-8) -> dict:
+    """A torch `AdamW.state_dict()` in the reference's index layout from
+    moments by model key (fp32; a name missing from `mu_sd`, and every
+    `null_cond`, gets no state). The groups carry every hyperparameter,
+    because `Optimizer.load_state_dict` replaces the live groups' with
+    them."""
+    def hypers(weight_decay):
+        return dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                    amsgrad=False, maximize=False, foreach=None, capturable=False,
+                    differentiable=False, fused=None)
+
+    state, param_groups, pos = {}, [], 0
+    for gi, names in enumerate(optimizer_param_groups(model_sd, wd > 0)):
+        idxs = []
+        for name in names:
+            if name in mu_sd and not name.endswith(TORCH_STATELESS_SUFFIXES):
+                assert tuple(mu_sd[name].shape) == tuple(model_sd[name].shape), name
+                state[pos] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": mu_sd[name].detach().to("cpu", torch.float32, copy=True),
+                    "exp_avg_sq": nu_sd[name].detach().to("cpu", torch.float32, copy=True),
+                }
+            idxs.append(pos)
+            pos += 1
+        param_groups.append(dict(hypers(wd if (wd > 0 and gi == 0) else 0.0), params=idxs))
+    return {"state": state, "param_groups": param_groups}
+
+
+def save_reference_checkpoint(path, model_sd: Mapping, optim_sd: Optional[dict] = None,
+                              scheduler_sd: Optional[dict] = None, **extra) -> dict:
+    """`torch.save({'model', 'optim', 'scheduler', **extra}, path)`, the
+    reference trainer's layout (extra keys are ignored there). Values become
+    CPU tensors; an empty scheduler dict is a no-op on a torch scheduler's
+    `load_state_dict` (both builds derive the learning rate from the
+    step)."""
+    pkg = {
+        "model": {k: torch.as_tensor(v).detach().to("cpu", copy=True)
+                  for k, v in model_sd.items()},
+        "optim": optim_sd or {},
+        "scheduler": scheduler_sd or {},
+        **extra,
+    }
+    path = os.fspath(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(pkg, path)
+    return pkg
