@@ -97,7 +97,35 @@ imports nothing of JAX. Its phases print one line each or more:
    parameter, both moments and the EMA must equal the uninterrupted run's
    to the bit. Last, phase 7's small fp32 denoiser with bf16 moments and
    full remat, card against CPU;
-13. one JSON line for the kernels (one row per kernel and main path; on the
+13. raw audio, card vs CPU: small fp32 configurations from the same
+   weights, waves and draws: mel power and dB, SEANet latents, the SEANet
+   decoder and an LSTM compared; MAS exactly equal on one soft alignment
+   (most cells exactly 0: ties everywhere); 3 `VoiceBoxTrainer` steps on
+   raw waves through a small MelVoco and 3 `DurationPredictorTrainer` steps
+   on (text, wave) items, losses and parameters compared;
+14. (a) raw-wave mel CFM, BASELINE config 2: the flagship denoiser without
+   text on vocos-mel-24khz log-mels (MelVoco), bf16 compute over fp32
+   parameters, AdamW, clip 0.5, trains through `VoiceBoxTrainer` on batches
+   of 8 x 10 s 24 kHz waves (each step exactly 24 K1, K2 and K3 launches,
+   every K1 at a shape phase 3 checked); steps/s and ms per step (CUDA
+   events), the codec encode's ms per step, a profiled step's idle share,
+   peak memory; then one request from a 10 s raw prompt (3 midpoint steps,
+   CFG 1.3) decoded through MelVoco: finite (1, 938 x 256) audio through
+   exactly 96 K1 launches;
+15. (b) duration training, BASELINE config 4: the reference
+   DurationPredictor (dim 512, depth 10, 8 x 64 heads, fp32) with MelVoco
+   and its aligner on the 100 mels trains through
+   `DurationPredictorTrainer` on batches of 8 (text of 40-120 characters,
+   10 s wave) items, phonemes bucketed to 128: each step exactly 10 fp32
+   K1, K2 and K3 launches; ms per step, the transformer's, the aligner's,
+   MAS's (ms and launches) and the forward-sum loss's times alone, idle
+   share, peak memory; then the trained predictor drives one
+   `sample(texts=...)` through a MelVoco denoiser of the flagship geometry
+   conditioned on phoneme ids (10 + 96 K1 launches, finite audio);
+16. (c) `EncodecVoco.encode` of a 10 s wave through the SEANet encoder at
+   the Encodec 24 kHz geometry -> (1, 750, 128), then its decode and the
+   SEANet decoder's, with their times;
+17. one JSON line for the kernels (one row per kernel and main path; on the
    quantized path, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -128,8 +156,8 @@ import torch.nn.functional as F
 import voicebox_tpu_torch as vbt
 from voicebox_tpu_torch import kernels
 from voicebox_tpu_torch.models import attention as attention_module
-from voicebox_tpu_torch.models.codec import EncodecVoco
-from voicebox_tpu_torch.models.encodec import ResidualVQ
+from voicebox_tpu_torch.models.codec import EncodecVoco, MelVoco
+from voicebox_tpu_torch.models.encodec import EncodecModel, ResidualVQ, _LSTM
 from voicebox_tpu_torch.models.primitives import GEGLU, l2norm
 from voicebox_tpu_torch.models.vocos import Vocos
 from voicebox_tpu_torch.ops.flash_attention import (
@@ -151,6 +179,10 @@ from voicebox_tpu_torch.ops.quant import (
     w8a16_matmul,
     w8a16_matmul_reference,
 )
+from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
+from voicebox_tpu_torch.ops.mas import maximum_path
+from voicebox_tpu_torch.ops.stft import amplitude_to_db, mel_spectrogram
+from voicebox_tpu_torch.training.data import PairedDataset
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 
 SEED = 0
@@ -207,9 +239,22 @@ K1_CASES = [
     ("long_kv_bf16", (1, 4, 4100, 4100, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
     ("mid_tile_mask_bf16", (8, 4, 600, 600, 128), torch.bfloat16, "qk", "middle", 1e-2, 1e-2),
     ("short_q_bf16", (1, 4, 40, 300, 64), torch.bfloat16, "randn", None, 1e-2, 1e-2),
+    # the raw-audio mel denoiser (phase 14): training on 10 s waves, padded
+    # to 1008 frames + 16 registers, the frame padding masked; sampling
+    # from a 10 s prompt, 938 frames + 16 registers, x 2 for CFG, no mask
+    ("mel_train_bf16", (8, 4, 1024, 1024, 128), torch.bfloat16, "qk", "prefix", 1e-2, 1e-2),
+    ("mel_serve_bf16", (2, 4, 954, 954, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    # the reference duration predictor in training (phase 15): fp32, the
+    # phoneme bucket 128, the text padding masked, and a batch element whose
+    # every key is masked; its sampling call: one 64-phoneme text
+    ("dp_train_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "prefix", 1e-3, 1e-3),
+    ("dp_train_empty_row_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-3,
+     1e-3),
+    ("dp_sample_f32", (1, 8, 64, 64, 64), torch.float32, "qk", "all", 1e-3, 1e-3),
 ]
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
-            "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32")
+            "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
+            "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32")
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 
@@ -249,8 +294,13 @@ K23_CASES = [
           ("mid_tile_mask", (8, 4, 600, 600), "qk", "middle"),
           ("empty_row_qk", (3, 4, 300, 300), "qk", "empty_row"),
       ) if (case, d) != ("empty_row_qk", 128)],  # "empty_row_qk_bf16" above
+    # the raw-audio mel denoiser's training shape (phase 14) and the
+    # duration predictor's, in fp32 (phase 15), as K1's cases above
+    ("mel_train_bf16", (8, 4, 1024, 1024, 128), torch.bfloat16, "qk", "prefix", 2e-2),
+    ("dp_train_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "prefix", 1e-4),
+    ("dp_train_empty_row_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-4),
 ]
-K23_TIMED = ("train_bf16", "reference_split_bf16")
+K23_TIMED = ("train_bf16", "reference_split_bf16", "mel_train_bf16", "dp_train_f32")
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
 FLAGSHIP = dict(
@@ -461,6 +511,10 @@ def _attn_inputs(shape, dtype, inputs, mask_kind, gen):
         mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
         mask[:, 50:180] = False
         mask[1::2, 300:310] = False
+    elif mask_kind == "prefix":  # padding at each row's end, as a batch of ragged items
+        lengths = torch.randint(kv // 3, kv + 1, (b,), generator=gen, device=dev)
+        lengths[0] = kv
+        mask = torch.arange(kv, device=dev)[None, :] < lengths[:, None]
     elif mask_kind is not None:
         mask = torch.rand(b, kv, generator=gen, device=dev) < 0.7
         if mask_kind == "empty_row":
@@ -951,6 +1005,23 @@ def phase_train_card_vs_cpu() -> None:
     _compare_small_runs(cpu, gpu, rs, k1_per_step=SMALL["depth"])
 
 
+def _update_gap(init: dict, cpu_module, gpu_module, lr: float) -> tuple:
+    """(max abs diff, weights off by > 0.01 lr, weights, min per-tensor
+    cosine) of the two devices' parameter updates since `init`."""
+    worst, n_off, total, cos_min = 0.0, 0, 0, 1.0
+    gpu_params = dict(gpu_module.named_parameters())
+    for name, p in cpu_module.named_parameters():
+        a = (gpu_params[name].detach().cpu() - init[name]).double()
+        b = (p.detach() - init[name]).double()
+        diff = (a - b).abs()
+        worst = max(worst, diff.max().item())
+        n_off += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+        cos_min = min(cos_min, (a * b).sum().item() / max(a.norm().item() * b.norm().item(),
+                                                          1e-30))
+    return worst, n_off, total, cos_min
+
+
 def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW") -> None:
     """3 steps of the small trainers on the same batches and draws; losses
     and parameter updates held card against CPU."""
@@ -974,17 +1045,8 @@ def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW") ->
         losses.append((gpu_loss["loss"].item(), cpu_loss.item()))
     loss_err = max(abs(g - c) / abs(c) for g, c in losses)
     lr = SMALL_TRAIN["lr"]
-    worst, n_off, total, cos_min = 0.0, 0, 0, 1.0
-    gpu_params = dict(gpu.cfm_wrapper.voicebox.named_parameters())
-    for name, p in cpu.cfm_wrapper.voicebox.named_parameters():
-        a = (gpu_params[name].detach().cpu() - init[name]).double()
-        b = (p.detach() - init[name]).double()
-        diff = (a - b).abs()
-        worst = max(worst, diff.max().item())
-        n_off += int((diff > 1e-2 * lr).sum())
-        total += diff.numel()
-        cos_min = min(cos_min, (a * b).sum().item() / max(a.norm().item() * b.norm().item(),
-                                                          1e-30))
+    worst, n_off, total, cos_min = _update_gap(init, cpu.cfm_wrapper.voicebox,
+                                               gpu.cfm_wrapper.voicebox, lr)
     frac_off = n_off / total
     log("train", f"card vs CPU, fp32, dim 128 depth 2 heads 2x64, batch 2 x {frames} frames, "
                  f"3 {label} steps (lr {lr:g}, clip 0.5): losses card/CPU "
@@ -1345,9 +1407,10 @@ def phase_engine(smi: str) -> tuple:
 def _profile(step) -> dict:
     """One call of `step` (a training step, a request) under torch.profiler:
     the host wall time, the union of the device's kernel intervals (busy),
-    the idle share 1 - busy / wall, the number of device kernels and the
-    largest kernels by device time. The idle share is None when the profiler
-    saw no device activity."""
+    the idle share 1 - busy / wall, the number of device kernels, the number
+    of record_function ranges the profiler also put on the device's timeline
+    (left out of the kernels and of busy) and the largest kernels by device
+    time. The idle share is None when the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1358,8 +1421,8 @@ def _profile(step) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     # device activity only: the profiler also puts each record_function range
     # (such as the optimizer's step) on the device's timeline
-    kernels_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_ = [e for e in on_device if not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels_)
     busy, end = 0.0, -math.inf
     for a, b in spans:
@@ -1372,6 +1435,7 @@ def _profile(step) -> dict:
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels_),
+            "annotations": len(on_device) - len(kernels_),
             "idle": 1.0 - busy / wall_us if spans else None,
             "top": [(name[:60], t / 1e3, n) for name, (t, n) in top]}
 
@@ -1836,6 +1900,481 @@ def phase_levers_card_vs_cpu() -> None:
                         label="bf16-moment Adam, full-remat")
 
 
+# ---------------------------------------------------------------------------
+# the raw-audio path and duration-predictor training (phases 13-16)
+
+WAVE_SAMPLES = 240_000  # 10 s at 24 kHz
+# BASELINE config 2: the flagship denoiser on vocos-mel-24khz log-mels of raw
+# waves, without text (raw-wave datasets carry no conditioning ids)
+MEL_FLAGSHIP = {**FLAGSHIP, "condition_on_text": False, "num_cond_tokens": None}
+MEL_HOP = 256
+MEL_FRAMES = WAVE_SAMPLES // MEL_HOP + 1  # 938: a 10 s prompt
+MEL_TRAIN_TIMED = 4
+# BASELINE config 4: the reference DurationPredictor trained on (text, 10 s
+# wave) items through the same codec, its aligner on the 100 mels
+DP_TRAIN_BATCH, DP_PHONEME_BUCKET, DP_TRAIN_TIMED = 8, 128, 4
+DP_SAMPLE_TEXT = "a trained duration predictor decides how long each sound will be"  # 64
+_WORDS = ("the quick brown fox jumps over a lazy dog while seven singers hum a low tune near "
+          "quiet rivers and bright open fields of tall green grass").split()
+# the small fp32 configurations of phase 13
+SMALL_MEL = dict(n_mels=32, n_fft=256, win_length=160)
+SMALL_MEL_VOCOS = dict(input_channels=32, dim=32, intermediate_dim=48, num_layers=1, n_fft=256,
+                       hop_length=64)
+SMALL_DP = dict(dim_phoneme_emb=64, dim=64, depth=2, dim_head=64, heads=2, aligner_dim_in=32,
+                aligner_attn_channels=16)
+
+
+def _waves(n: int, samples: int, seed: int) -> list:
+    """`n` float32 waves of `samples` at 24 kHz: three tones under noise."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(samples, dtype=np.float32) / np.float32(24000.0)
+    out = []
+    for _ in range(n):
+        w = sum(np.float32(0.2) * np.sin(np.float32(2 * np.pi) * f * t)
+                for f in rs.uniform(100, 3000, 3).astype(np.float32))
+        out.append((w + np.float32(0.05) * rs.randn(samples).astype(np.float32)))
+    return out
+
+
+def _texts(n: int, seed: int, lo: int = 40, hi: int = 120) -> list:
+    """`n` texts of lo-hi characters from a small vocabulary of words."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        target, words = int(rs.randint(lo, hi + 1)), []
+        while len(" ".join(words)) < target:
+            words.append(_WORDS[rs.randint(len(_WORDS))])
+        out.append(" ".join(words)[:target])
+    return out
+
+
+def _assert_checked(tally, k1: dict, path: str) -> None:
+    """Every K1 launch of a path ran at a shape, dtype and masking that
+    phase 3 held against the plain version and timed."""
+    for key, count in tally.items():
+        if key[0] != "k1":
+            continue
+        _, shape, dtype, masked = key
+        found = [n for n, r in k1.items() if tuple(r["shape"]) == shape and r["dtype"] == dtype
+                 and r["masked"] == masked and "ms" in r]
+        assert found, (f"{path} ran K1 {count} times at {shape} {dtype} masked={masked}, "
+                       "which no check timed")
+
+
+def _small_mel_voco():
+    return MelVoco(vocos=Vocos(**SMALL_MEL_VOCOS), **SMALL_MEL)
+
+
+def _small_wave_trainer(device, waves):
+    def build():
+        kw = {**SMALL, "condition_on_text": False, "num_cond_tokens": None}
+        vb = vbt.VoiceBox(audio_enc_dec=_small_mel_voco(), **kw)
+        _soften_qk_gains(vb)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device=device)
+
+    cfm = seeded(build, SEED + 54)
+    return vbt.VoiceBoxTrainer(cfm, batch_size=2, dataset=vbt.ArrayDataset(waves),
+                               num_train_steps=3, valid_frac=0.0, log_every=1000, device=device,
+                               **SMALL_TRAIN)
+
+
+def _small_dp_trainer(device, items):
+    def build():
+        dp = vbt.DurationPredictor(audio_enc_dec=_small_mel_voco(), tokenizer=GraphemeTokenizer(),
+                                   **SMALL_DP)
+        _soften_qk_gains(dp.net)
+        return dp
+
+    dp = seeded(build, SEED + 55)
+    return vbt.DurationPredictorTrainer(
+        dp, batch_size=2, dataset=PairedDataset(items), num_train_steps=3, valid_frac=0.0,
+        phoneme_bucket_multiple=16, frame_bucket_multiple=16, log_every=1000,
+        save_results_every=1000, device=device,
+        **{k: SMALL_TRAIN[k] for k in ("lr", "initial_lr", "num_warmup_steps", "max_grad_norm")})
+
+
+def phase_raw_card_vs_cpu() -> None:
+    """Small fp32 configurations of the raw-audio path and of duration
+    training on the card and on the CPU, from the same weights, waves and
+    draws."""
+    waves = _waves(4, 6000, SEED + 51)
+    w = torch.from_numpy(np.stack(waves[:2]))
+    mel_kw = dict(n_mels=32, n_fft=256, win_length=160, hop_length=64)
+    mel_c, mel_g = mel_spectrogram(w, **mel_kw), mel_spectrogram(w.cuda(), **mel_kw).cpu()
+    mel_ratio = ((mel_g - mel_c).abs() / (1e-3 * mel_c.abs() + 1e-6 * mel_c.max())).max().item()
+    db_err = (amplitude_to_db(mel_g) - amplitude_to_db(mel_c)).abs().max().item()
+
+    def small_encodec():
+        return EncodecModel(dim=32, n_filters=8, ratios=(4, 4, 2, 2), num_quantizers=2,
+                            codebook_size=64)
+
+    enc_c, enc_g = seeded(small_encodec, SEED + 52), seeded(small_encodec, SEED + 52).cuda()
+    lat_c, lat_g = enc_c.encode(w), enc_g.encode(w.cuda()).cpu()
+    lat_err = (lat_g - lat_c).abs().max().item() / max(1.0, lat_c.abs().max().item())
+    with torch.no_grad():
+        aud_c, aud_g = enc_c.decoder(lat_c), enc_g.decoder(lat_c.cuda()).cpu()
+    aud_err = (aud_g - aud_c).abs().max().item() / max(1.0, aud_c.abs().max().item())
+    lstm_c, lstm_g = seeded(lambda: _LSTM(64), SEED + 53), seeded(lambda: _LSTM(64),
+                                                                  SEED + 53).cuda()
+    x = torch.randn(2, 64, 300, generator=torch.Generator().manual_seed(SEED + 53))
+    with torch.no_grad():
+        lstm_err = (lstm_g(x.cuda()).cpu() - lstm_c(x)).abs().max().item()
+    log("raw", f"card vs CPU, fp32: mel power max |card - CPU| / (1e-3 |CPU| + 1e-6 peak) "
+               f"{mel_ratio:.3f} (tol 1), dB max_abs_err {db_err:.3e} (tol 1e-2); SEANet "
+               f"(n_filters 8, dim 32, hop 64) latents max_abs_err / max(1, peak) {lat_err:.3e} "
+               f"(tol 1e-4), decoder audio {aud_err:.3e} (tol 1e-4); LSTM (2 x 64, 300 steps) "
+               f"max_abs_err {lstm_err:.3e} (tol 1e-5)")
+    assert mel_ratio <= 1 and db_err <= 1e-2, "mel disagrees card vs CPU"
+    assert lat_err <= 1e-4 and aud_err <= 1e-4 and lstm_err <= 1e-5, (
+        "SEANet disagrees card vs CPU")
+
+    # MAS, exactly, on one input: a soft alignment at temperature 5e-4 where
+    # most cells underflow to 0 (ties everywhere)
+    gen = torch.Generator().manual_seed(SEED + 56)
+    q, k = torch.randn(3, 400, 8, generator=gen) * 300, torch.randn(3, 60, 8, generator=gen) * 300
+    value = torch.softmax(-5e-4 * torch.cdist(q, k).square(), dim=-1).transpose(1, 2)
+    x_len, y_len = torch.tensor([60, 41, 7]), torch.tensor([400, 277, 31])
+    mask = ((torch.arange(60)[None, :, None] < x_len[:, None, None])
+            & (torch.arange(400)[None, None, :] < y_len[:, None, None]))
+    path_c = maximum_path(value, mask)
+    path_g = maximum_path(value.cuda(), mask.cuda()).cpu()
+    zeros = (value == 0).float().mean().item()
+    log("raw", f"MAS card vs CPU on one (3, 60, 400) soft alignment ({zeros:.1%} of cells "
+               f"exactly 0): paths equal {torch.equal(path_c, path_g)}, durations "
+               f"{path_c.sum(-1)[:, :8].tolist()}...")
+    assert torch.equal(path_c, path_g), "MAS disagrees card vs CPU"
+
+    # 3 steps of the VoiceBox trainer on raw waves through a small MelVoco:
+    # 5800-6000 samples pad to 7872 (the sample grid) = 124 frames + 4
+    # registers
+    wave_items = _waves(4, 6000, SEED + 57)
+    wave_items = [wv[: 5800 + 50 * i] for i, wv in enumerate(wave_items)]
+    cpu, gpu = _small_wave_trainer("cpu", wave_items), _small_wave_trainer("cuda", wave_items)
+    _compare_small_runs(cpu, gpu, np.random.RandomState(SEED + 58), k1_per_step=SMALL["depth"],
+                        label="AdamW (raw waves, MelVoco)")
+
+    # 3 steps of the duration trainer: (text, wave) items, the span mask
+    # drawn here, the same on both
+    items = list(zip(_texts(4, SEED + 59, 20, 30), _waves(4, 6000, SEED + 60)))
+    cpu, gpu = _small_dp_trainer("cpu", items), _small_dp_trainer("cuda", items)
+    init = {n: p.detach().clone() for n, p in cpu.module.named_parameters()}
+    rs = np.random.RandomState(SEED + 61)
+    depth, frames = SMALL_DP["depth"], 6144 // 64 + 1
+    losses = []
+    for step in range(3):
+        span = torch.from_numpy(rs.rand(2, frames) < 0.6)
+        cpu_loss = cpu.train_step(cond_mask=span)["loss"].item()
+        reset_launches()
+        gpu_loss = gpu.train_step(cond_mask=span.cuda())["loss"].item()
+        torch.cuda.synchronize()
+        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth, "k4": 0}
+        assert read_launches() == want, f"step {step} launched {read_launches()}, want {want}"
+        losses.append((gpu_loss, cpu_loss))
+    loss_err = max(abs(g - c) / abs(c) for g, c in losses)
+    lr = SMALL_TRAIN["lr"]
+    worst, n_off, total, cos_min = _update_gap(init, cpu.module, gpu.module, lr)
+    log("raw", f"duration trainer card vs CPU, fp32, dim 64 depth 2 heads 2x64, aligner on 32 "
+               f"mels, batch 2 x {frames} frames: losses card/CPU "
+               f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
+               f"{loss_err:.2e} (tol 1e-4); fp32 K1/K2/K3 launches per step {depth}/{depth}/"
+               f"{depth}; parameter updates: min per-tensor cosine {cos_min:.6f} (tol > 0.999), "
+               f"max abs diff {worst:.3e} (tol 6 lr), weights off by > 0.01 lr {n_off} of "
+               f"{total} (tol 1e-3 of them)")
+    assert loss_err <= 1e-4, "duration losses disagree card vs CPU"
+    assert cos_min > 0.999 and worst <= 6 * lr and n_off / total <= 1e-3, (
+        "duration parameters disagree card vs CPU")
+
+
+def phase_mel(smi: str, k1: dict) -> dict:
+    """Path (a), BASELINE config 2: `VoiceBoxTrainer` on 10 s raw waves
+    through MelVoco (the flagship denoiser, bf16 compute over fp32
+    parameters, AdamW, clip 0.5), then one request sampled from a 10 s raw
+    prompt and decoded through MelVoco."""
+    def build():
+        vb = vbt.VoiceBox(audio_enc_dec=MelVoco(), dtype=torch.bfloat16,
+                          param_dtype=torch.float32, **MEL_FLAGSHIP)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+    cfm = seeded(build, SEED + 20)
+    codec = cfm.codec
+    waves = _waves(40, WAVE_SAMPLES, SEED + 21)
+    trainer = vbt.VoiceBoxTrainer(
+        cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(waves), num_train_steps=1000,
+        lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.2, log_every=1000,
+        save_results_every=1000, seed=SEED,
+    )
+    depth = MEL_FLAGSHIP["depth"]
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's training run starts here
+    logs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shape_tally() as tally:
+        t_all = time.perf_counter()
+        start.record()
+        for _ in range(MEL_TRAIN_TIMED):
+            before = read_launches()
+            logs.append(trainer.train_step())
+            after = read_launches()
+            step = {k: after[k] - before[k] for k in after}
+            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
+                f"a mel training step launched {step}, expected {depth} of each")
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+    train_counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
+    assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
+    _assert_checked(tally, k1, "mel training")
+    tokens = {key[1][2] for key in tally if key[0] == "k1"}
+    assert len(tokens) == 1, f"mel training ran K1 at {tokens} tokens"
+    tokens = tokens.pop()
+    # the codec's share of a step: one encode of a step's padded batch
+    padded = (tokens - MEL_FLAGSHIP["num_register_tokens"] - 1) * MEL_HOP
+    batch = F.pad(torch.from_numpy(np.stack(waves[:TRAIN_BATCH])).cuda(),
+                  (0, padded - WAVE_SAMPLES))
+    frames = codec.encode(batch).shape[1]
+    enc_ms = cuda_ms(lambda: codec.encode(batch), iters=10)
+    prof = _profile(trainer.train_step)
+    idle = prof["idle"]
+    log("mel", f"(a) raw-wave mel CFM training: flagship dim 512 depth 24 heads 4x128 without "
+               f"text, vocos-mel-24khz MelVoco, batch {TRAIN_BATCH} x {WAVE_SAMPLES} samples "
+               f"(10 s, {WAVE_SAMPLES // MEL_HOP + 1} frames; the trainer's sample bucket "
+               f"pads them to {padded} samples = {frames} frames + 16 registers = {tokens} "
+               f"tokens, the padding masked); {MEL_TRAIN_TIMED} timed steps: losses "
+               f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}, "
+               f"K1/K2/K3 per step {depth}/{depth}/{depth}")
+    log("mel", f"steps/s {MEL_TRAIN_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, "
+               f"{gpu_ms / MEL_TRAIN_TIMED:.2f} ms/step; host clock {MEL_TRAIN_TIMED / wall:.3f}); "
+               f"codec encode of a step's batch ({TRAIN_BATCH} x {padded} samples -> {frames} "
+               f"frames) {enc_ms:.3f} ms (CUDA events); profiled step: wall "
+               f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms over "
+               f"{prof['kernels']} kernels (+ {prof['annotations']} annotation ranges left "
+               f"out), idle share "
+               f"{'not measured' if idle is None else f'{idle:.3f}'}; peak memory "
+               f"{peak_gib:.2f} GiB on {smi}")
+    log("mel", f"profiled step's largest kernels (name, ms, calls): "
+               f"{'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
+
+    cfm.eval()
+    prompt = torch.from_numpy(waves[-1][None]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    want_k1 = depth * EVALS_PER_REQUEST
+
+    def request():
+        return cfm.sample(cond=prompt, steps=STEPS, cond_scale=CFG_SCALE, generator=gen,
+                          return_lengths=True)
+
+    request()  # warm-up
+    reset_launches()  # the path's sampling run starts here
+    with shape_tally() as stally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, lengths = request()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    serve_counts = read_launches()
+    want = (1, MEL_FRAMES * MEL_HOP)
+    assert tuple(audio.shape) == want, f"audio {tuple(audio.shape)} != {want}"
+    assert bool(torch.isfinite(audio).all()), "non-finite audio"
+    assert lengths.tolist() == [want[1]]
+    assert serve_counts == {"k1": want_k1, "k2": 0, "k3": 0, "k4": 0}, (
+        f"a mel request launched {serve_counts}, expected {want_k1} K1")
+    _assert_checked(stally, k1, "mel sampling")
+    log("mel", f"(a) request from a 10 s raw prompt (-> {MEL_FRAMES} frames), {STEPS} midpoint "
+               f"steps, CFG {CFG_SCALE}, MelVoco decode: audio {want} finite, latency "
+               f"{dt * 1e3:.2f} ms (host clock), RTF {dt / (WAVE_SAMPLES / 24000):.5f}, K1 "
+               f"launches {serve_counts['k1']} on {smi}")
+    del trainer, cfm
+    torch.cuda.empty_cache()
+    return {"train": train_counts, "serve_k1": serve_counts["k1"]}
+
+
+def phase_duration(smi: str, k1: dict) -> dict:
+    """Path (b), BASELINE config 4: `DurationPredictorTrainer` trains the
+    reference DurationPredictor (dim 512, depth 10, 8 x 64 heads, fp32) on
+    (text, 10 s wave) items through MelVoco, its aligner on the 100 mels;
+    then the trained predictor drives one `sample(texts=...)` through a
+    MelVoco denoiser of the flagship geometry conditioned on phoneme ids."""
+    tok = GraphemeTokenizer()
+
+    def build():
+        return vbt.DurationPredictor(audio_enc_dec=MelVoco(), tokenizer=tok, aligner_dim_in=100,
+                                     aligner_attn_channels=80)
+
+    dp = seeded(build, SEED + 30)
+    items = list(zip(_texts(40, SEED + 31), _waves(40, WAVE_SAMPLES, SEED + 32)))
+    trainer = vbt.DurationPredictorTrainer(
+        dp, batch_size=DP_TRAIN_BATCH, dataset=PairedDataset(items), num_train_steps=1000,
+        lr=1e-4, valid_frac=0.2, phoneme_bucket_multiple=DP_PHONEME_BUCKET, log_every=1000,
+        save_results_every=1000, seed=SEED,
+    )
+    depth = DP_DEPTH
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's training run starts here
+    logs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shape_tally() as tally:
+        t_all = time.perf_counter()
+        start.record()
+        for _ in range(DP_TRAIN_TIMED):
+            before = read_launches()
+            logs.append(trainer.train_step())
+            after = read_launches()
+            step = {k: after[k] - before[k] for k in after}
+            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
+                f"a duration training step launched {step}, expected {depth} of each")
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+    train_counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
+    assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
+    _assert_checked(tally, k1, "duration training")
+    prof = _profile(trainer.train_step)
+    idle = prof["idle"]
+
+    # the step's parts, each alone on one training batch, each profiled once
+    # after a warm-up call: the host's wall time, the device's busy time and
+    # the kernels it launched (the parts are host-bound: their CUDA-event
+    # times would be the host's enqueue)
+    b = trainer._prepare_batch(next(trainer.dl_iter))
+    ids, cond, mel = b["phoneme_ids"], b["cond"], b["mel"]
+
+    def transformer():
+        dp.net(cond=cond, phoneme_ids=ids).sum().backward()
+
+    keys = dp.net.to_phoneme_emb(ids.clamp_min(0)).detach().requires_grad_(True)
+
+    def aligner():
+        dp.aligner(mel.transpose(1, 2), keys, b["phoneme_mask"])[1].sum().backward()
+
+    with torch.no_grad():
+        soft, logprob = dp.aligner(mel.transpose(1, 2), keys, b["phoneme_mask"])
+    value = soft[:, 0].transpose(1, 2)
+    attn_mask = b["phoneme_mask"][:, :, None] & b["mel_mask"][:, None, :]
+    lp = logprob.detach().requires_grad_(True)
+
+    def fsum():
+        forward_sum_loss(lp, b["phoneme_len"], b["mel_len"]).backward()
+
+    parts = {}
+    for name, fn in (("transformer", transformer), ("aligner", aligner),
+                     ("MAS", lambda: maximum_path(value, attn_mask)), ("forward_sum", fsum)):
+        fn()
+        parts[name] = _profile(fn)
+    n_frames = mel.shape[1]
+    log("dp", f"(b) duration training: reference DurationPredictor dim 512 depth 10 heads 8x64 "
+              f"fp32, MelVoco, aligner 100 mels -> 80 channels, batch {DP_TRAIN_BATCH}: "
+              f"phonemes padded to {ids.shape[1]}, waves to {n_frames} frames; "
+              f"{DP_TRAIN_TIMED} timed steps: losses {[round(x, 4) for x in losses]}, grad "
+              f"norms {[round(x, 3) for x in norms]}, fp32 K1/K2/K3 per step "
+              f"{depth}/{depth}/{depth}")
+    log("dp", f"ms per step {gpu_ms / DP_TRAIN_TIMED:.2f} (CUDA events; steps/s "
+              f"{DP_TRAIN_TIMED / (gpu_ms / 1e3):.3f}, host clock {DP_TRAIN_TIMED / wall:.3f}); "
+              f"parts alone (forward + backward; MAS over {n_frames} frames), wall / device "
+              f"busy ms / kernels (+ annotation ranges left out): " + "; ".join(
+                  f"{name} {r['wall_ms']:.2f} / {r['busy_ms']:.3f} / {r['kernels']} (+ "
+                  f"{r['annotations']})"
+                  for name, r in parts.items()) + "; profiled step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms over "
+              f"{prof['kernels']} kernels (+ {prof['annotations']} annotation ranges left "
+              f"out), idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}; peak memory "
+              f"{peak_gib:.2f} GiB on {smi}")
+    log("dp", f"profiled step's largest kernels (name, ms, calls): "
+              f"{'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
+    del trainer, b, keys, lp, soft, logprob, value
+
+    def build_cfm():
+        vb = vbt.VoiceBox(audio_enc_dec=dp.audio_enc_dec, dtype=torch.bfloat16,
+                          **{**FLAGSHIP, "num_cond_tokens": tok.vocab_size})
+        return vbt.ConditionalFlowMatcherWrapper(vb, duration_predictor=dp)
+
+    cfm = seeded(build_cfm, SEED + 33).eval()
+    dp.eval()
+    assert len(DP_SAMPLE_TEXT) == 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+
+    def request():
+        return cfm.sample(texts=[DP_SAMPLE_TEXT], steps=STEPS, cond_scale=CFG_SCALE,
+                          frame_length=MEL_FRAMES, generator=gen, return_lengths=True)
+
+    request()  # warm-up
+    reset_launches()
+    with shape_tally() as stally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, lengths = request()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    sample_counts = read_launches()
+    den_want = FLAGSHIP["depth"] * EVALS_PER_REQUEST
+    want_k1 = den_want + depth
+    assert sample_counts == {"k1": want_k1, "k2": 0, "k3": 0, "k4": 0}, (
+        f"a duration-mode request launched {sample_counts}, expected {want_k1} K1")
+    # the request's K1 calls by dtype: the fp32 predictor's and the bf16
+    # denoiser's (on the card each call is one launch; together they are the
+    # counted launches)
+    by_dtype = collections.Counter()
+    for key, count in stally.items():
+        if key[0] == "k1":
+            by_dtype[key[2]] += count
+    dp_k1, den_k1 = by_dtype[torch.float32], by_dtype[torch.bfloat16]
+    assert (dp_k1, den_k1) == (depth, den_want) and dp_k1 + den_k1 == sample_counts["k1"], (
+        f"the request's K1 calls by dtype {dict(by_dtype)}: expected {depth} fp32 (predictor) "
+        f"and {den_want} bf16 (denoiser), {sample_counts['k1']} launches in all")
+    assert tuple(audio.shape) == (1, MEL_FRAMES * MEL_HOP), tuple(audio.shape)
+    assert bool(torch.isfinite(audio).all()), "non-finite audio"
+    _assert_checked(stally, k1, "duration-mode sampling")
+    log("dp", f"(b) the trained predictor drives sample(texts=[64 characters]) through a "
+              f"MelVoco denoiser of the flagship geometry (bf16, phoneme ids), frame_length "
+              f"{MEL_FRAMES}: audio {tuple(audio.shape)} finite, valid samples "
+              f"{lengths.tolist()}, latency {dt * 1e3:.2f} ms (host clock), K1 launches "
+              f"{sample_counts['k1']} ({dp_k1} fp32 predictor + {den_k1} bf16 denoiser) on "
+              f"{smi}")
+    del cfm, dp
+    torch.cuda.empty_cache()
+    return {"train": train_counts, "sample_k1": sample_counts["k1"], "sample_k1_dp": dp_k1,
+            "sample_k1_denoiser": den_k1}
+
+
+def phase_encodec(smi: str) -> None:
+    """Path (c): `EncodecVoco.encode` of a 10 s wave through the SEANet
+    encoder at the Encodec 24 kHz geometry (n_filters 32, ratios 8/5/4/2, a
+    two-layer 512-wide LSTM over 750 steps) -> (1, 750, 128), then its
+    decode through RVQ and Vocos, and the SEANet decoder's."""
+    codec = seeded(EncodecVoco, SEED + 40).cuda().eval()
+    model = seeded(EncodecModel, SEED + 41).cuda().eval()
+    wave = torch.from_numpy(_waves(1, WAVE_SAMPLES, SEED + 42)[0][None]).cuda()
+    lat = codec.encode(wave)
+    assert tuple(lat.shape) == (1, 750, 128) and bool(torch.isfinite(lat).all()), lat.shape
+    audio = codec.decode(lat)
+    assert tuple(audio.shape) == (1, 1, WAVE_SAMPLES) and bool(torch.isfinite(audio).all())
+    seanet = model.decode_latents(model.encode(wave))
+    assert tuple(seanet.shape) == (1, WAVE_SAMPLES) and bool(torch.isfinite(seanet).all())
+    t = in_turns({"encode": lambda: codec.encode(wave), "decode": lambda: codec.decode(lat),
+                  "seanet_decode": lambda: model.decode_latents(lat)}, iters=5)
+    log("encodec", f"(c) EncodecVoco round trip of a 10 s wave: encode -> {tuple(lat.shape)} "
+                   f"{t['encode']:.3f} ms (SEANet, LSTM 2 x 512 over 750 steps), decode (RVQ, "
+                   f"Vocos, iSTFT) -> {tuple(audio.shape)} {t['decode']:.3f} ms, SEANet decoder "
+                   f"(RVQ, LSTM, transposed convs) -> {tuple(seanet.shape)} "
+                   f"{t['seanet_decode']:.3f} ms (CUDA events, in turns), all finite, on {smi}")
+    del codec, model
+    torch.cuda.empty_cache()
+
+
 def _path_row(kernel: str, name: str, parts) -> dict:
     """The row of one kernel on the quantized duration-mode path from the
     shapes that path gave it: parts is [(launches, timed result)]. Times and
@@ -1901,45 +2440,64 @@ def _k23_timed_row(r: dict, kernel: str) -> dict:
             "library_fwd_bwd_ms": t["sdpa_fwd_bwd"]}
 
 
-def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step) -> str:
+def _k1_row(path: str, r: dict, launches: int) -> dict:
+    """K1's row on one path, timed at that path's shape (phase 3)."""
+    return {
+        "name": f"{NAMES['k1']}[{path}]", "path": path, "route": "cuda", "source": SOURCES["k1"],
+        "replaces": REPLACES["k1"], "launches": launches, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": list(r["shape"]),
+        "dtype": str(r["dtype"])[6:],
+    }
+
+
+def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> dict:
+    """K2's or K3's row on one path, timed at that path's shape (phase 4)."""
+    return {
+        "name": name or f"{NAMES[kk]}[{path}]", "path": path, "route": "cuda",
+        "source": SOURCES[kk], "replaces": REPLACES[kk], "launches": launches,
+        # K3's error is the larger of dk's and dv's
+        "max_abs_err": r["max_abs_err"][0] if kk == "k2" else max(r["max_abs_err"][1:]),
+        **_k23_timed_row(r, kk),
+        "plain_and_library_compute": "dq, dk and dv together",
+    }
+
+
+def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
+                raw) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
     serving shape), on the quantized duration-mode path (`engine_rows`: the
     denoiser's and the duration predictor's calls) and on the training path
     (at the training shape); K2 and K3 on the training path; K4 on the
     quantized duration-mode path; K1, K2 and K3 on the training levers' path
     (phase 12, at the training shape, with the launches per step of each
-    configuration)."""
-    rows = []
-    for path, case, launches in (("serve", "flagship_cfg_bf16", serve_k1),
-                                 ("train", "train_bf16", train_counts["k1"])):
-        r = k1[case]
-        rows.append({
-            "name": f"{NAMES['k1']}[{path}]", "path": path, "route": "cuda",
-            "source": SOURCES["k1"], "replaces": REPLACES["k1"], "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": list(r["shape"]),
-            "dtype": str(r["dtype"])[6:],
-        })
+    configuration); K1, K2 and K3 on the raw-wave mel training path and K1
+    on its sampling (phase 14); fp32 K1, K2 and K3 on duration training and
+    K1 on the trained predictor's sampling call (phase 15)."""
+    rows = [_k1_row("serve", k1["flagship_cfg_bf16"], serve_k1),
+            _k1_row("train", k1["train_bf16"], train_counts["k1"])]
     rows += engine[:2]
-    train = k23["train_bf16"]
     for kk in ("k2", "k3"):
-        rows.append({
-            "name": NAMES[kk], "path": "train", "route": "cuda", "source": SOURCES[kk],
-            "replaces": REPLACES[kk], "launches": train_counts[kk],
-            # K3's error is the larger of dk's and dv's
-            "max_abs_err": train["max_abs_err"][0] if kk == "k2" else max(
-                train["max_abs_err"][1:]),
-            **_k23_timed_row(train, kk),
-            "plain_and_library_compute": "dq, dk and dv together",
-            "reference_split": _k23_timed_row(k23["reference_split_bf16"], kk),
-        })
+        rows.append({**_k23_row(kk, "train", k23["train_bf16"], train_counts[kk],
+                                name=NAMES[kk]),
+                     "reference_split": _k23_timed_row(k23["reference_split_bf16"], kk)})
     rows.append(engine[2])
     for kk in ("k1", "k2", "k3"):
         base = next(r for r in rows if r["name"].startswith(NAMES[kk]) and r["path"] == "train")
         rows.append({**base, "name": f"{NAMES[kk]}[train_levers]", "path": "train_levers",
                      "launches": levers_counts[kk],
                      "launches_per_step": {n: c[kk] for n, c in levers_per_step.items()}})
+    mel, dp = raw["mel"], raw["dp"]
+    rows.append(_k1_row("mel_train", k1["mel_train_bf16"], mel["train"]["k1"]))
+    rows += [_k23_row(kk, "mel_train", k23["mel_train_bf16"], mel["train"][kk])
+             for kk in ("k2", "k3")]
+    rows.append(_k1_row("mel_serve", k1["mel_serve_bf16"], mel["serve_k1"]))
+    rows.append(_k1_row("duration_train", k1["dp_train_f32"], dp["train"]["k1"]))
+    rows += [_k23_row(kk, "duration_train", k23["dp_train_f32"], dp["train"][kk])
+             for kk in ("k2", "k3")]
+    rows.append({**_k1_row("duration_sample", k1["dp_sample_f32"], dp["sample_k1_dp"]),
+                 "note": f"the predictor's launches of the request; its denoiser launched "
+                         f"{dp['sample_k1_denoiser']} bf16 K1 at mel_serve's shape"})
     return json.dumps({"kernels": rows})
 
 
@@ -1977,8 +2535,14 @@ def main() -> int:
     )
     phase_resume(smi)
     phase_levers_card_vs_cpu()
-    print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step),
-          flush=True)
+    phase_raw_card_vs_cpu()
+    raw = {"mel": phase_mel(smi, k1), "dp": phase_duration(smi, k1)}
+    assert min(raw["mel"]["train"][k] for k in ("k1", "k2", "k3")) > 0, raw["mel"]
+    assert raw["mel"]["serve_k1"] > 0 and raw["dp"]["sample_k1"] > 0, raw
+    assert min(raw["dp"]["train"][k] for k in ("k1", "k2", "k3")) > 0, raw["dp"]
+    phase_encodec(smi)
+    print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
+                      raw), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

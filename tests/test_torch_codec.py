@@ -1,6 +1,7 @@
-"""The port's decode path (iSTFT, RVQ, Vocos, EncodecVoco) against the JAX
-package, on the CPU in float32, at tiny widths with the production
-structure (4 bandwidths, AdaLayerNorm, codes -> features).
+"""The port's codecs (iSTFT, RVQ, Vocos, EncodecVoco, MelVoco) against the
+JAX package, on the CPU in float32, at tiny widths with the production
+structure (4 bandwidths, AdaLayerNorm, codes -> features; MelVoco's
+log-mel encode and its dB -> amplitude -> mel Vocos decode).
 
 Audio is compared at atol 1e-4 x its peak: random Vocos weights make
 magnitudes up to the clip at 100, and the overlap-add sums them.
@@ -14,13 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_encodec import random_params
 from test_torch_transformer import _perturbed
 from voicebox_tpu.models.codec import EncodecVoco as JaxEncodecVoco
+from voicebox_tpu.models.codec import MelVoco as JaxMelVoco
 from voicebox_tpu.models.encodec import EncodecModel, ResidualVQ as JaxResidualVQ
+from voicebox_tpu.models.encodec import SEANetEncoder as JaxSEANetEncoder
 from voicebox_tpu.models.vocos import Vocos as JaxVocos
 from voicebox_tpu.ops.stft import hann_window as jax_hann_window
 from voicebox_tpu.ops.stft import istft as jax_istft
-from voicebox_tpu_torch.models.codec import EncodecVoco
+from voicebox_tpu_torch.models.codec import EncodecVoco, MelVoco
 from voicebox_tpu_torch.models.encodec import ResidualVQ
 from voicebox_tpu_torch.models.vocos import Vocos
 from voicebox_tpu_torch.ops.stft import hann_window, istft
@@ -30,6 +34,7 @@ LATENT, Q, CODEBOOK = 16, 4, 32
 VOCOS = dict(input_channels=LATENT, dim=32, intermediate_dim=48, num_layers=2, n_fft=64,
              hop_length=16, num_bandwidths=4, codebook_size=CODEBOOK, num_quantizers=Q)
 RATIOS = (2, 2, 2, 2)  # frame hop 16 = the tiny vocoder's hop
+N_FILTERS = 2
 
 
 def _audio_close(out, ref):
@@ -61,13 +66,17 @@ def test_hann_window_matches_jax():
 
 @functools.cache
 def _jax_codec():
-    """A JAX EncodecVoco with perturbed random weights. Only its quantizer is
-    used, so the SEANet encoder and decoder are not initialised."""
+    """A JAX EncodecVoco with perturbed random weights: its quantizer and
+    SEANet encoder (the SEANet decoder is not initialised)."""
     rs = np.random.RandomState(1)
     rvq = JaxResidualVQ(num_quantizers=Q, codebook_size=CODEBOOK, dim=LATENT)
     quantizer = rvq.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, LATENT)))["params"]
-    encodec = EncodecModel(dim=LATENT, n_filters=4, ratios=RATIOS, num_quantizers=Q,
-                           codebook_size=CODEBOOK, params={"quantizer": quantizer})
+    enc = JaxSEANetEncoder(dim=LATENT, n_filters=N_FILTERS, ratios=RATIOS)
+    encoder = random_params(jax.eval_shape(enc.init, jax.random.PRNGKey(1),
+                                           jnp.zeros((1, 64)))["params"], rs)
+    encodec = EncodecModel(dim=LATENT, n_filters=N_FILTERS, ratios=RATIOS, num_quantizers=Q,
+                           codebook_size=CODEBOOK,
+                           params={"quantizer": quantizer, "encoder": encoder})
     vocos = JaxVocos(**VOCOS, seed=0)
     vocos.params = _perturbed(vocos.params, rs)
     return JaxEncodecVoco(encodec=encodec, vocos=vocos)
@@ -75,9 +84,10 @@ def _jax_codec():
 
 def _port_codec(jax_codec):
     codec = EncodecVoco(quantizer=ResidualVQ(Q, CODEBOOK, LATENT), vocos=Vocos(**VOCOS),
-                        ratios=RATIOS)
+                        ratios=RATIOS, n_filters=N_FILTERS)
+    params = jax_codec.encodec.params
     codec.load_state_dict(
-        encodec_voco_state_dict(jax_codec.encodec.params["quantizer"], jax_codec.vocos.params),
+        encodec_voco_state_dict(params["quantizer"], jax_codec.vocos.params, params["encoder"]),
         strict=True,
     )
     return codec
@@ -132,7 +142,66 @@ def test_encodec_voco_decode_matches_jax():
 
 
 def test_encode_is_not_ported_yet():
-    codec = EncodecVoco(quantizer=ResidualVQ(Q, CODEBOOK, LATENT), vocos=Vocos(**VOCOS))
-    with pytest.raises(NotImplementedError, match="SEANet"):
-        codec.encode(torch.zeros(1, 320))
-    assert codec.downsample_factor == 320 and codec.latent_dim == LATENT
+    """The name dates from before the SEANet encoder was ported: encode now
+    runs it, at the codec's ratios, and matches the JAX codec's encode."""
+    jc = _jax_codec()
+    codec = _port_codec(jc)
+    wave = (0.3 * np.random.RandomState(7).randn(2, 320)).astype(np.float32)
+    out = codec.encode(torch.from_numpy(wave)).numpy()
+    ref = np.asarray(jc.encode(jnp.asarray(wave)))
+    assert out.shape == ref.shape == (2, 320 // codec.downsample_factor, LATENT)
+    np.testing.assert_allclose(out, ref, atol=2e-4 * max(1.0, np.abs(ref).max()), rtol=0)
+    default = EncodecVoco(quantizer=ResidualVQ(Q, CODEBOOK, LATENT), vocos=Vocos(**VOCOS))
+    assert default.downsample_factor == 320 and default.latent_dim == LATENT
+
+
+# MelVoco at a tiny mel geometry: 8 mels, n_fft 64, win 48, hop 16 (the
+# vocoder's), the JAX package's vocos-mel head without bandwidths
+MEL_VOCOS = dict(input_channels=8, dim=32, intermediate_dim=48, num_layers=2, n_fft=64,
+                 hop_length=16)
+MEL = dict(n_mels=8, n_fft=64, win_length=48)
+
+
+@functools.cache
+def _jax_mel_voco():
+    vocos = JaxVocos(**MEL_VOCOS, seed=3)
+    vocos.params = _perturbed(vocos.params, np.random.RandomState(8))
+    return JaxMelVoco(vocos=vocos, **MEL)
+
+
+def _port_mel_voco():
+    vocos = Vocos(**MEL_VOCOS)
+    vocos.load_state_dict(vocos_state_dict(_jax_mel_voco().vocos.params), strict=True)
+    return MelVoco(vocos=vocos, **MEL)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000), (1, 1, 333)])
+def test_mel_voco_encode_matches_jax(shape):
+    rs = np.random.RandomState(9)
+    wave = (0.5 * np.sin(np.arange(shape[-1]) * rs.uniform(0.05, 0.5, shape[:-1] + (1,)))
+            + 0.1 * rs.randn(*shape)).astype(np.float32)
+    ref = np.asarray(_jax_mel_voco().encode(jnp.asarray(wave)))
+    codec = _port_mel_voco()
+    out = codec.encode(torch.from_numpy(wave)).numpy()
+    assert out.shape == ref.shape == (shape[0], shape[-1] // 16 + 1, 8)
+    np.testing.assert_allclose(out, ref, atol=1e-2, rtol=0)  # dB, as tests/test_torch_stft.py
+    assert (codec.frame_offset, codec.latent_dim, codec.downsample_factor) == (1, 8, 16)
+
+
+def test_mel_voco_decode_matches_jax():
+    mel = (np.random.RandomState(10).randn(2, 24, 8) * 10 - 30).astype(np.float32)  # dB
+    ref = np.asarray(_jax_mel_voco().decode(jnp.asarray(mel)))
+    out = _port_mel_voco().decode(torch.from_numpy(mel)).numpy()
+    assert out.shape == ref.shape == (2, 24 * 16)
+    _audio_close(out, ref)
+
+
+def test_mel_voco_geometry_checks():
+    with pytest.raises(ValueError, match="n_mels"):
+        MelVoco(n_mels=80, vocos=Vocos(**MEL_VOCOS))
+    with pytest.warns(UserWarning, match="hop_length 8 != vocoder hop 16"):
+        codec = MelVoco(hop_length=8, vocos=Vocos(**MEL_VOCOS), **MEL)
+    assert codec.downsample_factor == 8
+    default = MelVoco()  # vocos-mel-24khz
+    assert (default.vocos.input_channels, default.hop_length, default.vocos.head.n_fft) == (
+        100, 256, 1024)

@@ -360,3 +360,71 @@ def test_int8_matmul_card_matches_cpu(cuda_device, m, k, n):
     card = copy.deepcopy(ql).to(cuda_device)
     out = int8_matmul(x.to(cuda_device), card.weight_q, card.weight_scale)
     torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_mas_on_the_card_equals_the_cpu(cuda_device):
+    from voicebox_tpu_torch.ops.mas import maximum_path
+
+    gen = torch.Generator().manual_seed(3)
+    q, k = torch.randn(3, 300, 8, generator=gen) * 300, torch.randn(3, 50, 8, generator=gen) * 300
+    value = torch.softmax(-5e-4 * torch.cdist(q, k).square(), dim=-1).transpose(1, 2)
+    mask = ((torch.arange(50)[None, :, None] < torch.tensor([50, 33, 2])[:, None, None])
+            & (torch.arange(300)[None, None, :] < torch.tensor([300, 210, 9])[:, None, None]))
+    assert (value == 0).float().mean() > 0.5  # ties everywhere
+    got = maximum_path(value.to(cuda_device), mask.to(cuda_device)).cpu()
+    assert torch.equal(got, maximum_path(value, mask))
+
+
+def test_forward_sum_loss_on_the_card_matches_the_cpu(cuda_device):
+    from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
+
+    gen = torch.Generator().manual_seed(4)
+    lp = torch.randn(3, 1, 40, 12, generator=gen).log_softmax(-1)
+    key_lens, query_lens = torch.tensor([12, 30, 5]), torch.tensor([40, 25, 9])  # row 1: no path
+    grads = []
+    for device in ("cpu", cuda_device):
+        x = lp.detach().to(device).requires_grad_(True)
+        loss = forward_sum_loss(x, key_lens.to(device), query_lens.to(device))
+        loss.backward()
+        grads.append((loss.item(), x.grad.cpu()))
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-5 * abs(grads[0][0])
+    torch.testing.assert_close(grads[1][1], grads[0][1], atol=1e-5, rtol=1e-4)
+    assert not grads[1][1][1].any()
+
+
+def test_duration_training_loss_through_the_kernels_matches_the_cpu(cuda_device):
+    """The predictor's training loss and gradients in fp32: K1/K2/K3 on the
+    card, the plain attention on the CPU, from the same weights and span
+    mask (qk gains 0.5, so rounding sets the error, not ties)."""
+    from voicebox_tpu_torch.models.duration import DurationPredictor
+
+    torch.manual_seed(5)
+    dp = DurationPredictor(num_phoneme_tokens=40, dim_phoneme_emb=64, dim=64, depth=2,
+                           dim_head=64, heads=2, aligner_dim_in=16, aligner_attn_channels=16)
+    for name, p in dp.named_parameters():
+        if name.endswith(("q_norm.gamma", "k_norm.gamma")):
+            torch.nn.init.constant_(p, 0.5)
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 40, (2, 24), generator=gen)
+    ids[1, 17:] = -1
+    mel = torch.randn(2, 70, 16, generator=gen) * 15 - 40
+    batch = dict(cond=torch.randn(2, 70, 64, generator=gen), phoneme_ids=ids, mel=mel,
+                 phoneme_len=(ids >= 0).sum(-1), mel_len=torch.tensor([70, 51]),
+                 phoneme_mask=ids >= 0, mel_mask=torch.arange(70)[None] < torch.tensor([[70], [51]]),
+                 cond_mask=torch.rand(2, 70, generator=gen) < 0.6)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = copy.deepcopy(dp).to(device)
+        before = flash_attention_bwd_dq.launches
+        loss, target = model.loss_fn(**{k: v.to(device) for k, v in batch.items()},
+                                     return_aligned_phoneme_ids=True)
+        loss.backward()
+        launched = flash_attention_bwd_dq.launches - before
+        out[str(device)] = (loss.item(), target.cpu(), {n: p.grad.cpu() for n, p in
+                                                        model.named_parameters()}, launched)
+    (lc, tc, gc, kc), (lg, tg, gg, kg) = out["cpu"], out[str(cuda_device)]
+    assert kc == 0 and kg == 2  # K2 once a layer on the card
+    assert torch.equal(tc, tg)
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    for name, g in gc.items():
+        torch.testing.assert_close(gg[name], g, atol=2e-3, rtol=1e-3, msg=name)

@@ -183,11 +183,17 @@ def test_forward_with_cond_scale_matches_jax(cond_scale):
 
 
 def test_training_half_raises():
+    """The name dates from before the training half was ported
+    (`tests/test_torch_duration_train.py` holds it against JAX): training
+    now raises only without the aligner's inputs, as the JAX net asserts."""
     _, port = _dp_models()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="missing: mel, phoneme_len"):
         port(cond=torch.zeros(1, 4, LATENT), phoneme_ids=torch.zeros(1, 4, dtype=torch.long),
              train=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.loss_fn()
+    with pytest.raises(ValueError, match="needs an aligner"):
+        port.net(cond=torch.zeros(1, 4, LATENT), phoneme_ids=torch.zeros(1, 4, dtype=torch.long),
+                 train=True, mel=torch.zeros(1, 4, 13), phoneme_len=torch.ones(1),
+                 mel_len=torch.ones(1), phoneme_mask=torch.ones(1, 4, dtype=torch.bool),
+                 mel_mask=torch.ones(1, 4, dtype=torch.bool))
     with pytest.raises(ValueError):
         td.DurationPredictor(tokenizer=ttok.GraphemeTokenizer(), num_phoneme_tokens=3)

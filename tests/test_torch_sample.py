@@ -115,12 +115,22 @@ def test_generator_noise_is_reproducible_and_cond_is_padded():
 @pytest.mark.parametrize("kwargs", [{"texts": ["hello"]}, {"phoneme_ids": [[1, 2]]},
                                     {"cond": np.zeros((1, 320), np.float32)}])
 def test_unported_branches_raise(kwargs):
+    """Texts and phonemes without a predictor raise. A raw-audio cond no
+    longer does (the SEANet encoder is ported): it samples as its encoded
+    latents do."""
     cfm = _port_cfm(_jax_run()[0])
     if "cond" in kwargs:
-        kwargs = {"cond": torch.from_numpy(kwargs["cond"]),
-                  "semantic_token_ids": torch.zeros(1, 4, dtype=torch.long)}
-    with pytest.raises(NotImplementedError):
-        cfm.sample(**kwargs)
+        wave = torch.from_numpy(
+            (0.3 * np.random.RandomState(12).randn(1, 320)).astype(np.float32))
+        kw = dict(semantic_token_ids=torch.zeros(1, 4, dtype=torch.long), decode_to_audio=False)
+        out = cfm.sample(cond=wave, generator=torch.Generator().manual_seed(4), **kw)
+        ref = cfm.sample(cond=cfm.codec.encode(wave), generator=torch.Generator().manual_seed(4),
+                         **kw)
+        assert out.shape == (1, 4, LATENT)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    else:
+        with pytest.raises(NotImplementedError):
+            cfm.sample(**kwargs)
     with pytest.raises(NotImplementedError):
         ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object())
 
@@ -177,4 +187,4 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 11"
+    assert proc.stdout.strip() == "ok 13"  # MelVoco and DurationPredictorTrainer joined

@@ -9,7 +9,10 @@
   recovers from the same key and hands to the port;
 * three `VoiceBoxTrainer` steps (gradient accumulation, clip, AdamW,
   warmup -> cosine) against a JAX loop of `value_and_grad` and
-  `get_optimizer` on the same batches and draws, compared per leaf.
+  `get_optimizer` on the same batches and draws, compared per leaf, on
+  latents with paired ids and on raw waves through a tiny MelVoco (the
+  trainer's buckets in samples, the frozen codec's encode and frame masks
+  as the JAX trainer prepares a batch).
 """
 
 
@@ -216,3 +219,133 @@ def test_trainer_steps_match_a_jax_loop():
     # rounding amplified (measured: 2 of 16384 weights of one leaf differ by
     # 0.19 lr). A flipped or wrong update is off by ~2 lr: atol 0.25 lr.
     _assert_leaves_close(ours, ref_updates, atol=0.25 * LR)
+
+
+# raw waves through a tiny MelVoco (8 mels, n_fft 256, win 160, hop 64): the
+# trainer's buckets are in samples, (registers + frame_offset) x 64 below a
+# multiple of 128 x 64, so every batch here pads to 8000 samples = 126 frames
+# + 2 registers = 128 tokens
+WAVE_MEL = dict(n_mels=8, n_fft=256, win_length=160)
+WAVE_VOCOS = dict(input_channels=8, dim=16, intermediate_dim=24, num_layers=1, n_fft=256,
+                  hop_length=64)
+WAVE_FRAMES = 126
+
+
+def test_trainer_steps_on_raw_waves_match_a_jax_loop():
+    from voicebox_tpu import VoiceBox as JaxVoiceBox
+    from voicebox_tpu.models.codec import MelVoco as JaxMelVoco
+    from voicebox_tpu.models.vocos import Vocos as JaxVocos
+    from test_torch_transformer import _perturbed
+    from voicebox_tpu_torch import MelVoco
+    from voicebox_tpu_torch.models.vocos import Vocos
+
+    kw = {k: v for k, v in CONFIG.items() if k != "num_cond_tokens"}
+    kw.update(condition_on_text=False)
+    jcodec = JaxMelVoco(vocos=JaxVocos(**WAVE_VOCOS, params={}), **WAVE_MEL)  # encode only
+    jvb = JaxVoiceBox(audio_enc_dec=jcodec, **kw)
+    z = jnp.zeros((B, N, 8))
+    params = jax.jit(lambda r: jvb.init({"params": r}, z, times=jnp.zeros((B,)), cond=z,
+                                        cond_drop_prob=0.0))(jax.random.PRNGKey(3))["params"]
+    params = _perturbed(params, np.random.RandomState(4))
+    port = VoiceBox(audio_enc_dec=MelVoco(vocos=Vocos(**WAVE_VOCOS), **WAVE_MEL), **kw)
+    port.load_state_dict(_xla_inv_freq(voicebox_state_dict(params), "transformer."), strict=True)
+    init = {k: v.detach().clone() for k, v in port.named_parameters()}
+
+    rs = np.random.RandomState(25)
+    waves = []
+    for n in rs.randint(1500, 3000, 10):
+        t = np.arange(n) / 24000.0
+        waves.append((0.4 * np.sin(2 * np.pi * rs.uniform(200, 3000) * t)
+                      + 0.05 * rs.randn(n)).astype(np.float32))
+    cfm = ConditionalFlowMatcherWrapper(port, sigma=SIGMA, cond_drop_prob=DROP, device="cpu")
+    trainer = VoiceBoxTrainer(
+        cfm, batch_size=BATCH, dataset=ArrayDataset(waves), num_train_steps=STEPS,
+        num_warmup_steps=1, lr=LR, initial_lr=INITIAL_LR, wd=WD, max_grad_norm=CLIP,
+        grad_accum_every=ACCUM, valid_frac=0.2, log_every=1, save_results_every=2,
+        device="cpu",
+    )
+    batches = []
+
+    def recorded(it):
+        for item in it:
+            batches.append(item)
+            yield item
+
+    trainer.dl_iter = recorded(trainer.dl_iter)
+    step_draws, losses = [], []
+    for _ in range(STEPS):
+        m = BATCH * ACCUM
+        draws = dict(noise=rs.randn(m, WAVE_FRAMES, 8).astype(np.float32),
+                     times=rs.rand(m).astype(np.float32),
+                     cond_mask=rs.rand(m, WAVE_FRAMES) < 0.7,
+                     cond_drop_mask=rs.rand(m) < DROP)
+        step_draws.append(draws)
+        losses.append(trainer.train_step(**{k: _t(v) for k, v in draws.items()})["loss"].item())
+
+    opt = jax_get_optimizer(lr=jax_schedule(LR, INITIAL_LR, 1, STEPS), wd=WD,
+                            max_grad_norm=CLIP)
+
+    @jax.jit
+    def micro(p, x1, mask, x0, t, cm, dm):
+        w, flow = jax_cfm_interpolant(x1, x0, t, SIGMA)
+        return jvb.apply({"params": p}, w, times=t, self_attn_mask=mask, cond_drop_mask=dm,
+                         target=flow, cond_mask=cm, train=True)
+
+    grad_fn = jax.jit(jax.value_and_grad(micro))
+
+    @jax.jit
+    def opt_step(grads, state, p):
+        updates, state = opt.update(grads, state, p)
+        return optax.apply_updates(p, updates), state
+    jparams, state = params, opt.init(params)
+    for (wave, wave_mask), draws, loss in zip(batches, step_draws, losses):
+        assert wave.shape == (BATCH * ACCUM, 8000)
+        # the JAX trainer's _prepare_batch: the frozen codec, frame masks by ceil
+        x = np.asarray(jcodec.encode(jnp.asarray(wave)))
+        ds = wave_mask.shape[-1] / x.shape[1]
+        frame_len = np.ceil(wave_mask.sum(-1) / ds).astype(np.int64)
+        mask = np.arange(x.shape[1])[None, :] < frame_len[:, None]
+        assert x.shape[1] == WAVE_FRAMES
+        total, grads = 0.0, None
+        for i in range(ACCUM):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            args = [x[sl], mask[sl]] + [draws[k][sl] for k in
+                                        ("noise", "times", "cond_mask", "cond_drop_mask")]
+            value, g = grad_fn(jparams, *(jnp.asarray(a) for a in args))
+            total += float(value)
+            grads = g if grads is None else jax.tree.map(jnp.add, grads, g)
+        grads = jax.tree.map(lambda a: a / ACCUM, grads)
+        np.testing.assert_allclose(loss, total / ACCUM, atol=ATOL, rtol=0)
+        jparams, state = opt_step(grads, state, jparams)
+
+    ref_final = voicebox_state_dict(jax.tree.map(np.asarray, jparams))
+    ref_updates = {k: ref_final[k].numpy() - init[k].numpy() for k in init}
+    ours = {k: (p.detach() - init[k]).numpy() for k, p in port.named_parameters()}
+    _assert_leaves_close(ours, ref_updates, atol=0.25 * LR)
+
+
+def test_raw_audio_loss_is_the_loss_of_its_encoded_latents():
+    """`wrapper(x1=<wave>, cond=<wave>, input_sampling_rate=16000)`
+    resamples to the codec's 24 kHz and encodes both without gradient; its
+    loss is the loss of those latents, to the bit."""
+    from voicebox_tpu_torch import MelVoco
+    from voicebox_tpu_torch.models.vocos import Vocos
+    from voicebox_tpu_torch.ops.stft import resample
+
+    kw = {k: v for k, v in CONFIG.items() if k != "num_cond_tokens"}
+    torch.manual_seed(0)
+    codec = MelVoco(vocos=Vocos(**WAVE_VOCOS), **WAVE_MEL)
+    cfm = ConditionalFlowMatcherWrapper(VoiceBox(audio_enc_dec=codec, condition_on_text=False,
+                                                 **kw), device="cpu")
+    rs = np.random.RandomState(26)
+    wave = _t(rs.randn(2, 1 * 1600).astype(np.float32) * 0.3)  # 0.1 s at 16 kHz
+    latents = codec.encode(resample(wave, 16000, 24000))
+    frames = latents.shape[1]
+    draws = dict(noise=_t(rs.randn(2, frames, 8).astype(np.float32)),
+                 times=_t(rs.rand(2).astype(np.float32)),
+                 cond_mask=_t(rs.rand(2, frames) < 0.5))
+    raw = cfm(wave[:, None, :], cond=wave, input_sampling_rate=16000, **draws)
+    ref = cfm(latents, cond=latents, **draws)
+    assert raw.item() == ref.item() and np.isfinite(raw.item())
+    raw.backward()
+    assert all(p.grad is not None for p in cfm.voicebox.to_pred.parameters())

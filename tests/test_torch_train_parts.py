@@ -234,7 +234,8 @@ def test_entry_points_default_to_the_card():
 def test_what_is_not_ported_raises():
     vb = VoiceBox(dim_in=DIM_IN, **CONFIG)
     cfm = ConditionalFlowMatcherWrapper(vb, device="cpu")
-    with pytest.raises(NotImplementedError, match="raw audio"):
+    # raw audio is ported: without a codec to encode it the wrapper refuses it
+    with pytest.raises(ValueError, match="raw audio"):
         cfm(torch.zeros(2, 320), semantic_token_ids=torch.zeros(2, 4, dtype=torch.long))
     ds = data.ArrayDataset([np.zeros((20, DIM_IN), np.float32)] * 4)
     for kw in ({"mesh": object()}, {"checkpoint_backend": "orbax"}):

@@ -3,19 +3,23 @@
 The JAX package `voicebox_tpu` is the reference; this package mirrors its
 module names. It imports torch and never jax. Its slices so far: the
 serving path (the conditional-flow-matching sampler over the VoiceBox
-denoiser, fixed-grid or adaptive Tsit5, then the Encodec/Vocos decode), the
-training step (the CFM loss, AdamW or bf16-moment Adam, bf16 live
-parameters, the EMA, remat, reference-layout checkpoints, `VoiceBoxTrainer`,
-`TrainConfig`) and quantized duration-mode serving (the
+denoiser, fixed-grid or adaptive Tsit5, then the Encodec/Vocos or mel/Vocos
+decode), the training step (the CFM loss, AdamW or bf16-moment Adam, bf16
+live parameters, the EMA, remat, reference-layout checkpoints,
+`VoiceBoxTrainer` on latents or raw waves, `TrainConfig`), the raw-audio
+path (STFT, log-mel and resampling, `MelVoco`, the SEANet encoder and
+decoder behind `EncodecVoco.encode`), quantized duration-mode serving (the
 `DurationPredictor`'s inference, `TTSEngine`, `DynamicBatcher`,
-`sample(quantize=...)`). On CUDA tensors every attention call runs K1
+`sample(quantize=...)`) and duration-predictor training (the NS2 aligner,
+monotonic alignment search, the forward-sum loss,
+`DurationPredictorTrainer`). On CUDA tensors every attention call runs K1
 forward and K2 + K3 backward, and every quantized "w8a16" matmul runs K4,
 the hand-written Hopper kernels in `csrc/`. Entry points run on the card
 unless the caller passes `device="cpu"`.
 """
 
 from .models.cfm import ConditionalFlowMatcherWrapper
-from .models.codec import EncodecVoco
+from .models.codec import EncodecVoco, MelVoco
 from .models.duration import DurationPredictor
 from .models.transformer import Transformer
 from .models.vocos import Vocos
@@ -23,6 +27,7 @@ from .models.voicebox import VoiceBox
 from .serving import DynamicBatcher, TTSEngine
 from .training.config import TrainConfig
 from .training.data import ArrayDataset
+from .training.duration_trainer import DurationPredictorTrainer
 from .training.trainer import VoiceBoxTrainer
 
 __version__ = "0.1.0"
@@ -31,8 +36,10 @@ __all__ = [
     "ArrayDataset",
     "ConditionalFlowMatcherWrapper",
     "DurationPredictor",
+    "DurationPredictorTrainer",
     "DynamicBatcher",
     "EncodecVoco",
+    "MelVoco",
     "TTSEngine",
     "TrainConfig",
     "Transformer",

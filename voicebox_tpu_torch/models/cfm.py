@@ -33,10 +33,16 @@ on latents:
   `save_torch` writes one, `load_torch` / `load` read the denoiser from one
   (a reference, JAX-package or port trainer checkpoint).
 
+Raw audio, (b, n) or (b, 1, n) by its shape, goes through the attached
+codec (`MelVoco` or `EncodecVoco`): `x1` and `cond` of the loss are
+resampled from `input_sampling_rate` when it differs and encoded without
+gradient, `sample(cond=<wave>)` encodes its prompt, and the sampled latents
+decode back to audio through the same codec.
+
 The wrapper is an nn.Module holding `voicebox`, the frozen codec and the
 duration predictor, and it moves them to `device` when it is built: the
-card unless the caller asks for the CPU. Not ported yet: raw audio in (the
-SEANet encoder), the TextToSemantic front end, long-form sampling.
+card unless the caller asks for the CPU. Not ported yet: the TextToSemantic
+front end, long-form sampling.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ..ops.interp import curtail_or_pad
 from ..ops.masks import normal, uniform
 from ..ops.ode import cfm_interpolant, odeint, odeint_tsit5_adaptive
 from ..ops.quant import QUANT_MODES, cast_float_params, quantize_voicebox
+from ..ops.stft import resample
 from ..utils.convert import denoiser_state
 from .duration import masked_frame_durations
 from .voicebox import VoiceBox
@@ -193,16 +200,16 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         phoneme_ids: Optional[torch.Tensor] = None,
         cond: Optional[torch.Tensor] = None,
         cond_mask: Optional[torch.Tensor] = None,
+        input_sampling_rate: Optional[int] = None,
         **randomness,
     ) -> torch.Tensor:
-        """`wrapper(x1, ...)`: the CFM training loss on latents (b, n, d),
-        conditioned on semantic or phoneme ids. `randomness` is `generator=`
-        or the draws themselves, as `loss_fn` takes them."""
-        if is_probably_audio_from_shape(x1) or is_probably_audio_from_shape(cond):
-            raise NotImplementedError(
-                "training on raw audio needs the codec's encoder (SEANet), not "
-                "ported yet (ROADMAP Queue 1, item 9); pass latents (b, n, latent_dim)"
-            )
+        """`wrapper(x1, ...)`: the CFM training loss on latents (b, n, d) or
+        raw audio (b, n) / (b, 1, n), conditioned on semantic or phoneme ids.
+        Raw audio (`x1` or `cond`) is resampled from `input_sampling_rate`
+        when it differs from the codec's and encoded by the frozen codec;
+        `mask` is then at the latent frame rate. `randomness` is
+        `generator=` or the draws themselves, as `loss_fn` takes them."""
+        x1, cond = self._encode_raw_audio(x1, cond, input_sampling_rate)
         if self.condition_on_text and (semantic_token_ids is None) == (phoneme_ids is None):
             raise ValueError(
                 "pass one of semantic_token_ids or phoneme_ids (the text front ends "
@@ -216,6 +223,24 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         cond_token_ids = semantic_token_ids if phoneme_ids is None else phoneme_ids
         return self.loss_fn(x1, mask=mask, cond_token_ids=cond_token_ids, cond=cond,
                             cond_mask=cond_mask, **randomness)
+
+    def _encode_raw_audio(self, x1, cond, input_sampling_rate: Optional[int] = None):
+        """(x1, cond) with each raw-audio tensor ((b, n) or (b, 1, n)),
+        resampled to the codec's rate when `input_sampling_rate` differs,
+        replaced by the codec's latents, computed without gradient."""
+        raw = [t is not None and is_probably_audio_from_shape(t) for t in (x1, cond)]
+        if not any(raw):
+            return x1, cond
+        codec = self.audio_enc_dec
+        if codec is None:
+            raise ValueError("audio_enc_dec must be set on VoiceBox to train on raw audio")
+        sr = input_sampling_rate or codec.sampling_rate
+
+        def encode(audio):
+            with torch.no_grad():
+                return codec.encode(resample(audio, sr, codec.sampling_rate))
+
+        return (encode(x1) if raw[0] else x1), (encode(cond) if raw[1] else cond)
 
     def _serving_voicebox(self, quantize: Optional[str], param_store_dtype) -> VoiceBox:
         """The denoiser that `sample` runs: the wrapper's own, or a copy with
@@ -296,9 +321,10 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         """Sample latents by integrating the ODE from y0, then decode them to
-        audio `(b, 1, n * downsample_factor)` when a codec is attached and
-        `decode_to_audio`. y0 is `noise` if given, else a standard normal
-        draw from `generator`.
+        audio when a codec is attached and `decode_to_audio` (`(b, 1, n *
+        320)` through EncodecVoco, `(b, n * hop)` through MelVoco). y0 is
+        `noise` if given, else a standard normal draw from `generator`.
+        `cond` is latents, or raw audio that the codec encodes.
 
         Conditioning: `semantic_token_ids`, or with a duration predictor
         `phoneme_ids` / `texts`, aligned at the predicted durations over
@@ -337,11 +363,9 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         if cond is not None:
             cond = torch.as_tensor(cond, device=device)
             if is_probably_audio_from_shape(cond):
-                raise NotImplementedError(
-                    "cond as raw audio needs the codec's encoder (SEANet), not "
-                    "ported yet (ROADMAP Queue 1, item 9); pass cond latents "
-                    "(b, n, latent_dim)"
-                )
+                if codec is None:
+                    raise ValueError("cond as raw audio needs an audio_enc_dec to encode it")
+                cond = codec.encode(cond)
         want_frames = None
         if duration_seconds is not None:
             if codec is None:

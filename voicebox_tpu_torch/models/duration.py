@@ -1,30 +1,39 @@
-"""The duration predictor's inference: phoneme ids -> per-phoneme frame
-counts -> frame-rate phoneme ids.
+"""The duration predictor: phoneme ids -> per-phoneme frame counts ->
+frame-rate phoneme ids, and its training against MAS-aligned durations.
 
-Counterpart of the inference half of `voicebox_tpu/models/duration.py`:
+Counterpart of `voicebox_tpu/models/duration.py`:
 
-* `DurationPredictorNet` (eval): the phoneme embedding fused with the
-  (span-masked, optionally dropped) conditioning latents by `to_embed`, the
+* `DurationPredictorNet`: the phoneme embedding fused with the (span-masked,
+  optionally dropped) conditioning latents by `to_embed`, the
   ConvPositionEmbed residual, a plain-RMSNorm `Transformer` with qk-norm
-  (its attention runs K1 on the card, in fp32 at the reference widths) and
-  a Linear(dim, 1) head. Pad id -1 masks attention; a batch row of pads
-  only is fully masked, and its durations are zeroed downstream.
+  (its attention runs K1 forward and, in training, K2 + K3 backward on the
+  card, in fp32 at the reference widths) and a Linear(dim, 1) head. Pad id
+  -1 masks attention; a batch row of pads only is fully masked, and its
+  durations are zeroed downstream. With `train=True` and an `Aligner` it
+  returns the training loss: the span mask (a coin flip between a
+  contiguous span of `frac_lengths_mask` of the sequence and Bernoulli
+  `p_drop_prob` frames) and the CFG drop, the aligner's soft alignment of
+  the mel frames to the phoneme embeddings, MAS (`ops/mas.py`) on the soft
+  alignment, the masked-mean L1 of the durations against the MAS durations
+  (no gradient) on the masked span, plus the forward-sum loss
+  (`ops/forward_sum.py`) of the aligner's log-probabilities;
+* `Aligner`: NS2's soft aligner, conv towers over the mel queries and the
+  phoneme keys, energies -temperature x squared distance (temperature
+  5e-4), masked log-softmax over the phonemes;
 * `masked_frame_durations`: THE rounding rule, `clip(round(d), 1)` per real
   phoneme and 0 at pads, shared by alignment, `sample`'s lengths and the
-  serving engine's horizon.
+  serving engine's horizon;
 * `align_phoneme_ids_with_durations`: each id repeated for its duration,
-  0 past a row's total.
-* `DurationPredictor`: the tokenizer, eval `forward` and
-  `forward_with_cond_scale` (CFG as one 2b forward; no cond means zero
-  cond, fully dropped).
+  0 past a row's total;
+* `DurationPredictor`: the tokenizer, `forward` (eval, or `train=True`:
+  the loss), `loss_fn` and `forward_with_cond_scale` (CFG as one 2b
+  forward; no cond means zero cond, fully dropped).
 
 State-dict keys are the reference's (`export_duration_predictor_torch`,
 without the aligner): `DurationPredictor.net` loads
-`utils.convert.duration_predictor_state_dict` with `strict=True`.
-
-Training is not ported yet: the aligner, monotonic alignment search, the
-forward-sum loss and `loss_fn` raise NotImplementedError (ROADMAP Queue 1,
-item 10).
+`utils.convert.duration_predictor_state_dict` with `strict=True`. The
+training-only aligner is `DurationPredictor.aligner`, under the JAX
+parameter names (`utils.convert.aligner_state_dict`).
 """
 
 from __future__ import annotations
@@ -35,23 +44,59 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
+from ..ops.forward_sum import forward_sum_loss
 from ..ops.interp import curtail_or_pad
+from ..ops.mas import maximum_path
+from ..ops.masks import coin_flip, mask_from_frac_lengths, prob_mask_like, uniform
 from ..utils.tokenizer import Tokenizer
 from .primitives import ConvPositionEmbed, Linear
 from .transformer import Transformer
 
 __all__ = [
+    "Aligner",
     "DurationPredictor",
     "DurationPredictorNet",
     "align_phoneme_ids_with_durations",
     "masked_frame_durations",
 ]
 
-_TRAINING = (
-    "training the duration predictor (the aligner, monotonic alignment search, "
-    "the forward-sum loss, loss_fn) is not ported yet (ROADMAP Queue 1, item 10); "
-    "the port runs its inference"
-)
+_TRAIN_INPUTS = ("mel", "phoneme_len", "mel_len", "phoneme_mask", "mel_mask")
+
+
+class Aligner(nn.Module):
+    """Soft alignment of mel frames (queries) to phoneme embeddings (keys),
+    in fp32 whatever the net's dtype, as the reference keeps it."""
+
+    def __init__(self, dim_in: int = 80, dim_hidden: int = 512, attn_channels: int = 80,
+                 temperature: float = 0.0005):
+        super().__init__()
+        self.temperature = temperature
+        self.key_conv1 = nn.Conv1d(dim_hidden, dim_hidden * 2, 3, padding=1)
+        self.key_conv2 = nn.Conv1d(dim_hidden * 2, attn_channels, 1)
+        self.query_conv1 = nn.Conv1d(dim_in, dim_in * 2, 3, padding=1)
+        self.query_conv2 = nn.Conv1d(dim_in * 2, dim_in, 1)
+        self.query_conv3 = nn.Conv1d(dim_in, attn_channels, 1)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                mask: Optional[torch.Tensor] = None):
+        """queries (b, dim_in, t_mel), keys (b, t_ph, dim_hidden), mask
+        (b, t_ph) or (b, 1, t_ph) of real phonemes -> (soft, logprob), each
+        (b, 1, t_mel, t_ph)."""
+        keys, queries = keys.float(), queries.float()
+        k = self.key_conv2(F.relu(self.key_conv1(keys.transpose(1, 2)))).transpose(1, 2)
+        q = F.relu(self.query_conv2(F.relu(self.query_conv1(queries))))
+        q = self.query_conv3(q).transpose(1, 2)  # (b, t_mel, c)
+        dist = (q.square().sum(-1)[:, :, None] - 2 * torch.matmul(q, k.transpose(1, 2))
+                + k.square().sum(-1)[:, None, :])
+        energies = -self.temperature * dist
+        if mask is not None:
+            if mask.dim() == 3:
+                mask = mask[:, 0, :]
+            energies = energies.masked_fill(~mask[:, None, :], -1e9)
+        logprob = energies.log_softmax(dim=-1)
+        return logprob.exp()[:, None], logprob[:, None]
 
 
 class DurationPredictorNet(nn.Module):
@@ -72,10 +117,14 @@ class DurationPredictorNet(nn.Module):
         conv_pos_embed_groups: Optional[int] = None,
         attn_dropout: float = 0.0,
         attn_qk_norm: bool = True,
+        p_drop_prob: float = 0.2,
+        frac_lengths_mask=(0.1, 1.0),
         dtype=torch.float32,
     ):
         super().__init__()
         self.dim = dim
+        self.p_drop_prob = p_drop_prob
+        self.frac_lengths_mask = tuple(frac_lengths_mask)
         self.register_buffer("null_cond", torch.zeros(dim))  # the reference's key
         lin = dict(dtype=dtype)
         needs_proj = latent_dim is not None and latent_dim != dim
@@ -90,25 +139,48 @@ class DurationPredictorNet(nn.Module):
         )
         self.to_pred = nn.Sequential(Linear(dim, 1, **lin))
 
+    def _span_mask(self, batch: int, seq_len: int, generator, device) -> torch.Tensor:
+        """The training span mask: a coin flip between a contiguous span of
+        `frac_lengths_mask` of the sequence and Bernoulli(p_drop_prob)."""
+        use_frac = coin_flip(generator, device)
+        lo, hi = self.frac_lengths_mask
+        frac = (uniform((batch,), generator, device) * (hi - lo) + lo).clamp_min(lo)
+        span = mask_from_frac_lengths(seq_len, frac, generator)
+        bern = prob_mask_like((batch, seq_len), self.p_drop_prob, generator, device)
+        return torch.where(use_frac, span, bern)
+
     def forward(
         self,
         *,
         cond: torch.Tensor,  # (b, t, latent_dim | dim)
         phoneme_ids: torch.Tensor,  # (b, t_ph) int, pad = -1
+        cond_drop_prob: float = 0.0,
         cond_drop_mask: Optional[torch.Tensor] = None,  # (b,) bool, True = drop
         cond_mask: Optional[torch.Tensor] = None,  # (b, t) bool, True = masked out
         self_attn_mask: Optional[torch.Tensor] = None,  # (b, t_ph) bool
         train: bool = False,
-    ) -> torch.Tensor:
-        """Durations (b, t_ph), in the net's dtype."""
-        if train:
-            raise NotImplementedError(_TRAINING)
+        aligner: Optional[Aligner] = None,
+        mel: Optional[torch.Tensor] = None,  # (b, t_mel, aligner dim_in), training
+        phoneme_len: Optional[torch.Tensor] = None,
+        mel_len: Optional[torch.Tensor] = None,
+        phoneme_mask: Optional[torch.Tensor] = None,  # (b, t_ph)
+        mel_mask: Optional[torch.Tensor] = None,  # (b, t_mel)
+        return_aligned_phoneme_ids: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Durations (b, t_ph) in the net's dtype; with `train=True` the
+        training loss (and with `return_aligned_phoneme_ids` the MAS
+        durations (b, t_ph)), the span and CFG masks drawn from `generator`
+        unless given."""
         batch, seq_len, _ = cond.shape
         if self.proj_in is not None:
             cond = self.proj_in(cond)
         if cond_mask is None:
-            cond_mask = torch.zeros(batch, seq_len, dtype=torch.bool, device=cond.device)
+            cond_mask = (self._span_mask(batch, seq_len, generator, cond.device) if train else
+                         torch.zeros(batch, seq_len, dtype=torch.bool, device=cond.device))
         cond = cond * (~cond_mask[..., None]).to(cond.dtype)
+        if cond_drop_mask is None and cond_drop_prob > 0.0:
+            cond_drop_mask = prob_mask_like((batch,), cond_drop_prob, generator, cond.device)
         if cond_drop_mask is not None:
             cond = cond.masked_fill(cond_drop_mask[:, None, None], 0.0)
 
@@ -118,8 +190,33 @@ class DurationPredictorNet(nn.Module):
         cond = curtail_or_pad(cond, phoneme_ids.shape[-1])
         x = self.to_embed(torch.cat([phoneme_emb, cond.to(phoneme_emb.dtype)], dim=-1))
         x = self.conv_embed(x, mask=self_attn_mask) + x
-        x = self.transformer(x, mask=self_attn_mask)
-        return self.to_pred(x)[..., 0]
+        x = self.transformer(x, mask=self_attn_mask, train=train, generator=generator)
+        durations = self.to_pred(x)[..., 0]
+        if not train:
+            return durations
+
+        given = dict(mel=mel, phoneme_len=phoneme_len, mel_len=mel_len,
+                     phoneme_mask=phoneme_mask, mel_mask=mel_mask)
+        missing = [k for k in _TRAIN_INPUTS if given[k] is None]
+        if aligner is None or missing:
+            raise ValueError(
+                f"training the duration predictor needs an aligner and {', '.join(_TRAIN_INPUTS)}"
+                f" (missing: {', '.join(missing + ([] if aligner is not None else ['aligner']))})"
+            )
+        soft, logprob = aligner(mel.transpose(1, 2), phoneme_emb, phoneme_mask)
+        attn_mask = phoneme_mask[:, :, None] & mel_mask[:, None, :]  # (b, t_ph, t_mel)
+        alignment = maximum_path(soft[:, 0].transpose(1, 2), attn_mask)
+        t_ph = phoneme_ids.shape[-1]
+        target = alignment.sum(dim=-1).float()  # no gradient: MAS is a bool path
+
+        loss_mask = curtail_or_pad(cond_mask[:, :t_ph, None], t_ph)[..., 0] & self_attn_mask
+        l1 = (durations.float() - target).abs().masked_fill(~loss_mask, 0.0)
+        den = loss_mask.sum(dim=-1).float().clamp_min(1e-5)
+        dur_loss = (l1.sum(dim=-1) / den).mean()
+        loss = dur_loss + forward_sum_loss(logprob, phoneme_len, mel_len)
+        if return_aligned_phoneme_ids:
+            return loss, target
+        return loss
 
 
 def masked_frame_durations(phoneme_ids, durations):
@@ -180,7 +277,6 @@ class DurationPredictor(nn.Module):
             num_phoneme_tokens = tokenizer.vocab_size
         self.tokenizer = tokenizer
         self.__dict__["audio_enc_dec"] = audio_enc_dec
-        # the aligner's sizes: kept for the training half (not ported yet)
         self.aligner_dim_in = aligner_dim_in
         self.aligner_attn_channels = aligner_attn_channels
         latent_dim = None
@@ -190,6 +286,8 @@ class DurationPredictor(nn.Module):
             num_phoneme_tokens=num_phoneme_tokens, dim_phoneme_emb=dim_phoneme_emb, dim=dim,
             latent_dim=latent_dim, depth=depth, **net_kwargs,
         )
+        self.aligner = Aligner(dim_in=aligner_dim_in, dim_hidden=dim_phoneme_emb,
+                               attn_channels=aligner_attn_channels)
 
     @property
     def cond_dim(self) -> int:
@@ -209,15 +307,25 @@ class DurationPredictor(nn.Module):
             phoneme_ids = torch.from_numpy(np.asarray(phoneme_ids))
         return phoneme_ids.to(self._device()).long()
 
-    def loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def loss_fn(self, *, cond, phoneme_ids, mel=None, phoneme_len=None, mel_len=None,
+                phoneme_mask=None, mel_mask=None, cond_drop_prob: float = 0.0, generator=None,
+                **kwargs):
+        """The training loss (a scalar fp32 tensor, with gradients): the span
+        and CFG masks are `cond_mask` / `cond_drop_mask` or drawn from
+        `generator`; `return_aligned_phoneme_ids=True` also returns the MAS
+        durations."""
+        return self.net(cond=cond, phoneme_ids=phoneme_ids, mel=mel, phoneme_len=phoneme_len,
+                        mel_len=mel_len, phoneme_mask=phoneme_mask, mel_mask=mel_mask,
+                        cond_drop_prob=cond_drop_prob, train=True, aligner=self.aligner,
+                        generator=generator, **kwargs)
 
     def forward(self, *, cond, texts=None, phoneme_ids=None, train: bool = False, **kwargs):
-        """Durations (b, t_ph) of the phonemes under `cond` latents."""
-        if train:
-            raise NotImplementedError(_TRAINING)
+        """Durations (b, t_ph) of the phonemes under `cond` latents, or with
+        `train=True` the training loss (`loss_fn`'s keywords)."""
         ids = self._phoneme_ids(texts, phoneme_ids)
         cond = torch.as_tensor(cond, device=ids.device)
+        if train:
+            return self.loss_fn(cond=cond, phoneme_ids=ids, **kwargs)
         with torch.no_grad():
             return self.net(cond=cond, phoneme_ids=ids, **kwargs)
 

@@ -138,7 +138,8 @@ class EncodecFeatures(nn.Module):
 class Vocos(nn.Module):
     """The vocoder. `Vocos.encodec_24khz()` builds the vocos-encodec-24khz
     geometry (input 128, dim 512, intermediate 1536, 8 layers, n_fft 1280,
-    hop 320, 4 bandwidths)."""
+    hop 320, 4 bandwidths), `Vocos.mel_24khz()` the vocos-mel-24khz one
+    (input 100 mels, n_fft 1024, hop 256, no bandwidths)."""
 
     def __init__(self, input_channels: int = 100, dim: int = 512,
                  intermediate_dim: int = 1536, num_layers: int = 8, n_fft: int = 1024,
@@ -158,6 +159,12 @@ class Vocos(nn.Module):
     @classmethod
     def encodec_24khz(cls) -> "Vocos":
         return cls(input_channels=128, num_bandwidths=4, n_fft=1280, hop_length=320)
+
+    @classmethod
+    def mel_24khz(cls) -> "Vocos":
+        """The vocos-mel-24khz geometry: 100 mel bins in, n_fft 1024, hop 256,
+        plain LayerNorms (no bandwidth embedding)."""
+        return cls(input_channels=100, n_fft=1024, hop_length=256)
 
     def decode(self, features: torch.Tensor,
                bandwidth_id: Optional[torch.Tensor] = None) -> torch.Tensor:

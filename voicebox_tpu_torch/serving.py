@@ -30,8 +30,9 @@ and `spec_decode` other than their defaults), texts longer than the
 largest text bucket and `long_window_frames` / `long_overlap_frames` other
 than their defaults (long-form windowed sampling, item 12), voice cloning
 (`clone`, `clone_stream`, `DynamicBatcher.submit_clone`, which ride the
-long-form sampler, item 12), raw-audio prompts (`prompt_seconds_buckets`,
-the SEANet encoder, item 9) and `compilation_cache_dir` (item 12).
+long-form sampler, item 12), raw-audio prompt buckets
+(`prompt_seconds_buckets`, which only cloning reads, item 12) and
+`compilation_cache_dir` (item 12).
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ class TTSEngine:
             )
         if prompt_seconds_buckets:
             raise NotImplementedError(
-                "raw-audio prompts need the codec's encoder (SEANet), not ported yet "
-                "(ROADMAP Queue 1, item 9)"
+                "prompt_seconds_buckets buckets the raw-audio prompts of voice "
+                "cloning, which is not ported yet (ROADMAP Queue 1, item 12)"
             )
         if max_semantic_token_ids != 1024 or not spec_decode:
             raise NotImplementedError(

@@ -1,8 +1,12 @@
-"""Training on latents: the optimizer, the data pipeline, checkpoints, the
-trainer and its config."""
+"""Training: the optimizer, the data pipeline, checkpoints, the trainers'
+shared core, the VoiceBox and duration-predictor trainers and the VoiceBox
+trainer's config."""
 
+from .base import StageTrainer, TrainerBase
 from .config import MeshConfig, TrainConfig
-from .data import ArrayDataset, PrefetchLoader
+from .data import ArrayDataset, PairedDataset, PrefetchLoader
+from .duration_trainer import DurationPredictorTrainer
 from .trainer import VoiceBoxTrainer
 
-__all__ = ["ArrayDataset", "MeshConfig", "PrefetchLoader", "TrainConfig", "VoiceBoxTrainer"]
+__all__ = ["ArrayDataset", "DurationPredictorTrainer", "MeshConfig", "PairedDataset",
+           "PrefetchLoader", "StageTrainer", "TrainConfig", "TrainerBase", "VoiceBoxTrainer"]

@@ -1,16 +1,22 @@
-"""Host-side batching of latent datasets, numpy only.
+"""Host-side batching of in-memory datasets, numpy only.
 
-Counterpart of the parts of `voicebox_tpu/training/data.py` that train on
-latents: `ArrayDataset`, `collate_with_mask` with its bucket grid,
-`DataLoader` (without multi-process sharding), `AlignedPairedDataLoader` for
-(latents, frame-aligned ids) pairs, and `random_split`. Shuffling uses
-numpy's `RandomState(seed)`, as the JAX package does, so both visit the
-items in the same order. Batches are padded to bucketed lengths: the bucket
-grid `k * multiple - offset` keeps frames + registers on the 128 boundary
-(752 frames + 16 registers = 768 tokens). `PrefetchLoader` collates the
+Counterpart of the in-memory parts of `voicebox_tpu/training/data.py`:
+`ArrayDataset` (latents (n, d), raw waves (n,), or (latents, frame-aligned
+ids) pairs), `PairedDataset` (K-field tuples whose first field may be
+text), `collate_with_mask` with its bucket grid, `DataLoader` (without
+multi-process sharding), `AlignedPairedDataLoader` for (latents,
+frame-aligned ids) pairs, `PairedDataLoader` with an independent bucket
+grid, pad value and maximum length per field (the duration trainer's
+phonemes and waves), `TokenizedTextDataset` (text tokenized once, cached)
+and `random_split`. Shuffling uses numpy's `RandomState(seed)`, as the JAX
+package does, so both visit the items in the same order. Batches are padded
+to bucketed lengths: the bucket grid `k * multiple - offset` keeps frames +
+registers on the 128 boundary (752 frames + 16 registers = 768 tokens; for
+raw waves the trainer sets it in samples). `PrefetchLoader` collates the
 next batches on a background thread (with an optional `transform`, such as
-copying into pinned host memory) while the device works. The audio datasets
-and multi-host sharding are not ported yet.
+copying into pinned host memory) while the device works. The file-backed
+audio datasets and multi-host sharding are not ported yet (ROADMAP Queue 1,
+items 12 and 15).
 """
 
 from __future__ import annotations
@@ -26,15 +32,18 @@ __all__ = [
     "AlignedPairedDataLoader",
     "ArrayDataset",
     "DataLoader",
+    "PairedDataLoader",
+    "PairedDataset",
     "PrefetchLoader",
+    "TokenizedTextDataset",
     "collate_with_mask",
     "random_split",
 ]
 
 
 class ArrayDataset:
-    """In-memory dataset of numpy arrays (latents (n, d)) or of tuples of
-    them ((latents (n, d), frame-aligned ids (n,)) pairs)."""
+    """In-memory dataset of numpy arrays (latents (n, d) or raw waves (n,))
+    or of tuples of them ((latents (n, d), frame-aligned ids (n,)) pairs)."""
 
     def __init__(self, items: Sequence):
         self.items = [
@@ -47,6 +56,53 @@ class ArrayDataset:
 
     def __getitem__(self, idx):
         return self.items[idx]
+
+
+class PairedDataset:
+    """In-memory dataset of K-field tuples: (text | phoneme ids, wave |
+    latents[, mel]) for the duration trainer. Strings pass through (the
+    trainer tokenizes them); other fields become numpy arrays."""
+
+    def __init__(self, items: Sequence[tuple]):
+        self.items = [tuple(f if isinstance(f, str) else np.asarray(f) for f in it)
+                      for it in items]
+        if not self.items:
+            raise ValueError("empty dataset")
+        if len({len(it) for it in self.items}) != 1:
+            raise ValueError("all items must have the same number of fields")
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+
+class TokenizedTextDataset:
+    """A view of K-field tuple items whose str first field becomes its int32
+    ids without pads (tokenized once per item and cached); every other field
+    passes through as a numpy array."""
+
+    def __init__(self, dataset, tokenizer):
+        self.dataset = dataset
+        self.tokenizer = tokenizer
+        self._cache: dict = {}
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        row = self.dataset[idx]
+        first, rest = row[0], row[1:]
+        if isinstance(first, str):
+            ids = self._cache.get(idx)
+            if ids is None:
+                if self.tokenizer is None:
+                    raise ValueError("the dataset yields text but the model has no tokenizer")
+                arr = np.asarray(self.tokenizer.texts_to_tensor_ids([first]), np.int32)[0]
+                ids = self._cache[idx] = arr[arr != -1]
+            first = ids
+        return (np.asarray(first), *(np.asarray(f) for f in rest))
 
 
 class _Subset:
@@ -199,6 +255,67 @@ class AlignedPairedDataLoader(DataLoader):
                 m = min(np.shape(row_ids)[0], target)
                 ids[i, :m] = np.asarray(row_ids)[:m]
             yield (xs, mask), (ids, mask)
+
+
+class PairedDataLoader:
+    """Shuffling batch iterator over K-field tuple datasets with an
+    independent bucket grid per field: field f pads to a multiple of
+    `bucket_multiples[f]` (capped at `max_lengths[f]`) with
+    `pad_values[f]` (-1 for ids). Yields one (padded, mask) pair per field.
+    A short last batch wraps around to the full batch size unless
+    `drop_last`."""
+
+    def __init__(self, dataset, batch_size: int, *, bucket_multiples: Sequence[int],
+                 pad_values: Optional[Sequence] = None,
+                 max_lengths: Optional[Sequence[Optional[int]]] = None, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.bucket_multiples = tuple(bucket_multiples)
+        k = len(self.bucket_multiples)
+        self.pad_values = tuple(pad_values) if pad_values is not None else (0,) * k
+        self.max_lengths = tuple(max_lengths) if max_lengths is not None else (None,) * k
+        if len(self.pad_values) != k or len(self.max_lengths) != k:
+            raise ValueError("one bucket multiple, pad value and max length per field")
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.drop_last = drop_last
+
+    @staticmethod
+    def _collate_field(items: List[np.ndarray], multiple: int, pad_value,
+                       max_length: Optional[int]):
+        target = _pad_to_multiple(max(it.shape[0] for it in items), multiple)
+        if max_length is not None and target > max_length:
+            target = max_length
+        batch = np.full((len(items), target, *items[0].shape[1:]), pad_value,
+                        dtype=items[0].dtype)
+        mask = np.zeros((len(items), target), dtype=bool)
+        for i, it in enumerate(items):
+            n = min(it.shape[0], target)
+            batch[i, :n] = it[:n]
+            mask[i, :n] = True
+        return batch, mask
+
+    def __iter__(self):
+        n = len(self.dataset)
+        order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+        for start in range(0, n, self.batch_size):
+            idx = order[start: start + self.batch_size]
+            if len(idx) < self.batch_size:
+                if self.drop_last:
+                    return
+                idx = np.concatenate([idx, np.resize(order, self.batch_size - len(idx))])
+            rows = [self.dataset[int(i)] for i in idx]
+            yield tuple(
+                self._collate_field([np.asarray(row[f]) for row in rows],
+                                    self.bucket_multiples[f], self.pad_values[f],
+                                    self.max_lengths[f])
+                for f in range(len(self.bucket_multiples))
+            )
+
+    def cycle(self):
+        while True:
+            yield from iter(self)
 
 
 class PrefetchLoader:

@@ -30,22 +30,26 @@ The JAX trainer's single-device options:
   `prefetch_batches` (a background thread collates, into pinned memory on
   the card), the `torch.profiler` window `profile_dir` / `profile_steps`.
 
-Datasets hold latents (n, d) or (latents (n, d), frame-aligned ids (n,))
-pairs (`training.data.ArrayDataset`); raw audio needs the SEANet encoder,
-which is not ported yet, and so do the device mesh and sharded checkpoints
-(ROADMAP item 15). The module's parameters must be fp32: the denoiser
-computes in its `dtype` (bf16 on the card) and casts each weight at use, as
-the JAX trainer does. Unlike the JAX trainer, metrics and checkpoints are
-written only when a `results_folder` is given, and a checkpoint's `steps`
-counts the optimizer steps it holds.
+Datasets hold latents (n, d), (latents (n, d), frame-aligned ids (n,))
+pairs or raw waves (n,) (`training.data.ArrayDataset`). Waves go through
+the denoiser's frozen codec (`MelVoco` or `EncodecVoco`) on the device,
+without gradient, and their frame masks come from `ceil(len / ds)` with
+ds = samples / frames, as the JAX trainer computes them; their buckets are
+in samples, `(registers + frame_offset) * downsample` below a multiple of
+`128 * downsample`, so frames + registers land on the 128 grid (a 10 s wave
+of 240 000 samples, 938 mel frames at hop 256, pads to 257 792 samples =
+1008 frames + 16 registers). The device mesh and sharded checkpoints are
+not ported yet (ROADMAP item 15). The module's parameters must be fp32: the
+denoiser computes in its `dtype` (bf16 on the card) and casts each weight
+at use, as the JAX trainer does. Unlike the JAX trainer, metrics and
+checkpoints are written only when a `results_folder` is given, and a
+checkpoint's `steps` counts the optimizer steps it holds.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import shutil
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -53,7 +57,10 @@ import numpy as np
 import torch
 
 from ..models.cfm import ConditionalFlowMatcherWrapper, resolve_device
-from .checkpoint import check_backend, load_trainer_checkpoint, save_trainer_checkpoint
+from ..models.codec import frame_mask
+from ..utils.convert import denoiser_state
+from .base import TrainerBase
+from .checkpoint import check_backend
 from .data import AlignedPairedDataLoader, DataLoader, PrefetchLoader, random_split
 from .optimizer import (
     AdamLowPrecisionMoments,
@@ -79,8 +86,11 @@ def swapped(params, tensors):
             p.data = t
 
 
-class VoiceBoxTrainer:
-    project_name = "voicebox"
+class VoiceBoxTrainer(TrainerBase):
+    """Its own set-up and step on `TrainerBase`'s logging, EMA view and
+    checkpoints (the denoiser's state under `voicebox.`)."""
+
+    state_prefix = "voicebox."
 
     def __init__(
         self,
@@ -155,7 +165,7 @@ class VoiceBoxTrainer:
         self.num_train_steps = num_train_steps
         self.num_warmup_steps = num_warmup_steps or 0
 
-        vb = cfm_wrapper.voicebox
+        vb = self.module = cfm_wrapper.voicebox
         self.named_params = [(n, p) for n, p in vb.named_parameters() if p.requires_grad]
         wrong = [n for n, p in self.named_params if p.dtype != torch.float32]
         if wrong:
@@ -177,11 +187,22 @@ class VoiceBoxTrainer:
 
         probe = dataset[0]
         self._paired = isinstance(probe, tuple) and len(probe) == 2
+        self._raw_audio = not self._paired and np.asarray(probe).ndim == 1
+        if self._raw_audio and vb.audio_enc_dec is None:
+            raise ValueError("a dataset of raw waves needs an audio_enc_dec on the VoiceBox")
+        align_multiple = 128
         if bucket_offset is None:
             bucket_offset = vb.transformer.num_register_tokens
+            if self._raw_audio:  # the same grid in samples
+                codec = vb.audio_enc_dec
+                ds_factor = int(codec.downsample_factor)
+                bucket_offset = (bucket_offset + int(codec.frame_offset)) * ds_factor
+                align_multiple = 128 * ds_factor
+                if bucket_multiple % align_multiple != 0:
+                    bucket_multiple = align_multiple
         loader = AlignedPairedDataLoader if self._paired else DataLoader
         kw = dict(bucket_multiple=bucket_multiple, max_length=max_length, drop_last=drop_last,
-                  bucket_offset=bucket_offset)
+                  bucket_offset=bucket_offset, align_multiple=align_multiple)
         dl = loader(self.ds, batch_size * grad_accum_every, seed=seed, **kw)
         valid_dl = loader(self.valid_ds, batch_size, seed=seed + 1, **kw)
         if prefetch_batches > 0:
@@ -205,45 +226,7 @@ class VoiceBoxTrainer:
             self._metrics_path = self.results_folder / "metrics.jsonl"
         self._trackers = tuple(trackers)
         self._loss_buffer: list = []
-        self.hps = {"num_train_steps": self.num_train_steps,
-                    "num_warmup_steps": self.num_warmup_steps, "learning_rate": lr,
-                    "initial_learning_rate": initial_lr, "wd": wd}
-        self._log_metrics({"event": "init_trackers", "config": self.hps})
-
-    # ------------------------------------------------------------------
-    # logging
-
-    def print(self, msg):
-        print(msg, flush=True)
-
-    def _log_metrics(self, record: dict, step: Optional[int] = None):
-        step = self.steps if step is None else step
-        record = dict(record, step=step, time=time.time())
-        self.metrics.append(record)
-        if self._metrics_path is not None:
-            with open(self._metrics_path, "a") as f:
-                f.write(json.dumps(record, default=float) + "\n")
-        for tracker in self._trackers:
-            if callable(tracker) and not hasattr(tracker, "log"):
-                tracker(record, step)
-            elif record.get("event") == "init_trackers":
-                if hasattr(tracker, "init_trackers"):
-                    tracker.init_trackers(self.project_name, record["config"])
-            elif hasattr(tracker, "log"):
-                tracker.log({k: v for k, v in record.items() if k not in ("step", "time")},
-                            step=step)
-
-    def _flush_losses(self) -> Optional[float]:
-        """Fetch the buffered losses in one transfer and log them; returns the
-        last one."""
-        if not self._loss_buffer:
-            return None
-        steps, losses = zip(*self._loss_buffer)
-        values = torch.stack(losses).cpu().tolist()
-        for s, v in zip(steps, values):
-            self._log_metrics({"train_loss": v}, step=s)
-        self._loss_buffer.clear()
-        return values[-1]
+        self._log_init_hps()
 
     # ------------------------------------------------------------------
     # data
@@ -263,7 +246,8 @@ class VoiceBoxTrainer:
         return one(x, torch.float32), one(mask, torch.bool)
 
     def _next_batch(self, iterator):
-        """(latents, mask, ids or None) as tensors on the device."""
+        """(latents, mask, ids or None) as tensors on the device; waves are
+        encoded by the frozen codec."""
         item = next(iterator)
         if self._paired:
             (x, mask), (ids, _) = item
@@ -275,49 +259,31 @@ class VoiceBoxTrainer:
                 a = torch.from_numpy(np.ascontiguousarray(a))
             return a.to(self.device, dtype, non_blocking=True)
 
-        return (put(x, torch.float32), put(mask, torch.bool),
-                None if ids is None else put(ids, torch.int64))
+        x, mask = put(x, torch.float32), put(mask, torch.bool)
+        if self._raw_audio:
+            with torch.no_grad():
+                x = self.cfm_wrapper.voicebox.audio_enc_dec.encode(x)
+            mask = frame_mask(mask, x.shape[1])
+        return x, mask, None if ids is None else put(ids, torch.int64)
 
     # ------------------------------------------------------------------
     # checkpoints
 
-    def save(self, path, extra_model_state: Optional[dict] = None) -> dict:
-        """Write the run (fp32 weights, moments, step, EMA) in the reference
-        trainer's layout (`training/checkpoint.py`); returns the
-        checkpoint."""
-        self._flush_losses()
-        return save_trainer_checkpoint(
-            path, voicebox=self.cfm_wrapper.voicebox, named_params=self.named_params,
-            optimizer=self.optimizer, steps=self.steps, lr=self.lr, wd=self.wd, ema=self.ema,
-            extra_model_state=extra_model_state)
+    def _module_state(self, model: dict) -> dict:
+        return denoiser_state(model)
 
     def load(self, path) -> None:
         """Resume from a checkpoint written by `save`, by the JAX package's
         `save_torch` or by the reference trainer: weights, moments, step
         count (and so the learning rate), EMA; the bf16 live copies are
         recast from the loaded weights."""
-        self.steps = load_trainer_checkpoint(
-            path, voicebox=self.cfm_wrapper.voicebox, named_params=self.named_params,
-            optimizer=self.optimizer, ema=self.ema)
-        sched = self.scheduler  # at the loaded step, as if it had stepped there
-        sched.last_epoch = self.steps
-        for group, base, factor in zip(self.optimizer.param_groups, sched.base_lrs,
-                                       sched.lr_lambdas):
-            group["lr"] = base * factor(self.steps)
-        sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+        super().load(path)
         if self._live is not None:
             torch._foreach_copy_(self._live, [p.detach() for p in self.params])
 
     # the reference trainer's names: the same file
-    save_torch = save
+    save_torch = TrainerBase.save
     load_torch = load
-
-    @property
-    def ema_params(self) -> Optional[dict]:
-        """{name: EMA tensor} (None without `ema_decay`)."""
-        if self.ema is None:
-            return None
-        return {n: e for (n, _), e in zip(self.named_params, self.ema.shadow)}
 
     def generate(self, *args, use_ema: bool = False, **kwargs):
         """`cfm_wrapper.sample` with the fp32 weights, or the EMA's."""

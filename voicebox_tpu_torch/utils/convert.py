@@ -10,8 +10,18 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 * `transformer_state_dict`, `attention_state_dict`: its parts;
 * `duration_predictor_state_dict`: the same mapping as
   `export_duration_predictor_torch` (the net, without the aligner);
+* `aligner_state_dict`: the duration predictor's training-only aligner,
+  under the JAX parameter names (`key_conv1`, ..., `query_conv3`);
 * `vocos_state_dict`: the upstream Vocos layout;
-* `encodec_voco_state_dict`: RVQ codebooks + Vocos, for `EncodecVoco`;
+* `seanet_encoder_state_dict`, `seanet_decoder_state_dict`,
+  `encodec_model_state_dict`: upstream facebook/encodec's layout, the
+  inverse of `voicebox_tpu/utils/port_weights.py::load_encodec_torch`
+  (flax `Conv` kernels are (k, in, out), `ConvTranspose` kernels (k, in,
+  out) spatially flipped; each flax `OptimizedLSTMCell` keeps per-gate
+  `i{g}` (no bias) and `h{g}` (bias) Denses, packed here into torch's
+  [i, f, g, o] rows with the bias in `bias_hh` and a zero `bias_ih`);
+* `encodec_voco_state_dict`: SEANet encoder + RVQ codebooks + Vocos, for
+  `EncodecVoco`;
 * `optimizer_state_by_name`, `export_optimizer_state`,
   `save_reference_checkpoint`: the torch halves of `load_optimizer_torch`,
   `export_optimizer_torch` and `save_reference_checkpoint` of the JAX
@@ -42,6 +52,10 @@ import torch
 
 __all__ = [
     "TORCH_BUFFER_SUFFIXES",
+    "aligner_state_dict",
+    "encodec_model_state_dict",
+    "seanet_decoder_state_dict",
+    "seanet_encoder_state_dict",
     "TORCH_STATELESS_SUFFIXES",
     "attention_state_dict",
     "denoiser_state",
@@ -60,7 +74,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
 
 
 def _dense(out: StateDict, key: str, leaf: Mapping, bias: bool = True) -> None:
@@ -210,11 +224,99 @@ def vocos_state_dict(params: Mapping) -> StateDict:
     return out
 
 
-def encodec_voco_state_dict(quantizer_params: Mapping, vocos_params: Mapping) -> StateDict:
-    """JAX `EncodecModel.params['quantizer']` and `Vocos.params` -> the
+def _lstm(out: StateDict, key: str, tree: Mapping) -> None:
+    """flax `OptimizedLSTMCell_{l}` per-gate Denses -> `nn.LSTM` layer l."""
+    gates = "ifgo"  # torch's row order
+    layer = 0
+    while f"OptimizedLSTMCell_{layer}" in tree:
+        cell = tree[f"OptimizedLSTMCell_{layer}"]
+        out[f"{key}.weight_ih_l{layer}"] = _t(np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))
+        out[f"{key}.weight_hh_l{layer}"] = _t(np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))
+        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+        out[f"{key}.bias_ih_l{layer}"] = _t(np.zeros_like(bias))
+        out[f"{key}.bias_hh_l{layer}"] = _t(bias)
+        layer += 1
+
+
+def _causal_conv(out: StateDict, key: str, leaf: Mapping) -> None:
+    _conv(out, f"{key}.conv.conv", leaf["conv"])
+
+
+def _residual_unit(out: StateDict, key: str, tree: Mapping) -> None:
+    _causal_conv(out, f"{key}.block.1", tree["conv1"])
+    _causal_conv(out, f"{key}.block.3", tree["conv2"])
+
+
+def _n_blocks(tree: Mapping) -> int:
+    n = 0
+    while f"res_{n}" in tree:
+        n += 1
+    return n
+
+
+def seanet_encoder_state_dict(tree: Mapping, prefix: str = "") -> StateDict:
+    """JAX `SEANetEncoder` params -> upstream `encoder.model.{i}` keys (under
+    `prefix`): 0 stem; per block i, 3i + 1 residual unit and 3i + 3 strided
+    conv; 3n + 1 the LSTM; 3n + 3 the head."""
+    out: StateDict = {}
+    n = _n_blocks(tree)
+    _causal_conv(out, f"{prefix}model.0", tree["stem"])
+    for i in range(n):
+        _residual_unit(out, f"{prefix}model.{3 * i + 1}", tree[f"res_{i}"])
+        _causal_conv(out, f"{prefix}model.{3 * i + 3}", tree[f"down_{i}"])
+    _lstm(out, f"{prefix}model.{3 * n + 1}.lstm", tree["lstm"])
+    _causal_conv(out, f"{prefix}model.{3 * n + 3}", tree["head"])
+    return out
+
+
+def seanet_decoder_state_dict(tree: Mapping, prefix: str = "") -> StateDict:
+    """JAX `SEANetDecoder` params -> upstream `decoder.model.{i}` keys: 0
+    stem, 1 the LSTM; per block i, 3i + 3 transposed conv and 3i + 4
+    residual unit; 3n + 3 the head."""
+    out: StateDict = {}
+    n = _n_blocks(tree)
+    _causal_conv(out, f"{prefix}model.0", tree["stem"])
+    _lstm(out, f"{prefix}model.1.lstm", tree["lstm"])
+    for i in range(n):
+        leaf = tree[f"up_{i}"]["convtr"]
+        key = f"{prefix}model.{3 * i + 3}.convtr.convtr"
+        # flax ConvTranspose (k, in, out), spatially flipped -> torch (in, out, k)
+        out[f"{key}.weight"] = _t(np.transpose(np.asarray(leaf["kernel"])[::-1], (1, 2, 0)))
+        out[f"{key}.bias"] = _t(leaf["bias"])
+        _residual_unit(out, f"{prefix}model.{3 * i + 4}", tree[f"res_{i}"])
+    _causal_conv(out, f"{prefix}model.{3 * n + 3}", tree["head"])
+    return out
+
+
+def encodec_model_state_dict(params: Mapping) -> StateDict:
+    """JAX `EncodecModel.params` ({'encoder', 'decoder', 'quantizer'}) -> the
+    port's `EncodecModel` keys."""
+    out = seanet_encoder_state_dict(params["encoder"], "encoder.")
+    out.update(seanet_decoder_state_dict(params["decoder"], "decoder."))
+    out["quantizer.codebooks"] = _t(params["quantizer"]["codebooks"])
+    return out
+
+
+def encodec_voco_state_dict(quantizer_params: Mapping, vocos_params: Mapping,
+                            encoder_params: Optional[Mapping] = None) -> StateDict:
+    """JAX `EncodecModel.params['quantizer']` and `Vocos.params`, and the
+    SEANet encoder's `EncodecModel.params['encoder']` when given -> the
     port's `EncodecVoco` keys."""
     out: StateDict = {"quantizer.codebooks": _t(quantizer_params["codebooks"])}
     out.update({f"vocos.{k}": v for k, v in vocos_state_dict(vocos_params).items()})
+    if encoder_params is not None:
+        out.update(seanet_encoder_state_dict(encoder_params, "encoder."))
+    return out
+
+
+def aligner_state_dict(tree: Mapping) -> StateDict:
+    """JAX `Aligner` params (`params['aligner']` of the duration predictor's
+    net) -> the port's `Aligner` keys, which keep the JAX names."""
+    out: StateDict = {}
+    for name in ("key_conv1", "key_conv2", "query_conv1", "query_conv2", "query_conv3"):
+        _conv(out, name, tree[name])
     return out
 
 
