@@ -27,14 +27,19 @@ imports nothing of JAX. Its phases print one line each or more:
    of the plain forward, by the largest error and by the error's norm, at
    the training shape (bf16 qk-normed and randn, fp32), the reference head
    split, ragged n/kv, a fully-masked batch element under qk-norm's scale
-   10, and the edges of the bf16 design at head dims 64 and 128 (kv off the
+   10, the edges of the bf16 design at head dims 64 and 128 (kv off the
    64-row tile and off 8, n under one tile, n and kv of 4100 that wrap the
-   ring many times, masked runs inside tiles); a second launch on the same
+   ring many times, masked runs inside tiles) and those of the fp32 design
+   (`k23_f32_edges`: n and kv at 1 and around its tiles, 64 owned rows and
+   64 or 32 streamed, at both head dims, under each kind of mask; with one
+   key, dq and dk held to a rounding floor); a second launch on the same
    inputs must give bit-identical dq, dk and dv; CUDA-event times of K2,
    K3, the plain backward and SDPA's backward (each of the two gives dq, dk
    and dv together) and attention forward + backward through K1/K2/K3
-   beside SDPA's, at the training shape and the reference head split (bf16
-   K2 and K3 have one tile height, 64 owned rows a block);
+   beside SDPA's, at the training shape (bf16 and fp32), the reference head
+   split, the mel training shape and the duration predictor's (fp32), with
+   the kernels SDPA's fp32 backward launches (K2 and K3 have one tile
+   height, 64 owned rows a block);
 5. K4 check: K4 against its plain version at the flagship's four quantized
    (k, n) with the engine's m = 544, 2112 and 8320 rows, m = 1532 and the
    ragged m = 37 and 1, in bf16 and fp32, bf16 at every tile `k4_tile`
@@ -118,8 +123,9 @@ imports nothing of JAX. Its phases print one line each or more:
    `DurationPredictorTrainer` on batches of 8 (text of 40-120 characters,
    10 s wave) items, phonemes bucketed to 128: each step exactly 10 fp32
    K1, K2 and K3 launches; ms per step, the transformer's, the aligner's,
-   MAS's (ms and launches) and the forward-sum loss's times alone, idle
-   share, peak memory; then the trained predictor drives one
+   MAS's (ms and launches) and the forward-sum loss's times alone, a
+   profiled step's busy time, its K1 + K2 + K3 share and idle share, peak
+   memory; then the trained predictor drives one
    `sample(texts=...)` through a MelVoco denoiser of the flagship geometry
    conditioned on phoneme ids (10 + 96 K1 launches, finite audio);
 16. (c) `EncodecVoco.encode` of a 10 s wave through the SEANet encoder at
@@ -167,6 +173,7 @@ from voicebox_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     k1_block_q,
+    k23_f32_edges,
     reference_attention,
     reference_attention_backward,
 )
@@ -299,8 +306,20 @@ K23_CASES = [
     ("mel_train_bf16", (8, 4, 1024, 1024, 128), torch.bfloat16, "qk", "prefix", 2e-2),
     ("dp_train_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "prefix", 1e-4),
     ("dp_train_empty_row_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-4),
+    # the edges of the fp32 design (`k23_f32_edges`, the CPU tests' shapes):
+    # n and kv at 1, one under, at and one over its tiles (64 owned rows, 64
+    # or 32 streamed) and at the phoneme buckets, at both head dims, the
+    # masks taken in turn as in tests/test_torch_flash_backward_tiles.py
+    # (qk-normed at scale 10 under the prefix and fully-masked ones). Where
+    # kv = 1, dq and dk are held to `single_key_floor` instead (ds is 0 in
+    # exact arithmetic)
+    *[(f"edge_n{n}_kv{kv}_d{d}_f32", (2, 4, n, kv, d), torch.float32,
+       "qk" if mask in ("prefix", "empty_row") else "randn", mask, 1e-4)
+      for j, d in enumerate((64, 128)) for i, (n, kv) in enumerate(k23_f32_edges())
+      for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
 ]
-K23_TIMED = ("train_bf16", "reference_split_bf16", "mel_train_bf16", "dp_train_f32")
+K23_TIMED = ("train_bf16", "reference_split_bf16", "mel_train_bf16", "dp_train_f32",
+             "train_f32")
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
 FLAGSHIP = dict(
@@ -432,6 +451,10 @@ def phase_build() -> None:
             )
             spills = {fn: _spill_bytes(ptxas.get(fn, [])) for fn in bf16}
             assert all(s == 0 for s in spills.values()), f"{kernel} spills: {spills}"
+        if name == "flash_attention_bwd":  # fp32 K2/K3 at d = 64 and 128: no spill
+            f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
+                   if fn.split()[:2] in (["k2", "f32"], ["k3", "f32"])}
+            assert len(f32) == 4 and not any(f32.values()), f"fp32 K2/K3 spills: {f32}"
     log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)}: {len(sources)} sources in "
                  f"{dt:.2f} s, built in parallel")
 
@@ -645,23 +668,34 @@ def phase_k23_check(smi: str) -> dict:
         leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         auto = torch.autograd.grad(reference_attention(*leaves, mask, scale), leaves,
                                    do.float())
-        err_plain = [_rel_err(a, b) for a, b in zip(got, plain)]
-        err_auto = [_rel_err(a, b) for a, b in zip(got, auto)]
-        norm_plain = [_norm_err(a, b) for a, b in zip(got, plain)]
-        norm_auto = [_norm_err(a, b) for a, b in zip(got, auto)]
+        # with one key (kv = 1) dq and dk are 0 in exact arithmetic and
+        # rounding noise on every side: each is held to its floor, absolutely
+        graded = 1 if shape[3] == 1 else 3
+        err_plain = [_rel_err(a, b) for a, b in zip(got[-graded:], plain[-graded:])]
+        err_auto = [_rel_err(a, b) for a, b in zip(got[-graded:], auto[-graded:])]
+        norm_plain = [_norm_err(a, b) for a, b in zip(got[-graded:], plain[-graded:])]
+        norm_auto = [_norm_err(a, b) for a, b in zip(got[-graded:], auto[-graded:])]
         abs_err = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)]
         typical = [r.float().abs().median().item() for r in plain]
         tol_plain, tol_auto = NORM_TOL[dtype]
+        graded_as = "dq/dk/dv" if graded == 3 else "dv"
         line = (f"{name} {tuple(shape)} {str(dtype)[6:]} dq/dk/dv max_abs_err vs plain "
                 f"{abs_err[0]:.3e}/{abs_err[1]:.3e}/{abs_err[2]:.3e} (median |ref| "
-                f"{'/'.join(f'{e:.3e}' for e in typical)}), relative to max|ref| vs plain "
-                f"{'/'.join(f'{e:.2e}' for e in err_plain)}, vs autograd "
+                f"{'/'.join(f'{e:.3e}' for e in typical)}), {graded_as} relative to max|ref| "
+                f"vs plain {'/'.join(f'{e:.2e}' for e in err_plain)}, vs autograd "
                 f"{'/'.join(f'{e:.2e}' for e in err_auto)} (tol {tol:g} x max|ref|); "
                 f"||err|| / ||ref|| vs plain {'/'.join(f'{e:.2e}' for e in norm_plain)} (tol "
                 f"{tol_plain:g}), vs autograd {'/'.join(f'{e:.2e}' for e in norm_auto)} (tol "
                 f"{tol_auto:g})")
         ok = (max(err_plain + err_auto) <= tol and max(norm_plain) <= tol_plain
               and max(norm_auto) <= tol_auto)
+        if graded == 1:
+            floors = single_key_floor(q, k, v, do, scale)
+            worst = [max((g.float() - r.float()).abs().max().item() for r in (p, a))
+                     for g, p, a in zip(got[:2], plain[:2], auto[:2])]
+            line += (f"; one key: dq/dk max |err| vs plain and autograd "
+                     f"{worst[0]:.3e}/{worst[1]:.3e} (floor {floors[0]:.3e}/{floors[1]:.3e})")
+            ok = ok and all(w <= f for w, f in zip(worst, floors))
         if mask_kind == "empty_row":
             zero = int(torch.count_nonzero(dq[-1])) + int(torch.count_nonzero(dk[-1]))
             want_dv = (do[-1].float().sum(dim=1, keepdim=True) / shape[3]).expand_as(dv[-1])
@@ -704,6 +738,9 @@ def phase_k23_check(smi: str) -> dict:
                 "ours_fwd_bwd": ours_fwd_bwd,
                 "sdpa_fwd_bwd": sdpa_fwd_bwd,
             }, iters=10)
+            if dtype == torch.float32:  # does it use tensor cores (a TF32 split)?
+                log("k23", f"SDPA's fp32 backward {name} launches: " + "; ".join(_device_kernels(
+                    lambda: torch.autograd.grad(sdpa_out, lv, do, retain_graph=True))))
             del sdpa_out
             results[name]["times"] = t
             results[name]["bounds"] = {kk: attention_bound(kk, shape, dtype)
@@ -717,9 +754,31 @@ def phase_k23_check(smi: str) -> dict:
                        f"dq, dk, dv together: plain backward {t['plain']:.4f} ms, SDPA "
                        f"backward ({sdpa_node}) {t['sdpa_bwd']:.4f} ms; forward + backward: "
                        f"K1+K2+K3 {t['ours_fwd_bwd']:.4f} ms, SDPA {t['sdpa_fwd_bwd']:.4f} ms "
-                       f"(CUDA events, mean of 2 x 10, in turns; bf16 K2/K3 blocks own 64 "
+                       f"(CUDA events, mean of 2 x 10, in turns; K2/K3 blocks own 64 "
                        f"rows) on {smi}")
     return results
+
+
+def _device_kernels(fn) -> list:
+    """The names of the device kernels that one call of fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:120] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def single_key_floor(q, k, v, do, scale) -> tuple:
+    """Bounds on |dq| and |dk| errors where kv = 1: a row's one key has p =
+    1, so ds = p (dO.v - delta) scale is 0 in exact arithmetic and every
+    side's dq and dk are rounding noise of the difference: 16 ulps (2^-20)
+    of |dO| |v|, times scale, times max |k| (dq) or max |q| (dk)."""
+    base = 2.0 ** -20 * scale * (do.float().norm(dim=-1).max()
+                                 * v.float().norm(dim=-1).max()).item()
+    return base * k.float().abs().max().item(), base * q.float().abs().max().item()
 
 
 # the flagship's four quantized matmuls per block, (k, n): to_qkv, to_out,
@@ -1409,8 +1468,9 @@ def _profile(step) -> dict:
     the host wall time, the union of the device's kernel intervals (busy),
     the idle share 1 - busy / wall, the number of device kernels, the number
     of record_function ranges the profiler also put on the device's timeline
-    (left out of the kernels and of busy) and the largest kernels by device
-    time. The idle share is None when the profiler saw no device activity."""
+    (left out of the kernels and of busy), the device time of K1, K2 and K3
+    and the largest kernels by device time. The idle share is None when the
+    profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1434,8 +1494,10 @@ def _profile(step) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    attention = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name
+                    or "flash_bwd" in name)
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels_),
-            "annotations": len(on_device) - len(kernels_),
+            "annotations": len(on_device) - len(kernels_), "attention_ms": attention / 1e3,
             "idle": 1.0 - busy / wall_us if spans else None,
             "top": [(name[:60], t / 1e3, n) for name, (t, n) in top]}
 
@@ -2290,7 +2352,8 @@ def phase_duration(smi: str, k1: dict) -> dict:
                   for name, r in parts.items()) + "; profiled step: wall "
               f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms over "
               f"{prof['kernels']} kernels (+ {prof['annotations']} annotation ranges left "
-              f"out), idle share "
+              f"out), K1+K2+K3 {prof['attention_ms']:.3f} ms of it "
+              f"({prof['attention_ms'] / max(prof['busy_ms'], 1e-9):.1%}), idle share "
               f"{'not measured' if idle is None else f'{idle:.3f}'}; peak memory "
               f"{peak_gib:.2f} GiB on {smi}")
     log("dp", f"profiled step's largest kernels (name, ms, calls): "

@@ -18,6 +18,7 @@ from voicebox_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    k23_f32_edges,
     reference_attention,
     reference_attention_backward,
 )
@@ -195,6 +196,30 @@ def test_k2_k3_are_deterministic(cuda_device, dtype):
     first, _, _ = _backward(q, k, v, mask)
     second, _, _ = _backward(q, k, v, mask)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+# fp32 K2/K3 at the edges of their tiling (`k23_f32_edges`, the shapes of
+# tests/test_torch_flash_backward_tiles.py): rounding only, as above. Where
+# kv = 1 a row's one key has p = 1 and ds = p (dO.v - delta) scale is 0 in
+# exact arithmetic: the plain version's dq and dk are rounding noise there,
+# and the kernels' are held to 16 ulps of |dO| |v|, times scale and |k|
+# (dq) or |q| (dk). A second launch gives the same bits.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,kv", k23_f32_edges())
+def test_k2_k3_f32_match_plain_at_tile_edges(cuda_device, n, kv, d):
+    q, k, v, mask = _qkv(cuda_device, 2, 2, n, kv, d=d, seed=n + kv)
+    got, ref, do = _backward(q, k, v, mask, seed=kv)
+    floors = [0.0, 0.0, 0.0]
+    if kv == 1:
+        base = 2.0 ** -20 * d ** -0.5 * (do.norm(dim=-1).max() * v.norm(dim=-1).max()).item()
+        floors[:2] = base * k.abs().max().item(), base * q.abs().max().item()
+    for name, a, b, floor in zip(("dq", "dk", "dv"), got, ref, floors):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, atol=max(1e-5 * b.abs().max().item(), floor),
+                                   rtol=1e-5, msg=name)
+    again, _, _ = _backward(q, k, v, mask, seed=kv)
+    for name, a, b in zip(("dq", "dk", "dv"), again, got):
         assert torch.equal(a, b), name
 
 

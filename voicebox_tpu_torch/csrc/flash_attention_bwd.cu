@@ -55,11 +55,35 @@
 //    shared memory;
 //  * dQ, dK and dV stay in fp32 registers across the whole loop and are
 //    stored once, as bf16 pairs; rows past n or kv are not stored.
-// fp32 keeps the scalar code of the first port (exact to fp32 rounding, for
-// the card-vs-CPU checks): 64-row tiles of 4 warps, scalar FMAs, the
-// gradients accumulated straight into their fp32 outputs, which each block
-// owns. Both launch on the caller's stream and allocate nothing; the host
-// encodes the four tensor maps of a bf16 launch on each call.
+// fp32, the duration predictor's training (batch 8 x 8 heads, 128 rows and
+// keys, head dim 64): K2 does 403 MFLOP over ~10 MB and K3 537 MFLOP over
+// ~12 MB, above the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s, 20
+// FLOP per byte), so its CUDA cores bound them (6.0 and 8.0 us). wgmma has
+// no fp32 mode and TF32 would break the fp32 contract that the card-vs-CPU
+// checks hold the trainer to, so all four products stay on FMAs, and what
+// the design does is feed them (as K1's fp32 path does):
+//  * register micro-tiles: a thread owns 4 owned rows x STR / 16 streamed
+//    rows of S and dP, and 4 owned rows x D / 16 columns of the gradients,
+//    and reads its operands as 16-byte vectors from tiles whose rows are
+//    padded by 16 bytes; a warp is 4 row groups x 8 streamed rows, so each
+//    read is one wavefront shared by 4 or 8 lanes. S and dP sum along d one
+//    FMA after another, as the plain product does;
+//  * P and dS go through shared memory once, transposed (one row per
+//    streamed row, one column per owned row), so that the second products
+//    read 4 owned rows as one vector; the two warps of a row group sync on
+//    a named barrier, not the block;
+//  * the gradients stay in registers across the whole streamed loop and are
+//    stored once: each block owns its rows and sums in a fixed order (no
+//    atomics, no zeroing pass, the same bits on every launch);
+//  * the owned tiles arrive once by cp.async, the streamed ones through two
+//    stages, the next tile's copies in flight while this one computes (one
+//    block barrier a tile), rows past n or kv zero-filled; K3 reads each
+//    tile's lse and delta, K2 its key flags, into registers before the
+//    products, which hide their latency;
+//  * blocks of 64 owned rows (256 threads), streamed tiles of 64 rows at
+//    d = 64 and 32 at d = 128 (F32Tile says why).
+// Both launch on the caller's stream and allocate nothing; the host encodes
+// the four tensor maps of a bf16 launch on each call.
 
 #include <math.h>
 
@@ -73,286 +97,341 @@ constexpr float kMaskFill = -0.7f * 3.402823466e38f;
 constexpr float kEmptyRowLse = 0.5f * kMaskFill;  // below: every key was masked
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ------------------------------------------------------------ fp32: kernels
+// ------------------------------------------------------------ fp32: layout
 
-constexpr int kF32Warps = 4;
-constexpr int kF32Threads = kF32Warps * 32;
-constexpr int kRowsPerWarp = 16;
-constexpr int kF32BlockM = kF32Warps * kRowsPerWarp;  // rows a block owns
-constexpr int kF32BlockN = 64;                         // rows of each streamed tile
-
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
-// Shared-memory layout, in bytes. Row pitches are padded by 4 floats. A and
-// B are the block's own tiles (K2: Q, dO; K3: K, V), C and D the streamed
-// ones (K2: K, V; K3: Q, dO). S and dP (kF32BlockM x kF32BlockN); P and dS
-// overwrite them (each element is read and rewritten by the one thread that
-// owns it). Row state: per streamed row (K2: keys, K3: query rows) a flag,
-// and in K3 the query rows' lse and delta.
+// A block of 4 OWN threads owns OWN rows (K2: query rows, K3: keys) and
+// streams the other side in tiles of STR rows. Thread (ty, tx), ty <
+// OWN / 4, tx < 16, owns rows ty + (OWN / 4) i (i < 4) of the block's rows;
+// of each streamed tile, rows tx + 16 c (c < STR / 16); of the gradients,
+// columns 64 g + 4 tx (g < D / 64). A warp holds 4 ty x 8 tx, so that a
+// 16-byte read of an owned row is shared by 8 lanes and one of a streamed
+// row by 4, and each reads one 128-byte wavefront from shared memory.
+// OWN is 64; STR is 64 at d = 64 and 32 at d = 128, where 64 streamed rows
+// would take 238 KB of K3's shared memory, past the 227 KB a block can have.
 template <int D>
-struct F32Layout {
-  static constexpr int kLdIn = D + 4;
-  static constexpr int kLdS = kF32BlockN + 4;
-  static constexpr int kTile = align128(kF32BlockM * kLdIn * 4);
-  static constexpr int kA = 0;
-  static constexpr int kB = kA + kTile;
-  static constexpr int kC = kB + kTile;
-  static constexpr int kD = kC + kTile;
-  static constexpr int kS = kD + kTile;  // S, then P
-  static constexpr int kDP = kS + align128(kF32BlockM * kLdS * 4);  // dP, then dS
-  static constexpr int kFlag = kDP + align128(kF32BlockM * kLdS * 4);
-  static constexpr int kOwnFlag = kFlag + align128(kF32BlockN * 4);
-  static constexpr int kLse = kOwnFlag + align128(kF32BlockM * 4);
-  static constexpr int kDelta = kLse + align128(kF32BlockN * 4);
-  static constexpr int kBytes = kDelta + align128(kF32BlockN * 4);
+struct F32Tile {
+  static constexpr int OWN = 64;
+  static constexpr int STR = D == 64 ? 64 : 32;
+  static constexpr int kThreads = 4 * OWN;
+  static constexpr int kTy = OWN / 4;       // row groups
+  static constexpr int kNc = STR / 16;      // streamed rows of a thread
+  static constexpr int kLd = D + 4;         // operand rows, padded (cp_async_rows)
+  static constexpr int kLdT = OWN + 4;      // rows of P^T and dS^T, padded
+  // shared memory in floats: the two owned tiles (K2: Q, dO; K3: K, V), two
+  // stages of the two streamed tiles (K2: K, V; K3: Q, dO), then dS^T (and
+  // in K3 P^T), one row per streamed row, one column per owned row
+  static constexpr int kOwnA = 0;
+  static constexpr int kOwnB = kOwnA + OWN * kLd;
+  static constexpr int kStage = 2 * STR * kLd;
+  static constexpr int kStages = kOwnB + OWN * kLd;
+  static constexpr int kT = kStages + 2 * kStage;
+  static constexpr int kTile = STR * kLdT;
+  static constexpr int kBytesDq = (kT + kTile) * 4;
+  static constexpr int kBytesDkv = (kT + 2 * kTile) * 4;
 };
 
-// rows [row0, row0 + ROWS) of a (n_rows, D) matrix into a padded tile; rows
-// past n_rows are zero so that p = 0 never meets a stale value
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = D / 4;
-  constexpr int kLd = F32Layout<D>::kLdIn;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kF32Threads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
+// the thread's (ty, tx): a warp is 4 row groups x 8 streamed rows, two
+// warps cover the 16 tx of one 4 row groups
+__device__ __forceinline__ int f32_ty() { return 4 * (threadIdx.x / 64) + threadIdx.x % 32 / 8; }
+__device__ __forceinline__ int f32_tx() { return 8 * (threadIdx.x / 32 % 2) + threadIdx.x % 8; }
+
+// acc[i][c] = own row (ty + kTy i) . streamed row (tx + 16 c), one FMA
+// after another along d, the order of the plain version's fp32 product (at
+// logits of ~1e3 another order moves them by ulps, and exp by as much)
+template <int D, int NC>
+__device__ __forceinline__ void f32_scores(float (&acc)[4][NC], const float* own,
+                                           const float* str, int ty, int tx) {
+  constexpr int kLd = F32Tile<D>::kLd, TY = F32Tile<D>::kTy;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  }
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 b[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      b[c] = *reinterpret_cast<const float4*>(str + (tx + 16 * c) * kLd + d);
     }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(own + (ty + TY * i) * kLd + d);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c] = fmaf(a.w, b[c].w, fmaf(a.z, b[c].z, fmaf(a.y, b[c].y,
+                                                             fmaf(a.x, b[c].x, acc[i][c]))));
+      }
+    }
   }
 }
 
-// c (16 x kF32BlockN) = a (16 rows) . b (kF32BlockN rows)^T over D
+// acc[i][g][e] += sum over streamed rows r < rows (rounded up to 16; the
+// rows past it hold zeros in both operands) of t[r][4 ty + i] * op[r][64 g
+// + 4 tx + e]: t is P^T or dS^T, whose column 4 ty + i is owned row ty +
+// kTy i, and op the streamed operand (K2: K; K3: dO or Q)
 template <int D>
-__device__ __forceinline__ void gemm_abt(const float* a, const float* b, float* c, int lane) {
-  using L = F32Layout<D>;
-  for (int i = lane; i < kRowsPerWarp * kF32BlockN; i += 32) {
-    const int r = i / kF32BlockN;
-    const int col = i % kF32BlockN;
-    const float* ar = a + r * L::kLdIn;
-    const float* br = b + col * L::kLdIn;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
-    c[r * L::kLdS + col] = acc;
+__device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 64][4], const float* t,
+                                               const float* op, int rows, int ty, int tx) {
+  constexpr int kLd = F32Tile<D>::kLd, kLdT = F32Tile<D>::kLdT;
+  for (int r0 = 0; r0 < rows; r0 += 16) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int r = r0 + u;
+      const float4 a = *reinterpret_cast<const float4*>(t + r * kLdT + 4 * ty);
+      const float ai[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int g = 0; g < D / 64; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(op + r * kLd + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][g][0] = fmaf(ai[i], b.x, acc[i][g][0]);
+          acc[i][g][1] = fmaf(ai[i], b.y, acc[i][g][1]);
+          acc[i][g][2] = fmaf(ai[i], b.z, acc[i][g][2]);
+          acc[i][g][3] = fmaf(ai[i], b.w, acc[i][g][3]);
+        }
+      }
+    }
   }
 }
 
-// out rows [row0, row0 + 16) of an (n_rows, D) fp32 matrix += p . b.
-// Lane i always owns the same elements, so the read-modify-write needs no
-// synchronisation.
+// rows ty + kTy i of a gradient into out rows [row0, ...) of an (n_rows,
+// D) matrix, once; rows past n_rows are not stored
 template <int D>
-__device__ __forceinline__ void gemm_ab_acc_out(const float* p, const float* b,
-                                                float* __restrict__ out, int row0,
-                                                int n_rows, int lane) {
-  using L = F32Layout<D>;
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = i / D;
-    const int c = i % D;
-    if (row0 + r >= n_rows) continue;
-    const float* pr = p + r * L::kLdS;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int kk = 0; kk < kF32BlockN; ++kk) acc = fmaf(pr[kk], b[kk * L::kLdIn + c], acc);
-    out[(size_t)(row0 + r) * D + c] += acc;
+__device__ __forceinline__ void f32_store(const float (&acc)[4][D / 64][4],
+                                          float* __restrict__ out, int row0, int n_rows, int ty,
+                                          int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + F32Tile<D>::kTy * i;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      *reinterpret_cast<float4*>(out + (size_t)row * D + 64 * g + 4 * tx) =
+          make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
+    }
   }
 }
 
-// zero rows [row0, row0 + 16) of an (n_rows, D) fp32 output
 template <int D>
-__device__ __forceinline__ void zero_rows(float* __restrict__ out, int row0, int n_rows,
-                                          int lane) {
-  for (int i = lane; i < kRowsPerWarp * D; i += 32) {
-    const int r = i / D;
-    if (row0 + r < n_rows) out[(size_t)(row0 + r) * D + i % D] = 0.0f;
+__device__ __forceinline__ void f32_zero(float (&acc)[4][D / 64][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      acc[i][g][0] = acc[i][g][1] = acc[i][g][2] = acc[i][g][3] = 0.0f;
+    }
   }
 }
 
-// flag of a key: 1 keep, 0 masked, -1 past the end
-__device__ __forceinline__ int key_flag(const uint8_t* __restrict__ mask, int batch, int key,
-                                        int n_kv) {
-  if (key >= n_kv) return -1;
-  return (mask == nullptr || mask[(size_t)batch * n_kv + key]) ? 1 : 0;
+// p = exp(s scale - lse) and ds = p (dp - delta) scale, each product and
+// difference rounded as the plain version rounds it
+__device__ __forceinline__ float f32_prob(float s, float scale, float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+}
+__device__ __forceinline__ float f32_ds(float p, float dp, float delta, float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
 }
 
-// flag of a query row from its lse: 1 normal, 0 every key masked, -1 past the end
-__device__ __forceinline__ int row_flag(float lse, bool valid) {
-  return !valid ? -1 : (lse < kEmptyRowLse ? 0 : 1);
-}
+// ------------------------------------------------------------ fp32: K2
 
-// p and ds of one (query row, key) pair from the fp32 logit s (unscaled) and dp
-__device__ __forceinline__ void p_ds(float s, float dp, int row, int key, float lse,
-                                     float delta, float scale, float inv_kv, float& p,
-                                     float& ds) {
-  p = 0.0f;
-  ds = 0.0f;
-  if (row < 0 || key < 0) return;  // past the ragged edge
-  if (row == 0) {                  // every key masked: uniform, cut off from q and k
-    p = inv_kv;
-    return;
-  }
-  if (key == 0) return;  // a masked key: a select, never exp(.) * 0
-  p = expf(s * scale - lse);
-  ds = p * (dp - delta) * scale;
-}
-
-// K2, fp32: grid (query tiles, heads, batch). q, dout, dq (b, h, n_q, D); k, v
-// (b, h, n_kv, D); mask (b, n_kv) bytes or null; lse, delta (b, h, n_q) fp32.
+// grid (query tiles of OWN rows, heads, batch). q, dout, dq (b, h, n_q, D);
+// k, v (b, h, n_kv, D); mask (b, n_kv) bytes or null; lse, delta (b, h,
+// n_q) fp32. The owned Q and dO arrive once; K and V stream through two
+// stages, the next tile's cp.async in flight while this one computes.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
                      const float* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq, int heads,
                      int n_q, int n_kv, float scale) {
-  using L = F32Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem_f32[];
-  float* q_s = reinterpret_cast<float*>(smem_f32 + L::kA);
-  float* do_s = reinterpret_cast<float*>(smem_f32 + L::kB);
-  float* k_s = reinterpret_cast<float*>(smem_f32 + L::kC);
-  float* v_s = reinterpret_cast<float*>(smem_f32 + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem_f32 + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem_f32 + L::kDP);
-  float* ds_s = dp_s;
-  int* key_s = reinterpret_cast<int*>(smem_f32 + L::kFlag);
+  using L = F32Tile<D>;
+  constexpr int OWN = L::OWN, STR = L::STR, TY = L::kTy, NC = L::kNc;
+  extern __shared__ float4 smem_f32[];
+  float* sm = reinterpret_cast<float*>(smem_f32);
+  const float* q_s = sm + L::kOwnA;
+  const float* do_s = sm + L::kOwnB;
+  float* ds_t = sm + L::kT;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kF32BlockM;
+  const int ty = f32_ty(), tx = f32_tx();
+  const int q0 = blockIdx.x * OWN;
   const int batch = blockIdx.z;
   const size_t bh = (size_t)batch * heads + blockIdx.y;
   const float* k_bh = k + bh * n_kv * D;
   const float* v_bh = v + bh * n_kv * D;
-  float* dq_bh = dq + bh * n_q * D;
-  const int wrow0 = q0 + warp * kRowsPerWarp;  // the warp's first query row
-  const float inv_kv = 1.0f / (float)n_kv;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+  const int n_tiles = (n_kv + STR - 1) / STR;
 
-  load_tile<D, kF32BlockM>(q_s, q + bh * n_q * D, q0, n_q);
-  load_tile<D, kF32BlockM>(do_s, dout + bh * n_q * D, q0, n_q);
+  cp_async_rows<D, OWN, L::kThreads>(sm + L::kOwnA, q + bh * n_q * D, q0, n_q);
+  cp_async_rows<D, OWN, L::kThreads>(sm + L::kOwnB, dout + bh * n_q * D, q0, n_q);
+  cp_async_rows<D, STR, L::kThreads>(sm + L::kStages, k_bh, 0, n_kv);
+  cp_async_rows<D, STR, L::kThreads>(sm + L::kStages + STR * L::kLd, v_bh, 0, n_kv);
+  cp_async_commit();
 
-  // lanes 2r and 2r+1 own query row r of the warp's 16, each over half the keys
-  const int row = warp * kRowsPerWarp + lane / 2;
-  const int half = lane % 2;
-  const bool valid = q0 + row < n_q;
-  const float lse_r = valid ? lse[bh * n_q + q0 + row] : 0.0f;
-  const float delta_r = valid ? delta[bh * n_q + q0 + row] : 0.0f;
-  const int rflag = row_flag(lse_r, valid);
-
-  zero_rows<D>(dq_bh, wrow0, n_q, lane);
-
-  for (int k0 = 0; k0 < n_kv; k0 += kF32BlockN) {
-    __syncthreads();  // the previous tile's K, V and flags are consumed
-    load_tile<D, kF32BlockN>(k_s, k_bh, k0, n_kv);
-    load_tile<D, kF32BlockN>(v_s, v_bh, k0, n_kv);
-    if (threadIdx.x < kF32BlockN) {
-      key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
-    }
-    __syncthreads();
-
-    const int wr = warp * kRowsPerWarp;
-    gemm_abt<D>(q_s + wr * L::kLdIn, k_s, s_s + wr * L::kLdS, lane);
-    gemm_abt<D>(do_s + wr * L::kLdIn, v_s, dp_s + wr * L::kLdS, lane);
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < kF32BlockN / 2; ++j) {
-      const int c = half * (kF32BlockN / 2) + j;
-      float p, ds;
-      p_ds(s_s[row * L::kLdS + c], dp_s[row * L::kLdS + c], rflag, key_s[c], lse_r, delta_r,
-           scale, inv_kv, p, ds);
-      ds_s[row * L::kLdS + c] = ds;
-    }
-    __syncwarp();
-
-    gemm_ab_acc_out<D>(ds_s + wr * L::kLdS, k_s, dq_bh, wrow0, n_q, lane);
+  // the thread's owned rows: lse, delta; rows past n and fully-masked rows
+  // (uniform p, ds = 0) take no part in dQ
+  float lse_r[4], delta_r[4];
+  bool live[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + TY * i;
+    const bool valid = row < n_q;
+    lse_r[i] = valid ? lse[bh * n_q + row] : 0.0f;
+    delta_r[i] = valid ? delta[bh * n_q + row] : 0.0f;
+    live[i] = valid && !(lse_r[i] < kEmptyRowLse);
   }
+  float acc[4][D / 64][4];
+  f32_zero<D>(acc);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // tile t has landed, and every thread is done with tile t - 1, whose
+    // stage and dS^T are refilled next
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      float* next = sm + L::kStages + ((t + 1) & 1) * L::kStage;
+      cp_async_rows<D, STR, L::kThreads>(next, k_bh, (t + 1) * STR, n_kv);
+      cp_async_rows<D, STR, L::kThreads>(next + STR * L::kLd, v_bh, (t + 1) * STR, n_kv);
+      cp_async_commit();
+    }
+    const float* k_s = sm + L::kStages + (t & 1) * L::kStage;
+    const float* v_s = k_s + STR * L::kLd;
+    const int k0 = t * STR;
+    bool kept[NC];  // a real, unmasked key: loaded now, first read after the products
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int key = k0 + tx + 16 * c;
+      kept[c] = key < n_kv && (mask_b == nullptr || mask_b[key]);
+    }
+
+    float s[4][NC], dp[4][NC];
+    f32_scores<D>(s, q_s, k_s, ty, tx);    // S = Q K^T
+    f32_scores<D>(dp, do_s, v_s, ty, tx);  // dP = dO V^T
+
+    // dS^T: kept keys of live rows, 0 elsewhere (a select, never exp(.) * 0)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ds[i] = live[i] && kept[c]
+                    ? f32_ds(f32_prob(s[i][c], scale, lse_r[i]), dp[i][c], delta_r[i], scale)
+                    : 0.0f;
+      }
+      *reinterpret_cast<float4*>(ds_t + (tx + 16 * c) * L::kLdT + 4 * ty) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    // the 16 tx of these row groups are this warp and its neighbour
+    named_bar_sync(1 + threadIdx.x / 64, 64);
+
+    f32_accumulate<D>(acc, ds_t, k_s, min(STR, n_kv - k0), ty, tx);  // dQ += dS K
+  }
+  f32_store<D>(acc, dq + bh * n_q * D, q0, n_q, ty, tx);
 }
 
-// K3, fp32: grid (key tiles, heads, batch); same operands, dk and dv (b, h, n_kv, D).
+// ------------------------------------------------------------ fp32: K3
+
+// grid (key tiles of OWN keys, heads, batch); the same operands, dk and dv
+// (b, h, n_kv, D). The owned K and V arrive once; Q and dO stream through
+// two stages; each tile's query rows' lse and delta are read into
+// registers before the products that hide their latency.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
                       const float* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int heads, int n_q, int n_kv, float scale) {
-  using L = F32Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem_f32[];
-  float* k_s = reinterpret_cast<float*>(smem_f32 + L::kA);
-  float* v_s = reinterpret_cast<float*>(smem_f32 + L::kB);
-  float* q_s = reinterpret_cast<float*>(smem_f32 + L::kC);
-  float* do_s = reinterpret_cast<float*>(smem_f32 + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem_f32 + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem_f32 + L::kDP);
-  float* p_s = s_s;
-  float* ds_s = dp_s;
-  int* row_s = reinterpret_cast<int*>(smem_f32 + L::kFlag);
-  int* own_key_s = reinterpret_cast<int*>(smem_f32 + L::kOwnFlag);
-  float* lse_s = reinterpret_cast<float*>(smem_f32 + L::kLse);
-  float* delta_s = reinterpret_cast<float*>(smem_f32 + L::kDelta);
+  using L = F32Tile<D>;
+  constexpr int OWN = L::OWN, STR = L::STR, TY = L::kTy, NC = L::kNc;
+  extern __shared__ float4 smem_f32[];
+  float* sm = reinterpret_cast<float*>(smem_f32);
+  const float* k_s = sm + L::kOwnA;
+  const float* v_s = sm + L::kOwnB;
+  float* p_t = sm + L::kT;
+  float* ds_t = p_t + L::kTile;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * kF32BlockM;
+  const int ty = f32_ty(), tx = f32_tx();
+  const int k0 = blockIdx.x * OWN;
   const int batch = blockIdx.z;
   const size_t bh = (size_t)batch * heads + blockIdx.y;
   const float* q_bh = q + bh * n_q * D;
   const float* do_bh = dout + bh * n_q * D;
-  float* dk_bh = dk + bh * n_kv * D;
-  float* dv_bh = dv + bh * n_kv * D;
-  const int wkey0 = k0 + warp * kRowsPerWarp;  // the warp's first key
+  const float* lse_bh = lse + bh * n_q;
+  const float* delta_bh = delta + bh * n_q;
+  const int n_tiles = (n_q + STR - 1) / STR;
   const float inv_kv = 1.0f / (float)n_kv;
 
-  load_tile<D, kF32BlockM>(k_s, k + bh * n_kv * D, k0, n_kv);
-  load_tile<D, kF32BlockM>(v_s, v + bh * n_kv * D, k0, n_kv);
-  if (threadIdx.x < kF32BlockM) {
-    own_key_s[threadIdx.x] = key_flag(mask, batch, k0 + threadIdx.x, n_kv);
+  cp_async_rows<D, OWN, L::kThreads>(sm + L::kOwnA, k + bh * n_kv * D, k0, n_kv);
+  cp_async_rows<D, OWN, L::kThreads>(sm + L::kOwnB, v + bh * n_kv * D, k0, n_kv);
+  cp_async_rows<D, STR, L::kThreads>(sm + L::kStages, q_bh, 0, n_q);
+  cp_async_rows<D, STR, L::kThreads>(sm + L::kStages + STR * L::kLd, do_bh, 0, n_q);
+  cp_async_commit();
+
+  bool real[4], kept[4];  // the thread's owned keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + TY * i;
+    real[i] = key < n_kv;
+    kept[i] = real[i] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
   }
-  zero_rows<D>(dk_bh, wkey0, n_kv, lane);
-  zero_rows<D>(dv_bh, wkey0, n_kv, lane);
-  __syncthreads();
+  float dk_acc[4][D / 64][4], dv_acc[4][D / 64][4];
+  f32_zero<D>(dk_acc);
+  f32_zero<D>(dv_acc);
 
-  // lanes 2r and 2r+1 own key r of the warp's 16, each over half the query rows
-  const int key = warp * kRowsPerWarp + lane / 2;
-  const int half = lane % 2;
-  const int kflag = own_key_s[key];
-
-  for (int q0 = 0; q0 < n_q; q0 += kF32BlockN) {
-    __syncthreads();  // the previous tile's Q, dO and row state are consumed
-    load_tile<D, kF32BlockN>(q_s, q_bh, q0, n_q);
-    load_tile<D, kF32BlockN>(do_s, do_bh, q0, n_q);
-    if (threadIdx.x < kF32BlockN) {
-      const int r = q0 + threadIdx.x;
-      const bool valid = r < n_q;
-      const float l = valid ? lse[bh * n_q + r] : 0.0f;
-      lse_s[threadIdx.x] = l;
-      delta_s[threadIdx.x] = valid ? delta[bh * n_q + r] : 0.0f;
-      row_s[threadIdx.x] = row_flag(l, valid);
-    }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();  // as in K2
     __syncthreads();
-
-    const int wk = warp * kRowsPerWarp;
-    gemm_abt<D>(k_s + wk * L::kLdIn, q_s, s_s + wk * L::kLdS, lane);   // S^T
-    gemm_abt<D>(v_s + wk * L::kLdIn, do_s, dp_s + wk * L::kLdS, lane); // dP^T
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < kF32BlockN / 2; ++j) {
-      const int c = half * (kF32BlockN / 2) + j;
-      float p, ds;
-      p_ds(s_s[key * L::kLdS + c], dp_s[key * L::kLdS + c], row_s[c], kflag, lse_s[c],
-           delta_s[c], scale, inv_kv, p, ds);
-      p_s[key * L::kLdS + c] = p;
-      ds_s[key * L::kLdS + c] = ds;
+    if (t + 1 < n_tiles) {
+      float* next = sm + L::kStages + ((t + 1) & 1) * L::kStage;
+      cp_async_rows<D, STR, L::kThreads>(next, q_bh, (t + 1) * STR, n_q);
+      cp_async_rows<D, STR, L::kThreads>(next + STR * L::kLd, do_bh, (t + 1) * STR, n_q);
+      cp_async_commit();
     }
-    __syncwarp();
+    const float* q_s = sm + L::kStages + (t & 1) * L::kStage;
+    const float* do_s = q_s + STR * L::kLd;
+    const int q0 = t * STR;
+    float lse_c[NC], delta_c[NC];
+    bool valid[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int row = q0 + tx + 16 * c;
+      valid[c] = row < n_q;
+      lse_c[c] = valid[c] ? lse_bh[row] : 0.0f;
+      delta_c[c] = valid[c] ? delta_bh[row] : 0.0f;
+    }
 
-    gemm_ab_acc_out<D>(p_s + wk * L::kLdS, do_s, dv_bh, wkey0, n_kv, lane);
-    gemm_ab_acc_out<D>(ds_s + wk * L::kLdS, q_s, dk_bh, wkey0, n_kv, lane);
+    float st[4][NC], dpt[4][NC];
+    f32_scores<D>(st, k_s, q_s, ty, tx);    // S^T = K Q^T
+    f32_scores<D>(dpt, v_s, do_s, ty, tx);  // dP^T = V dO^T
+
+    // P^T and dS^T: p = exp(s scale - lse) on kept keys of rows that have
+    // one, 1 / kv on every real key of a fully-masked row (ds = 0 there),
+    // 0 elsewhere
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const bool empty = lse_c[c] < kEmptyRowLse;
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool keep = valid[c] && !empty && kept[i];
+        p[i] = keep ? f32_prob(st[i][c], scale, lse_c[c])
+                    : (valid[c] && empty && real[i] ? inv_kv : 0.0f);
+        ds[i] = keep ? f32_ds(p[i], dpt[i][c], delta_c[c], scale) : 0.0f;
+      }
+      const int at = (tx + 16 * c) * L::kLdT + 4 * ty;
+      *reinterpret_cast<float4*>(p_t + at) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(ds_t + at) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    named_bar_sync(1 + threadIdx.x / 64, 64);  // as in K2
+
+    const int rows = min(STR, n_q - q0);
+    f32_accumulate<D>(dv_acc, p_t, do_s, rows, ty, tx);  // dV += P^T dO
+    f32_accumulate<D>(dk_acc, ds_t, q_s, rows, ty, tx);  // dK += dS^T Q
   }
+  f32_store<D>(dk_acc, dk + bh * n_kv * D, k0, n_kv, ty, tx);
+  f32_store<D>(dv_acc, dv + bh * n_kv * D, k0, n_kv, ty, tx);
 }
 
 // ------------------------------------------------------------ bf16: layout
@@ -812,13 +891,13 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
 
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
-  using L = F32Layout<D>;
+  using L = F32Tile<D>;
   auto kernel = flash_bwd_dq_f32<D>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytesDq);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_q + kF32BlockM - 1) / kF32BlockM, a.heads, a.batch);
-  kernel<<<grid, kF32Threads, L::kBytes, a.stream>>>(
+  const dim3 grid((a.n_q + L::OWN - 1) / L::OWN, a.heads, a.batch);
+  kernel<<<grid, L::kThreads, L::kBytesDq, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
@@ -829,13 +908,13 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
 
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  using L = F32Layout<D>;
+  using L = F32Tile<D>;
   auto kernel = flash_bwd_dkv_f32<D>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytesDkv);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_kv + kF32BlockM - 1) / kF32BlockM, a.heads, a.batch);
-  kernel<<<grid, kF32Threads, L::kBytes, a.stream>>>(
+  const dim3 grid((a.n_kv + L::OWN - 1) / L::OWN, a.heads, a.batch);
+  kernel<<<grid, L::kThreads, L::kBytesDkv, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),

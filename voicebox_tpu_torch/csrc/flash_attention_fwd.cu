@@ -286,8 +286,7 @@ constexpr int kF32Threads = 128;  // 8 row groups x 16 column groups
 constexpr int kF32BlockQ = 16;    // query rows per block
 constexpr int kF32BlockK = 32;    // keys per K/V tile
 
-// Shared memory in floats: rows padded by 4 floats (16 bytes), so that
-// 16-byte reads of 8 neighbouring rows fall in distinct banks.
+// Shared memory in floats: rows padded by 4 floats (`cp_async_rows`).
 template <int D>
 struct F32Smem {
   static constexpr int kLd = D + 4;
@@ -298,33 +297,6 @@ struct F32Smem {
   static constexpr int kP = kV + 2 * kF32BlockK * kLd;
   static constexpr int kBytes = (kP + kF32BlockQ * kLdP) * 4;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [row0, row0 + ROWS) of a (n_rows, D) matrix into a padded tile;
-// rows past n_rows are zero-filled, so p = 0 never meets a stale value
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
-                                          int n_rows) {
-  constexpr int kVecs = D / 4;
-  for (int i = threadIdx.x; i < ROWS * kVecs; i += kF32Threads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 4;
-    const bool valid = row0 + r < n_rows;
-    cp_async16(dst + r * (D + 4) + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
-  }
-}
 
 // grid: (query tiles of 16 rows, heads, batch). Thread (ty, tx) = (tid / 16,
 // tid % 16) owns rows ty RM .. ty RM + RM - 1 of the tile; of S, keys tx
@@ -356,9 +328,9 @@ __global__ void __launch_bounds__(kF32Threads)
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
   const int n_tiles = (n_kv + kF32BlockK - 1) / kF32BlockK;
 
-  load_rows<D, BQ>(q_s, q + bh * n_q * D, q0, n_q);
-  load_rows<D, kF32BlockK>(sm + L::kK, k_bh, 0, n_kv);
-  load_rows<D, kF32BlockK>(sm + L::kV, v_bh, 0, n_kv);
+  cp_async_rows<D, BQ, kF32Threads>(q_s, q + bh * n_q * D, q0, n_q);
+  cp_async_rows<D, kF32BlockK, kF32Threads>(sm + L::kK, k_bh, 0, n_kv);
+  cp_async_rows<D, kF32BlockK, kF32Threads>(sm + L::kV, v_bh, 0, n_kv);
   cp_async_commit();
 
   float o[RM][CG][4];
@@ -374,10 +346,10 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {  // the next tile streams in while this one computes
-      load_rows<D, kF32BlockK>(sm + L::kK + (st ^ 1) * kF32BlockK * kLd, k_bh,
-                               (t + 1) * kF32BlockK, n_kv);
-      load_rows<D, kF32BlockK>(sm + L::kV + (st ^ 1) * kF32BlockK * kLd, v_bh,
-                               (t + 1) * kF32BlockK, n_kv);
+      cp_async_rows<D, kF32BlockK, kF32Threads>(sm + L::kK + (st ^ 1) * kF32BlockK * kLd,
+                                                k_bh, (t + 1) * kF32BlockK, n_kv);
+      cp_async_rows<D, kF32BlockK, kF32Threads>(sm + L::kV + (st ^ 1) * kF32BlockK * kLd,
+                                                v_bh, (t + 1) * kF32BlockK, n_kv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

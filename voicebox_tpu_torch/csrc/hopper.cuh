@@ -2,7 +2,8 @@
 // mbarrier waits and arrivals, named barriers, TMA loads of 2-D and 3-D
 // tiles, wgmma descriptors for 128-byte-swizzled tiles with the SS and RS
 // products (RS with an MN-major or a K-major B), setmaxnreg, the fp32 ->
-// bf16 register repack of an accumulator into an A operand, and the host's
+// bf16 register repack of an accumulator into an A operand, the fp32
+// kernels' 16-byte cp.async copies of padded row tiles, and the host's
 // tensor-map encoding through the runtime.
 //
 // Layout conventions (those of K1, flash_attention_fwd.cu): a bf16 operand
@@ -317,6 +318,42 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------- cp.async (fp32 paths)
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (n_rows, D) fp32 matrix into a tile whose
+// rows are padded by 4 floats (16 bytes, so that 16-byte reads of 8
+// neighbouring rows fall in distinct banks), by the block's THREADS threads
+// in 16-byte copies; rows past n_rows are zero-filled, so that p = 0 never
+// meets a stale value
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_rows(float* dst, const float* __restrict__ src, int row0,
+                                              int n_rows) {
+  constexpr int kVecs = D / 4;
+  static_assert(ROWS * kVecs % THREADS == 0, "each thread copies the same number of vectors");
+#pragma unroll
+  for (int j = 0; j < ROWS * kVecs / THREADS; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    const int r = i / kVecs;
+    const int c = (i % kVecs) * 4;
+    const bool valid = row0 + r < n_rows;
+    cp_async16(dst + r * (D + 4) + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
+  }
 }
 
 // -------------------------------------------------------------- host: maps

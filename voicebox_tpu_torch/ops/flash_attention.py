@@ -68,6 +68,7 @@ __all__ = [
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",
     "k1_block_q",
+    "k23_f32_edges",
     "reference_attention",
     "reference_attention_backward",
 ]
@@ -260,6 +261,17 @@ def _launch_k1(q, k, v, mask, scale, block_q=None):
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
     flash_attention.launches += 1
     return out, lse
+
+
+def k23_f32_edges() -> Tuple[Tuple[int, int], ...]:
+    """(n, kv) pairs at the edges of the fp32 K2/K3 tiling: 1, one under,
+    at and one over each tile size (64 owned rows; 64 streamed rows at head
+    dim 64, 32 at 128), and the duration predictor's phoneme buckets (32,
+    64, 128), on both sides of each kernel (K2 owns query rows and streams
+    keys, K3 the other way). The CPU tests, the card tests and
+    chip_smoke.py hold the backward at these shapes."""
+    return ((1, 1), (1, 65), (31, 33), (32, 32), (33, 31), (63, 65), (64, 64), (65, 63),
+            (128, 128), (33, 128), (128, 33), (65, 1))
 
 
 def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale) -> torch.Tensor:
