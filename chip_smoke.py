@@ -131,8 +131,33 @@ imports nothing of JAX. Its phases print one line each or more:
 16. (c) `EncodecVoco.encode` of a 10 s wave through the SEANet encoder at
    the Encodec 24 kHz geometry -> (1, 750, 128), then its decode and the
    SEANet decoder's, with their times;
-17. one JSON line for the kernels (one row per kernel and main path; on the
-   quantized path, means per launch over the shapes it ran), then
+17. the semantic stack, card vs CPU, small fp32 configurations from the
+   same weights: HuBERT features (tolerance) and ids (equal except near
+   ties of the k-means distance); the TextToSemantic's teacher-forced
+   logits; its greedy, speculative, w8a16 and w8a16-speculative decodes,
+   equal to the CPU's up to the first position where the CPU's top-2 logit
+   gap is under 1e-3 (printed); `sample(texts=)` latents and lengths; three
+   `TextToSemanticTrainer` steps, losses and parameter updates;
+18. the semantic stack at full width, random weights: HuBERT-base (layer 9,
+   500 clusters) on 8 x 10 s; the TextToSemantic (dim 512, 6 + 6 layers, 8 x
+   64 heads, fp32, 500 ids) decoding 1024 ids: plain greedy and speculative
+   (gamma 5, 3 draft layers; equal before the first near tie) with ms and
+   kernels per token and the acceptance, and `quantize="w8a16"` (fp32 K4 on
+   every decoder matmul) at batch 1 over 128 ids and batch 4 speculative
+   over 64; semantic-mode
+   `TTSEngine` (text buckets 32/64/128, batch buckets 1/2/4, 1024 ids,
+   `spec_decode`, the flagship bf16 denoiser with w8a16, EncodecVoco):
+   warmup, one request each at batch 1 and 2, four batcher submits, each
+   group exactly 6 + 96 K1 and 384 K4 launches, latency, RTF, the decode's
+   share, the profiled idle share of the decode and of the denoiser half
+   apart; `TextToSemanticTrainer` at batch 8 of
+   (text, 10 s wave) with targets through HuBERT (511 frames, 499 live):
+   6 fp32 K1, K2 and K3 a step, ms per step, HuBERT's share, peak memory.
+   Every K1 and K4 launch shape of phase 18 must be one that phases 3 and
+   5 checked and timed (phase 5 also checks and times fp32 K4 at the
+   decode's shapes against cuBLAS fp32);
+19. one JSON line for the kernels (one row per kernel and main path; on the
+   quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the process exits nonzero and prints no result.
@@ -211,6 +236,9 @@ WRAPPERS = {"k1": flash_attention, "k2": flash_attention_bwd_dq, "k3": flash_att
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
+# the semantic engine's buckets (phase 18)
+SEM_BATCHES, SEM_TEXT_BUCKETS = (1, 2, 4), (32, 64, 128)
+
 # (name, (b, h, n, kv, d), dtype, inputs, mask, atol, rtol). "qk": q and k
 # qk-normed to norm sqrt(d) with scale 10, as the denoiser calls attention
 # (logits up to 10 d); "randn": unit normals with scale d^-0.5, a softer
@@ -258,10 +286,21 @@ K1_CASES = [
     ("dp_train_empty_row_f32", (8, 8, 128, 128, 64), torch.float32, "qk", "empty_row", 1e-3,
      1e-3),
     ("dp_sample_f32", (1, 8, 64, 64, 64), torch.float32, "qk", "all", 1e-3, 1e-3),
+    # the semantic stack (phase 18): the TextToSemantic encoder (fp32, 8 x 64
+    # heads, no qk-norm, the text padding masked) at each (batch, text)
+    # bucket of the semantic engine and at the trainer's batch of 8 at text
+    # bucket 64 (128 is dp_train_f32's shape); the denoiser under the
+    # generated mask: 2b x 4 x 128 heads over 1024 ids + 16 registers
+    *[(f"t2s_b{b}_n{n}_f32", (b, 8, n, n, 64), torch.float32, "randn", "prefix", 1e-5, 1e-5)
+      for b in SEM_BATCHES for n in SEM_TEXT_BUCKETS],
+    ("t2s_train_n64_f32", (8, 8, 64, 64, 64), torch.float32, "randn", "prefix", 1e-5, 1e-5),
+    *[(f"semantic_b{b}_bf16", (2 * b, 4, 1040, 1040, 128), torch.bfloat16, "qk", "prefix", 1e-2,
+       1e-2) for b in SEM_BATCHES],
 ]
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
-            "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32")
+            "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
+            *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_"))))
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 
@@ -785,10 +824,11 @@ def single_key_floor(q, k, v, do, scale) -> tuple:
 # the feed-forward's proj_in (GEGLU, 2 x 1365) and proj_out. m is batch x 2
 # for CFG x (frames + 16 registers): the engine's groups give 544 (batch 1,
 # 256 frames), 2112 (batch 2, 512) and 8320 (batch 4, 1024); 1532 is
-# batch 1 at 750 frames
+# batch 1 at 750 frames; the semantic engine's 1024 ids give 2080, 4160 and
+# 8320
 K4_SHAPES = {"to_qkv": (512, 1536), "to_out": (512, 512), "ff_proj_in": (512, 2730),
              "ff_proj_out": (1365, 512)}
-K4_ROWS = (544, 1532, 2112, 8320)
+K4_ROWS = (544, 1532, 2080, 2112, 4160, 8320)  # + 2080, 4160: semantic batches 1 and 2
 K4_RAGGED_ROWS = (37, 1)
 # tolerance of |K4 - plain| <= rtol |plain| + atol max|plain|. Both sum exact
 # products (bf16 x int8, or fp32 x int8 in fp32) in fp32, in another order
@@ -971,6 +1011,57 @@ def phase_k4_check(smi: str) -> dict:
                       for (r, c), ms in tiles.items())
                   + f" (CUDA events, mean of 2 x 20, in turns, {sms} SMs) on {smi}")
     phase_k4_host_time()
+    return results
+
+
+# fp32 K4 on the TextToSemantic decode under generate(quantize="w8a16")
+# (phase 18): the (k, n) of each decoder matmul and of the head (to_q is
+# to_out's (512, 512)), at m = the rows of a decode step (batch 1, 4) or of
+# a verify chunk (batch 4 x (gamma + 1) = 24); the cross-attention's to_kv
+# runs once per request at m = batch x text bucket (1 x 32, 4 x 128)
+K4_DECODE_SHAPES = {"dec_to_qkv": (512, 1536), "dec_to_out": (512, 512),
+                    "dec_ff_proj_in": (512, 2730), "dec_ff_proj_out": (1365, 512),
+                    "to_logits": (512, 502)}
+K4_DECODE_ROWS = (1, 4, 24)
+K4_DECODE_KV = ("dec_to_kv", (512, 1024), (32, 512))
+
+
+def phase_k4_decode_check(smi: str) -> dict:
+    """fp32 K4 at the quantized decode's shapes against its plain version (x
+    at the GEGLU's pitch, NaN past it; a second launch bit-identical), timed
+    in turns beside the plain version and cuBLAS fp32 (TF32 off) on the
+    weight dequantized ahead of time, with its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    cases = [(name, m, kn) for name, kn in K4_DECODE_SHAPES.items() for m in K4_DECODE_ROWS]
+    cases += [(K4_DECODE_KV[0], m, K4_DECODE_KV[1]) for m in K4_DECODE_KV[2]]
+    rtol, atol = K4_TOL[torch.float32]
+    results = {}
+    for name, m, (k, n) in cases:
+        x, ql = _k4_operands(m, k, n, torch.float32, gen)
+        ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+        call = _k4_call(x, ql)
+        y, again = call(), call()
+        torch.cuda.synchronize()
+        err = (y - ref).abs()
+        ok = (bool(torch.isfinite(y).all()) and torch.equal(y, again)
+              and bool((err <= rtol * ref.abs() + atol * ref.abs().max()).all()))
+        assert ok, f"fp32 K4 disagrees with the plain version on {name} m={m}"
+        w_deq = ql.weight_q[:n, :k].float() * ql.weight_scale[:, None]
+        t = in_turns({"plain": lambda: w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale),
+                      "k4": call, "cublas": lambda: F.linear(x, w_deq)})
+        bound_ms, bound_by = k4_bound(m, k, n, torch.float32)
+        results[(m, k, n)] = dict(
+            shape=(m, k, n), dtype=torch.float32, ms=t["k4"], plain_ms=t["plain"],
+            library_ms=t["cublas"], bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=err.max().item(), share_of_bound=bound_ms / t["k4"],
+            vs_library=t["k4"] / t["cublas"])
+        log("k4", f"decode {name} (m, k, n) = ({m}, {k}, {n}) fp32, x rows {x.stride(0)} apart: "
+                  f"max_abs_err {err.max().item():.3e} (tol rtol {rtol:g} + atol {atol:g} x "
+                  f"max|plain|), second launch bit-identical; K4 {t['k4']:.4f} ms "
+                  f"({bound_ms / t['k4']:.1%} of the bound {bound_ms:.4f} ms, {bound_by}; "
+                  f"{t['k4'] / t['cublas']:.2f}x cuBLAS fp32), plain {t['plain']:.4f} ms, "
+                  f"cuBLAS fp32 on the dequantized weight {t['cublas']:.4f} ms (CUDA events, "
+                  f"mean of 2 x 20, in turns) on {smi}")
     return results
 
 
@@ -2438,6 +2529,432 @@ def phase_encodec(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phases 17-18
+# the semantic stack: HuBERT + k-means, the TextToSemantic seq2seq, its
+# decode routes, semantic-mode sampling and serving, its trainer
+
+SMALL_HUBERT = dict(num_clusters=100, conv_dim=64, dim=128, depth=2, heads=2, ff_dim=256,
+                    conv_pos_kernel=16, conv_pos_groups=4)
+SMALL_T2S = dict(dim=128, num_semantic_token_ids=100, source_depth=2, target_depth=2, heads=2,
+                 dim_head=64)
+NEAR_TIE = 1e-3  # a top-2 logit gap under this is a tie that rounding may break
+
+
+def _small_t2s(device, wav2vec=None):
+    t2s = vbt.TextToSemantic(**SMALL_T2S, wav2vec=wav2vec, tokenizer=GraphemeTokenizer(),
+                             device=device)
+    with torch.no_grad():  # eos at 2x: rows end at different lengths
+        t2s.net.to_logits.weight[t2s.eos_id] *= 2.0
+    return t2s.eval()
+
+
+def _first_ties(net, text, tokens) -> list:
+    """Per row, the first position of `tokens` (a greedy decode of `net`)
+    where the top-2 gap of the teacher-forced logits is under NEAR_TIE."""
+    with torch.no_grad():
+        logits = net(text, tokens).float()[:, : tokens.shape[1]]
+    logits[..., net.bos_id] = -1e9
+    top2 = logits.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    n = tokens.shape[1]
+    return [int(row.nonzero()[0]) if row.any() else n for row in tie.cpu()]
+
+
+def _equal_before(a, b, ties) -> bool:
+    return all(torch.equal(a[r, :t].cpu(), b[r, :t].cpu()) for r, t in enumerate(ties))
+
+
+def phase_semantic_card_vs_cpu() -> None:
+    """Phase 17: the small semantic stack from the same weights on the card
+    and the CPU (fp32, TF32 off): HuBERT features and ids, teacher-forced
+    logits, greedy / speculative / w8a16 decode, `sample(texts=)` and three
+    TextToSemanticTrainer steps."""
+    t0 = time.perf_counter()
+    hub = {d: seeded(lambda: vbt.HubertWithKmeans(**SMALL_HUBERT), SEED + 60).to(d).eval()
+           for d in ("cpu", "cuda")}
+    wav = torch.from_numpy(np.stack(_waves(2, 16000, SEED + 61)))
+    f_cpu, f_gpu = hub["cpu"].features(wav), hub["cuda"].features(wav.cuda()).cpu()
+    feat_err = (f_gpu - f_cpu).abs().max().item()
+    ids_cpu, ids_gpu = hub["cpu"](wav), hub["cuda"](wav.cuda()).cpu()
+    c = hub["cpu"].cluster_centers.double()
+    d = ((f_cpu.double()[..., None, :] - c) ** 2).sum(-1).sort(dim=-1).values
+    tie = (d[..., 1] - d[..., 0]) < NEAR_TIE * d[..., 1]
+    assert feat_err <= 1e-3 and bool(((ids_cpu == ids_gpu) | tie).all()), (
+        f"HuBERT disagrees card vs CPU: features {feat_err:.3e}")
+    log("semantic", f"card vs CPU HuBERT (conv 64, dim 128, 2 blocks, 100 clusters), 2 x 1 s: "
+                    f"features max_abs_err {feat_err:.3e} (tol 1e-3), ids equal "
+                    f"{(ids_cpu == ids_gpu).float().mean().item():.4f} ({int(tie.sum())} "
+                    f"near-tie frames excused)")
+
+    t2s = {d: seeded(lambda d=d: _small_t2s(d), SEED + 62) for d in ("cpu", "cuda")}
+    texts = ["hello from the semantic stack", "a second, longer line of text to read"]
+    text = torch.from_numpy(GraphemeTokenizer().texts_to_tensor_ids(texts)).long()
+    sem = torch.randint(0, 100, (2, 40), generator=torch.Generator().manual_seed(SEED + 63))
+    with torch.no_grad():
+        lg_cpu = t2s["cpu"].net(text, sem)
+        reset_launches()
+        lg_gpu = t2s["cuda"].net(text.cuda(), sem.cuda()).cpu()
+    k1_fwd = read_launches()["k1"]
+    logit_err = (lg_gpu - lg_cpu).abs().max().item()
+    assert logit_err <= 1e-3 and k1_fwd == SMALL_T2S["source_depth"], (logit_err, k1_fwd)
+    max_len = 96
+    ref = t2s["cpu"].generate(text, max_length=max_len, return_target_mask=True)
+    ties = _first_ties(t2s["cpu"].net, text, ref[0])
+    qnet = t2s["cpu"]._serving_net("w8a16", None)
+    ref_q = t2s["cpu"].generate(text, max_length=max_len, return_target_mask=True,
+                                quantize="w8a16")
+    ties_q = _first_ties(qnet, text, ref_q[0])
+    routes = {"greedy": ({}, ref, ties), "spec": ({"spec_decode": True}, ref, ties),
+              "w8a16": ({"quantize": "w8a16"}, ref_q, ties_q),
+              "w8a16_spec": ({"quantize": "w8a16", "spec_decode": True}, ref_q, ties_q)}
+    for name, (kw, (r_tok, r_mask), tie_at) in routes.items():
+        reset_launches()
+        tok, mask = t2s["cuda"].generate(text.cuda(), max_length=max_len,
+                                         return_target_mask=True, **kw)
+        launched = read_launches()
+        ok = _equal_before(tok, r_tok, tie_at) and _equal_before(mask, r_mask, tie_at)
+        log("semantic", f"card vs CPU decode {name}: tokens and mask equal before the first "
+                        f"near tie (top-2 gap < {NEAR_TIE:g}) at positions {tie_at} of "
+                        f"{max_len}: {ok}; fully equal {torch.equal(tok.cpu(), r_tok)}; "
+                        f"lengths card {mask.sum(1).tolist()} CPU {r_mask.sum(1).tolist()}; "
+                        f"K1/K4 launches {launched['k1']}/{launched['k4']}; decode stats "
+                        f"{t2s['cuda'].decode_stats}")
+        assert ok, f"the {name} decode disagrees card vs CPU before a near tie"
+        assert launched["k1"] == SMALL_T2S["source_depth"], launched
+        assert (launched["k4"] > 0) == ("quantize" in kw), launched
+
+    # sample(texts=): the seq2seq in front of a small fp32 denoiser
+    def build_cfm(device):
+        vb = vbt.VoiceBox(dim_in=32, **{**SMALL, "num_cond_tokens": 100})
+        _soften_qk_gains(vb)
+        return vbt.ConditionalFlowMatcherWrapper(vb, text_to_semantic=t2s[device],
+                                                 device=device).eval()
+
+    cfms = {d: seeded(lambda d=d: build_cfm(d), SEED + 64) for d in ("cpu", "cuda")}
+    y0 = torch.randn(2, max_len, 32, generator=torch.Generator().manual_seed(SEED + 65))
+    kw = dict(texts=texts, max_semantic_token_ids=max_len, steps=STEPS, cond_scale=CFG_SCALE,
+              decode_to_audio=False, return_lengths=True)
+    lat_cpu, len_cpu = cfms["cpu"].sample(noise=y0, **kw)
+    lat_gpu, len_gpu = cfms["cuda"].sample(noise=y0.cuda(), **kw)
+    same_ids = torch.equal(t2s["cuda"].generate(text.cuda(), max_length=max_len).cpu(), ref[0])
+    lat_err = (lat_gpu.cpu() - lat_cpu).abs().max().item()
+    log("semantic", f"card vs CPU sample(texts=) through a dim-128 depth-2 denoiser, "
+                    f"{max_len} ids: ids equal {same_ids}, lengths card {len_gpu.tolist()} "
+                    f"CPU {len_cpu.tolist()}, latents max_abs_err {lat_err:.3e} (tol 1e-3)")
+    if same_ids:
+        assert len_gpu.tolist() == len_cpu.tolist() and lat_err <= 1e-3, "sample(texts=)"
+
+    # three TextToSemanticTrainer steps on the same (text, ids) batches
+    rs = np.random.RandomState(SEED + 66)
+    items = [(t, rs.randint(0, 100, rs.randint(20, 60))) for t in _texts(8, SEED + 67)]
+
+    def trainer(device):
+        model = seeded(lambda: _small_t2s(device), SEED + 68).train()
+        return vbt.TextToSemanticTrainer(
+            model, batch_size=2, dataset=PairedDataset(items), num_train_steps=3,
+            valid_frac=0.0, log_every=1000, prefetch_batches=0, device=device, **SMALL_TRAIN)
+
+    cpu, gpu = trainer("cpu"), trainer("cuda")
+    init = {n: p.detach().clone() for n, p in cpu.t2s.named_parameters()}
+    losses, depth = [], SMALL_T2S["source_depth"]
+    for step in range(3):
+        c_loss = cpu.train_step()["loss"].item()
+        reset_launches()
+        g_loss = gpu.train_step()["loss"].item()
+        want = {"k1": depth * (2 if step == 0 else 1), "k2": depth, "k3": depth, "k4": 0}
+        assert read_launches() == want, f"step {step} launched {read_launches()}, want {want}"
+        losses.append((g_loss, c_loss))
+    loss_err = max(abs(g - c) / abs(c) for g, c in losses)
+    lr = SMALL_TRAIN["lr"]
+    worst, n_off, total, cos_min = _update_gap(init, cpu.t2s, gpu.t2s, lr)
+    log("semantic", f"card vs CPU TextToSemanticTrainer, fp32, dim 128 2 + 2 layers, batch 2, 3 "
+                    f"steps (lr {lr:g}, clip 0.5): losses card/CPU "
+                    f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
+                    f"{loss_err:.2e} (tol 1e-4); fp32 K1/K2/K3 per step {depth}/{depth}/{depth} "
+                    f"(+ {depth} K1 of step 0's validation); updates: min per-tensor cosine "
+                    f"{cos_min:.6f} (tol > 0.999), max abs diff {worst:.3e} (tol 6 lr), weights "
+                    f"off by > 0.01 lr {n_off} of {total} (tol 1e-3 of them)")
+    assert loss_err <= 1e-4 and cos_min > 0.999 and worst <= 6 * lr and n_off <= 1e-3 * total
+    log("semantic", f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
+
+# phase 18: the full-width configurations
+T2S_FULL = dict(dim=512, num_semantic_token_ids=500, source_depth=6, target_depth=6, heads=8,
+                dim_head=64)
+HUBERT_SAMPLES = 160_000  # 10 s at 16 kHz: 499 frames
+SEM_ENGINE = dict(text_buckets=SEM_TEXT_BUCKETS, batch_buckets=SEM_BATCHES,
+                  max_semantic_token_ids=1024, spec_decode=True, steps=STEPS,
+                  cond_scale=CFG_SCALE, quantize="w8a16")
+SEM_REQUESTS = (["the semantic engine reads this line aloud"],  # batch 1, text bucket 64
+                ["a second request of some forty characters", "and a shorter one beside"])
+# requests per group; the quantized decode's lengths (its K4 shapes are
+# those of any length: every step and verify chunk)
+SEM_REPEATS, SEM_TRAIN_TIMED = 1, 4
+SEM_QUANT_LENGTHS = (128, 64)  # batch 1 plain, batch 4 speculative
+SEM_K1_PER_GROUP = T2S_FULL["source_depth"] + EVALS_PER_REQUEST * FLAGSHIP["depth"]
+SEM_K4_PER_GROUP = K4_PER_GROUP
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _assert_k4_checked(tally, k4: dict, path: str) -> None:
+    for key, count in tally.items():
+        if key[0] == "k4":
+            assert key[1] in k4 and k4[key[1]].get("dtype", torch.bfloat16) == key[2], (
+                f"{path} ran K4 {count} times at {key[1]} {key[2]}, which no check timed")
+
+
+def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
+    """Phase 18: HuBERT-base, the TextToSemantic decode routes, semantic-mode
+    TTSEngine and TextToSemanticTrainer at full width, random weights."""
+    t_phase = time.perf_counter()
+    tok = GraphemeTokenizer()
+    hubert = seeded(lambda: vbt.HubertWithKmeans(output_layer=9), SEED + 70).cuda().eval()
+    waves = torch.from_numpy(np.stack(_waves(8, HUBERT_SAMPLES, SEED + 71))).cuda()
+    ids = hubert(waves)
+    assert tuple(ids.shape) == (8, 499) and int(ids.max()) < 500 and int(ids.min()) >= 0
+    hub_ms = in_turns({"hubert": lambda: hubert(waves)}, iters=3)["hubert"]
+    log("semantic", f"HuBERT-base (conv 512, dim 768, 12 heads, ff 3072, pos conv 128/16, layer "
+                    f"9 of 12, 500 clusters) on 8 x 10 s at 16 kHz -> ids {tuple(ids.shape)}: "
+                    f"{hub_ms:.2f} ms (CUDA events) on {smi}")
+
+    t2s = seeded(lambda: vbt.TextToSemantic(**T2S_FULL, wav2vec=hubert, tokenizer=tok),
+                 SEED + 72).eval()
+
+    def decode(texts, max_length=1024, **kw):
+        """One generate at the engine's text bucket, timed on the host."""
+        text = torch.from_numpy(tok.texts_to_tensor_ids(texts)).long()
+        bucket = next(b for b in SEM_TEXT_BUCKETS if b >= text.shape[1])
+        text = F.pad(text, (0, bucket - text.shape[1]), value=-1)
+        (tok_, mask), ms = _timed(lambda: t2s.generate(text, max_length=max_length,
+                                                       return_target_mask=True, **kw))
+        return tok_, mask, ms, dict(t2s.decode_stats), text
+
+    one = list(ENGINE_REQUESTS[0])  # 31 characters: text bucket 32
+    for kw in ({}, {"quantize": "w8a16"}):  # warm-up: allocator, the quantized copy
+        decode(one, max_length=32, **kw)
+    reset_launches()
+    with shape_tally() as dtally:
+        g_tok, g_mask, g_ms, g_st, text1 = decode(one)
+        s_tok, s_mask, s_ms, s_st, _ = decode(one, spec_decode=True)
+        q_tok, q_mask, q_ms, q_st, _ = decode(one, SEM_QUANT_LENGTHS[0], quantize="w8a16")
+        four = list(BATCHER_TEXTS)
+        qs_tok, qs_mask, qs_ms, qs_st, text4 = decode(four, SEM_QUANT_LENGTHS[1],
+                                                      quantize="w8a16", spec_decode=True)
+    dec_counts = read_launches()
+    ties = _first_ties(t2s.net, text1.cuda(), g_tok)
+    spec_ok = _equal_before(s_tok, g_tok, ties) and _equal_before(s_mask, g_mask, ties)
+    assert spec_ok, "speculative greedy differs from plain greedy before a near tie"
+    prof = _profile(lambda: t2s.generate(text1, max_length=32))
+    per_token = prof["kernels"] / 32
+    acc = s_st["accepted"] / max(1, s_st["rounds"] * s_st["gamma"])
+    qs_acc = qs_st["accepted"] / max(1, qs_st["rounds"] * qs_st["gamma"])
+    log("semantic", f"TextToSemantic dim 512 6 + 6 layers 8 x 64 fp32, 500 ids, vocab "
+                    f"{tok.vocab_size}, batch 1 text bucket {text1.shape[1]}, max_length 1024: "
+                    f"plain greedy "
+                    f"{g_st['positions']} positions in {g_ms:.1f} ms = "
+                    f"{g_ms / g_st['positions']:.3f} ms per token, {per_token:.1f} kernels per "
+                    f"token (profiled over 32 steps and the prefill: device busy "
+                    f"{prof['busy_ms']:.2f} of wall "
+                    f"{prof['wall_ms']:.2f} ms, idle share "
+                    f"{'not measured' if prof['idle'] is None else f'{prof['idle']:.3f}'}); "
+                    f"speculative (gamma 5, draft 3 layers) {s_st['positions']} positions in "
+                    f"{s_ms:.1f} ms = {s_ms / s_st['positions']:.3f} ms per token over "
+                    f"{s_st['rounds']} rounds, acceptance {acc:.3f}; equal to plain greedy "
+                    f"before the first near tie (top-2 gap < {NEAR_TIE:g}) at {ties} "
+                    f"(lengths {g_mask.sum(1).tolist()}, fully equal "
+                    f"{torch.equal(s_tok, g_tok)}) on {smi}")
+    log("semantic", f"quantized decode w8a16 (fp32 K4 on every decoder and head matmul): batch "
+                    f"1 plain {q_st['positions']} positions {q_ms:.1f} ms = "
+                    f"{q_ms / q_st['positions']:.3f} ms per token (lengths "
+                    f"{q_mask.sum(1).tolist()}); batch 4 text bucket {text4.shape[1]} speculative "
+                    f"{qs_st['positions']} positions {qs_ms:.1f} ms = "
+                    f"{qs_ms / qs_st['positions']:.3f} ms per position, acceptance "
+                    f"{qs_acc:.3f} (lengths {qs_mask.sum(1).tolist()}); decode launches "
+                    f"{dict(dec_counts)}; K4 by shape "
+                    f"{ {k[1]: c for k, c in dtally.items() if k[0] == 'k4'} }")
+    for t, m in ((g_tok, g_mask), (s_tok, s_mask), (q_tok, q_mask), (qs_tok, qs_mask)):
+        assert int(t.max()) < 500 and bool((t[~m] == 0).all())
+    _assert_checked(dtally, k1, "the seq2seq decode")
+    _assert_k4_checked(dtally, k4_dec, "the quantized decode")
+    assert dec_counts["k4"] > 0 and dec_counts["k2"] == dec_counts["k3"] == 0
+
+    # semantic-mode TTSEngine: the seq2seq in front of the flagship denoiser
+    def build_cfm():
+        vb = vbt.VoiceBox(audio_enc_dec=EncodecVoco(), dtype=torch.bfloat16,
+                          **{**FLAGSHIP, "num_cond_tokens": 500})
+        return vbt.ConditionalFlowMatcherWrapper(vb, text_to_semantic=t2s)
+
+    cfm = seeded(build_cfm, SEED + 73).eval()
+    engine = vbt.TTSEngine(cfm, **SEM_ENGINE)
+    t_warm = engine.warmup()
+    n_buckets = len(SEM_BATCHES) * len(SEM_TEXT_BUCKETS)
+    log("semantic", f"semantic TTSEngine({SEM_ENGINE}) over the flagship bf16 denoiser (500 "
+                    f"cond tokens, EncodecVoco): warmup of {n_buckets} buckets in "
+                    f"{t_warm:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 74)
+    sr, hop = cfm.codec.sampling_rate, cfm.codec.downsample_factor
+    per_group = {"k1": SEM_K1_PER_GROUP, "k2": 0, "k3": 0, "k4": SEM_K4_PER_GROUP}
+    generate, decode_ms = t2s.generate, []
+
+    def timed_generate(*a, **kw):
+        out, ms = _timed(lambda: generate(*a, **kw))
+        decode_ms.append(ms)
+        return out
+
+    t2s.generate = timed_generate
+    reset_launches()
+    runs = []
+    try:
+        with shape_tally() as etally:
+            for texts in SEM_REQUESTS:
+                for _ in range(SEM_REPEATS):
+                    before = read_launches()
+                    (audio, lens), ms = _timed(lambda: engine.synthesize(
+                        texts, generator=gen, return_lengths=True))
+                    launched = {k: v - before[k] for k, v in read_launches().items()}
+                    assert launched == per_group, f"a group launched {launched}, want {per_group}"
+                    assert bool(torch.isfinite(audio).all()) and audio.shape[-1] == 1024 * hop
+                    runs.append((len(texts), ms, decode_ms[-1], lens.tolist()))
+            with vbt.DynamicBatcher(engine, max_wait_ms=100.0, seed=SEED) as batcher:
+                futures = [batcher.submit(t) for t in BATCHER_TEXTS]
+                (clips, b_ms) = _timed(lambda: [f.result(timeout=600) for f in futures])
+    finally:
+        del t2s.generate
+    eng_counts = read_launches()
+    groups = len(SEM_REQUESTS) * SEM_REPEATS + batcher.stats["batches"]
+    assert eng_counts == {k: v * groups for k, v in per_group.items()}, eng_counts
+    assert all(bool(torch.isfinite(c).all()) for c in clips)
+    _assert_checked(etally, k1, "semantic serving")
+    _assert_k4_checked(etally, k4, "semantic serving")
+    horizon_s = 1024 * hop / sr
+    for b in sorted({r[0] for r in runs}):
+        part = [r for r in runs if r[0] == b]
+        lat = [r[1] for r in part]
+        share = float(np.median([r[2] / r[1] for r in part]))
+        log("semantic", f"semantic request batch {b}: horizon 1024 frames = {horizon_s:.2f} s, "
+                        f"valid samples {part[0][3]}; latency {_min_median(lat)} (all "
+                        f"{[round(x, 1) for x in lat]}), RTF of the horizon median "
+                        f"{np.median(lat) / 1e3 / horizon_s:.4f}; the seq2seq decode's share "
+                        f"{share:.3f}; K1/K4 launches {per_group['k1']}/{per_group['k4']} each on "
+                        f"{smi}")
+    log("semantic", f"DynamicBatcher: {len(BATCHER_TEXTS)} concurrent submits as "
+                    f"{batcher.stats['batches']} group(s) in {b_ms:.1f} ms; path totals "
+                    f"{eng_counts}; K1/K4 by shape "
+                    f"{ {(k[0], k[1], str(k[2])[6:]): c for k, c in etally.items()} }")
+    # the request's denoiser half alone, profiled (a whole request's ~6e5
+    # kernels take minutes of the profiler's post-processing); the decode
+    # half's profile is above
+    ids = torch.zeros(1, 1024, dtype=torch.long, device="cuda")
+    den = _profile(lambda: cfm.sample(semantic_token_ids=ids, steps=STEPS,
+                                      cond_scale=CFG_SCALE, quantize="w8a16", generator=gen))
+    log("semantic", f"profiled denoiser half of a batch-1 request (1024 ids, w8a16, decode "
+                    f"to audio): wall {den['wall_ms']:.1f} ms, device busy {den['busy_ms']:.1f} "
+                    f"ms over {den['kernels']} kernels, idle share "
+                    f"{'not measured' if den['idle'] is None else f'{den['idle']:.3f}'}")
+    del cfm, engine
+    torch.cuda.empty_cache()
+
+    # TextToSemanticTrainer: (text, 10 s wave) items, targets through HuBERT
+    t2s.train()
+    items = list(zip(_texts(50, SEED + 75), _waves(50, HUBERT_SAMPLES, SEED + 76)))
+    trainer = vbt.TextToSemanticTrainer(
+        t2s, batch_size=8, dataset=PairedDataset(items), num_train_steps=1000, lr=3e-4,
+        max_grad_norm=0.5, valid_frac=0.2, semantic_bucket_multiple=512,
+        text_bucket_multiple=64, log_every=1000, save_results_every=1000, seed=SEED)
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    depth = T2S_FULL["source_depth"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    logs = []
+    with shape_tally() as ttally:
+        start.record()
+        for _ in range(SEM_TRAIN_TIMED):
+            before = read_launches()
+            logs.append(trainer.train_step())
+            step = {k: v - before[k] for k, v in read_launches().items()}
+            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, step
+        end.record()
+        torch.cuda.synchronize()
+    train_counts = read_launches()
+    step_ms = start.elapsed_time(end) / SEM_TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [lg["loss"].item() for lg in logs]
+    assert all(math.isfinite(x) for x in losses)
+    _assert_checked(ttally, k1, "seq2seq training")
+    batch = trainer._prepare_batch(next(trainer.dl_iter))
+    sem = batch["semantic_ids"]
+    frames, live = hubert.num_frames(512 * 320), hubert.num_frames(HUBERT_SAMPLES)
+    assert sem.shape[1] == frames and bool((sem[:, live:] == -1).all()), sem.shape
+    assert bool((sem[:, :live] >= 0).all())
+    fields = next(trainer.dl_iter)
+    prep_ms = in_turns({"prep": lambda: trainer._prepare_batch(fields)}, iters=3)["prep"]
+    log("semantic", f"TextToSemanticTrainer batch 8 x (text 40-120 characters, 10 s wave at 16 "
+                    f"kHz, ids through HuBERT: {frames} frames, {live} live, bucket 512), "
+                    f"lr 3e-4, clip "
+                    f"0.5: {SEM_TRAIN_TIMED} timed steps, losses {[round(x, 4) for x in losses]},"
+                    f" {step_ms:.2f} ms per step = {1e3 / step_ms:.3f} steps/s (CUDA events); "
+                    f"HuBERT + batch preparation alone {prep_ms:.2f} ms = "
+                    f"{prep_ms / step_ms:.3f} of a step; fp32 K1/K2/K3 per step "
+                    f"{depth}/{depth}/{depth}; K1 by shape "
+                    f"{ {k[1]: c for k, c in ttally.items() if k[0] == 'k1'} }; peak memory "
+                    f"{peak:.2f} GiB on {smi}")
+    log("semantic", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    del trainer, t2s, hubert
+    torch.cuda.empty_cache()
+    return {"decode": (dec_counts, dtally), "serve": (eng_counts, etally),
+            "train": (train_counts, ttally)}
+
+
+def semantic_rows(k1: dict, k4: dict, k4_dec: dict, k23: dict, sem: dict) -> list:
+    """Rows of the semantic paths from the shapes each launched its kernels
+    at: K1 on the seq2seq encoder (decode and serving, fp32) and the
+    denoiser under the generated mask (bf16), bf16 K4 in the quantized
+    denoiser, fp32 K4 on the quantized decode, fp32 K1/K2/K3 in training."""
+    def parts(tally, kernel, dtype, table):
+        out = []
+        for key, count in tally.items():
+            if key[0] != kernel or key[2] != dtype:
+                continue
+            if kernel == "k1":
+                r = next(r for r in table.values() if tuple(r["shape"]) == key[1]
+                         and r["dtype"] == dtype and r["masked"] == key[3] and "ms" in r)
+            else:
+                r = table[key[1]]
+            out.append((count, {**r, "dtype": dtype}))
+        return out
+
+    dec_tally, serve_tally, train_tally = sem["decode"][1], sem["serve"][1], sem["train"][1]
+    rows = []
+    for path, kernel, dtype, tallies, table, extra in (
+        ("semantic_encoder", "k1", torch.float32, (dec_tally, serve_tally), k1, {}),
+        ("semantic_serve", "k1", torch.bfloat16, (serve_tally,), k1, {}),
+        ("semantic_serve", "k4", torch.bfloat16, (serve_tally,), k4,
+         {"library": "cuBLAS bf16 on the weight dequantized ahead of time"}),
+        ("semantic_decode_w8a16", "k4", torch.float32, (dec_tally,), k4_dec,
+         {"library": "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time"}),
+        ("seq2seq_train", "k1", torch.float32, (train_tally,), k1, {}),
+    ):
+        merged = collections.Counter()
+        for t in tallies:
+            merged.update(t)
+        row = _path_row(kernel, f"{NAMES[kernel]}[{path}]", parts(merged, kernel, dtype, table))
+        rows.append({**row, "path": path, **extra})
+    train_counts = sem["train"][0]
+    rows += [_k23_row(kk, "seq2seq_train", k23["dp_train_f32"], train_counts[kk])
+             for kk in ("k2", "k3")]
+    return rows
+
+
 def _path_row(kernel: str, name: str, parts) -> dict:
     """The row of one kernel on the quantized duration-mode path from the
     shapes that path gave it: parts is [(launches, timed result)]. Times and
@@ -2527,7 +3044,7 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
 
 
 def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
-                raw) -> str:
+                raw, semantic) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
     serving shape), on the quantized duration-mode path (`engine_rows`: the
     denoiser's and the duration predictor's calls) and on the training path
@@ -2536,7 +3053,8 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_p
     (phase 12, at the training shape, with the launches per step of each
     configuration); K1, K2 and K3 on the raw-wave mel training path and K1
     on its sampling (phase 14); fp32 K1, K2 and K3 on duration training and
-    K1 on the trained predictor's sampling call (phase 15)."""
+    K1 on the trained predictor's sampling call (phase 15); the semantic
+    paths' rows (phase 18, `semantic_rows`)."""
     rows = [_k1_row("serve", k1["flagship_cfg_bf16"], serve_k1),
             _k1_row("train", k1["train_bf16"], train_counts["k1"])]
     rows += engine[:2]
@@ -2561,6 +3079,7 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_p
     rows.append({**_k1_row("duration_sample", k1["dp_sample_f32"], dp["sample_k1_dp"]),
                  "note": f"the predictor's launches of the request; its denoiser launched "
                          f"{dp['sample_k1_denoiser']} bf16 K1 at mel_serve's shape"})
+    rows += semantic
     return json.dumps({"kernels": rows})
 
 
@@ -2575,6 +3094,7 @@ def main() -> int:
     k1 = phase_k1_check(smi)
     k23 = phase_k23_check(smi)
     k4 = phase_k4_check(smi)
+    k4_dec = phase_k4_decode_check(smi)
     phase_slice_card_vs_cpu()
     phase_slice_card_vs_cpu(quantize="w8a16")
     phase_train_card_vs_cpu()
@@ -2604,8 +3124,15 @@ def main() -> int:
     assert raw["mel"]["serve_k1"] > 0 and raw["dp"]["sample_k1"] > 0, raw
     assert min(raw["dp"]["train"][k] for k in ("k1", "k2", "k3")) > 0, raw["dp"]
     phase_encodec(smi)
+    phase_semantic_card_vs_cpu()
+    sem = phase_semantic(smi, k1, k4, k4_dec)
+    for path, (counts, _) in sem.items():
+        assert counts["k1"] > 0, f"the semantic {path} path launched no K1: {counts}"
+    assert sem["decode"][0]["k4"] > 0 and sem["serve"][0]["k4"] > 0, sem
+    assert sem["train"][0]["k2"] > 0 and sem["train"][0]["k3"] > 0, sem["train"][0]
+    semantic = semantic_rows(k1, k4, k4_dec, k23, sem)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
-                      raw), flush=True)
+                      raw, semantic), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

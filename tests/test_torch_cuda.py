@@ -453,3 +453,78 @@ def test_duration_training_loss_through_the_kernels_matches_the_cpu(cuda_device)
     assert abs(lc - lg) <= 1e-4 * abs(lc)
     for name, g in gc.items():
         torch.testing.assert_close(gg[name], g, atol=2e-3, rtol=1e-3, msg=name)
+
+
+# --- the semantic stack ----------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(1, 512, 502), (24, 1365, 512), (512, 512, 1024),
+                                   (4, 512, 2730)])
+def test_k4_fp32_at_the_decode_shapes_matches_plain(cuda_device, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    lin = torch.nn.Linear(k, n, bias=False, device=cuda_device)
+    ql = QuantLinear(lin, "w8a16")
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    before = w8a16_matmul.launches
+    y = w8a16_matmul(x, ql.weight_q, ql.weight_scale)
+    ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
+    torch.cuda.synchronize()
+    assert w8a16_matmul.launches == before + 1
+    assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+def _t2s(device):
+    from voicebox_tpu_torch.models.text_to_semantic import TextToSemantic
+
+    torch.manual_seed(0)
+    t2s = TextToSemantic(dim=128, num_semantic_token_ids=50, source_depth=2, target_depth=2,
+                         heads=2, dim_head=64, device="cpu")
+    with torch.no_grad():
+        t2s.net.to_logits.weight[t2s.eos_id] *= 2.0
+    return t2s.to(device).eval()
+
+
+def test_text_to_semantic_card_matches_cpu(cuda_device):
+    """Teacher-forced logits within 1e-3; greedy, speculative and w8a16
+    decodes equal to the CPU's before the CPU's first top-2 logit gap under
+    1e-3, with the encoder's attention through K1 and w8a16 through K4."""
+    cpu, gpu = _t2s("cpu"), _t2s(cuda_device)
+    text = torch.tensor(cpu.tokenizer.texts_to_tensor_ids(["hello there", "a longer line"]))
+    sem = torch.randint(0, 50, (2, 30), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        before = flash_attention.launches
+        lg = gpu.net(text.to(cuda_device), sem.to(cuda_device)).cpu()
+        assert flash_attention.launches == before + 2
+        ref = cpu.net(text, sem)
+    assert (lg - ref).abs().max().item() <= 1e-3
+    for kw in ({}, {"spec_decode": True}, {"quantize": "w8a16"}):
+        r_tok, r_mask = cpu.generate(text, max_length=48, return_target_mask=True, **kw)
+        net = cpu._serving_net(kw.get("quantize"), None)
+        with torch.no_grad():
+            logits = net(text, r_tok)[:, :48]
+        logits[..., net.bos_id] = -1e9
+        top2 = logits.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) < 1e-3
+        first = [int(r.nonzero()[0]) if r.any() else 48 for r in tie]
+        before = w8a16_matmul.launches
+        tok, mask = gpu.generate(text.to(cuda_device), max_length=48, return_target_mask=True,
+                                 **kw)
+        assert (w8a16_matmul.launches > before) == ("quantize" in kw)
+        for row, t in enumerate(first):
+            assert torch.equal(tok[row, :t].cpu(), r_tok[row, :t]), (kw, row, t)
+            assert torch.equal(mask[row, :t].cpu(), r_mask[row, :t]), (kw, row, t)
+
+
+def test_hubert_card_matches_cpu(cuda_device):
+    from voicebox_tpu_torch.models.hubert import HubertWithKmeans
+
+    torch.manual_seed(0)
+    cpu = HubertWithKmeans(num_clusters=50, conv_dim=64, dim=128, depth=2, heads=2, ff_dim=256,
+                           conv_pos_kernel=16, conv_pos_groups=4)
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    wav = torch.randn(2, 8000, generator=torch.Generator().manual_seed(2))
+    f_cpu, f_gpu = cpu.features(wav), gpu.features(wav.to(cuda_device)).cpu()
+    assert (f_gpu - f_cpu).abs().max().item() <= 1e-3
+    d = ((f_cpu.double()[..., None, :] - cpu.cluster_centers.double()) ** 2).sum(-1)
+    d = d.sort(dim=-1).values
+    tie = (d[..., 1] - d[..., 0]) < 1e-3 * d[..., 1]
+    assert bool(((gpu(wav.to(cuda_device)).cpu() == cpu(wav)) | tie).all())

@@ -115,9 +115,10 @@ def test_generator_noise_is_reproducible_and_cond_is_padded():
 @pytest.mark.parametrize("kwargs", [{"texts": ["hello"]}, {"phoneme_ids": [[1, 2]]},
                                     {"cond": np.zeros((1, 320), np.float32)}])
 def test_unported_branches_raise(kwargs):
-    """Texts and phonemes without a predictor raise. A raw-audio cond no
-    longer does (the SEANet encoder is ported): it samples as its encoded
-    latents do."""
+    """Texts and phonemes without a predictor or a TextToSemantic raise. A
+    raw-audio cond no longer does (the SEANet encoder is ported): it samples
+    as its encoded latents do. A TextToSemantic is accepted now (the
+    semantic stack is ported); beside a DurationPredictor it raises."""
     cfm = _port_cfm(_jax_run()[0])
     if "cond" in kwargs:
         wave = torch.from_numpy(
@@ -131,8 +132,9 @@ def test_unported_branches_raise(kwargs):
     else:
         with pytest.raises(NotImplementedError):
             cfm.sample(**kwargs)
-    with pytest.raises(NotImplementedError):
-        ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object())
+    with pytest.raises(ValueError, match="not both"):
+        ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object(),
+                                      duration_predictor=object(), device="cpu")
 
 
 @pytest.mark.parametrize("method", ["midpoint", "euler", "rk4"])
@@ -187,4 +189,5 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 13"  # MelVoco and DurationPredictorTrainer joined
+    # HubertWithKmeans, TextToSemantic and TextToSemanticTrainer joined
+    assert proc.stdout.strip() == "ok 16"

@@ -243,8 +243,9 @@ def test_what_is_not_ported_raises():
     plain = ConditionalFlowMatcherWrapper(cfm.voicebox, device="cpu")
     with pytest.raises(ValueError, match="DurationPredictor"):
         TTSEngine(plain)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object(), device="cpu")
+    with pytest.raises(ValueError, match="not both"):  # semantic mode is ported now
+        ConditionalFlowMatcherWrapper(cfm.voicebox, text_to_semantic=object(),
+                                      duration_predictor=object(), device="cpu")
 
 
 @pytest.mark.parametrize("setting", [
@@ -252,9 +253,14 @@ def test_what_is_not_ported_raises():
     dict(long_window_frames=256), dict(long_overlap_frames=64),
 ])
 def test_unported_engine_settings_raise(setting):
-    """Semantic mode's and long-form sampling's settings raise when they
-    differ from their defaults, rather than being stored and ignored."""
+    """Long-form sampling's settings raise when they differ from their
+    defaults, rather than being stored and ignored. Semantic mode's are
+    ported now: they are kept for its decode (a duration-mode engine, as
+    the JAX package's, does not read them)."""
     _, cfm = _wrappers()
-    item = "item 11" if "semantic" in str(setting) or "spec" in str(setting) else "item 12"
-    with pytest.raises(NotImplementedError, match=item):
+    if "semantic" in str(setting) or "spec" in str(setting):
+        engine = TTSEngine(cfm, **ENGINE, **setting)
+        assert all(getattr(engine, k) == v for k, v in setting.items())
+        return
+    with pytest.raises(NotImplementedError, match="item 12"):
         TTSEngine(cfm, **ENGINE, **setting)

@@ -10,9 +10,12 @@ live parameters, the EMA, remat, reference-layout checkpoints,
 path (STFT, log-mel and resampling, `MelVoco`, the SEANet encoder and
 decoder behind `EncodecVoco.encode`), quantized duration-mode serving (the
 `DurationPredictor`'s inference, `TTSEngine`, `DynamicBatcher`,
-`sample(quantize=...)`) and duration-predictor training (the NS2 aligner,
+`sample(quantize=...)`), duration-predictor training (the NS2 aligner,
 monotonic alignment search, the forward-sum loss,
-`DurationPredictorTrainer`). On CUDA tensors every attention call runs K1
+`DurationPredictorTrainer`) and the semantic stack (`HubertWithKmeans`
+and k-means, `TextToSemantic` with its KV-cached, speculative and
+quantized decode, semantic-mode `sample(texts=)` and `TTSEngine`,
+`TextToSemanticTrainer`), and the GateLoop layer. On CUDA tensors every attention call runs K1
 forward and K2 + K3 backward, and every quantized "w8a16" matmul runs K4,
 the hand-written Hopper kernels in `csrc/`. Entry points run on the card
 unless the caller passes `device="cpu"`.
@@ -21,6 +24,8 @@ unless the caller passes `device="cpu"`.
 from .models.cfm import ConditionalFlowMatcherWrapper
 from .models.codec import EncodecVoco, MelVoco
 from .models.duration import DurationPredictor
+from .models.hubert import HubertWithKmeans
+from .models.text_to_semantic import TextToSemantic
 from .models.transformer import Transformer
 from .models.vocos import Vocos
 from .models.voicebox import VoiceBox
@@ -28,6 +33,7 @@ from .serving import DynamicBatcher, TTSEngine
 from .training.config import TrainConfig
 from .training.data import ArrayDataset
 from .training.duration_trainer import DurationPredictorTrainer
+from .training.seq2seq_trainer import TextToSemanticTrainer
 from .training.trainer import VoiceBoxTrainer
 
 __version__ = "0.1.0"
@@ -39,8 +45,11 @@ __all__ = [
     "DurationPredictorTrainer",
     "DynamicBatcher",
     "EncodecVoco",
+    "HubertWithKmeans",
     "MelVoco",
     "TTSEngine",
+    "TextToSemantic",
+    "TextToSemanticTrainer",
     "TrainConfig",
     "Transformer",
     "Vocos",

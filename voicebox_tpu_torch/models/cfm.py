@@ -19,8 +19,11 @@ on latents:
   `noise=` or from `generator=`. The conditioning ids are
   `semantic_token_ids`, or, with a `DurationPredictor` attached, phonemes
   (`phoneme_ids=` or `texts=`) aligned to the frame rate by the predicted
-  durations. Without text conditioning, `duration_seconds` sets the length:
-  of `batch_size` rows of zero cond, or of the given cond, cut or padded;
+  durations, or, with a `TextToSemantic` attached, semantic ids that it
+  generates from `texts=` / `text_token_ids=` (its mask becomes the
+  denoiser's attention mask and sets `return_lengths`). Without text
+  conditioning, `duration_seconds` sets the length: of `batch_size` rows of
+  zero cond, or of the given cond, cut or padded;
 * quantized serving: `sample(quantize="w8a16" | "int8",
   param_store_dtype=...)` samples through a copy of the denoiser whose
   parameters are cast first, then whose transformer matmuls are quantized
@@ -39,14 +42,19 @@ resampled from `input_sampling_rate` when it differs and encoded without
 gradient, `sample(cond=<wave>)` encodes its prompt, and the sampled latents
 decode back to audio through the same codec.
 
-The wrapper is an nn.Module holding `voicebox`, the frozen codec and the
-duration predictor, and it moves them to `device` when it is built: the
-card unless the caller asks for the CPU. Not ported yet: the TextToSemantic
-front end, long-form sampling.
+With a `TextToSemantic` attached, the loss takes semantic ids from raw
+audio when none are given: its `wav2vec` (HuBERT + k-means) reads `x1`
+resampled to its rate.
+
+The wrapper is an nn.Module holding `voicebox`, the frozen codec, the
+duration predictor or the TextToSemantic (with its wav2vec), and it moves
+them to `device` when it is built: the card unless the caller asks for the
+CPU. Not ported yet: long-form sampling.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Optional
 
@@ -106,14 +114,13 @@ class ConditionalFlowMatcherWrapper(nn.Module):
             ode_method = torchdiffeq_ode_method
         if use_torchode:
             ode_method = "tsit5_adaptive"
-        if text_to_semantic is not None:
-            raise NotImplementedError(
-                "the TextToSemantic front end is not ported yet (ROADMAP Queue 1, item "
-                "11); attach a DurationPredictor or pass semantic_token_ids to sample()"
-            )
+        if text_to_semantic is not None and not voicebox.condition_on_text:
+            raise ValueError("TextToSemantic should not be passed in if not conditioning on text")
+        if text_to_semantic is not None and duration_predictor is not None:
+            raise ValueError("use either TextToSemantic or DurationPredictor, not both")
         self.voicebox = voicebox
         self.codec = voicebox.audio_enc_dec  # registered: moves with .to()
-        self.text_to_semantic = None
+        self.text_to_semantic = text_to_semantic
         self.duration_predictor = duration_predictor
         self.sigma = sigma
         self.ode_method = ode_method
@@ -207,14 +214,16 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         raw audio (b, n) / (b, 1, n), conditioned on semantic or phoneme ids.
         Raw audio (`x1` or `cond`) is resampled from `input_sampling_rate`
         when it differs from the codec's and encoded by the frozen codec;
-        `mask` is then at the latent frame rate. `randomness` is
-        `generator=` or the draws themselves, as `loss_fn` takes them."""
+        `mask` is then at the latent frame rate. With a TextToSemantic
+        attached and no ids given, the ids come from raw `x1` through its
+        wav2vec. `randomness` is `generator=` or the draws themselves, as
+        `loss_fn` takes them."""
+        if (self.condition_on_text and self.text_to_semantic is not None
+                and semantic_token_ids is None and phoneme_ids is None):
+            semantic_token_ids = self._wav2vec_ids(x1, input_sampling_rate)
         x1, cond = self._encode_raw_audio(x1, cond, input_sampling_rate)
         if self.condition_on_text and (semantic_token_ids is None) == (phoneme_ids is None):
-            raise ValueError(
-                "pass one of semantic_token_ids or phoneme_ids (the text front ends "
-                "are not ported yet)"
-            )
+            raise ValueError("pass one of semantic_token_ids or phoneme_ids")
         if not self.condition_on_text and (semantic_token_ids is not None
                                            or phoneme_ids is not None):
             raise ValueError(
@@ -223,6 +232,32 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         cond_token_ids = semantic_token_ids if phoneme_ids is None else phoneme_ids
         return self.loss_fn(x1, mask=mask, cond_token_ids=cond_token_ids, cond=cond,
                             cond_mask=cond_mask, **randomness)
+
+    def _wav2vec_ids(self, x1, input_sampling_rate: Optional[int]) -> torch.Tensor:
+        """Semantic ids of raw audio x1 ((b, n) or (b, 1, n), at
+        `input_sampling_rate`, by default the codec's rate) through the
+        TextToSemantic's wav2vec, at its rate."""
+        if not is_probably_audio_from_shape(x1):
+            raise ValueError("semantic ids from a TextToSemantic's wav2vec need raw audio x1 "
+                             "(b, n); pass semantic_token_ids with latents")
+        wav2vec = self.text_to_semantic.wav2vec
+        codec = self.audio_enc_dec
+        sr = input_sampling_rate or (codec.sampling_rate if codec is not None
+                                     else wav2vec.target_sample_hz)
+        audio = x1.reshape(x1.shape[0], -1)
+        with torch.no_grad():
+            return wav2vec(resample(audio, sr, wav2vec.target_sample_hz))
+
+    def frames_per_semantic_token(self) -> float:
+        """Latent frames per semantic id: the wav2vec / codec rate ratio of
+        the sampler's length algebra, 1.0 when either is absent."""
+        codec = self.audio_enc_dec
+        t2s = self.text_to_semantic
+        if t2s is None or codec is None or t2s.wav2vec is None:
+            return 1.0
+        w2v = t2s.wav2vec
+        return (w2v.target_sample_hz / w2v.downsample_factor) / (
+            codec.sampling_rate / codec.downsample_factor)
 
     def _encode_raw_audio(self, x1, cond, input_sampling_rate: Optional[int] = None):
         """(x1, cond) with each raw-audio tensor ((b, n) or (b, 1, n)),
@@ -265,18 +300,23 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         return served
 
     @staticmethod
-    def _vector_field(vb, t, x, cond, cond_token_ids, cond_scale):
+    def _vector_field(vb, t, x, cond, cond_token_ids, cond_scale, self_attn_mask=None):
         b = x.shape[0]
         if cond_scale == 1.0:
             drop = torch.zeros(b, dtype=torch.bool, device=x.device)
-            out = vb(x, times=t, cond=cond, cond_token_ids=cond_token_ids, cond_drop_mask=drop)
+            out = vb(x, times=t, cond=cond, cond_token_ids=cond_token_ids, cond_drop_mask=drop,
+                     self_attn_mask=self_attn_mask)
             return out.to(x.dtype)
         # CFG: the conditioned half and the null half as one 2b forward
-        ids2 = None if cond_token_ids is None else torch.cat([cond_token_ids] * 2)
+
+        def twice(a):
+            return None if a is None else torch.cat([a, a])
+
         drop2 = torch.arange(2 * b, device=x.device) >= b
         out2 = vb(
             torch.cat([x, x]), times=t.reshape(1).expand(2 * b),
-            cond=torch.cat([cond, cond]), cond_token_ids=ids2, cond_drop_mask=drop2,
+            cond=torch.cat([cond, cond]), cond_token_ids=twice(cond_token_ids),
+            cond_drop_mask=drop2, self_attn_mask=twice(self_attn_mask),
         ).to(x.dtype)
         logits, null_logits = out2[:b], out2[b:]
         return null_logits + (logits - null_logits) * cond_scale
@@ -310,6 +350,9 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         steps: int = 3,
         cond_scale: float = 1.0,
         decode_to_audio: bool = True,
+        max_semantic_token_ids: int = 2048,
+        spec_decode: bool = False,
+        spec_decode_gamma: int = 5,
         return_lengths: bool = False,
         frame_length: Optional[int] = None,
         duration_seconds: Optional[float] = None,
@@ -326,14 +369,17 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         `noise` if given, else a standard normal draw from `generator`.
         `cond` is latents, or raw audio that the codec encodes.
 
-        Conditioning: `semantic_token_ids`, or with a duration predictor
+        Conditioning: `semantic_token_ids`; with a duration predictor
         `phoneme_ids` / `texts`, aligned at the predicted durations over
         `frame_length` frames (default: the longest row's span;
-        `duration_seconds` sets it). A `frame_length` that cuts a predicted
-        span warns. `ids_at_frame_rate` says the ids are already one per
-        latent frame; the JAX sampler reads it only to skip the TextToSemantic
-        front end's rate conversion, so here, with no such front end, it
-        changes nothing, as there without one.
+        `duration_seconds` sets it; a `frame_length` that cuts a predicted
+        span warns); with a TextToSemantic `texts` / `text_token_ids`, from
+        which it generates `max_semantic_token_ids` ids (speculatively with
+        `spec_decode`, `spec_decode_gamma` draft tokens a round), their mask
+        becoming the denoiser's attention mask. With a TextToSemantic, a
+        codec and `cond`, the cond's length follows the ids at the wav2vec /
+        codec rate ratio, unless `ids_at_frame_rate` says the ids are
+        already one per latent frame.
 
         Without text conditioning, `duration_seconds` is the length in
         seconds (a codec defines the frame rate): `cond` is cut or padded to
@@ -344,19 +390,24 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         cached cast and quantized copy of the denoiser. With
         `return_lengths` also returns per-sample valid lengths (samples of
         audio, or frames of latents): the masked duration sum, clamped to
-        the horizon, in the duration branch; the whole horizon otherwise."""
-        if text_token_ids is not None or (texts is not None and self.duration_predictor is None):
+        the horizon, in the duration branch; the generated ids' count (at
+        the rate ratio with a codec), clamped, in the TextToSemantic branch;
+        the whole horizon otherwise."""
+        t2s = self.text_to_semantic
+        if (texts is not None or text_token_ids is not None) and (
+                self.duration_predictor is None and t2s is None):
             raise NotImplementedError(
-                "sampling from text needs a DurationPredictor attached; the "
-                "TextToSemantic front end is not ported yet (ROADMAP Queue 1, item 11)"
-            )
+                "sampling from text needs a DurationPredictor or a TextToSemantic attached")
+        if text_token_ids is not None and t2s is None:
+            raise NotImplementedError("text_token_ids need a TextToSemantic attached; pass "
+                                      "phoneme_ids or texts to the duration branch")
         if phoneme_ids is not None and self.duration_predictor is None:
             raise NotImplementedError(
-                "phoneme_ids need a DurationPredictor attached (duration_predictor=); "
-                "the TextToSemantic front end is not ported yet (ROADMAP Queue 1, item 11)"
-            )
-        if sum(x is not None for x in (texts, semantic_token_ids, phoneme_ids)) > 1:
-            raise ValueError("pass one of texts, semantic_token_ids or phoneme_ids")
+                "phoneme_ids need a DurationPredictor attached (duration_predictor=)")
+        if sum(x is not None for x in (texts, text_token_ids, semantic_token_ids,
+                                       phoneme_ids)) > 1:
+            raise ValueError("pass one of texts, text_token_ids, semantic_token_ids or "
+                             "phoneme_ids")
         codec = self.audio_enc_dec
         vb = self.voicebox
         device = next(vb.parameters()).device
@@ -375,14 +426,21 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                 )
             want_frames = codec.frames_for_seconds(duration_seconds)
 
-        cond_token_ids, dp_frames = None, None
+        cond_token_ids, dp_frames, self_attn_mask = None, None, None
         if self.condition_on_text:
-            if semantic_token_ids is not None:
+            if semantic_token_ids is not None or t2s is not None:
                 if want_frames is not None:
                     raise ValueError(
                         "duration_seconds conflicts with semantic-token conditioning: "
                         "the latent length follows the token count"
                     )
+                if semantic_token_ids is None:
+                    if texts is None and text_token_ids is None:
+                        raise ValueError("pass texts, text_token_ids or semantic_token_ids")
+                    semantic_token_ids, self_attn_mask = t2s.generate(
+                        text_token_ids if text_token_ids is not None else texts,
+                        max_length=max_semantic_token_ids, return_target_mask=True,
+                        spec_decode=spec_decode, spec_decode_gamma=spec_decode_gamma)
                 cond_token_ids = torch.as_tensor(semantic_token_ids, device=device)
             elif self.duration_predictor is not None:
                 if want_frames is not None and frame_length is None:
@@ -396,6 +454,14 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                 )
             n_frames = cond_token_ids.shape[-1]
             if cond is not None:
+                if (t2s is not None and t2s.wav2vec is not None and codec is not None
+                        and not ids_at_frame_rate):
+                    # the wav2vec / codec sample-rate algebra, in the JAX
+                    # package's order of operations (ceil of an exact ratio)
+                    w2v = t2s.wav2vec
+                    n_frames = math.ceil((n_frames * w2v.target_sample_hz
+                                          / w2v.downsample_factor)
+                                         / (codec.sampling_rate / codec.downsample_factor))
                 cond = curtail_or_pad(cond, n_frames)
             else:
                 cond = torch.zeros(cond_token_ids.shape[0], n_frames, vb.latent_dim,
@@ -426,7 +492,8 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         served = self._serving_voicebox(quantize, param_store_dtype)
 
         def field(t, x):
-            return self._vector_field(served, t, x, cond, cond_token_ids, cond_scale)
+            return self._vector_field(served, t, x, cond, cond_token_ids, cond_scale,
+                                      self_attn_mask)
 
         if self.ode_method == "tsit5_adaptive":
             latents, self.ode_steps_taken = odeint_tsit5_adaptive(
@@ -451,7 +518,12 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         if not return_lengths:
             return out
         n_frames = cond.shape[1]
-        if dp_frames is not None:
+        if self_attn_mask is not None:
+            valid = self_attn_mask.sum(dim=-1)
+            if t2s is not None and codec is not None and t2s.wav2vec is not None:
+                valid = torch.ceil(valid * self.frames_per_semantic_token())
+            frames = valid.clamp(max=n_frames).to(torch.int32)
+        elif dp_frames is not None:
             frames = dp_frames.clamp(max=n_frames).to(torch.int32)
         else:
             frames = torch.full((out.shape[0],), n_frames, dtype=torch.int32, device=device)

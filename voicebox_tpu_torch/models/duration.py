@@ -117,6 +117,7 @@ class DurationPredictorNet(nn.Module):
         conv_pos_embed_groups: Optional[int] = None,
         attn_dropout: float = 0.0,
         attn_qk_norm: bool = True,
+        use_gateloop_layers: bool = False,
         p_drop_prob: float = 0.2,
         frac_lengths_mask=(0.1, 1.0),
         dtype=torch.float32,
@@ -135,7 +136,8 @@ class DurationPredictorNet(nn.Module):
                                             groups=conv_pos_embed_groups, **lin)
         self.transformer = Transformer(
             dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
-            attn_qk_norm=attn_qk_norm, attn_dropout=attn_dropout, ff_dropout=ff_dropout, **lin,
+            attn_qk_norm=attn_qk_norm, use_gateloop_layers=use_gateloop_layers,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout, **lin,
         )
         self.to_pred = nn.Sequential(Linear(dim, 1, **lin))
 

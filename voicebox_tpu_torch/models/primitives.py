@@ -12,9 +12,8 @@ norms, the rotary embedding, the time features and the adaptive-norm
 projections compute in fp32 whatever the model's dtype, as in the JAX
 package. The tanh GELU is the denoiser's (the vocoder uses the exact one).
 The norms' and the GEGLU's outputs carry the JAX package's remat tags
-("norm_out", "gelu_out"; `ops/remat.py`).
-
-`SimpleGateLoopLayer` is not ported yet.
+("norm_out", "gelu_out"; `ops/remat.py`). `SimpleGateLoopLayer` runs its
+recurrence through `ops/gateloop.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.gateloop import gated_linear_recurrence_log
 from ..ops.remat import checkpoint_name
 
 __all__ = [
@@ -42,11 +42,13 @@ __all__ = [
     "MultiheadRMSNorm",
     "GEGLU",
     "FeedForward",
+    "SimpleGateLoopLayer",
 ]
 
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(dtype)
+    # no call where nothing changes: a decode step makes hundreds of these
+    return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
 class Linear(nn.Linear):
@@ -60,7 +62,7 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return F.linear(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
 class Conv1d(nn.Conv1d):
@@ -212,6 +214,27 @@ class GEGLU(nn.Module):
         pitched = -(-n // self.row_pitch) * self.row_pitch
         out = x.new_empty(*x.shape[:-1], pitched)[..., :n]
         return torch.mul(F.gelu(gate, approximate="tanh"), x, out=out)
+
+
+class SimpleGateLoopLayer(nn.Module):
+    """GateLoop with head dim 1 (the JAX package's `SimpleGateLoopLayer`):
+    RMSNorm, one bias-free dim x 3 projection into (q, kv, g), the state
+    s_t = sigmoid(g_t) s_{t-1} + kv_t (`ops/gateloop.py`, fp32), q * s, then
+    a LayerNorm (eps 1e-6, flax's default) in fp32. The caller adds the
+    residual. (b, n, dim) -> (b, n, dim)."""
+
+    def __init__(self, dim: int, dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        self.norm = RMSNorm(dim)
+        self.to_qkva = Linear(dim, dim * 3, bias=False, dtype=dtype, param_dtype=param_dtype)
+        self.post_norm = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, kv, g = self.to_qkva(self.norm(x)).chunk(3, dim=-1)
+        state = gated_linear_recurrence_log(-F.softplus(-g.float()), kv, dim=1)
+        out = q * state
+        return F.layer_norm(out.float(), out.shape[-1:], self.post_norm.weight.float(),
+                            self.post_norm.bias.float(), self.post_norm.eps).to(x.dtype)
 
 
 def FeedForward(dim: int, mult: float = 4.0, dropout: float = 0.0,

@@ -7,7 +7,8 @@ unrolled loop. Module layout and state-dict keys are the reference's:
 attn, ff_prenorm, ff] (absent entries are None and hold no keys),
 `rotary_emb.inv_freq`, `final_norm.gamma`.
 
-Per block: [skip combine] -> prenorm attention + residual -> prenorm
+Per block: [skip combine] -> [GateLoop + residual, with
+`use_gateloop_layers`] -> prenorm attention + residual -> prenorm
 feed-forward + residual. Registers are prepended at rotary position -10000
 and are never masked. `VoiceBox` leaves the skip connections off; the flag
 is kept for checkpoints that carry `skip_combiner_{i}`.
@@ -28,7 +29,8 @@ from torch import nn
 
 from ..ops.remat import parse_policy, remat_call
 from .attention import Attention
-from .primitives import AdaptiveRMSNorm, FeedForward, Linear, RMSNorm, RotaryEmbedding
+from .primitives import (AdaptiveRMSNorm, FeedForward, Linear, RMSNorm, RotaryEmbedding,
+                         SimpleGateLoopLayer)
 
 __all__ = ["Transformer"]
 
@@ -46,6 +48,7 @@ class Transformer(nn.Module):
         adaptive_rmsnorm_cond_dim_in: Optional[int] = None,
         use_unet_skip_connection: bool = False,
         attn_qk_norm: bool = False,
+        use_gateloop_layers: bool = False,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
         remat: bool = False,
@@ -75,7 +78,8 @@ class Transformer(nn.Module):
             self.layers.append(nn.ModuleList([
                 Linear(dim * 2, dim, dtype=dtype, param_dtype=param_dtype)
                 if has_skip else None,
-                None,  # gateloop layer: not ported yet
+                SimpleGateLoopLayer(dim, dtype=dtype, param_dtype=param_dtype)
+                if use_gateloop_layers else None,
                 prenorm(),
                 Attention(dim, dim_head=dim_head, heads=heads, qk_norm=attn_qk_norm,
                           attn_dropout=attn_dropout, dtype=dtype, param_dtype=param_dtype),
@@ -87,7 +91,9 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(dim)
 
     def _block(self, layer, x, mask, rotary_emb, norm_cond, train, generator):
-        _, _, attn_prenorm, attn, ff_prenorm, ff = layer
+        _, gateloop, attn_prenorm, attn, ff_prenorm, ff = layer
+        if gateloop is not None:
+            x = gateloop(x) + x
         if self.adaptive:
             def norm(m, t):
                 return m(t, cond=norm_cond)

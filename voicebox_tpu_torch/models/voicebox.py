@@ -57,6 +57,7 @@ class VoiceBox(nn.Module):
         conv_pos_embed_groups: Optional[int] = None,
         attn_dropout: float = 0.0,
         attn_qk_norm: bool = True,
+        use_gateloop_layers: bool = False,
         num_register_tokens: int = 16,
         frac_lengths_mask: Tuple[float, float] = (0.7, 1.0),
         condition_on_text: bool = True,
@@ -106,8 +107,8 @@ class VoiceBox(nn.Module):
             dim=dim, depth=depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             num_register_tokens=num_register_tokens, adaptive_rmsnorm=True,
             adaptive_rmsnorm_cond_dim_in=time_hidden_dim, attn_qk_norm=attn_qk_norm,
-            attn_dropout=attn_dropout, ff_dropout=ff_dropout, remat=remat,
-            remat_policy=remat_policy, **lin,
+            use_gateloop_layers=use_gateloop_layers, attn_dropout=attn_dropout,
+            ff_dropout=ff_dropout, remat=remat, remat_policy=remat_policy, **lin,
         )
         self.to_pred = Linear(dim, self.latent_dim, bias=False, **lin)
 

@@ -33,7 +33,13 @@ the U-Net skip combiner when there is one (`DEFAULT_QUANT_LAYERS` in the
 JAX package's names). The modules are found by their place in the block,
 not by name: the port's feed-forward projections are `ff.0` and `ff.3`, and
 VoiceBox's own top-level `proj_in`, `to_embed`, `to_pred`, the
-adaptive-norm projections and the time MLP stay float.
+adaptive-norm projections and the time MLP stay float. In the
+TextToSemantic seq2seq (`quantize_seq2seq`, the JAX package's
+`SEQ2SEQ_QUANT_LAYERS` under `SEQ2SEQ_QUANT_SCOPE`) every matmul of the
+decoder blocks `dec_*` (self-attention `to_qkv`, `to_out`; cross-attention
+`to_q`, `to_kv`, `to_out`; feed-forward `proj_in`, `proj_out`) and the
+vocabulary head `to_logits` are quantized, and the text encoder stays
+float. The seq2seq computes in fp32, so "w8a16" runs fp32 K4 there.
 
 `cast_float_params` is the storage-dtype cast of `sample(param_store_dtype=)`:
 parameters only, never buffers (the rotary table stays fp32, as the JAX
@@ -64,8 +70,10 @@ __all__ = [
     "int8_matmul",
     "k4_tile",
     "quantize_kernel",
+    "quantize_seq2seq",
     "quantize_voicebox",
     "quantized_layer_names",
+    "seq2seq_quantized_layer_names",
     "w8a16_matmul",
     "w8a16_matmul_reference",
 ]
@@ -79,6 +87,12 @@ DEFAULT_QUANT_LAYERS = ("to_qkv", "to_out", "proj_in", "proj_out", "skip_combine
 SCOPE = "transformer"
 _BLOCK_PLACES = {"to_qkv": "3.to_qkv", "to_out": "3.to_out", "proj_in": "5.0",
                  "proj_out": "5.3", "skip_combiner": "0"}
+
+# the seq2seq's quantized layers, in the JAX package's names: in the decoder
+# blocks (`dec_*`) and the vocabulary head
+SEQ2SEQ_QUANT_LAYERS = ("to_qkv", "to_out", "to_q", "to_kv", "proj_in", "proj_out",
+                        "to_logits")
+SEQ2SEQ_QUANT_SCOPE = ("dec_", "to_logits")
 
 _K4 = "w8a16_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -336,6 +350,43 @@ def _share_parameters_copy(module: nn.Module) -> nn.Module:
     return copy.deepcopy(module, memo)
 
 
+def _replace_linears(module: nn.Module, names: List[str], mode: str) -> None:
+    for name in names:
+        parent_name, _, child = name.rpartition(".")
+        parent = module.get_submodule(parent_name) if parent_name else module
+        linear = parent[int(child)] if child.isdigit() else getattr(parent, child)
+        quant = QuantLinear(linear, mode)
+        if child.isdigit():
+            parent[int(child)] = quant
+        else:
+            setattr(parent, child, quant)
+
+
+def seq2seq_quantized_layer_names(net: nn.Module) -> List[str]:
+    """Module names of the seq2seq's Linears that `quantize_seq2seq`
+    replaces: those named in SEQ2SEQ_QUANT_LAYERS whose path holds one of
+    SEQ2SEQ_QUANT_SCOPE (the decoder blocks and the head)."""
+    return [name for name, m in net.named_modules()
+            if isinstance(m, nn.Linear) and name.rpartition(".")[2] in SEQ2SEQ_QUANT_LAYERS
+            and any(scope in part for part in name.split(".") for scope in SEQ2SEQ_QUANT_SCOPE)]
+
+
+def quantize_seq2seq(net: nn.Module, mode: str) -> nn.Module:
+    """A copy of a TextToSemantic `_Seq2Seq` whose decoder and head matmuls
+    (`seq2seq_quantized_layer_names`) are `QuantLinear`s; every other
+    parameter is shared and the caller's module is never changed. In
+    "w8a16" the decoder's GEGLUs write at a row pitch of 16 elements, as in
+    `quantize_voicebox`."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantize mode {mode!r} (use one of {QUANT_MODES})")
+    out = _share_parameters_copy(net)
+    if mode == "w8a16":
+        for block in out.blocks:
+            block.ff.act.row_pitch = _K_ALIGN
+    _replace_linears(out, seq2seq_quantized_layer_names(out), mode)
+    return out
+
+
 def quantize_voicebox(voicebox: nn.Module, mode: str) -> nn.Module:
     """A copy of `voicebox` whose in-scope Linears (`quantized_layer_names`)
     are `QuantLinear`s holding `weight_q`, `weight_scale` and the bias. The
@@ -350,15 +401,7 @@ def quantize_voicebox(voicebox: nn.Module, mode: str) -> nn.Module:
     if mode == "w8a16":
         for block in getattr(out, SCOPE).layers:
             block[5][1].row_pitch = _K_ALIGN  # ff = [proj_in, GEGLU, Dropout, proj_out]
-    for name in quantized_layer_names(out):
-        parent_name, _, child = name.rpartition(".")
-        parent = out.get_submodule(parent_name)
-        linear = parent[int(child)] if child.isdigit() else getattr(parent, child)
-        quant = QuantLinear(linear, mode)
-        if child.isdigit():
-            parent[int(child)] = quant
-        else:
-            setattr(parent, child, quant)
+    _replace_linears(out, quantized_layer_names(out), mode)
     return out
 
 

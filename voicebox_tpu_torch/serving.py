@@ -1,7 +1,12 @@
-"""Batched synthesis engine for serving, duration mode.
+"""Batched synthesis engine for serving: semantic mode and duration mode.
 
-Counterpart of `voicebox_tpu/serving.py` for a wrapper with a
-`DurationPredictor` attached: texts -> phoneme ids, padded onto a grid of
+Counterpart of `voicebox_tpu/serving.py`. Semantic mode (a `TextToSemantic`
+attached to the wrapper): texts -> the seq2seq's tokenizer's ids, padded
+onto a grid of (batch, text-length) buckets -> `max_semantic_token_ids`
+semantic ids from the seq2seq (speculative decode with `spec_decode`) ->
+one sampling call whose attention mask is the ids' mask -> audio, with
+lengths from that mask. Duration mode (a `DurationPredictor` attached):
+texts -> phoneme ids, padded onto a grid of
 (batch, text-length) buckets -> predicted durations (one predictor forward
 per bucket group, read back to the host) -> phoneme ids at the frame rate,
 aligned on the host at a frame horizon from a fixed grid (`frame_buckets`,
@@ -24,9 +29,7 @@ group (where the JAX engine splits its key).
 `DynamicBatcher` coalesces single requests from many threads into bucket
 groups on one worker thread.
 
-Not ported yet, and raising NotImplementedError: semantic mode (the
-TextToSemantic pipeline, ROADMAP Queue 1 item 11; `max_semantic_token_ids`
-and `spec_decode` other than their defaults), texts longer than the
+Not ported yet, and raising NotImplementedError: texts longer than the
 largest text bucket and `long_window_frames` / `long_overlap_frames` other
 than their defaults (long-form windowed sampling, item 12), voice cloning
 (`clone`, `clone_stream`, `DynamicBatcher.submit_clone`, which ride the
@@ -102,25 +105,20 @@ class TTSEngine:
                 "prompt_seconds_buckets buckets the raw-audio prompts of voice "
                 "cloning, which is not ported yet (ROADMAP Queue 1, item 12)"
             )
-        if max_semantic_token_ids != 1024 or not spec_decode:
-            raise NotImplementedError(
-                "max_semantic_token_ids and spec_decode set semantic mode's seq2seq "
-                "decode (the TextToSemantic pipeline), not ported yet (ROADMAP Queue 1, "
-                "item 11)"
-            )
         if (long_window_frames, long_overlap_frames) != (768, 128):
             raise NotImplementedError(
                 "long_window_frames and long_overlap_frames set long-form windowed "
                 "sampling (sample_long_stream), not ported yet (ROADMAP Queue 1, item 12)"
             )
-        if getattr(cfm_wrapper, "duration_predictor", None) is None:
+        if cfm_wrapper.text_to_semantic is None and cfm_wrapper.duration_predictor is None:
             raise ValueError(
-                "TTSEngine needs a conditioning pipeline: attach a DurationPredictor to "
-                "the wrapper (semantic mode, the TextToSemantic pipeline, is not ported "
-                "yet: ROADMAP Queue 1, item 11)"
+                "TTSEngine needs a conditioning pipeline: attach a TextToSemantic "
+                "(text -> semantic) or a DurationPredictor to the wrapper"
             )
         self.wrapper = cfm_wrapper
-        self.mode = "duration"
+        self.mode = "semantic" if cfm_wrapper.text_to_semantic is not None else "duration"
+        self.max_semantic_token_ids = max_semantic_token_ids
+        self.spec_decode = spec_decode
         self.device = next(cfm_wrapper.voicebox.parameters()).device
         self.text_buckets = tuple(sorted(text_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
@@ -147,6 +145,8 @@ class TTSEngine:
         return self.decode_to_audio and self.wrapper.voicebox.audio_enc_dec is not None
 
     def _tokenizer(self):
+        if self.mode == "semantic":
+            return self.wrapper.text_to_semantic.tokenizer
         return self.wrapper.duration_predictor.tokenizer
 
     @staticmethod
@@ -163,6 +163,29 @@ class TTSEngine:
         n = min(ids.shape[1], length)
         out[:b, :n] = ids[:b, :n]
         return out
+
+    def _sample_kwargs(self, ids: np.ndarray) -> dict:
+        """Semantic mode's conditioning keywords of `wrapper.sample`."""
+        return {"text_token_ids": torch.from_numpy(ids).long(),
+                "max_semantic_token_ids": self.max_semantic_token_ids,
+                "spec_decode": self.spec_decode}
+
+    def _semantic_sample(self, ids: np.ndarray, generator: Optional[torch.Generator]):
+        """One semantic-mode bucket group: generate the ids, sample under
+        their mask. Returns (output tensor on the device, per-row lengths as
+        numpy int64)."""
+        out, lens = self.wrapper.sample(
+            **self._sample_kwargs(ids), steps=self.steps, cond_scale=self.cond_scale,
+            decode_to_audio=self.decode_to_audio, return_lengths=True,
+            quantize=self.quantize, param_store_dtype=self.param_store_dtype,
+            generator=generator,
+        )
+        return out, lens.cpu().numpy().astype(np.int64)
+
+    def _group_sample(self, ids: np.ndarray, generator: Optional[torch.Generator]):
+        if self.mode == "semantic":
+            return self._semantic_sample(ids, generator)
+        return self._duration_sample(ids, generator)
 
     def _predict_durations(self, ids: np.ndarray) -> np.ndarray:
         """(batch, length) bucket-padded phoneme ids -> integer frames per
@@ -260,7 +283,7 @@ class TTSEngine:
             chunk = ids_all[start : start + max_batch]
             ids = self._pad_ids(chunk, self._bucket(chunk.shape[0], self.batch_buckets), length)
             chunk_gen = None if generator is None else split_generator(generator, self.device)
-            out, out_lens = self._duration_sample(ids, chunk_gen)
+            out, out_lens = self._group_sample(ids, chunk_gen)
             results += [(out[j : j + 1], int(out_lens[j])) for j in range(chunk.shape[0])]
 
         if trim:
@@ -308,10 +331,10 @@ class TTSEngine:
             for length in self.text_buckets:
                 ids = self._pad_ids(self._tokenizer().texts_to_tensor_ids(["a"] * batch),
                                     batch, length)
-                self._duration_sample(ids, None)
+                self._group_sample(ids, None)
                 if verbose:
                     print(f"warm bucket batch={batch} len={length}", flush=True)
-        if self.warm_overflow_buckets:
+        if self.mode == "duration" and self.warm_overflow_buckets:
             covered = {self._bucket(n * self.frames_per_token, self.frame_buckets)
                        for n in self.text_buckets}
             for batch in self.batch_buckets:

@@ -12,6 +12,16 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
   `export_duration_predictor_torch` (the net, without the aligner);
 * `aligner_state_dict`: the duration predictor's training-only aligner,
   under the JAX parameter names (`key_conv1`, ..., `query_conv3`);
+* `hubert_state_dict`: `HubertWithKmeans` params -> `transformers`'
+  `HubertModel` keys (the positional conv as the weight-norm
+  parametrization's g and v), plus the k-means centres as
+  `cluster_centers`; `load_hubert_state_dict` loads an upstream state dict
+  (`transformers` with either weight-norm spelling, fairseq, under an
+  optional `hubert.` / `wav2vec2.` prefix) into the port's
+  `HubertWithKmeans`, the counterpart of `load_hubert_torch`;
+* `text_to_semantic_state_dict`: `TextToSemantic` params -> the port's
+  keys (`net.` + the encoder's reference keys and the decoder's JAX
+  names);
 * `vocos_state_dict`: the upstream Vocos layout;
 * `seanet_encoder_state_dict`, `seanet_decoder_state_dict`,
   `encodec_model_state_dict`: upstream facebook/encodec's layout, the
@@ -68,6 +78,9 @@ __all__ = [
     "voicebox_state_dict",
     "vocos_state_dict",
     "encodec_voco_state_dict",
+    "hubert_state_dict",
+    "load_hubert_state_dict",
+    "text_to_semantic_state_dict",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -141,7 +154,11 @@ def transformer_state_dict(tree: Mapping, prefix: str = "",
         if f"skip_combiner_{i}" in tree:
             _dense(out, f"{lp}.0", tree[f"skip_combiner_{i}"])
         block = tree[f"block_{i}"]
-        assert "gateloop" not in block, "gateloop layers are not ported yet"
+        if "gateloop" in block:
+            gl = block["gateloop"]
+            out[f"{lp}.1.norm.gamma"] = _t(gl["norm"]["gamma"])
+            _dense(out, f"{lp}.1.to_qkva", gl["to_qkva"], bias=False)
+            _layer_norm(out, f"{lp}.1.post_norm", gl["post_norm"])
         prenorm(f"{lp}.2", block["attn_prenorm"])
         if "q_norm" in block["attn"] and dim_head is None:
             dim_head = int(np.asarray(block["attn"]["q_norm"]["gamma"]).shape[-1])
@@ -317,6 +334,143 @@ def aligner_state_dict(tree: Mapping) -> StateDict:
     out: StateDict = {}
     for name in ("key_conv1", "key_conv2", "query_conv1", "query_conv2", "query_conv3"):
         _conv(out, name, tree[name])
+    return out
+
+
+def hubert_state_dict(params: Mapping) -> StateDict:
+    """JAX `HubertWithKmeans.params` -> `transformers` `HubertModel` keys and
+    `cluster_centers`. The positional conv's fused kernel becomes
+    `parametrizations.weight.original0` (g = ||w|| over the output and input
+    axes, one per tap) and `original1` (v = w), so g v / ||v|| gives w back."""
+    out: StateDict = {}
+    fe = params["feature_extractor"]
+    i = 0
+    while f"conv_{i}" in fe:
+        _conv(out, f"feature_extractor.conv_layers.{i}.conv", fe[f"conv_{i}"])
+        if f"layer_norm_{i}" in fe:
+            _layer_norm(out, f"feature_extractor.conv_layers.{i}.layer_norm",
+                        fe[f"layer_norm_{i}"])
+        i += 1
+    if "group_norm" in fe:
+        _layer_norm(out, "feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+    if "proj_norm" in params:
+        _layer_norm(out, "feature_projection.layer_norm", params["proj_norm"])
+    _dense(out, "feature_projection.projection", params["proj"])
+    enc = params["encoder"]
+    w = np.transpose(np.asarray(enc["pos_conv"]["kernel"], np.float32), (2, 1, 0))
+    pos = "encoder.pos_conv_embed.conv"
+    out[f"{pos}.parametrizations.weight.original0"] = _t(
+        np.sqrt((w.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True)))
+    out[f"{pos}.parametrizations.weight.original1"] = _t(w)
+    out[f"{pos}.bias"] = _t(enc["pos_conv"]["bias"])
+    if "pre_norm" in enc:
+        _layer_norm(out, "encoder.layer_norm", enc["pre_norm"])
+    i = 0
+    while f"layer_{i}" in enc:
+        blk, lp = enc[f"layer_{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, f"{lp}.attention.{name}", blk[name])
+        _layer_norm(out, f"{lp}.layer_norm", blk["attn_norm"])
+        _dense(out, f"{lp}.feed_forward.intermediate_dense", blk["fc1"])
+        _dense(out, f"{lp}.feed_forward.output_dense", blk["fc2"])
+        _layer_norm(out, f"{lp}.final_layer_norm", blk["final_norm"])
+        i += 1
+    if "kmeans" in params:
+        out["cluster_centers"] = _t(params["kmeans"])
+    return out
+
+
+# fairseq and older transformers names -> the port's (transformers') names
+_HUBERT_RENAMES = (
+    (r"^feature_extractor\.conv_layers\.(\d+)\.0\.", r"feature_extractor.conv_layers.\1.conv."),
+    (r"^feature_extractor\.conv_layers\.0\.2\.", "feature_extractor.conv_layers.0.layer_norm."),
+    (r"^feature_extractor\.conv_layers\.(\d+)\.2\.1\.",
+     r"feature_extractor.conv_layers.\1.layer_norm."),
+    (r"^layer_norm\.", "feature_projection.layer_norm."),
+    (r"^post_extract_proj\.", "feature_projection.projection."),
+    (r"^encoder\.pos_conv\.0\.", "encoder.pos_conv_embed.conv."),
+    (r"\.self_attn\.", ".attention."),
+    (r"\.self_attn_layer_norm\.", ".layer_norm."),
+    (r"\.fc1\.", ".feed_forward.intermediate_dense."),
+    (r"\.fc2\.", ".feed_forward.output_dense."),
+    (r"\.weight_g$", ".parametrizations.weight.original0"),
+    (r"\.weight_v$", ".parametrizations.weight.original1"),
+)
+
+
+def load_hubert_state_dict(sd: Mapping, model) -> None:
+    """Load an upstream HuBERT / wav2vec2 state dict into the port's
+    `HubertWithKmeans` (`models/hubert.py`), in place: `transformers`
+    `HubertModel` / `Wav2Vec2Model` keys (old `weight_g` / `weight_v` or new
+    `parametrizations` weight norm; a plain fused `weight` of the positional
+    conv is split into g and v), fairseq's names, either under a `hubert.`
+    or `wav2vec2.` prefix. Tensors the model does not hold (blocks past
+    `output_layer`, the masked-frame embedding) are skipped, as are
+    extractor and projection tensors the file lacks; an encoder block that
+    finds no tensors raises, rather than leaving a partial port. A
+    `cluster_centers` entry replaces the k-means centres."""
+    import re
+
+    norm = {}
+    for key, value in sd.items():
+        for prefix in ("hubert.", "wav2vec2."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+        for pattern, repl in _HUBERT_RENAMES:
+            key = re.sub(pattern, repl, key)
+        norm[key] = torch.as_tensor(np.asarray(value, dtype=np.float32))
+    pos = "encoder.pos_conv_embed.conv"
+    if f"{pos}.weight" in norm:  # fused: split into g and v
+        w = norm.pop(f"{pos}.weight")
+        norm[f"{pos}.parametrizations.weight.original0"] = w.double().square().sum(
+            dim=(0, 1), keepdim=True).sqrt().float()
+        norm[f"{pos}.parametrizations.weight.original1"] = w
+    own = model.state_dict()
+    for i in range(len(model.encoder.layers)):
+        lp = f"encoder.layers.{i}."
+        missing = [k for k in own if k.startswith(lp) and k not in norm]
+        if missing:
+            raise KeyError(f"hubert port: no weights for encoder layer {i} ({missing[0]}, ...) "
+                           f"of {len(model.encoder.layers)}: refusing a partial port")
+    with torch.no_grad():
+        for key, value in norm.items():
+            if key not in own:
+                continue
+            if key == "cluster_centers":
+                model.cluster_centers = value.to(own[key].device)
+                model.num_clusters = model.codebook_size = int(value.shape[0])
+                continue
+            if tuple(value.shape) != tuple(own[key].shape):
+                raise ValueError(f"hubert port: {key} is {tuple(value.shape)} in the file, "
+                                 f"{tuple(own[key].shape)} in the model")
+            own[key].copy_(value)
+
+
+def text_to_semantic_state_dict(params: Mapping, dim_head: int = 64) -> StateDict:
+    """JAX `TextToSemantic.params` -> the port's `TextToSemantic` keys: the
+    encoder at the `Transformer`'s reference keys, the decoder blocks
+    `dec_{i}` and the rest under the JAX names, and the decoder's rotary
+    table (`rotary_emb.inv_freq`, as the exporter makes it)."""
+    prefix = "net."
+    out: StateDict = {f"{prefix}text_embed.weight": _t(params["text_embed"]["embedding"]),
+                      f"{prefix}sem_embed.weight": _t(params["sem_embed"]["embedding"])}
+    out.update(transformer_state_dict(params["encoder"], prefix=f"{prefix}encoder.",
+                                      dim_head=dim_head))
+    i = 0
+    while f"dec_{i}" in params:
+        blk, bp = params[f"dec_{i}"], f"{prefix}dec_{i}"
+        for norm in ("self_norm", "cross_norm", "ff_norm"):
+            out[f"{bp}.{norm}.gamma"] = _t(blk[norm]["gamma"])
+        for name in ("to_qkv", "to_out"):
+            _dense(out, f"{bp}.self_attn.{name}", blk["self_attn"][name], bias=False)
+        for name in ("to_q", "to_kv", "to_out"):
+            _dense(out, f"{bp}.cross_attn.{name}", blk["cross_attn"][name], bias=False)
+        _dense(out, f"{bp}.ff.proj_in", blk["ff"]["proj_in"])
+        _dense(out, f"{bp}.ff.proj_out", blk["ff"]["proj_out"])
+        i += 1
+    out[f"{prefix}final_norm.gamma"] = _t(params["final_norm"]["gamma"])
+    _dense(out, f"{prefix}to_logits", params["to_logits"], bias=False)
+    out[f"{prefix}rotary_emb.inv_freq"] = _t(rotary_inv_freq(dim_head))
     return out
 
 
