@@ -42,14 +42,18 @@ imports nothing of JAX. Its phases print one line each or more:
    height, 64 owned rows a block);
 5. K4 check: K4 against its plain version at the flagship's four quantized
    (k, n) with the engine's m = 544, 2112 and 8320 rows, m = 1532 and the
-   ragged m = 37 and 1, in bf16 and fp32, bf16 at every tile `k4_tile`
-   can pick; x as the engine hands it over (rows at the GEGLU's pitch of
+   ragged m = 37 and 1, in bf16 and fp32, at every tile (bf16) or route
+   (fp32: the GEMV's 8x16, 8x8, 8x4 and the 64x64 tiles) the C entry point
+   takes; x as the engine hands it over (rows at the GEGLU's pitch of
    1376 at k = 1365) at the front of a buffer that is NaN in the pitch and
    past its end, and a contiguous (1, 1365) x; n = 2730 (y's rows off 16
    bytes); a second launch must give the same bits; CUDA-event times of
    K4 at the host's tile and at each tile, the plain version, cuBLAS on the
    weight dequantized to bf16 ahead of time and, where it runs on CUDA,
-   `torch._weight_int8pack_mm`, with K4's share of its bound;
+   `torch._weight_int8pack_mm`, with K4's share of its bound; then fp32 K4
+   at the seq2seq decode's shapes at every route, the chosen one timed
+   beside cuBLAS fp32 and every route in turns, and the GEMV route against
+   the tiled one at m = 32-256 (`phase_k4_decode_check`);
 6. slice, card vs CPU: a small fp32 configuration sampled on the card (K1)
    and on the CPU (the plain version) from the same weights and noise;
    latents, RVQ codes and audio compared; then the same sampled with
@@ -144,7 +148,8 @@ imports nothing of JAX. Its phases print one line each or more:
    (gamma 5, 3 draft layers; equal before the first near tie) with ms and
    kernels per token and the acceptance, and `quantize="w8a16"` (fp32 K4 on
    every decoder matmul) at batch 1 over 128 ids and batch 4 speculative
-   over 64; semantic-mode
+   over 64, its ms, kernels, device busy and K4 device ms a token beside
+   the float decode's, and K4's launch-weighted ms a launch; semantic-mode
    `TTSEngine` (text buckets 32/64/128, batch buckets 1/2/4, 1024 ids,
    `spec_decode`, the flagship bf16 denoiser with w8a16, EncodecVoco):
    warmup, one request each at batch 1 and 2, four batcher submits, each
@@ -203,6 +208,7 @@ from voicebox_tpu_torch.ops.flash_attention import (
     reference_attention_backward,
 )
 from voicebox_tpu_torch.ops.quant import (
+    K4_GEMV_ROWS,
     K4_TILES,
     QuantLinear,
     _launch_k4,
@@ -494,25 +500,31 @@ def phase_build() -> None:
             f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
                    if fn.split()[:2] in (["k2", "f32"], ["k3", "f32"])}
             assert len(f32) == 4 and not any(f32.values()), f"fp32 K2/K3 spills: {f32}"
+        if name == "w8a16_matmul":  # fp32 K4's GEMV: its sums and weights stay in registers
+            gemv = [(_spill_bytes(lines), _stack_bytes(lines)) for fn, lines in ptxas.items()
+                    if fn == "k4 f32 gemv"]
+            assert gemv == [(0, 0)], f"fp32 K4 GEMV (spill, stack frame) bytes: {gemv}"
     log("build", f"nvcc {' '.join(kernels.NVCC_FLAGS)}: {len(sources)} sources in "
                  f"{dt:.2f} s, built in parallel")
 
 
 _KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_(bf16|f32)ILi(\d+)E(?:Li(\d+)E)?")
 _KERNEL_TAG = {"fwd": "k1", "bwd_dq": "k2", "bwd_dkv": "k3"}
-_K4_KERNEL = re.compile(r"w8a16_(bf16|f32)(?:ILi(\d+)ELi(\d+)E)?")
+_K4_KERNEL = re.compile(r"w8a16_(bf16|f32_gemv|f32)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 
 def _instance(mangled: str):
     """`k2 bf16 d=128 rows=128` from a mangled K1, K2 or K3 instantiation
     (rows: those a block owns), `k4 bf16 channels=128 rows=256` from a K4
-    one (its tile of y), or None."""
+    one (its tile of y), `k4 f32 gemv` from the GEMV route's, or None."""
     m = _KERNEL.search(mangled)
     if m is None:
         m = _K4_KERNEL.search(mangled)
         if m is None:
             return None
         kind, wgs, rows = m.groups()
+        if kind == "f32_gemv":
+            return "k4 f32 gemv"
         return f"k4 {kind} channels={64 * int(wgs or 1)} rows={rows or 64}"
     which, kind, d, tile = m.groups()
     kernel = _KERNEL_TAG[which]
@@ -536,6 +548,11 @@ def _spill_bytes(lines) -> int:
     """Spill stores plus loads, in bytes, from ptxas's lines of one kernel."""
     return sum(int(a) + int(b) for line in lines
                for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line))
+
+
+def _stack_bytes(lines) -> int:
+    """Stack frame bytes (local arrays not held in registers) of one kernel."""
+    return sum(int(a) for line in lines for a in re.findall(r"(\d+) bytes stack frame", line))
 
 
 def _sass_counts(lib) -> tuple:
@@ -905,7 +922,10 @@ def phase_k4_host_time(rounds: int = 5) -> None:
     """Host microseconds of one K4 call at the engine's batch-1 to_out shape
     (544, 512, 512), in turns: `w8a16_matmul` (what `QuantLinear` calls),
     `_launch_k4` on bf16 operands (which encodes two tensor maps) and on fp32
-    copies of them (the same host path, no tensor map); and the feed-forward's
+    copies of them (the same host path, no tensor map); at the decode's
+    (1, 512, 512) `_launch_k4` and `w8a16_matmul` on fp32 (the GEMV route)
+    beside `F.linear` on the dequantized weight (what the float decode
+    calls); and the feed-forward's
     GEGLU at batch 1 (2 x 272 tokens, 2 x 1365 wide) at the w8a16 copy's row
     pitch of 16 beside the contiguous one."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
@@ -913,12 +933,16 @@ def phase_k4_host_time(rounds: int = 5) -> None:
     x2, ldx = _x_rows(x)
     xf = x2.float()
     w, sc = ql.weight_q, ql.weight_scale
+    w_deq = w[:512, :512].float() * sc[:, None]
     h = torch.randn(2, 272, 2730, generator=gen, device="cuda").to(torch.bfloat16)
     pitched, plain = GEGLU(row_pitch=16), GEGLU()
     calls = {
         "w8a16_matmul bf16": lambda: w8a16_matmul(x, w, sc),
         "_launch_k4 bf16 (2 tensor maps encoded)": lambda: _launch_k4(x2, ldx, w, sc),
         "_launch_k4 fp32 (no tensor map)": lambda: _launch_k4(xf, 512, w, sc),
+        "_launch_k4 fp32 (1, 512, 512) GEMV": lambda: _launch_k4(xf[:1], 512, w, sc),
+        "w8a16_matmul fp32 (1, 512, 512) GEMV": lambda: w8a16_matmul(xf[:1], w, sc),
+        "F.linear fp32 (1, 512, 512) (cuBLAS)": lambda: F.linear(xf[:1], w_deq),
         "GEGLU pitched": lambda: pitched(h),
         "GEGLU contiguous": lambda: plain(h),
     }
@@ -935,8 +959,8 @@ def phase_k4_host_time(rounds: int = 5) -> None:
 def phase_k4_check(smi: str) -> dict:
     """K4 against its plain version: every (k, n) of K4_SHAPES at every m of
     K4_ROWS and K4_RAGGED_ROWS, bf16 and fp32, x pitched (k = 1365) and
-    NaN past its end, bf16 at every tile the C entry point takes; a second
-    launch must give the same bits. A contiguous (1, 1365) x and, in fp32,
+    NaN past its end, at every tile (bf16) or route (fp32) the C entry
+    point takes; a second launch must give the same bits. A contiguous (1, 1365) x and, in fp32,
     a contiguous (37, 1365) one. Times at the bf16 shapes of K4_ROWS: K4 at
     the host's tile, the plain version, cuBLAS on the weight dequantized to
     bf16 ahead of time, `_weight_int8pack_mm` where it runs, and K4 at each
@@ -954,7 +978,7 @@ def phase_k4_check(smi: str) -> dict:
         ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale).float()
         rtol, atol = K4_TOL[dtype]
         peak = ref.abs().max().item()
-        chosen = k4_tile(m, n, dtype, sms)
+        chosen = k4_tile(m, k, n, dtype, sms)
         errs, ok = {}, True
         for tile in K4_TILES[dtype]:
             call = _k4_call(x, ql, None if tile == chosen else tile)
@@ -1024,44 +1048,72 @@ K4_DECODE_SHAPES = {"dec_to_qkv": (512, 1536), "dec_to_out": (512, 512),
                     "to_logits": (512, 502)}
 K4_DECODE_ROWS = (1, 4, 24)
 K4_DECODE_KV = ("dec_to_kv", (512, 1024), (32, 512))
+# m past the GEMV route's rows of one stage, where it meets the tiled route
+K4_CROSSOVER_ROWS = (32, 64, 128, 192, 256)
 
 
 def phase_k4_decode_check(smi: str) -> dict:
-    """fp32 K4 at the quantized decode's shapes against its plain version (x
-    at the GEGLU's pitch, NaN past it; a second launch bit-identical), timed
-    in turns beside the plain version and cuBLAS fp32 (TF32 off) on the
-    weight dequantized ahead of time, with its bound."""
+    """fp32 K4 at the quantized decode's shapes against its plain version at
+    every route the C entry point takes (x at the GEGLU's pitch, NaN past
+    it; a second launch bit-identical), timed at the host's route in turns
+    beside the plain version and cuBLAS fp32 (TF32 off) on the weight
+    dequantized ahead of time, with its bound, and every route in turns;
+    then the GEMV route the host picks against the tiled one at m around
+    K4_GEMV_ROWS."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(name, m, kn) for name, kn in K4_DECODE_SHAPES.items() for m in K4_DECODE_ROWS]
     cases += [(K4_DECODE_KV[0], m, K4_DECODE_KV[1]) for m in K4_DECODE_KV[2]]
     rtol, atol = K4_TOL[torch.float32]
+    routes = K4_TILES[torch.float32]
     results = {}
     for name, m, (k, n) in cases:
         x, ql = _k4_operands(m, k, n, torch.float32, gen)
         ref = w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale)
-        call = _k4_call(x, ql)
-        y, again = call(), call()
-        torch.cuda.synchronize()
-        err = (y - ref).abs()
-        ok = (bool(torch.isfinite(y).all()) and torch.equal(y, again)
-              and bool((err <= rtol * ref.abs() + atol * ref.abs().max()).all()))
-        assert ok, f"fp32 K4 disagrees with the plain version on {name} m={m}"
+        chosen = k4_tile(m, k, n, torch.float32, sms)
+        errs = {}
+        for tile in routes:
+            call = _k4_call(x, ql, None if tile == chosen else tile)
+            y, again = call(), call()
+            torch.cuda.synchronize()
+            err = (y - ref).abs()
+            errs[tile] = err.max().item()
+            ok = (bool(torch.isfinite(y).all()) and torch.equal(y, again)
+                  and bool((err <= rtol * ref.abs() + atol * ref.abs().max()).all()))
+            assert ok, f"fp32 K4 disagrees with the plain version on {name} m={m} at {tile}"
         w_deq = ql.weight_q[:n, :k].float() * ql.weight_scale[:, None]
         t = in_turns({"plain": lambda: w8a16_matmul_reference(x, ql.weight_q, ql.weight_scale),
-                      "k4": call, "cublas": lambda: F.linear(x, w_deq)})
+                      "k4": _k4_call(x, ql), "cublas": lambda: F.linear(x, w_deq)})
+        by_route = in_turns({tile: _k4_call(x, ql, tile) for tile in routes})
         bound_ms, bound_by = k4_bound(m, k, n, torch.float32)
         results[(m, k, n)] = dict(
             shape=(m, k, n), dtype=torch.float32, ms=t["k4"], plain_ms=t["plain"],
             library_ms=t["cublas"], bound_ms=bound_ms, bound_by=bound_by,
-            max_abs_err=err.max().item(), share_of_bound=bound_ms / t["k4"],
-            vs_library=t["k4"] / t["cublas"])
-        log("k4", f"decode {name} (m, k, n) = ({m}, {k}, {n}) fp32, x rows {x.stride(0)} apart: "
-                  f"max_abs_err {err.max().item():.3e} (tol rtol {rtol:g} + atol {atol:g} x "
-                  f"max|plain|), second launch bit-identical; K4 {t['k4']:.4f} ms "
-                  f"({bound_ms / t['k4']:.1%} of the bound {bound_ms:.4f} ms, {bound_by}; "
-                  f"{t['k4'] / t['cublas']:.2f}x cuBLAS fp32), plain {t['plain']:.4f} ms, "
-                  f"cuBLAS fp32 on the dequantized weight {t['cublas']:.4f} ms (CUDA events, "
-                  f"mean of 2 x 20, in turns) on {smi}")
+            max_abs_err=errs[chosen], tile=list(chosen), share_of_bound=bound_ms / t["k4"],
+            vs_library=t["k4"] / t["cublas"],
+            tile_ms={f"{r}x{c}": ms for (r, c), ms in by_route.items()})
+        log("k4", f"decode {name} (m, k, n) = ({m}, {k}, {n}) fp32, x rows {x.stride(0)} apart, "
+                  f"NaN past them: max_abs_err by route (rows x channels) "
+                  + ", ".join(f"{r}x{c} {e:.3e}" + (" <- chosen" if (r, c) == chosen else "")
+                              for (r, c), e in errs.items())
+                  + f" (tol rtol {rtol:g} + atol {atol:g} x max|plain|), second launches "
+                    f"bit-identical; K4 {t['k4']:.4f} ms at {chosen[0]}x{chosen[1]} "
+                    f"({bound_ms / t['k4']:.1%} of the bound {bound_ms:.4f} ms, {bound_by}; "
+                    f"{t['k4'] / t['cublas']:.2f}x cuBLAS fp32), plain {t['plain']:.4f} ms, "
+                    f"cuBLAS fp32 on the dequantized weight {t['cublas']:.4f} ms; by route "
+                  + ", ".join(f"{r}x{c} {ms:.4f}" for (r, c), ms in by_route.items())
+                  + f" ms (CUDA events, mean of 2 x 20, in turns) on {smi}")
+    for name in ("dec_to_qkv", "dec_to_out", "dec_ff_proj_out"):
+        k, n = K4_DECODE_SHAPES[name]
+        line = []
+        for m in K4_CROSSOVER_ROWS:
+            x, ql = _k4_operands(m, k, n, torch.float32, gen)
+            gemv = k4_tile(min(m, K4_GEMV_ROWS), k, n, torch.float32, sms)
+            t = in_turns({"gemv": _k4_call(x, ql, gemv), "tiled": _k4_call(x, ql, routes[0])})
+            line.append(f"m {m}: GEMV {gemv[0]}x{gemv[1]} {t['gemv']:.4f}, tiled "
+                        f"{t['tiled']:.4f}")
+        log("k4", f"decode {name} ({k}, {n}) fp32 GEMV against tiled (ms; the host takes GEMV "
+                  f"for m <= {K4_GEMV_ROWS}): " + "; ".join(line) + f" on {smi}")
     return results
 
 
@@ -1559,8 +1611,8 @@ def _profile(step) -> dict:
     the host wall time, the union of the device's kernel intervals (busy),
     the idle share 1 - busy / wall, the number of device kernels, the number
     of record_function ranges the profiler also put on the device's timeline
-    (left out of the kernels and of busy), the device time of K1, K2 and K3
-    and the largest kernels by device time. The idle share is None when the
+    (left out of the kernels and of busy), the device time of K1, K2 and K3,
+    K4's device time and launches, and the largest kernels by device time. The idle share is None when the
     profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1587,8 +1639,10 @@ def _profile(step) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     attention = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name
                     or "flash_bwd" in name)
+    k4 = [(t, n) for name, (t, n) in by_name.items() if "w8a16" in name]
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels_),
             "annotations": len(on_device) - len(kernels_), "attention_ms": attention / 1e3,
+            "k4_ms": sum(t for t, _ in k4) / 1e3, "k4_kernels": sum(n for _, n in k4),
             "idle": 1.0 - busy / wall_us if spans else None,
             "top": [(name[:60], t / 1e3, n) for name, (t, n) in top]}
 
@@ -2784,6 +2838,21 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     _assert_checked(dtally, k1, "the seq2seq decode")
     _assert_k4_checked(dtally, k4_dec, "the quantized decode")
     assert dec_counts["k4"] > 0 and dec_counts["k2"] == dec_counts["k3"] == 0
+    qprof = _profile(lambda: t2s.generate(text1, max_length=32, quantize="w8a16"))
+    k4_tally = {key[1]: c for key, c in dtally.items() if key[0] == "k4"}
+    k4_weighted = (sum(c * k4_dec[shape]["ms"] for shape, c in k4_tally.items())
+                   / sum(k4_tally.values()))
+    log("semantic", f"decode per token, batch 1 plain greedy, float against w8a16: "
+                    f"{g_ms / g_st['positions']:.3f} against {q_ms / q_st['positions']:.3f} ms "
+                    f"(host clock over {g_st['positions']} and {q_st['positions']} positions); "
+                    f"kernels {per_token:.1f} against {qprof['kernels'] / 32:.1f}, device busy "
+                    f"{prof['busy_ms'] / 32:.3f} against {qprof['busy_ms'] / 32:.3f} ms, fp32 K4 "
+                    f"{qprof['k4_ms'] / 32:.4f} ms over {qprof['k4_kernels'] / 32:.1f} launches "
+                    f"(profiled over 32 steps and the prefill, idle share "
+                    f"{'not measured' if qprof['idle'] is None else f'{qprof['idle']:.3f}'}); "
+                    f"fp32 K4 launch-weighted over the quantized decodes' "
+                    f"{sum(k4_tally.values())} launches {k4_weighted:.4f} ms a launch (the "
+                    f"decode check's times at each shape) on {smi}")
 
     # semantic-mode TTSEngine: the seq2seq in front of the flagship denoiser
     def build_cfm():
@@ -2941,7 +3010,10 @@ def semantic_rows(k1: dict, k4: dict, k4_dec: dict, k23: dict, sem: dict) -> lis
         ("semantic_serve", "k4", torch.bfloat16, (serve_tally,), k4,
          {"library": "cuBLAS bf16 on the weight dequantized ahead of time"}),
         ("semantic_decode_w8a16", "k4", torch.float32, (dec_tally,), k4_dec,
-         {"library": "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time"}),
+         {"library": "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time",
+          "routes": {"gemv": [list(t) for t in K4_TILES[torch.float32][1:]],
+                     "tiled": list(K4_TILES[torch.float32][0]),
+                     "gemv_max_rows": K4_GEMV_ROWS}}),
         ("seq2seq_train", "k1", torch.float32, (train_tally,), k1, {}),
     ):
         merged = collections.Counter()

@@ -313,6 +313,45 @@ def test_k4_every_tile_matches_plain(cuda_device, tile, m, k, n):
     _assert_k4_close(y, x, ql, rtol, atol)
 
 
+# fp32 K4 at the seq2seq decode's (k, n): to_qkv, to_out and to_q, the
+# feed-forward's projections, to_logits, the cross-attention's to_kv
+K4_DECODE_KN = [(512, 1536), (512, 512), (512, 2730), (1365, 512), (512, 502), (512, 1024)]
+
+
+@pytest.mark.parametrize("route", K4_TILES[torch.float32])
+@pytest.mark.parametrize("k,n", K4_DECODE_KN)
+def test_k4_fp32_routes_at_the_decode_shapes(cuda_device, route, k, n):
+    """Every fp32 route at every decode (k, n): m from 1 to 33 at
+    proj_out's k = 1365 (x at the pitch of 1376), the decode's m elsewhere;
+    within the fp32 tolerance, NaN in x's pitch and past its last row never
+    reaching y, the same bits on a second launch."""
+    _, rtol, atol = K4_TOLS[0]
+    for m in range(1, 34) if k == 1365 else (1, 4, 24, 32):
+        x, ql = _k4_operands(cuda_device, m, k, n, torch.float32, seed=m)
+        x2, ldx = _x_rows(x)
+        y = _launch_k4(x2, ldx, ql.weight_q, ql.weight_scale, route)
+        again = _launch_k4(x2, ldx, ql.weight_q, ql.weight_scale, route)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y).all()), (m, route)
+        assert torch.equal(y, again), (m, route)
+        _assert_k4_close(y, x, ql, rtol, atol)
+
+
+@pytest.mark.parametrize("route", K4_TILES[torch.float32])
+def test_k4_fp32_routes_take_x_at_any_pitch(cuda_device, route):
+    """fp32 x whose rows are not 16-byte aligned (a contiguous (m, 1365) x:
+    4-byte copies) or start off 16 bytes gives the same bits as the pitched
+    x it equals."""
+    x, ql = _k4_operands(cuda_device, 24, 1365, 512, torch.float32)
+    dense = x.contiguous()
+    shifted = torch.full((dense.numel() + 1,), float("nan"), device=cuda_device)[1:]
+    shifted.copy_(dense.flatten())
+    ys = [_launch_k4(*_x_rows(xi), ql.weight_q, ql.weight_scale, route)
+          for xi in (x, dense, shifted.view(24, 1365))]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
+
+
 def test_k4_takes_one_contiguous_row_at_an_odd_k(cuda_device):
     """One row has no row stride to align: a contiguous (1, 1365) bf16 x,
     NaN past its end, goes through TMA."""

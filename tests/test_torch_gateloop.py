@@ -1,8 +1,10 @@
 """The port's GateLoop against the JAX package's, on the CPU in float32:
 
 * `gated_linear_recurrence` (chunked log-space scan) against the JAX
-  associative scan at lengths around its 64-step chunks, outputs at atol
-  2e-4 and gradients at cosine > 0.999 and atol 2e-3;
+  associative scan at lengths around its 64-step chunks and, at 256 steps,
+  under gates closed for 32 steps and then open, and under wide normal
+  gate logits; outputs at atol 2e-4 and gradients at cosine > 0.999 and
+  atol 2e-3;
 * `SimpleGateLoopLayer` outputs and parameter gradients;
 * the `Transformer`'s GateLoop slot (`layers.{i}.1.*`, through
   `transformer_state_dict`) with a key mask, and the flag on VoiceBox and
@@ -57,6 +59,39 @@ def test_recurrence_and_its_gradient_match_jax(n):
     else:
         _assert_leaves_close({"a": ta.grad.numpy(), "x": tx.grad.numpy()},
                              {"a": np.asarray(ref_da), "x": np.asarray(ref_dx)})
+
+
+def _gate_logits(schedule, rs, shape):
+    """Gate logits g over (batch, 256 steps, channels): closed gates (-20)
+    for steps 0-31 and then open ones, or normal draws."""
+    if schedule == "closed_then_9":
+        g = np.full(shape, 9.0)
+    elif schedule == "closed_then_n4":
+        g = rs.normal(4.0, 1.0, shape)
+    else:
+        return rs.normal(0.0, {"n0_6": 6.0, "n0_1": 1.0}[schedule], shape).astype(np.float32)
+    g[:, :32] = -20.0
+    return g.astype(np.float32)
+
+
+@pytest.mark.parametrize("schedule", ["closed_then_9", "closed_then_n4", "n0_6", "n0_1"])
+def test_recurrence_keeps_precision_after_closed_gates(schedule):
+    """Closed gates drive a chunk's running sum of log a to ~-640; each
+    in-chunk decay is summed over its own steps, so the outputs keep the
+    JAX scan's precision (a difference of running sums read 4.4e-4)."""
+    rs = np.random.RandomState(7)
+    g = _gate_logits(schedule, rs, (2, 256, 8))
+    a = (1 / (1 + np.exp(-g.astype(np.float64)))).astype(np.float32)  # as the layer's sigmoid
+    x = rs.randn(2, 256, 8).astype(np.float32)
+    dout = rs.randn(2, 256, 8).astype(np.float32)
+    ref, (ref_da, ref_dx) = _jax_vjp(jnp.asarray(a), jnp.asarray(x), jnp.asarray(dout))
+    ta = torch.tensor(a, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    out = gated_linear_recurrence(ta, tx)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    out.backward(torch.from_numpy(dout))
+    _assert_leaves_close({"a": ta.grad.numpy(), "x": tx.grad.numpy()},
+                         {"a": np.asarray(ref_da), "x": np.asarray(ref_dx)})
 
 
 def test_recurrence_along_another_axis_and_closed_gates():

@@ -5,7 +5,10 @@ the JAX package's (`voicebox_tpu/ops/quant.py`), on the CPU.
   and an fp32 division on both sides), zero channels included, from fp32
   and from bf16-stored weights;
 * `w8a16_matmul` on CPU tensors (its plain version) against JAX's
-  `w8a16_matmul(interpret=True)` at ragged (m, k, n), x in fp32 and bf16;
+  `w8a16_matmul(interpret=True)` at ragged (m, k, n), x in fp32 and bf16,
+  and at the seq2seq decode's fp32 shapes;
+* `k4_tile`'s choice of K4's tile (bf16) and route (fp32) at the engine's
+  and the decode's shapes, and against the tiles the C entry point takes;
 * `int8_matmul` against JAX's;
 * the quantized layer set against `quantize_dense_params`, key for key;
 * the quantized VoiceBox forward under both modes against the JAX model
@@ -20,6 +23,8 @@ straddle a rounding boundary, plus the fp32 order's ~1e-5 near zero.
 """
 
 import functools
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -81,9 +86,15 @@ def _quant_linear_weights(rs, k, n):
 FLAGSHIP_KN = [(512, 1536), (512, 512), (512, 2730), (1365, 512)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,k,n", [(37, 200, 300), (16, 136, 273), (5, 1365, 40)]
-                         + [(m, k, n) for k, n in FLAGSHIP_KN for m in (3, 17)])
+# the seq2seq decode's fp32 K4 shapes: to_logits at a plain step, to_qkv at
+# a draft step, proj_out (x at the pitch of 1376) at a verify chunk
+DECODE_MKN = [(1, 512, 502), (4, 512, 1536), (24, 1365, 512)]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (m, k, n, dtype) for m, k, n in [(37, 200, 300), (16, 136, 273), (5, 1365, 40)]
+    + [(m, k, n) for k, n in FLAGSHIP_KN for m in (3, 17)] for dtype in ("float32", "bfloat16")
+] + [(m, k, n, "float32") for m, k, n in DECODE_MKN])
 def test_w8a16_plain_matches_jax_interpret(m, k, n, dtype):
     rs = np.random.RandomState(m + k + n)
     w, ql = _quant_linear_weights(rs, k, n)
@@ -112,6 +123,10 @@ def test_w8a16_plain_matches_jax_interpret(m, k, n, dtype):
 H100_SMS = 132
 
 
+# fp32 takes the GEMV route at m <= K4_GEMV_ROWS, the 64 x 64 tiled one above
+F32_UNDER_ONE_TILE = {(37, 512): (8, 8), (1, 2730): (8, 16)}
+
+
 @pytest.mark.parametrize("m,n,tile", [
     (544, 1536, (64, 64)), (544, 512, (64, 64)), (544, 2730, (64, 64)),  # the engine, batch 1
     (2112, 1536, (256, 128)), (2112, 512, (128, 64)), (2112, 2730, (256, 128)),  # batch 2
@@ -120,28 +135,73 @@ H100_SMS = 132
     (37, 512, (64, 64)), (1, 2730, (64, 64)),  # m under one tile
 ])
 def test_k4_tile_at_the_engines_shapes(m, n, tile):
-    assert tq.k4_tile(m, n, torch.bfloat16, H100_SMS) == tile
-    assert tq.k4_tile(m, n, torch.float32, H100_SMS) == (64, 64)
+    assert tq.k4_tile(m, 512, n, torch.bfloat16, H100_SMS) == tile
+    assert tq.k4_tile(m, 512, n, torch.float32, H100_SMS) == F32_UNDER_ONE_TILE.get(
+        (m, n), (64, 64))
+
+
+@pytest.mark.parametrize("m,k,n,route", [
+    (1, 512, 502, (8, 16)), (1, 512, 1536, (8, 16)), (4, 512, 2730, (8, 16)),  # steps
+    (24, 512, 512, (8, 16)), (1, 1365, 512, (8, 4)), (24, 1365, 512, (8, 4)),  # verify
+    (32, 512, 1024, (8, 8)), (128, 512, 1024, (8, 8)), (512, 512, 1024, (64, 64)),  # to_kv
+])
+def test_k4_fp32_route_at_the_decode_shapes(m, k, n, route):
+    assert tq.k4_tile(m, k, n, torch.float32, H100_SMS) == route
+
+
+def _entry_point_routes() -> dict:
+    """The (rows, channels) tiles `vb_w8a16_matmul` takes, per dtype, read
+    from its source."""
+    src = (pathlib.Path(tq.__file__).parents[1] / "csrc" / "w8a16_matmul.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    body = src[src.index('extern "C" int vb_w8a16_matmul'):]
+    bf16, f32 = body.split("dtype == 0")
+    taken = {torch.bfloat16: {(int(r), int(c)) for r, c in re.findall(
+        r"block_m == (\d+) && block_n == (\d+)", bf16)}}
+    gemv = re.search(r"block_m == kGemvRows && \(([^)]*)\)", f32).group(1)
+    taken[torch.float32] = {(int(const["kF32BM"]), int(const["kF32BN"]))} | {
+        (int(const["kGemvRows"]), int(c)) for c in re.findall(r"block_n == (\d+)", gemv)}
+    return taken
 
 
 def test_k4_tile_rule():
-    """Every choice is a tile the C entry point takes; where a tile's grid
-    covers half the SMs, the chosen one's does too; the choice depends on
-    (m, n, dtype, sms) alone."""
+    """Every choice is a tile that K4_TILES lists and the C entry point
+    takes; the choice depends on (m, k, n, dtype, sms) alone. bf16: where a
+    tile's grid covers half the SMs, the chosen one's does too. fp32: the
+    tiled route above K4_GEMV_ROWS rows; below it the GEMV route with the
+    most channels whose block holds at most 4 warps a row group and 12 in
+    all (its grid is ceil(n / channels) whatever m, and on the H100 the
+    widest block was the fastest at every decode shape, 32 blocks at n =
+    512 included, so no SM-coverage rule holds for it)."""
     rs = np.random.RandomState(0)
-    shapes = [(int(m), int(n), int(sms)) for m, n, sms in zip(
-        rs.randint(1, 20000, 300), rs.randint(1, 6000, 300), rs.choice([66, 114, 132], 300))]
-    for m, n, sms in shapes:
+    taken = _entry_point_routes()
+    assert all(set(tq.K4_TILES[d]) == taken[d] for d in taken), taken
+    shapes = [(int(m), int(k), int(n), int(sms)) for m, k, n, sms in zip(
+        np.where(rs.rand(300) < 0.5, rs.randint(1, 200, 300), rs.randint(1, 20000, 300)),
+        rs.randint(1, 4000, 300), rs.randint(1, 6000, 300), rs.choice([66, 114, 132], 300))]
+    for m, k, n, sms in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            tile = tq.k4_tile(m, n, dtype, sms)
+            tile = tq.k4_tile(m, k, n, dtype, sms)
             assert tile in tq.K4_TILES[dtype]
-            assert tq.k4_tile(m, n, dtype, sms) == tile
+            assert tq.k4_tile(m, k, n, dtype, sms) == tile
 
             def blocks(t):
                 return -(-m // t[0]) * -(-n // t[1])
 
-            if any(blocks(t) >= sms / 2 for t in tq.K4_TILES[dtype]):
-                assert blocks(tile) >= sms / 2, (m, n, sms, tile)
+            if dtype == torch.bfloat16:
+                if any(blocks(t) >= sms / 2 for t in tq.K4_TILES[dtype]):
+                    assert blocks(tile) >= sms / 2, (m, n, sms, tile)
+                continue
+            if m > tq.K4_GEMV_ROWS:
+                assert tile == (64, 64), (m, k, n, tile)
+                continue
+
+            def warps(t):  # a row group's, and the block's
+                group = t[1] // 4 * min(-(-k // 512), 3)
+                return group, group * min(-(-m // 8), 4)
+
+            fits = [t for t in tq.K4_TILES[dtype][1:] if warps(t)[0] <= 4 and warps(t)[1] <= 12]
+            assert tile == max(fits or [(8, 4)], key=lambda t: t[1]), (m, k, n, tile)
 
 
 def test_w8a16_copy_feeds_proj_out_pitched_rows():

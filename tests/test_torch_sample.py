@@ -101,6 +101,38 @@ def test_audio_matches_jax_sampler():
     _audio_close(cfm.codec.decode(torch.from_numpy(latents_j)).numpy(), audio_j)
 
 
+def test_cond_mask_matches_jax_sampler():
+    """Speech editing: a mask that keeps part of each row's cond (False)
+    and generates the rest goes through both CFG halves, as in the JAX
+    sampler built with has_cond_mask=True."""
+    params, (cond, ids, y0), latents_free, _ = _jax_run()
+    cond_mask = np.zeros((B, N), bool)
+    cond_mask[0, 6:18] = True
+    cond_mask[1, :10] = True
+    jcfm = JaxCFM(JaxVoiceBox(audio_enc_dec=_jax_codec(), **CONFIG))
+    ref = jcfm._build_sampler(STEPS, True, True, False, True, "midpoint")(
+        params, jnp.asarray(y0), jnp.asarray(cond), jnp.asarray(ids), jnp.asarray(cond_mask),
+        None, jnp.float32(CFG))
+    latents = _port_cfm(params).sample(
+        cond=torch.from_numpy(cond), semantic_token_ids=torch.from_numpy(ids),
+        cond_mask=torch.from_numpy(cond_mask), steps=STEPS, cond_scale=CFG,
+        noise=torch.from_numpy(y0), decode_to_audio=False)
+    np.testing.assert_allclose(latents.numpy(), np.asarray(ref), atol=2e-4, rtol=0)
+    assert np.abs(np.asarray(ref) - latents_free).max() > 1e-2  # the mask matters
+
+
+def test_decode_to_codes_returns_the_codecs_codes():
+    params, (cond, ids, y0), _, _ = _jax_run()
+    cfm = _port_cfm(params)
+    kw = dict(cond=torch.from_numpy(cond), semantic_token_ids=torch.from_numpy(ids),
+              steps=STEPS, cond_scale=CFG, noise=torch.from_numpy(y0))
+    latents = cfm.sample(decode_to_audio=False, **kw)
+    codes, frames = cfm.sample(decode_to_codes=True, return_lengths=True, **kw)
+    assert codes.dtype == torch.long and codes.shape[0] == B and codes.shape[-1] == N
+    assert torch.equal(codes, cfm.codec.decode_to_codes(latents))
+    assert frames.tolist() == [N] * B  # frames, not audio samples
+
+
 def test_generator_noise_is_reproducible_and_cond_is_padded():
     params, (cond, ids, _), _, _ = _jax_run()
     cfm = _port_cfm(params)

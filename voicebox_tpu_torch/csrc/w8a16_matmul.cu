@@ -47,9 +47,36 @@
 // of 1376 for it. The last k-stage reads x past k as zeros, never the
 // memory there (a pitched row's tail, or another row).
 //
-// fp32 x runs only in the card-vs-CPU checks: scalar FMAs over 64 x 64 tiles
-// staged through shared memory, exact to fp32 rounding (wgmma has no fp32
-// mode). Both paths launch on the caller's stream and allocate nothing.
+// fp32 x runs every decoder matmul and the vocabulary head of the
+// TextToSemantic decode under generate(quantize="w8a16"): m = 1 (a plain
+// step), 4 (a draft step) and 24 (a verify chunk) rows at (k, n) = (512,
+// 502-2730) and (1365, 512). Hopper has no exact fp32 tensor-core mode
+// (TF32 keeps ~3 digits), so the sums are FMAs on the CUDA cores. At these
+// shapes the bound is the int8 weight's bytes (0.08-0.42 us at m = 1) or,
+// at m = 24, the FMAs (~0.5 us), both far below a launch's latency: what
+// counts is covering the SMs, keeping the weight's bytes in flight and
+// doing no work for rows that do not exist. Two routes, picked per shape
+// by the host (`k4_tile` in ops/quant.py):
+//  * GEMV (m <= 128): a block owns 4, 8 or 16 output channels and every
+//    row of x. A warp owns 4 channels, one 512-wide slab of k and one group
+//    of 8 rows: each lane holds 16 int8 weight bytes of each channel in
+//    registers (one 16-byte load, neighbouring lanes on neighbouring
+//    addresses, issued before x is staged), converts each value once for
+//    the group's rows and uses each x value it reads from shared memory for
+//    the 4 channels. x (up to 32 rows) is staged once by cp.async as fp32:
+//    16-byte copies where its row pitch and base allow, zero-filled past k
+//    by the copy's source size, so no pitch column is ever read. The
+//    lanes' 32 sums meet in a transposing butterfly of 31 shuffles and,
+//    where k needs several slabs, the warps' in shared memory in slab
+//    order: no atomics, the same bits on every launch. The scale multiplies
+//    after the sum; channels past n and rows past m are not written. The
+//    host takes the widest block that keeps at most 4 warps on a row group
+//    and 12 in all: on the H100 that beat blocks narrow enough to cover
+//    every SM at every decode shape (32 blocks at n = 512 included), as
+//    each block stages all of x.
+//  * tiled (m > 128): scalar FMAs over 64 x 64 tiles of y staged through
+//    shared memory, 16-byte x loads wherever the row pitch allows.
+// Both dtypes launch on the caller's stream and allocate nothing.
 
 #include "hopper.cuh"
 
@@ -80,17 +107,25 @@ struct K4Smem {
   static constexpr int kThreads = NWG * 128 + kProducerThreads;
 };
 
-// four int8 codes -> two bf16x2 registers (bytes 0, 1 and bytes 2, 3), exact
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = v ^ 0x80808080u;  // q + 128 in each byte
+// four int8 codes -> four floats, exact: the byte ^ 0x80 (q + 128) in the
+// mantissa of 2^23, minus 2^23 + 128
+__device__ __forceinline__ void int8x4_to_f32(uint32_t v, float (&f)[4]) {
+  const uint32_t u = v ^ 0x80808080u;
   constexpr uint32_t kMagic = 0x4B000000u;  // 2^23
   constexpr float kBias = 8388736.0f;       // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, kMagic, 0x7650)) - kBias;
-  const float f1 = __uint_as_float(__byte_perm(u, kMagic, 0x7651)) - kBias;
-  const float f2 = __uint_as_float(__byte_perm(u, kMagic, 0x7652)) - kBias;
-  const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - kBias;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  f[0] = __uint_as_float(__byte_perm(u, kMagic, 0x7650)) - kBias;
+  f[1] = __uint_as_float(__byte_perm(u, kMagic, 0x7651)) - kBias;
+  f[2] = __uint_as_float(__byte_perm(u, kMagic, 0x7652)) - kBias;
+  f[3] = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - kBias;
+}
+
+// four int8 codes -> two bf16x2 registers (bytes 0, 1 and bytes 2, 3), exact
+// (|q| <= 127: the upper 16 bits of the float are bf16 q)
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  float f[4];
+  int8x4_to_f32(v, f);
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
 // The A fragments of one stage (4 steps of k16) for this thread: in wgmma's
@@ -259,7 +294,166 @@ __global__ void __launch_bounds__(K4Smem<NWG, BN>::kThreads, 1)
   }
 }
 
-// ------------------------------------------------------------ fp32: kernel
+// ------------------------------------------------------ fp32: GEMV route
+
+constexpr int kGemvRows = 8;   // rows of x a warp sums together (a row group)
+constexpr int kGemvCh = 4;     // output channels a warp
+constexpr int kSlab = 512;     // k of a warp's slab: 32 lanes x 16 weight bytes
+constexpr int kMaxKWarps = 3;  // slabs a panel: k_pad <= 1536 (both decode k) in one panel
+constexpr int kMaxRWarps = 4;  // row groups staged at once: m <= 32 rows in one stage
+constexpr int kGemvMaxWarps = 12;  // ~140 registers a thread: 12 warps fit an SM's registers
+// x's stage: up to 32 rows x 1536 fp32
+constexpr int kGemvMaxSmem = kGemvRows * kMaxRWarps * kSlab * kMaxKWarps * 4;
+
+// `bytes` (0-16) of global memory into 16 shared bytes, the rest zeros
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// one float, or a zero where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// The 16-byte chunk c of a staged x row is stored at chunk c ^ ((c >> 3) &
+// 3). Lane l reads chunks 4 l + q (q < 4) of its slab; the 8 lanes of a
+// quarter-warp then hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int x_chunk(int c) { return c ^ ((c >> 3) & 3); }
+
+// One step of the lanes' butterfly over 32 sums a lane: at lane offset H a
+// lane keeps the half of its first 2 H sums picked by bit H of its lane
+// index and adds its partner's copy of that half; after the step at offset
+// 1, lane l holds the whole sum of index l (31 shuffles, not 32 x 5)
+template <int H>
+__device__ __forceinline__ void transpose_reduce(float (&v)[32], int lane) {
+  const bool upper = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) transpose_reduce<H / 2>(v, lane);
+}
+
+// grid: ceil(n / (4 c_warps)) blocks of c_warps x k_warps x r_warps warps;
+// warp (rw, cw, kw) owns channels ch0 + [0, 4), the slab kw of each panel
+// of 512 k_warps columns and the row group rw of each stage of 8 r_warps
+// rows. Dynamic shared memory: a stage's rows x the panel, fp32.
+__global__ void __launch_bounds__(32 * kGemvMaxWarps)
+    w8a16_f32_gemv(const float* __restrict__ x, const int8_t* __restrict__ w_q,
+                   const float* __restrict__ scale, float* __restrict__ y, int m, int n, int k,
+                   int k_pad, int ldx, int vec, int k_warps, int c_warps) {
+  constexpr int kV = kGemvRows * kGemvCh;  // sums a lane holds, one per lane after the butterfly
+  static_assert(kV == 32, "the butterfly leaves one sum a lane");
+  extern __shared__ float4 xs[];
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int kw = warp % k_warps;
+  const int cw = warp / k_warps % c_warps;
+  const int rw = warp / (k_warps * c_warps);
+  const int r_warps = blockDim.x / 32 / (k_warps * c_warps);
+  const int ch0 = (blockIdx.x * c_warps + cw) * kGemvCh;
+  const int panel = kSlab * k_warps;
+  const int panel4 = panel / 4;  // 16-byte chunks of a staged row
+  const int stage = kGemvRows * r_warps;
+
+  for (int s0 = 0; s0 < m; s0 += stage) {
+    const int staged = min(stage, m - s0);
+    const int g0 = kGemvRows * rw;                          // this warp's rows in the stage
+    const int rows = max(0, min(kGemvRows, staged - g0));  // uniform over the warp
+    float acc[kGemvRows][kGemvCh];
+#pragma unroll
+    for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kGemvCh; ++c) acc[r][c] = 0.0f;
+
+    for (int p0 = 0; p0 < k_pad; p0 += panel) {
+      // this lane's 16 weight bytes of each channel, in flight while x stages
+      const int kc = p0 + kSlab * kw + 16 * lane;
+      uint4 wq[kGemvCh];
+#pragma unroll
+      for (int c = 0; c < kGemvCh; ++c) {
+        wq[c] = make_uint4(0u, 0u, 0u, 0u);
+        if (ch0 + c < n && kc < k_pad) {
+          wq[c] = __ldg(reinterpret_cast<const uint4*>(w_q + (size_t)(ch0 + c) * k_pad + kc));
+        }
+      }
+      __syncthreads();  // every read of the previous stage or panel is done
+      for (int i = threadIdx.x; i < staged * panel4; i += blockDim.x) {
+        const int r = i / panel4;
+        const int c4 = i % panel4;
+        const int col = p0 + 4 * c4;
+        const int left = k - col;  // x's columns from col on; none past k is read
+        const float* src = x + (size_t)(s0 + r) * ldx + col;
+        float* dst = reinterpret_cast<float*>(xs + r * panel4 + x_chunk(c4));
+        if (vec) {
+          cp_async16_n(dst, left > 0 ? src : x, 4 * max(0, min(left, 4)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cp_async4(dst + e, left > e ? src + e : x, left > e);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float wf[kGemvCh][4];
+#pragma unroll
+        for (int c = 0; c < kGemvCh; ++c) {
+          const uint32_t word = q == 0 ? wq[c].x : q == 1 ? wq[c].y : q == 2 ? wq[c].z : wq[c].w;
+          int8x4_to_f32(word, wf[c]);
+        }
+        const float4* xq = xs + g0 * panel4 + x_chunk(128 * kw + 4 * lane + q);
+#pragma unroll
+        for (int r = 0; r < kGemvRows; ++r) {
+          if (r < rows) {
+            const float4 xv = xq[r * panel4];
+#pragma unroll
+            for (int c = 0; c < kGemvCh; ++c) {
+              acc[r][c] = fmaf(xv.x, wf[c][0], acc[r][c]);
+              acc[r][c] = fmaf(xv.y, wf[c][1], acc[r][c]);
+              acc[r][c] = fmaf(xv.z, wf[c][2], acc[r][c]);
+              acc[r][c] = fmaf(xv.w, wf[c][3], acc[r][c]);
+            }
+          }
+        }
+      }
+    }
+
+    // the 32 lanes' sums: lane l ends with the sum of row l / 4, channel l % 4
+    float v[kV];
+#pragma unroll
+    for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kGemvCh; ++c) v[r * kGemvCh + c] = acc[r][c];
+    transpose_reduce<kV / 2>(v, lane);
+    float sum = v[0];
+    if (k_warps > 1) {  // the slabs' sums, added in slab order
+      __syncthreads();  // every warp is done with xs
+      float* red = reinterpret_cast<float*>(xs);
+      const int owner = rw * c_warps + cw;  // the warps that share these sums
+      const int owners = r_warps * c_warps;
+      if (kw > 0) red[((kw - 1) * owners + owner) * 32 + lane] = sum;
+      __syncthreads();
+      if (kw == 0) {
+        for (int j = 1; j < k_warps; ++j) sum += red[((j - 1) * owners + owner) * 32 + lane];
+      }
+    }
+    const int ch = ch0 + lane % kGemvCh;
+    if (kw == 0 && lane / kGemvCh < rows && ch < n) {
+      y[(size_t)(s0 + g0 + lane / kGemvCh) * n + ch] = sum * scale[ch];
+    }
+  }
+}
+
+// ------------------------------------------------------ fp32: tiled route
 
 constexpr int kF32Threads = 128;
 constexpr int kF32BM = 64;  // rows of y per block
@@ -271,14 +465,21 @@ constexpr int kF32BK = 32;  // k per step
 template <int LD>
 __device__ __forceinline__ void load_x_tile(float* x_s, const float* __restrict__ x, int m0,
                                             int k0, int m, int k, int ldx, bool vec) {
-  if (vec) {  // k is a multiple of 4: a 16-byte chunk lies wholly inside k or outside it
+  if (vec) {  // 16-byte loads inside k; the chunk that holds k's end loads its valid floats alone
     constexpr int kChunks = kF32BK / 4;
     for (int i = threadIdx.x; i < kF32BM * kChunks; i += kF32Threads) {
       const int r = i / kChunks;
       const int c = (i % kChunks) * 4;
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (m0 + r < m && k0 + c < k) {
-        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * ldx + k0 + c);
+        const float* src = x + (size_t)(m0 + r) * ldx + k0 + c;
+        if (k0 + c + 4 <= k) {
+          v = *reinterpret_cast<const float4*>(src);
+        } else {
+          v.x = src[0];
+          if (k0 + c + 1 < k) v.y = src[1];
+          if (k0 + c + 2 < k) v.z = src[2];
+        }
       }
       x_s[r * LD + c] = v.x;
       x_s[r * LD + c + 1] = v.y;
@@ -394,6 +595,29 @@ cudaError_t launch_bf16(const void* x, const void* w_q, const void* scale, void*
   return cudaGetLastError();
 }
 
+// the GEMV route: 4 channels a warp, c_warps warps of channels, one warp
+// per 512-wide slab of k (up to kMaxKWarps; k past that loops in panels)
+// and one per group of 8 rows (up to kMaxRWarps and kGemvMaxWarps in all;
+// more rows loop in stages)
+cudaError_t launch_gemv(const float* x, const int8_t* w_q, const float* scale, float* y, int m,
+                        int n, int k, int k_pad, int ldx, bool vec, int c_warps,
+                        cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      w8a16_f32_gemv, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemvMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const int slabs = (k_pad + kSlab - 1) / kSlab;
+  const int k_warps = slabs < kMaxKWarps ? slabs : kMaxKWarps;
+  int r_warps = (m + kGemvRows - 1) / kGemvRows;
+  if (r_warps > kMaxRWarps) r_warps = kMaxRWarps;
+  while (r_warps > 1 && c_warps * k_warps * r_warps > kGemvMaxWarps) --r_warps;
+  const int staged = m < kGemvRows * r_warps ? m : kGemvRows * r_warps;
+  const size_t smem = sizeof(float) * staged * kSlab * k_warps;
+  const int channels = kGemvCh * c_warps;
+  w8a16_f32_gemv<<<(n + channels - 1) / channels, 32 * c_warps * k_warps * r_warps, smem,
+                   stream>>>(x, w_q, scale, y, m, n, k, k_pad, ldx, vec, k_warps, c_warps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
@@ -402,7 +626,11 @@ cudaError_t launch_bf16(const void* x, const void* w_q, const void* scale, void*
 // x's dtype; w_q 16-byte aligned. The tile of y a block computes is block_m
 // rows x block_n columns: bfloat16 takes 64 x 64, 128 x 64 (one consumer
 // warpgroup) or 256 x 128 (two), and x 16-byte aligned with ldx a multiple
-// of 8 (TMA's 16-byte row stride); float32 takes 64 x 64.
+// of 8 (TMA's 16-byte row stride). float32 takes 64 x 64 (the tiled route)
+// or block_m = 8 with block_n = 4, 8 or 16 (the GEMV route: every row of
+// x, 8 at a time, and block_n channels a block); its x may lie at any
+// pitch and alignment (16-byte copies where ldx % 4 == 0 and x is 16-byte
+// aligned, 4-byte ones otherwise).
 // Returns 0 or the cudaError_t of the launch.
 extern "C" int vb_w8a16_matmul(const void* x, const void* w_q, const void* scale, void* y,
                                int m, int n, int k, int k_pad, int ldx, int dtype, int block_m,
@@ -424,13 +652,19 @@ extern "C" int vb_w8a16_matmul(const void* x, const void* w_q, const void* scale
     } else if (block_m == 256 && block_n == 128) {
       err = launch_bf16<2, 256>(x, w_q, scale, y, m, n, k, k_pad, ldx, s);
     }
-  } else if (dtype == 0 && block_m == kF32BM && block_n == kF32BN) {
-    const dim3 grid((m + kF32BM - 1) / kF32BM, (n + kF32BN - 1) / kF32BN);
-    const bool vec = k % 4 == 0 && ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    w8a16_f32<<<grid, kF32Threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
-        static_cast<const float*>(scale), static_cast<float*>(y), m, n, k, k_pad, ldx, vec);
-    err = cudaGetLastError();
+  } else if (dtype == 0) {
+    const bool vec = ldx % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const float* xf = static_cast<const float*>(x);
+    const int8_t* wq = static_cast<const int8_t*>(w_q);
+    const float* sc = static_cast<const float*>(scale);
+    float* yf = static_cast<float*>(y);
+    if (block_m == kF32BM && block_n == kF32BN) {
+      const dim3 grid((m + kF32BM - 1) / kF32BM, (n + kF32BN - 1) / kF32BN);
+      w8a16_f32<<<grid, kF32Threads, 0, s>>>(xf, wq, sc, yf, m, n, k, k_pad, ldx, vec);
+      err = cudaGetLastError();
+    } else if (block_m == kGemvRows && (block_n == 4 || block_n == 8 || block_n == 16)) {
+      err = launch_gemv(xf, wq, sc, yf, m, n, k, k_pad, ldx, vec, block_n / kGemvCh, s);
+    }
   }
   return static_cast<int>(err);
 }

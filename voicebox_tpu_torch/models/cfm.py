@@ -300,12 +300,13 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         return served
 
     @staticmethod
-    def _vector_field(vb, t, x, cond, cond_token_ids, cond_scale, self_attn_mask=None):
+    def _vector_field(vb, t, x, cond, cond_token_ids, cond_scale, self_attn_mask=None,
+                      cond_mask=None):
         b = x.shape[0]
         if cond_scale == 1.0:
             drop = torch.zeros(b, dtype=torch.bool, device=x.device)
             out = vb(x, times=t, cond=cond, cond_token_ids=cond_token_ids, cond_drop_mask=drop,
-                     self_attn_mask=self_attn_mask)
+                     self_attn_mask=self_attn_mask, cond_mask=cond_mask)
             return out.to(x.dtype)
         # CFG: the conditioned half and the null half as one 2b forward
 
@@ -317,6 +318,7 @@ class ConditionalFlowMatcherWrapper(nn.Module):
             torch.cat([x, x]), times=t.reshape(1).expand(2 * b),
             cond=torch.cat([cond, cond]), cond_token_ids=twice(cond_token_ids),
             cond_drop_mask=drop2, self_attn_mask=twice(self_attn_mask),
+            cond_mask=twice(cond_mask),
         ).to(x.dtype)
         logits, null_logits = out2[:b], out2[b:]
         return null_logits + (logits - null_logits) * cond_scale
@@ -347,9 +349,11 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         text_token_ids=None,
         semantic_token_ids: Optional[torch.Tensor] = None,
         phoneme_ids=None,
+        cond_mask: Optional[torch.Tensor] = None,
         steps: int = 3,
         cond_scale: float = 1.0,
         decode_to_audio: bool = True,
+        decode_to_codes: bool = False,
         max_semantic_token_ids: int = 2048,
         spec_decode: bool = False,
         spec_decode_gamma: int = 5,
@@ -365,9 +369,14 @@ class ConditionalFlowMatcherWrapper(nn.Module):
     ):
         """Sample latents by integrating the ODE from y0, then decode them to
         audio when a codec is attached and `decode_to_audio` (`(b, 1, n *
-        320)` through EncodecVoco, `(b, n * hop)` through MelVoco). y0 is
-        `noise` if given, else a standard normal draw from `generator`.
-        `cond` is latents, or raw audio that the codec encodes.
+        320)` through EncodecVoco, `(b, n * hop)` through MelVoco), or, with
+        `decode_to_codes` (which takes precedence), to the codec's RVQ codes
+        (`EncodecVoco.decode_to_codes`: `(b, q, n)`). y0 is `noise` if
+        given, else a standard normal draw from `generator`. `cond` is
+        latents, or raw audio that the codec encodes. `cond_mask` ((b, n)
+        bool, True = generate) keeps the cond where it is False (speech
+        editing); by default every frame is generated. Under CFG it goes to
+        both halves of the batch.
 
         Conditioning: `semantic_token_ids`; with a duration predictor
         `phoneme_ids` / `texts`, aligned at the predicted durations over
@@ -490,10 +499,12 @@ class ConditionalFlowMatcherWrapper(nn.Module):
             y0 = normal(cond.shape, generator, device, cond.dtype)
 
         served = self._serving_voicebox(quantize, param_store_dtype)
+        if cond_mask is not None:
+            cond_mask = torch.as_tensor(cond_mask, device=device).bool()
 
         def field(t, x):
             return self._vector_field(served, t, x, cond, cond_token_ids, cond_scale,
-                                      self_attn_mask)
+                                      self_attn_mask, cond_mask)
 
         if self.ode_method == "tsit5_adaptive":
             latents, self.ode_steps_taken = odeint_tsit5_adaptive(
@@ -513,8 +524,11 @@ class ConditionalFlowMatcherWrapper(nn.Module):
                     stacklevel=2,
                 )
 
-        out_is_audio = decode_to_audio and codec is not None
-        out = codec.decode(latents) if out_is_audio else latents
+        out_is_audio = decode_to_audio and not decode_to_codes and codec is not None
+        if decode_to_codes and codec is not None:
+            out = codec.decode_to_codes(latents)
+        else:
+            out = codec.decode(latents) if out_is_audio else latents
         if not return_lengths:
             return out
         n_frames = cond.shape[1]

@@ -14,7 +14,9 @@ per weights version by `quantize_voicebox`.
   through TMA, which needs x's rows 16-byte aligned: a quantized copy's
   GEGLUs write their output at a row pitch of 16 elements for it
   (`quantize_voicebox`), and the tile of y each block computes comes from
-  `k4_tile`.
+  `k4_tile`. fp32 K4 (the seq2seq decode) takes x at any pitch: `k4_tile`
+  picks its GEMV route for m <= K4_GEMV_ROWS rows and its tiled route
+  above.
 * `"int8"`: dynamic activation quantization, per token (symmetric absmax
   over the features), then s8 x s8 -> s32 through `torch._int_mm`, a
   library product (the JAX package leaves it to XLA, outside any kernel).
@@ -66,6 +68,7 @@ __all__ = [
     "QuantLinear",
     "SCOPE",
     "cast_float_params",
+    "K4_GEMV_ROWS",
     "K4_TILES",
     "int8_matmul",
     "k4_tile",
@@ -101,11 +104,18 @@ _X_ROW_ALIGN = 16  # bytes: TMA's global stride and base alignment (bf16 x)
 
 # the (rows of y, columns of y) tiles of one K4 block that the C entry point
 # takes, largest first: bf16 has 256 rows of x x 128 output channels (two
-# consumer warpgroups), 128 x 64 and 64 x 64 (one); fp32 one tile
+# consumer warpgroups), 128 x 64 and 64 x 64 (one); fp32 has the tiled route
+# (64 x 64) and the GEMV route for m <= K4_GEMV_ROWS, whose block takes
+# every row of x, 8 at a time (a warp each), and 16, 8 or 4 output
+# channels (a warp per 4, times a warp per 512 of k)
 K4_TILES = {
     torch.bfloat16: ((256, 128), (128, 64), (64, 64)),
-    torch.float32: ((64, 64),),
+    torch.float32: ((64, 64), (8, 16), (8, 8), (8, 4)),
 }
+K4_GEMV_ROWS = 128
+# the GEMV block's warps: per 4 channels x per 512 of k (at most 3) x per 8
+# rows (at most 4) <= 12, and those of one row group <= 4 (PERF.md §6, PR 11)
+_GEMV_ROW_GROUP_WARPS, _GEMV_WARPS = 4, 12
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,15 +149,28 @@ def w8a16_matmul_reference(x: torch.Tensor, weight_q: torch.Tensor,
     return y.to(x.dtype)
 
 
-def k4_tile(m: int, n: int, dtype: torch.dtype, sms: int) -> tuple:
+@functools.lru_cache(maxsize=4096)
+def k4_tile(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> tuple:
     """The (rows, channels) tile of y that each K4 block computes for an
-    (m, k) x (k, n) product on a card of `sms` SMs: the largest bf16 tile
+    (m, k) x (k, n) product on a card of `sms` SMs. bf16: the largest tile
     whose grid of ceil(m / rows) x ceil(n / channels) blocks covers at least
     half the SMs and whose rows past m waste at most an eighth of its row
-    tiles, else 64 x 64. fp32 has one tile. Measured on the H100 at the
-    engine's shapes (PERF.md, "K4's tile")."""
+    tiles, else 64 x 64 (measured on the H100 at the engine's shapes,
+    PERF.md, "K4's tile"). fp32: for m <= K4_GEMV_ROWS the GEMV route with
+    the most channels whose block keeps at most 4 warps on a row group's
+    4-channel sets and k slabs and at most 12 in all (measured on the H100
+    at the decode's shapes, PERF.md §6, PR 11), above it the 64 x 64 tiled
+    route."""
     if dtype != torch.bfloat16:
-        return K4_TILES[torch.float32][0]
+        tiled, *gemv = K4_TILES[torch.float32]
+        if m > K4_GEMV_ROWS:
+            return tiled
+        k_warps, r_warps = min(-(-k // 512), 3), min(-(-m // 8), 4)
+        for rows, cols in gemv:
+            group = cols // 4 * k_warps
+            if group <= _GEMV_ROW_GROUP_WARPS and group * r_warps <= _GEMV_WARPS:
+                return rows, cols
+        return gemv[-1]
     for rows, cols in K4_TILES[dtype]:
         row_tiles = -(-m // rows)
         if row_tiles * -(-n // cols) >= sms / 2 and 8 * m >= 7 * row_tiles * rows:
@@ -232,7 +255,7 @@ def _launch_k4(x2, ldx, weight_q, weight_scale, tile=None):
     m, k = x2.shape
     n = weight_scale.shape[0]
     if tile is None:
-        tile = k4_tile(m, n, x2.dtype, _sm_count(x2.device.index))
+        tile = k4_tile(m, k, n, x2.dtype, _sm_count(x2.device.index))
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     with torch.cuda.device(x2.device):
         err = _k4_entry()(
