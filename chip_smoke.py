@@ -82,6 +82,22 @@ imports nothing of JAX. Its phases print one line each or more:
    attention and feed-forward module of the quantized denoiser on the
    input its bf16 counterpart saw, against bf16 and beside the floor of
    bf16 against fp32; one whole forward at qk gains 0.5, for information;
+9b. long-form serving and cloning at full width on phase 9's engine (same
+   seeded weights) with prompt buckets of 3 s and 6 s, windows of 768
+   frames overlapping by 128: `warmup()` must have run the two-window
+   stream, each prompt bucket's encode and the prompt-conditioned predictor
+   at each (batch, text) bucket; first `sample_long` of phase 6's small
+   fp32 configuration card vs CPU (3 windows, a latent prompt, the same
+   noise); then an over-bucket text whose exact frames (from the seeded
+   predictor) reach 2048, i.e. >= 3 windows, through `synthesize_stream`
+   (three times: time to the first chunk on the host and latency, min and
+   median, RTF) and `synthesize`, a clone from a seeded 3 s raw prompt with
+   `prompt_text` through `clone_stream` (three times) and `clone`, and an
+   over-bucket `DynamicBatcher.submit` beside a `submit_clone`. Each request
+   makes exactly 96 K1 and 384 K4 launches a window plus 10 K1 a predictor
+   forward, every launch's shape tallied and checked; audio is finite and
+   exactly the expected length; the streamed decode is held to the one-shot
+   decode of the same latents; one profiled stream's idle share;
 10. train: the flagship geometry trains at full width (bf16 compute, fp32
    parameters and AdamW, batch 8 x 752 frames + 16 registers) through
    `VoiceBoxTrainer`: 2 warm-up steps, then timed steps, each with exactly
@@ -155,7 +171,10 @@ imports nothing of JAX. Its phases print one line each or more:
    warmup, one request each at batch 1 and 2, four batcher submits, each
    group exactly 6 + 96 K1 and 384 K4 launches, latency, RTF, the decode's
    share, the profiled idle share of the decode and of the denoiser half
-   apart; `TextToSemanticTrainer` at batch 8 of
+   apart; an over-bucket text of two segments (one decode at batch 2) and
+   a clone from a 3 s raw prompt whose ids come through HuBERT, each
+   window 96 K1 and 384 K4, each decode's encoder 6 K1;
+   `TextToSemanticTrainer` at batch 8 of
    (text, 10 s wave) with targets through HuBERT (511 frames, 499 live):
    6 fp32 K1, K2 and K3 a step, ms per step, HuBERT's share, peak memory.
    Every K1 and K4 launch shape of phase 18 must be one that phases 3 and
@@ -192,6 +211,7 @@ import torch.nn.functional as F
 import voicebox_tpu_torch as vbt
 from voicebox_tpu_torch import kernels
 from voicebox_tpu_torch.models import attention as attention_module
+from voicebox_tpu_torch.models import cfm as cfm_module
 from voicebox_tpu_torch.models.codec import EncodecVoco, MelVoco
 from voicebox_tpu_torch.models.encodec import EncodecModel, ResidualVQ, _LSTM
 from voicebox_tpu_torch.models.primitives import GEGLU, l2norm
@@ -302,11 +322,16 @@ K1_CASES = [
     ("t2s_train_n64_f32", (8, 8, 64, 64, 64), torch.float32, "randn", "prefix", 1e-5, 1e-5),
     *[(f"semantic_b{b}_bf16", (2 * b, 4, 1040, 1040, 128), torch.bfloat16, "qk", "prefix", 1e-2,
        1e-2) for b in SEM_BATCHES],
+    # long-form and cloning (phases 9b and 18): every window of the engine's
+    # default 768 frames + 16 registers at batch 1, x 2 for CFG, no mask (the
+    # duration predictor's and the encoder's shapes are the cases above)
+    ("longform_bf16", (2, 4, 784, 784, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
 ]
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
-            *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_"))))
+            *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_"))),
+            "longform_bf16")
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 
@@ -842,10 +867,10 @@ def single_key_floor(q, k, v, do, scale) -> tuple:
 # for CFG x (frames + 16 registers): the engine's groups give 544 (batch 1,
 # 256 frames), 2112 (batch 2, 512) and 8320 (batch 4, 1024); 1532 is
 # batch 1 at 750 frames; the semantic engine's 1024 ids give 2080, 4160 and
-# 8320
+# 8320; a long-form window (768 frames + 16 registers, batch 1) gives 1568
 K4_SHAPES = {"to_qkv": (512, 1536), "to_out": (512, 512), "ff_proj_in": (512, 2730),
              "ff_proj_out": (1365, 512)}
-K4_ROWS = (544, 1532, 2080, 2112, 4160, 8320)  # + 2080, 4160: semantic batches 1 and 2
+K4_ROWS = (544, 1532, 1568, 2080, 2112, 4160, 8320)  # + 2080, 4160: semantic batches 1, 2
 K4_RAGGED_ROWS = (37, 1)
 # tolerance of |K4 - plain| <= rtol |plain| + atol max|plain|. Both sum exact
 # products (bf16 x int8, or fp32 x int8 in fp32) in fp32, in another order
@@ -1601,6 +1626,283 @@ def phase_engine(smi: str) -> tuple:
                   f"{'not measured' if idle is None else f'{idle:.3f}'}; largest (name, ms, "
                   f"calls): {'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
     _quantized_gap(cfm, smi)
+    del cfm, engine
+    torch.cuda.empty_cache()
+    return counts, tally
+
+
+# long-form serving and cloning at full width (phase 9b): phase 9's engine
+# with raw-prompt buckets, at the engine's default window 768 and overlap 128
+LONG_ENGINE = dict(ENGINE, prompt_seconds_buckets=(3.0, 6.0))
+LONG_MIN_FRAMES = 2048  # >= 27.3 s: 3 windows at least (768 + 2 x 640)
+CLONE_MIN_FRAMES = 900  # the prompt's 225 frames and the continuation: 2 windows
+PROMPT_SAMPLES = 72_000  # a 3 s prompt at 24 kHz
+PROMPT_TEXT = "a voice that the engine should keep"
+LONG_REPEATS = 3  # requests of each kind: time to first chunk and latency as min, median
+K1_PER_WINDOW = EVALS_PER_REQUEST * FLAGSHIP["depth"]  # 96
+K4_PER_WINDOW = 4 * K1_PER_WINDOW  # 384
+# the streamed decode against the one-shot decode of the same latents, fp32
+# with TF32 off: |streamed - one-shot| <= LONG_SEAM_TOL x max |one-shot|.
+# Measured 7.3e-7 of the peak on an H100 over 2050 frames (no sample past
+# 1e-6): the convolutions of each buffer length round apart, no seam
+LONG_SEAM_TOL = 1e-5
+
+
+def _text_of(n_chars: int) -> str:
+    words = []
+    while len(" ".join(words)) < n_chars:
+        words += _WORDS
+    return " ".join(words)[:n_chars]
+
+
+def _long_plan(engine, text: str, cond=None, prompt_frames: int = 0) -> dict:
+    """What a long request of `text` (behind `prompt_frames` of prompt,
+    whose latents `cond` condition the predictor) runs: its exact frames,
+    windows and predictor forwards. Runs the predictor, outside any count."""
+    ids = np.asarray(engine._tokenizer().texts_to_tensor_ids([text]))
+    row = ids[:, : int((ids[0] >= 0).sum())]
+    _, groups = engine._segment_groups(row)
+    _, gen_exact = engine._long_frame_ids(row, cond=cond)
+    exact = prompt_frames + gen_exact
+    window, hop = engine.long_window_frames, engine.long_window_frames - engine.long_overlap_frames
+    windows = 1 + -(-max(exact - window, 0) // hop)
+    return {"tokens": row.shape[1], "exact": exact, "windows": windows, "forwards": len(groups)}
+
+
+def _text_for_frames(engine, min_frames: int, cond=None, prompt_frames: int = 0):
+    """The shortest text (doubling from 128 characters) whose exact frames
+    under the seeded predictor reach `min_frames`, and its plan."""
+    n = 128
+    while True:
+        text = _text_of(n)
+        plan = _long_plan(engine, text, cond, prompt_frames)
+        if plan["exact"] >= min_frames:
+            return text, plan
+        n *= 2
+
+
+def _stream_timed(chunks) -> tuple:
+    """Consume a stream as a player would, each chunk read to the host:
+    (audio, ms to the first chunk, ms to the last)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, out = None, []
+    for chunk in chunks:
+        out.append(chunk.cpu())
+        if first is None:
+            first = (time.perf_counter() - t0) * 1e3
+    return torch.cat(out, dim=-1), first, (time.perf_counter() - t0) * 1e3
+
+
+def phase_long_card_vs_cpu() -> None:
+    """`sample_long` of phase 6's small fp32 configuration on the card and on
+    the CPU from the same weights and the same noise of each window (drawn
+    on the host): 3 windows of 96 frames overlapping by 16 over 230 frames,
+    with a latent prompt of 20."""
+    cfm_cpu = seeded(lambda: _small_slice("cpu"), SEED).eval()
+    cfm_gpu = seeded(lambda: _small_slice("cuda"), SEED).eval()
+    gen = torch.Generator().manual_seed(SEED + 90)
+    ids = torch.randint(0, 100, (2, 150), generator=gen)
+    prompt = torch.randn(2, 20, 32, generator=gen)
+    kw = dict(total_frames=230, window_frames=96, overlap_frames=16, steps=STEPS,
+              cond_scale=CFG_SCALE, decode_to_audio=False)
+    draw = cfm_module.normal
+
+    def run(cfm, device):
+        noise = torch.Generator().manual_seed(SEED + 91)
+        cfm_module.normal = lambda shape, *_, **__: torch.randn(shape, generator=noise).to(device)
+        try:
+            return cfm.sample_long(semantic_token_ids=ids.to(device), prompt=prompt.to(device),
+                                   **kw)
+        finally:
+            cfm_module.normal = draw
+
+    before = read_launches()
+    lat_cpu = run(cfm_cpu, "cpu")
+    assert read_launches() == before, "the CPU run must launch no kernel"
+    lat_gpu = run(cfm_gpu, "cuda").cpu()
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    want = SMALL["depth"] * EVALS_PER_REQUEST * 3
+    assert launches == {"k1": want, "k2": 0, "k3": 0, "k4": 0}, launches
+    err = (lat_gpu - lat_cpu).abs().max().item()
+    log("long", f"sample_long card vs CPU, fp32, dim 128 depth 2, 230 frames in 3 windows of 96 "
+                f"(overlap 16), a 20-frame prompt, steps {STEPS}, cfg {CFG_SCALE}: K1 launches "
+                f"{launches['k1']}, latents max_abs_err {err:.3e} (tol 1e-3); the prompt's "
+                f"span kept exactly {torch.equal(lat_gpu[:, :20], prompt)}")
+    assert math.isfinite(err) and err <= 1e-3, "sample_long disagrees card vs CPU"
+    assert torch.equal(lat_gpu[:, :20], prompt) and torch.equal(lat_cpu[:, :20], prompt)
+
+
+def phase_long(smi: str) -> tuple:
+    """Phase 9b: long-form serving and cloning on phase 9's quantized
+    duration-mode engine (same seeded weights), with 3 s and 6 s prompt
+    buckets."""
+    t_phase = time.perf_counter()
+    cfm = seeded(_engine_flagship, SEED + 12).eval()
+    engine = vbt.TTSEngine(cfm, **LONG_ENGINE)
+    codec = cfm.codec
+    sr, spf = codec.sampling_rate, codec.downsample_factor
+    window, overlap = engine.long_window_frames, engine.long_overlap_frames
+
+    # warmup: the window program, each prompt bucket's encode, the
+    # prompt-conditioned predictor at each (batch, text) bucket
+    warmed = collections.Counter()
+    stream, encode, predict = cfm.sample_long_stream, codec.encode, engine._predict_durations
+
+    def spy_stream(**kw):
+        warmed["long_stream", kw["total_frames"]] += 1
+        return stream(**kw)
+
+    def spy_encode(audio):
+        warmed["encode", audio.shape[-1]] += 1
+        return encode(audio)
+
+    def spy_predict(ids, cond=None):
+        warmed["predictor_with_cond" if cond is not None else "predictor", ids.shape] += 1
+        return predict(ids, cond=cond)
+
+    cfm.sample_long_stream, codec.encode, engine._predict_durations = (spy_stream, spy_encode,
+                                                                       spy_predict)
+    try:
+        t_warm = engine.warmup()
+    finally:
+        del cfm.sample_long_stream, codec.encode, engine._predict_durations
+    buckets = [(b, n) for b in engine.batch_buckets for n in engine.text_buckets]
+    want_warm = {("long_stream", 2 * window - overlap): 1, ("encode", 72_000): 1,
+                 ("encode", 144_000): 1,
+                 **{("predictor_with_cond", bn): 1 for bn in buckets},
+                 **{("predictor", bn): 1 for bn in buckets}}
+    assert warmed == want_warm, f"warmup ran {dict(warmed)}, want {want_warm}"
+    log("long", f"TTSEngine({LONG_ENGINE}), window {window}, overlap {overlap}: warmup in "
+                f"{t_warm:.2f} s covered the 9 buckets, one two-window stream of "
+                f"{2 * window - overlap} frames, the encode of each prompt bucket (3 s, 6 s) "
+                f"and the prompt-conditioned predictor at each of the 9 buckets")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    wave = torch.from_numpy(_waves(1, PROMPT_SAMPLES, SEED + 81)[0])[None]
+    # the plans (the predictor runs here, outside the counted run)
+    text, plan = _text_for_frames(engine, LONG_MIN_FRAMES)
+    p_lat, p_ids = engine._prepare_prompt(wave, None, PROMPT_TEXT)
+    p_frames = p_lat.shape[1]
+    clone_text, cplan = _text_for_frames(engine, CLONE_MIN_FRAMES, cond=p_lat,
+                                         prompt_frames=p_frames)
+    assert plan["windows"] >= 3 and p_ids.shape == (1, p_frames), (plan, p_ids.shape)
+
+    def launches_of(p, prompt_forwards=0):
+        return {"k1": K1_PER_WINDOW * p["windows"] + DP_DEPTH * (p["forwards"] + prompt_forwards),
+                "k2": 0, "k3": 0, "k4": K4_PER_WINDOW * p["windows"]}
+
+    want_long, want_clone = launches_of(plan), launches_of(cplan, prompt_forwards=1)
+
+    def counted(fn, want):
+        before = read_launches()
+        out = fn()
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        assert got == want, f"a request launched {got}, want {want}"
+        return out
+
+    def check_audio(audio, frames):
+        assert audio.shape[-1] == audio.numel() == frames * spf, (tuple(audio.shape), frames)
+        assert bool(torch.isfinite(audio).all()), "non-finite audio"
+
+    reset_launches()  # the long-form and cloning path's run starts here
+    runs = {"long stream": [], "clone stream": []}
+    with shape_tally() as tally:
+        for _ in range(LONG_REPEATS):
+            audio, first, total = counted(
+                lambda: _stream_timed(engine.synthesize_stream(text, generator=gen)), want_long)
+            check_audio(audio, plan["exact"])
+            runs["long stream"].append((first, total))
+        (audio, lens), synth_ms = _timed(lambda: counted(
+            lambda: engine.synthesize([text], generator=gen, return_lengths=True), want_long))
+        check_audio(audio, plan["exact"])
+        assert lens.tolist() == [plan["exact"] * spf], lens
+        for _ in range(LONG_REPEATS):
+            audio, first, total = counted(lambda: _stream_timed(engine.clone_stream(
+                clone_text, wave, prompt_text=PROMPT_TEXT, generator=gen)), want_clone)
+            check_audio(audio, cplan["exact"] - p_frames)
+            runs["clone stream"].append((first, total))
+        clip = counted(lambda: engine.clone(clone_text, wave, prompt_text=PROMPT_TEXT,
+                                            generator=gen), want_clone)
+        check_audio(clip, cplan["exact"] - p_frames)
+        before = read_launches()
+        with vbt.DynamicBatcher(engine, max_wait_ms=100.0, seed=SEED) as batcher:
+            f_long = batcher.submit(text)
+            f_clone = batcher.submit_clone(clone_text, wave, prompt_text=PROMPT_TEXT)
+            b_long, b_clone = f_long.result(timeout=600), f_clone.result(timeout=600)
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        both = {k: want_long[k] + want_clone[k] for k in want_long}
+        assert got == both, f"the batcher's two requests launched {got}, want {both}"
+        check_audio(b_long, plan["exact"])
+        check_audio(b_clone, cplan["exact"] - p_frames)
+    counts = read_launches()  # the path's run ends here
+    requests = 2 * LONG_REPEATS + 4
+    windows = (LONG_REPEATS + 2) * plan["windows"] + (LONG_REPEATS + 2) * cplan["windows"]
+    assert counts["k4"] == K4_PER_WINDOW * windows, (counts, windows)
+    assert counts["k2"] == counts["k3"] == 0
+    for kernel in ("k1", "k4"):
+        tallied = sum(c for key, c in tally.items() if key[0] == kernel)
+        assert tallied == counts[kernel], f"{kernel}: {tallied} calls, {counts[kernel]} launches"
+    window_k1 = {key: c for key, c in tally.items() if key[0] == "k1"
+                 and key[2] == torch.bfloat16}
+    assert window_k1 == {("k1", (2, 4, window + 16, window + 16, 128), torch.bfloat16, False):
+                         K1_PER_WINDOW * windows}, window_k1
+
+    for kind, p, audio_frames in (("long stream", plan, plan["exact"]),
+                                  ("clone stream", cplan, cplan["exact"] - p_frames)):
+        audio_s = audio_frames * spf / sr
+        first = [f for f, _ in runs[kind]]
+        total = [t for _, t in runs[kind]]
+        log("long", f"{kind}: {p['tokens']} tokens, {p['exact']} exact frames"
+                    + (f" ({p_frames} of them the 3 s prompt's)" if kind.startswith("clone")
+                       else "")
+                    + f", {p['windows']} windows of {window} (hop {window - overlap}), "
+                    f"{audio_s:.2f} s of audio out; time to the first chunk on the host "
+                    f"{_min_median(first)}; latency {_min_median(total)} (all "
+                    f"{[round(t, 1) for t in total]}); RTF median "
+                    f"{np.median(total) / 1e3 / audio_s:.5f}; launches per window "
+                    f"{K1_PER_WINDOW} K1 + {K4_PER_WINDOW} K4, plus {DP_DEPTH} K1 per "
+                    f"predictor forward x {p['forwards'] + (1 if kind.startswith('clone') else 0)}"
+                    f" on {smi}")
+    log("long", f"synthesize of the long text (one call, not streamed): {synth_ms:.1f} ms, "
+                f"lengths {lens.tolist()} = exact frames x {spf}; clone of {clone_text[:24]!r}... "
+                f"from a 3 s raw prompt ({PROMPT_SAMPLES} samples, bucket 3 s, {p_frames} "
+                f"frames, ids from prompt_text) -> {clip.shape[-1]} samples; DynamicBatcher: "
+                f"an over-bucket submit and a submit_clone served ({b_long.shape[-1]}, "
+                f"{b_clone.shape[-1]} samples); path totals {counts} over {requests} requests, "
+                f"{windows} windows; launches by shape "
+                f"{ {(k[0], k[1], str(k[2])[6:]): c for k, c in tally.items()} }")
+
+    # the streamed decode against the one-shot decode of the same latents
+    ids = np.asarray(engine._tokenizer().texts_to_tensor_ids([text]))
+    cond_ids, exact = engine._long_frame_ids(ids[:, : plan["tokens"]])
+    chunks = list(cfm._sample_long_chunks(
+        semantic_token_ids=torch.from_numpy(cond_ids), total_frames=exact,
+        window_frames=window, overlap_frames=overlap, prompt=None, steps=STEPS,
+        cond_scale=CFG_SCALE, quantize="w8a16", param_store_dtype=None, generator=gen))
+    latents = torch.cat(chunks, dim=1)
+    streamed = torch.cat(list(cfm._stream_decode(iter(chunks), codec, True, overlap)), dim=-1)
+    one_shot = codec.decode(latents)
+    peak = one_shot.abs().max().item()
+    gap = (streamed - one_shot).abs()
+    worst = int(gap.flatten().argmax()) // spf
+    log("long", f"streamed decode vs one-shot decode of the same {exact} frames (fp32, TF32 "
+                f"off, ctx = guard = {overlap} frames): max_abs_err {gap.max().item():.3e}, "
+                f"{gap.max().item() / peak:.3e} of the peak {peak:.3e} (tol {LONG_SEAM_TOL:g} x "
+                f"peak), worst at frame {worst}; samples off by more than 1e-6 x peak "
+                f"{int((gap > 1e-6 * peak).sum())} of {gap.numel()}")
+    assert tuple(streamed.shape) == tuple(one_shot.shape) == (1, 1, exact * spf)
+    assert gap.max().item() <= LONG_SEAM_TOL * peak, "the streamed decode leaves a seam"
+
+    prof = _profile(lambda: list(engine.synthesize_stream(text, generator=gen)))
+    idle = prof["idle"]
+    log("long", f"profiled long stream ({plan['windows']} windows): wall {prof['wall_ms']:.2f} "
+                f"ms, device busy {prof['busy_ms']:.2f} ms over {prof['kernels']} kernels "
+                f"(K1/K2/K3 {prof['attention_ms']:.2f} ms, K4 {prof['k4_ms']:.2f} ms over "
+                f"{prof['k4_kernels']}), idle share "
+                f"{'not measured' if idle is None else f'{idle:.3f}'}; largest (name, ms, "
+                f"calls): {'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'])}")
+    log("long", f"phase 9b took {time.perf_counter() - t_phase:.1f} s")
     del cfm, engine
     torch.cuda.empty_cache()
     return counts, tally
@@ -2861,7 +3163,8 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
         return vbt.ConditionalFlowMatcherWrapper(vb, text_to_semantic=t2s)
 
     cfm = seeded(build_cfm, SEED + 73).eval()
-    engine = vbt.TTSEngine(cfm, **SEM_ENGINE)
+    engine = vbt.TTSEngine(cfm, **SEM_ENGINE,
+                           prompt_seconds_buckets=LONG_ENGINE["prompt_seconds_buckets"])
     t_warm = engine.warmup()
     n_buckets = len(SEM_BATCHES) * len(SEM_TEXT_BUCKETS)
     log("semantic", f"semantic TTSEngine({SEM_ENGINE}) over the flagship bf16 denoiser (500 "
@@ -2917,6 +3220,52 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
                     f"{batcher.stats['batches']} group(s) in {b_ms:.1f} ms; path totals "
                     f"{eng_counts}; K1/K4 by shape "
                     f"{ {(k[0], k[1], str(k[2])[6:]): c for k, c in etally.items()} }")
+    # long-form and cloning in semantic mode: an over-bucket text of two
+    # segments, both in text bucket 128, generated as one decode at batch 2;
+    # a clone from a 3 s raw prompt whose ids come through HuBERT
+    long_text, wave = _text_of(220), torch.from_numpy(_waves(1, PROMPT_SAMPLES, SEED + 77)[0])
+    drives, sources = [], []
+    drive = engine._drive_long
+
+    def spy_drive(cond_ids, exact, **kw):
+        drives.append((exact, kw.get("skip_frames", 0)))
+        return drive(cond_ids, exact, **kw)
+
+    def spy_generate(source, **kw):
+        sources.append(tuple(source.shape))
+        return generate(source, **kw)
+
+    engine._drive_long, t2s.generate = spy_drive, spy_generate
+    reset_launches()
+    try:
+        with shape_tally() as ltally:
+            (l_clip, l_ms) = _timed(lambda: engine.synthesize([long_text], generator=gen,
+                                                              trim=True)[0])
+            (c_clip, c_ms) = _timed(lambda: engine.clone("the voice of the prompt reads this",
+                                                         wave[None], generator=gen))
+    finally:
+        del engine._drive_long, t2s.generate
+    long_counts = read_launches()
+    (l_exact, _), (c_exact, c_skip) = drives
+    hop_w = engine.long_window_frames - engine.long_overlap_frames
+    wins = [1 + -(-max(e - engine.long_window_frames, 0) // hop_w) for e in (l_exact, c_exact)]
+    enc = T2S_FULL["source_depth"]
+    assert sources == [(2, 128), (1, 64)], f"the decodes ran at {sources}"
+    assert long_counts == {"k1": 2 * enc + K1_PER_WINDOW * sum(wins), "k2": 0, "k3": 0,
+                           "k4": K4_PER_WINDOW * sum(wins)}, (long_counts, wins)
+    assert l_clip.shape[-1] == l_exact * hop and bool(torch.isfinite(l_clip).all())
+    assert c_clip.shape[-1] == (c_exact - c_skip) * hop and bool(torch.isfinite(c_clip).all())
+    _assert_checked(ltally, k1, "semantic long-form")
+    _assert_k4_checked(ltally, k4, "semantic long-form")
+    log("semantic", f"semantic long-form: {len(long_text)} characters in 2 segments, one decode "
+                    f"at batch 2 ({sources[0]}), {l_exact} exact frames ({l_exact * hop / sr:.2f}"
+                    f" s) in {wins[0]} windows: {l_ms:.1f} ms; clone from a 3 s raw prompt "
+                    f"({c_skip} frames, ids through HuBERT), one decode at {sources[1]}, "
+                    f"{c_exact - c_skip} frames out in {wins[1]} windows: {c_ms:.1f} ms; launches "
+                    f"{long_counts} (a window {K1_PER_WINDOW} K1 + {K4_PER_WINDOW} K4, a decode's "
+                    f"encoder {enc} K1); K1/K4 by shape "
+                    f"{ {(k[0], k[1], str(k[2])[6:]): c for k, c in ltally.items()} } on {smi}")
+
     # the request's denoiser half alone, profiled (a whole request's ~6e5
     # kernels take minutes of the profiler's post-processing); the decode
     # half's profile is above
@@ -2981,7 +3330,7 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     del trainer, t2s, hubert
     torch.cuda.empty_cache()
     return {"decode": (dec_counts, dtally), "serve": (eng_counts, etally),
-            "train": (train_counts, ttally)}
+            "train": (train_counts, ttally), "long": (long_counts, ltally)}
 
 
 def semantic_rows(k1: dict, k4: dict, k4_dec: dict, k23: dict, sem: dict) -> list:
@@ -3027,7 +3376,7 @@ def semantic_rows(k1: dict, k4: dict, k4_dec: dict, k23: dict, sem: dict) -> lis
     return rows
 
 
-def _path_row(kernel: str, name: str, parts) -> dict:
+def _path_row(kernel: str, name: str, parts, path: str = "serve_w8a16") -> dict:
     """The row of one kernel on the quantized duration-mode path from the
     shapes that path gave it: parts is [(launches, timed result)]. Times and
     bounds are means per launch, weighted by each shape's launches, so that
@@ -3040,7 +3389,7 @@ def _path_row(kernel: str, name: str, parts) -> dict:
 
     heaviest = max(parts, key=lambda p: p[0] * p[1]["bound_ms"])[1]
     return {
-        "name": name, "path": "serve_w8a16", "route": "cuda", "source": SOURCES[kernel],
+        "name": name, "path": path, "route": "cuda", "source": SOURCES[kernel],
         "replaces": REPLACES[kernel], "launches": total,
         "max_abs_err": max(r["max_abs_err"] for _, r in parts),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
@@ -3055,12 +3404,13 @@ def _path_row(kernel: str, name: str, parts) -> dict:
     }
 
 
-def engine_rows(k1: dict, k4: dict, tally) -> list:
-    """The K1 rows (the denoiser's bf16 calls, the duration predictor's fp32
-    calls) and the K4 row of the quantized duration-mode path, each from the
-    shapes the path launched it at (`shape_tally`). Fails if the path ran a
-    kernel at a shape that phases 3 and 5 did not hold against the plain
-    version and time."""
+def engine_rows(k1: dict, k4: dict, tally, path: str = "serve_w8a16") -> list:
+    """The K1 rows (the denoiser's bf16 calls, the duration predictor's or
+    the seq2seq encoder's fp32 calls) and the K4 row of a quantized serving
+    path (by default the duration-mode engine's), each from the shapes the
+    path launched it at (`shape_tally`). Fails if the path ran a kernel at a
+    shape that phases 3 and 5 did not hold against the plain version and
+    time."""
     by_role = {"denoiser": [], "predictor": [], "k4": []}
     for key, count in sorted(tally.items(), key=str):
         if key[0] == "k1":
@@ -3074,10 +3424,11 @@ def engine_rows(k1: dict, k4: dict, tally) -> list:
             role = "k4"
         assert found, f"the path ran {key[0]} at {shape} {dtype}, which no check timed"
         by_role[role].append((count, {**found[0], "dtype": dtype}))
-    return [_path_row("k1", f"{NAMES['k1']}[serve_w8a16]", by_role["denoiser"]),
-            _path_row("k1", f"{NAMES['k1']}[serve_w8a16_duration_predictor]",
-                      by_role["predictor"]),
-            {**_path_row("k4", NAMES["k4"], by_role["k4"]),
+    k4_name = NAMES["k4"] if path == "serve_w8a16" else f"{NAMES['k4']}[{path}]"
+    fp32_role = "duration_predictor" if path != "semantic_long" else "encoder"
+    return [_path_row("k1", f"{NAMES['k1']}[{path}]", by_role["denoiser"], path),
+            _path_row("k1", f"{NAMES['k1']}[{path}_{fp32_role}]", by_role["predictor"], path),
+            {**_path_row("k4", k4_name, by_role["k4"], path),
              "library": "cuBLAS bf16 on the weight dequantized ahead of time"}]
 
 
@@ -3116,7 +3467,7 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
 
 
 def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
-                raw, semantic) -> str:
+                raw, semantic, long_rows) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
     serving shape), on the quantized duration-mode path (`engine_rows`: the
     denoiser's and the duration predictor's calls) and on the training path
@@ -3126,7 +3477,9 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_p
     configuration); K1, K2 and K3 on the raw-wave mel training path and K1
     on its sampling (phase 14); fp32 K1, K2 and K3 on duration training and
     K1 on the trained predictor's sampling call (phase 15); the semantic
-    paths' rows (phase 18, `semantic_rows`)."""
+    paths' rows (phase 18, `semantic_rows`, and its long-form requests'); the
+    long-form and cloning path's rows (phase 9b: the windows' bf16 K1, the
+    predictor's fp32 K1, K4)."""
     rows = [_k1_row("serve", k1["flagship_cfg_bf16"], serve_k1),
             _k1_row("train", k1["train_bf16"], train_counts["k1"])]
     rows += engine[:2]
@@ -3151,7 +3504,7 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_p
     rows.append({**_k1_row("duration_sample", k1["dp_sample_f32"], dp["sample_k1_dp"]),
                  "note": f"the predictor's launches of the request; its denoiser launched "
                          f"{dp['sample_k1_denoiser']} bf16 K1 at mel_serve's shape"})
-    rows += semantic
+    rows += long_rows + semantic
     return json.dumps({"kernels": rows})
 
 
@@ -3177,6 +3530,12 @@ def main() -> int:
         f"the quantized duration-mode path skipped a kernel: {engine_counts}"
     )
     engine = engine_rows(k1, k4, tally)
+    phase_long_card_vs_cpu()
+    long_counts, long_tally = phase_long(smi)
+    assert long_counts["k1"] > 0 and long_counts["k4"] > 0, (
+        f"the long-form and cloning path skipped a kernel: {long_counts}"
+    )
+    long_rows = engine_rows(k1, k4, long_tally, path="serve_long")
     train_counts, trainer, untrained = phase_train(smi)
     assert min(train_counts[k] for k in ("k1", "k2", "k3")) > 0, (
         f"the training path skipped a kernel: {train_counts}"
@@ -3203,8 +3562,9 @@ def main() -> int:
     assert sem["decode"][0]["k4"] > 0 and sem["serve"][0]["k4"] > 0, sem
     assert sem["train"][0]["k2"] > 0 and sem["train"][0]["k3"] > 0, sem["train"][0]
     semantic = semantic_rows(k1, k4, k4_dec, k23, sem)
+    semantic += engine_rows(k1, k4, sem["long"][1], path="semantic_long")
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
-                      raw, semantic), flush=True)
+                      raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

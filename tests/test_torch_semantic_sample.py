@@ -11,7 +11,8 @@ weights carried by `utils/convert.py`, noise y0 the JAX sampler's own draw.
   wav2vec / codec rate ratio, and the lengths too;
 * the loss takes ids from raw audio through the wav2vec;
 * `TTSEngine` in semantic mode: `synthesize` outputs and lengths against
-  the JAX engine's, `warmup`, `DynamicBatcher.submit`.
+  the JAX engine's, `warmup`, `DynamicBatcher.submit`, a long text and a
+  clone served.
 """
 
 import functools
@@ -166,7 +167,10 @@ def test_engine_warmup_and_batcher():
         futures = [batcher.submit(t) for t in TEXTS + ["x"]]
         clips = [f.result(timeout=120) for f in futures]
     assert all(c.shape[-1] == LATENT and 0 < c.shape[0] <= N_IDS for c in clips)
-    with pytest.raises(NotImplementedError):
-        engine.synthesize(["a" * 40])  # over the largest text bucket: long-form
-    with pytest.raises(NotImplementedError):
+    # over the largest text bucket: long-form, 3 segments of up to N_IDS ids
+    long_clip = engine.synthesize(["a" * 40], trim=True)[0]
+    assert long_clip.shape[1] == LATENT and long_clip.shape[0] >= 3
+    clone = engine.clone("hi", torch.zeros(1, 8, LATENT), prompt_ids=np.zeros((1, 8), np.int64))
+    assert clone.shape[0] == 1 and clone.shape[2] == LATENT and clone.shape[1] >= 1
+    with pytest.raises(ValueError, match="prompt_ids"):  # semantic mode needs the ids
         engine.clone("hi", torch.zeros(1, 8, LATENT))

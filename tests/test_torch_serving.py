@@ -10,7 +10,8 @@ the JAX package's, on the CPU in float32, from the same weights.
   at atol 2e-4, from the JAX predictor's aligned ids and the same y0, and
   its lengths exact;
 * `DynamicBatcher`: two concurrent submits coalesce into one engine call;
-* what is not ported raises NotImplementedError.
+* what raised before long-form serving and cloning were ported now runs,
+  and the settings JAX refuses raise ValueError.
 """
 
 import functools
@@ -35,6 +36,7 @@ from voicebox_tpu_torch import (
     DynamicBatcher,
     TTSEngine,
     VoiceBox,
+    kernels,
 )
 from voicebox_tpu_torch.utils.convert import duration_predictor_state_dict, voicebox_state_dict
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
@@ -78,9 +80,11 @@ def _wrappers():
 
 
 def _engines(**kw):
+    """The JAX and the port engine on `_wrappers()`, long-form windows of 8
+    frames overlapping by 2 unless `kw` sets them."""
     jcfm, cfm = _wrappers()
-    return (JaxEngine(jcfm, long_window_frames=8, long_overlap_frames=2, **ENGINE, **kw),
-            TTSEngine(cfm, **ENGINE, **kw))
+    kw = {"long_window_frames": 8, "long_overlap_frames": 2, **kw}
+    return JaxEngine(jcfm, **ENGINE, **kw), TTSEngine(cfm, **ENGINE, **kw)
 
 
 TEXTS = ["hey", "hello you", "a longer one", "x"]
@@ -183,8 +187,9 @@ def test_warmup_runs_every_bucket_and_stream_yields_the_trimmed_clip():
         assert eng.warmup() > 0
     finally:
         del eng.wrapper.sample
-    # (batch, frame horizon): every (batch, text) bucket, then the overflow-only 128
-    assert seen == [(1, 32), (1, 64), (2, 32), (2, 64), (1, 128), (2, 128)]
+    # (batch, frame horizon): every (batch, text) bucket, the overflow-only
+    # 128, then the long-form stream's two windows of 8 frames
+    assert seen == [(1, 32), (1, 64), (2, 32), (2, 64), (1, 128), (2, 128), (1, 8), (1, 8)]
     chunks = list(eng.synthesize_stream("hey", generator=torch.Generator().manual_seed(1)))
     clip = eng.synthesize(["hey"], generator=torch.Generator().manual_seed(1), trim=True)[0]
     assert len(chunks) == 1
@@ -222,24 +227,30 @@ def test_dynamic_batcher_coalesces_concurrent_submits():
 
 
 def test_what_is_not_ported_raises():
+    """What raised NotImplementedError before long-form serving and cloning
+    were ported now runs; what JAX refuses raises ValueError."""
     jcfm, cfm = _wrappers()
     _, eng = _engines()
     long_text = "a" * 20  # over the largest text bucket, 16
-    with pytest.raises(NotImplementedError, match="long-form"):
-        eng.synthesize([long_text])
-    with pytest.raises(NotImplementedError, match="long-form"):
-        next(eng.synthesize_stream(long_text))
+    clips = eng.synthesize([long_text], trim=True)
+    assert clips[0].shape[0] == eng._long_frame_ids(
+        eng._tokenizer().texts_to_tensor_ids([long_text])[:, :20])[1]
+    assert torch.cat(list(eng.synthesize_stream(long_text)), dim=1).shape == clips[0][None].shape
     with pytest.raises(ValueError, match="long-form serving is disabled"):
         TTSEngine(cfm, enable_long_form=False, **ENGINE).synthesize([long_text])
-    for call in (lambda: eng.clone("hi", np.zeros((1, 4, LATENT))),
-                 lambda: next(eng.clone_stream("hi", np.zeros((1, 4, LATENT)))),
-                 lambda: DynamicBatcher(eng, autostart=False).submit_clone("hi", None)):
-        with pytest.raises(NotImplementedError, match="cloning"):
-            call()
-    with pytest.raises(NotImplementedError, match="cloning.*item 12"):
-        TTSEngine(cfm, prompt_seconds_buckets=(1.0,), **ENGINE)
-    with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
-        TTSEngine(cfm, compilation_cache_dir="/nonexistent", **ENGINE)
+    prompt = np.zeros((1, 4, LATENT), np.float32)
+    ids = np.zeros((1, 4), np.int64)
+    assert eng.clone("hi", prompt, prompt_ids=ids).shape[2] == LATENT
+    assert len(list(eng.clone_stream("hi", prompt, prompt_ids=ids))) >= 1
+    with DynamicBatcher(eng) as batcher:
+        assert batcher.submit_clone("hi", prompt, prompt_ids=ids).result(60).shape[2] == LATENT
+    with pytest.raises(ValueError, match="prompt_ids"):  # a latent prompt without ids
+        eng.clone("hi", prompt)
+    engine = TTSEngine(cfm, prompt_seconds_buckets=(2.0, 1.0), **ENGINE)
+    assert engine.prompt_seconds_buckets == (1.0, 2.0)
+    with pytest.raises(ValueError, match="audio_enc_dec"):  # raw audio, no codec
+        engine.clone("hi", np.zeros((1, 100), np.float32), prompt_ids=ids)
+    TTSEngine(cfm, compilation_cache_dir=str(kernels.BUILD_DIR), **ENGINE)
     plain = ConditionalFlowMatcherWrapper(cfm.voicebox, device="cpu")
     with pytest.raises(ValueError, match="DurationPredictor"):
         TTSEngine(plain)
@@ -253,14 +264,14 @@ def test_what_is_not_ported_raises():
     dict(long_window_frames=256), dict(long_overlap_frames=64),
 ])
 def test_unported_engine_settings_raise(setting):
-    """Long-form sampling's settings raise when they differ from their
-    defaults, rather than being stored and ignored. Semantic mode's are
-    ported now: they are kept for its decode (a duration-mode engine, as
-    the JAX package's, does not read them)."""
+    """Every engine setting is kept, none stored and ignored: semantic
+    mode's for its decode (a duration-mode engine, as the JAX package's,
+    does not read them), long-form sampling's for its windows (an overlap
+    that is not under the window raises ValueError, as JAX asserts)."""
     _, cfm = _wrappers()
-    if "semantic" in str(setting) or "spec" in str(setting):
-        engine = TTSEngine(cfm, **ENGINE, **setting)
-        assert all(getattr(engine, k) == v for k, v in setting.items())
-        return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TTSEngine(cfm, **ENGINE, **setting)
+    engine = TTSEngine(cfm, **ENGINE, **setting)
+    assert all(getattr(engine, k) == v for k, v in setting.items())
+    if "long" in str(setting):
+        with pytest.raises(ValueError, match="long_overlap_frames"):
+            TTSEngine(cfm, **ENGINE, **{**setting, "long_overlap_frames": 256,
+                                        "long_window_frames": 256})

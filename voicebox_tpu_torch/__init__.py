@@ -15,7 +15,10 @@ monotonic alignment search, the forward-sum loss,
 `DurationPredictorTrainer`) and the semantic stack (`HubertWithKmeans`
 and k-means, `TextToSemantic` with its KV-cached, speculative and
 quantized decode, semantic-mode `sample(texts=)` and `TTSEngine`,
-`TextToSemanticTrainer`), and the GateLoop layer. On CUDA tensors every attention call runs K1
+`TextToSemanticTrainer`), the GateLoop layer, and long-form windowed
+sampling with voice cloning (`sample_long`, `sample_long_stream`,
+`TTSEngine` over its largest text bucket, `clone`, `clone_stream`,
+`DynamicBatcher.submit_clone`). On CUDA tensors every attention call runs K1
 forward and K2 + K3 backward, and every quantized "w8a16" matmul runs K4,
 the hand-written Hopper kernels in `csrc/`. Entry points run on the card
 unless the caller passes `device="cpu"`.

@@ -2,10 +2,11 @@
 
 Each kernel is one `.cu` file under `voicebox_tpu_torch/csrc/` with a plain C
 entry point. At first use it is compiled with nvcc for `sm_90a` into a shared
-library under `build/kernels/` at the root of the checkout and loaded with
-ctypes. The library's file name carries a hash of the source, of the headers
-it includes (`#include "..."`, found beside it) and of the flags, so an
-edited source or header never loads a stale library. Nothing is built or loaded
+library under `build/kernels/` at the root of the checkout (`set_build_dir`
+moves it for the process) and loaded with ctypes. The library's file name
+carries a hash of the source, of the headers it includes (`#include "..."`,
+found beside it) and of the flags, so an edited source or header never
+loads a stale library. Nothing is built or loaded
 when this module is imported: the CPU tests import every module, and a
 machine without nvcc never reaches a build.
 """
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "source_digest"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "set_build_dir", "source_digest"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,6 +31,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the .log
 )
+
+
+def set_build_dir(path) -> Path:
+    """Build and look up the kernel libraries under `path` (created at the
+    first build) for the rest of the process, so that they persist where
+    the caller keeps them: `TTSEngine(compilation_cache_dir=...)`. A library
+    this process already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

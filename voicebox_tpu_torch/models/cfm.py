@@ -49,7 +49,17 @@ resampled to its rate.
 The wrapper is an nn.Module holding `voicebox`, the frozen codec, the
 duration predictor or the TextToSemantic (with its wav2vec), and it moves
 them to `device` when it is built: the card unless the caller asks for the
-CPU. Not ported yet: long-form sampling.
+CPU.
+
+Long-form sampling (`sample_long`, `sample_long_stream`) generates any
+length by windowed infilling: the ids are stretched to the frame rate, the
+horizon is cut into windows of `window_frames` that overlap by
+`overlap_frames`, and each window is one `sample(cond=, cond_mask=,
+ids_at_frame_rate=True)` whose first frames keep the previous window's tail
+(or an optional voice prompt, in the first window). The latent buffer, the
+overlap copy and the kept span stay on the device, so a window costs no
+host read; the stream decodes what each window finalizes with a left
+context and a right guard of already-sampled frames.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ import torch
 from torch import nn
 
 from ..ops.interp import curtail_or_pad
-from ..ops.masks import normal, uniform
+from ..ops.masks import normal, split_generator, uniform
 from ..ops.ode import cfm_interpolant, odeint, odeint_tsit5_adaptive
 from ..ops.quant import QUANT_MODES, cast_float_params, quantize_voicebox
 from ..ops.stft import resample
@@ -544,3 +554,187 @@ class ConditionalFlowMatcherWrapper(nn.Module):
         if out_is_audio:
             return out, frames * codec.downsample_factor
         return out, frames
+
+    # ------------------------------------------------------------------
+    # long-form sampling by windowed infilling
+
+    def _long_total_frames(self, n_ids: int, total_frames: Optional[int]) -> int:
+        """The default long-form horizon: the id count at the wav2vec / codec
+        rate ratio (`sample`'s cond length for the same ids)."""
+        if total_frames is not None:
+            return int(total_frames)
+        return math.ceil(n_ids * self.frames_per_semantic_token())
+
+    @staticmethod
+    def _validate_long_args(total_frames: int, window_frames: int, overlap_frames: int) -> None:
+        if not 0 < overlap_frames < window_frames:
+            raise ValueError(f"need 0 < overlap_frames ({overlap_frames}) < window_frames "
+                             f"({window_frames})")
+        if total_frames < window_frames:
+            raise ValueError(f"total_frames {total_frames} < window_frames {window_frames}: "
+                             "use sample() directly for short outputs")
+
+    def sample_long(self, *, semantic_token_ids, total_frames: Optional[int] = None,
+                    window_frames: int = 768, overlap_frames: int = 128, prompt=None,
+                    steps: int = 3, cond_scale: float = 1.0, decode_to_audio: bool = True,
+                    quantize: Optional[str] = None,
+                    param_store_dtype: Optional[torch.dtype] = None,
+                    generator: Optional[torch.Generator] = None):
+        """Any length by windowed infilling: `semantic_token_ids` (b, n_ids)
+        condition the whole output of `total_frames` frames (default: the id
+        count at the rate ratio). Window k + 1 keeps window k's last
+        `overlap_frames` (cond_mask False there) and generates the rest; an
+        optional `prompt` ((b, p, d) latents or (b, n) raw audio, p <
+        `window_frames`) fills the first window's kept span. Every window has
+        the same shape. Returns the decoded audio, or the (b, total_frames,
+        d) latents; `sample_long_stream` runs the same window loop."""
+        chunks = list(self._sample_long_chunks(
+            semantic_token_ids=semantic_token_ids, total_frames=total_frames,
+            window_frames=window_frames, overlap_frames=overlap_frames, prompt=prompt,
+            steps=steps, cond_scale=cond_scale, quantize=quantize,
+            param_store_dtype=param_store_dtype, generator=generator))
+        out = torch.cat(chunks, dim=1)
+        codec = self.audio_enc_dec
+        if decode_to_audio and codec is not None:
+            with torch.no_grad():
+                return codec.decode(out)
+        return out
+
+    def sample_long_stream(self, *, semantic_token_ids, total_frames: Optional[int] = None,
+                           window_frames: int = 768, overlap_frames: int = 128, prompt=None,
+                           steps: int = 3, cond_scale: float = 1.0,
+                           decode_to_audio: bool = True, decode_ctx_frames: Optional[int] = None,
+                           quantize: Optional[str] = None,
+                           param_store_dtype: Optional[torch.dtype] = None,
+                           generator: Optional[torch.Generator] = None):
+        """`sample_long` as a stream: returns an iterator of audio (or latent)
+        chunks, one as each window is sampled, so playback starts after one
+        window. The arguments are checked here, at the call. Latent chunks
+        concatenate to `sample_long(decode_to_audio=False)` under the same
+        generator. With decoding, each drain decodes the buffered latents
+        with `decode_ctx_frames` (default `overlap_frames`) frames of
+        already-emitted left context and a right guard of as many frames not
+        yet emitted, and yields only the new samples; the last drain yields
+        the rest."""
+        total = self._long_total_frames(torch.as_tensor(semantic_token_ids).shape[1],
+                                        total_frames)
+        self._validate_long_args(total, window_frames, overlap_frames)
+        ctx = overlap_frames if decode_ctx_frames is None else decode_ctx_frames
+        if ctx < 0:
+            raise ValueError(f"decode_ctx_frames must be >= 0, got {ctx}")
+        chunks = self._sample_long_chunks(
+            semantic_token_ids=semantic_token_ids, total_frames=total,
+            window_frames=window_frames, overlap_frames=overlap_frames, prompt=prompt,
+            steps=steps, cond_scale=cond_scale, quantize=quantize,
+            param_store_dtype=param_store_dtype, generator=generator)
+        return self._stream_decode(chunks, self.audio_enc_dec, decode_to_audio, ctx)
+
+    @staticmethod
+    def _stream_decode(chunks, codec, decode_to_audio: bool, ctx: int):
+        """Decode latent chunks as they come: the buffer holds frames
+        [next to emit - left, received); a drain decodes it and emits the
+        samples of frames [left, n - ctx) (all of them on the last drain),
+        then keeps `ctx` frames of left context."""
+        if not decode_to_audio or codec is None:
+            yield from chunks
+            return
+        spf = codec.downsample_factor
+        buf, left = None, 0
+
+        def drain(final: bool):
+            nonlocal buf, left
+            n = buf.shape[1]
+            emit_hi = n if final else n - ctx
+            if emit_hi <= left:
+                return None
+            with torch.no_grad():
+                audio = codec.decode(buf)
+            out = audio[..., left * spf: emit_hi * spf].contiguous()
+            keep_from = max(emit_hi - ctx, 0)
+            left = emit_hi - keep_from
+            buf = buf[:, keep_from:]
+            return out
+
+        for chunk in chunks:
+            buf = chunk if buf is None else torch.cat([buf, chunk], dim=1)
+            out = drain(final=False)
+            if out is not None:
+                yield out
+        out = drain(final=True)
+        if out is not None:
+            yield out
+
+    def _sample_long_chunks(self, *, semantic_token_ids, total_frames, window_frames,
+                            overlap_frames, prompt, steps, cond_scale, quantize,
+                            param_store_dtype, generator):
+        """The window loop of `sample_long` / `sample_long_stream`: yields
+        each window's newly final latent frames (the first window's
+        `window_frames`, then a hop of window - overlap each; together the
+        (b, total_frames, d) stream) as fp32 device tensors. A frame is final
+        once its window is sampled: the next window keeps its overlap as it
+        is."""
+        device = next(self.voicebox.parameters()).device
+        ids = torch.as_tensor(semantic_token_ids).to(device).long()
+        b, n_ids = ids.shape
+        total_frames = self._long_total_frames(n_ids, total_frames)
+        self._validate_long_args(total_frames, window_frames, overlap_frames)
+        codec = self.audio_enc_dec
+        dim = self.voicebox.latent_dim
+        if prompt is not None:
+            prompt = torch.as_tensor(prompt, device=device)
+            if is_probably_audio_from_shape(prompt):
+                if codec is None:
+                    raise ValueError("a raw-audio prompt needs an audio_enc_dec to encode it")
+                with torch.no_grad():
+                    prompt = codec.encode(prompt)
+            if prompt.shape[1] > window_frames - 1:
+                raise ValueError(f"prompt of {prompt.shape[1]} frames is longer than a window "
+                                 f"less one ({window_frames - 1}): raise window_frames")
+            prompt = prompt.float()
+        if generator is not None and generator.device.type != "cpu":
+            # one read of the card's generator; each window's seed is then a
+            # host draw, so the window loop never waits for the device
+            generator = split_generator(generator, "cpu")
+
+        # ids at the latent frame rate (nearest neighbour), the tail window
+        # padded with the last id
+        idx = torch.clamp(torch.arange(total_frames) * n_ids // total_frames, max=n_ids - 1)
+        frame_ids = ids[:, idx.to(device)]
+        hop = window_frames - overlap_frames
+        n_windows = 1 + max(0, -(-(total_frames - window_frames) // hop))
+        padded_total = window_frames + (n_windows - 1) * hop
+        if padded_total > total_frames:
+            frame_ids = torch.cat(
+                [frame_ids, frame_ids[:, -1:].expand(b, padded_total - total_frames)], dim=1)
+
+        latents = torch.zeros(b, padded_total, dim, device=device)
+        arange_w = torch.arange(window_frames, device=device)
+        no_keep = torch.zeros(window_frames, dtype=torch.bool, device=device)
+        done = 0  # frames yielded so far
+        for w in range(n_windows):
+            start = w * hop
+            cond_w = torch.zeros(b, window_frames, dim, device=device)
+            keep = no_keep
+            if w == 0:
+                if prompt is not None:
+                    p_len = prompt.shape[1]
+                    cond_w[:, :p_len] = prompt
+                    keep = arange_w < p_len
+            else:
+                cond_w[:, :overlap_frames] = latents[:, start:start + overlap_frames]
+                keep = arange_w < overlap_frames
+            sub = None if generator is None else split_generator(generator, device)
+            out_w = self.sample(
+                cond=cond_w, semantic_token_ids=frame_ids[:, start:start + window_frames],
+                ids_at_frame_rate=True, cond_mask=(~keep).expand(b, window_frames),
+                steps=steps, cond_scale=cond_scale, decode_to_audio=False, quantize=quantize,
+                param_store_dtype=param_store_dtype, generator=sub,
+            ).float()
+            # the kept span stays as committed (the prompt, or the overlap)
+            committed = cond_w if w == 0 else latents[:, start:start + window_frames]
+            latents[:, start:start + window_frames] = torch.where(keep[None, :, None],
+                                                                  committed, out_w)
+            fin = min(start + window_frames, total_frames)
+            if fin > done:
+                yield latents[:, done:fin].clone()
+                done = fin

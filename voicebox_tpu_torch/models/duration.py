@@ -26,8 +26,9 @@ Counterpart of `voicebox_tpu/models/duration.py`:
 * `align_phoneme_ids_with_durations`: each id repeated for its duration,
   0 past a row's total;
 * `DurationPredictor`: the tokenizer, `forward` (eval, or `train=True`:
-  the loss), `loss_fn` and `forward_with_cond_scale` (CFG as one 2b
-  forward; no cond means zero cond, fully dropped).
+  the loss), `loss_fn`, `forward_with_cond_scale` (CFG as one 2b
+  forward; no cond means zero cond, fully dropped) and `load_torch` /
+  `save_torch` (the reference's `.pt` layout).
 
 State-dict keys are the reference's (`export_duration_predictor_torch`,
 without the aligner): `DurationPredictor.net` loads
@@ -38,7 +39,7 @@ parameter names (`utils.convert.aligner_state_dict`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from ..ops.forward_sum import forward_sum_loss
 from ..ops.interp import curtail_or_pad
 from ..ops.mas import maximum_path
 from ..ops.masks import coin_flip, mask_from_frac_lengths, prob_mask_like, uniform
+from ..utils.convert import save_reference_checkpoint
 from ..utils.tokenizer import Tokenizer
 from .primitives import ConvPositionEmbed, Linear
 from .transformer import Transformer
@@ -308,6 +310,50 @@ class DurationPredictor(nn.Module):
         if not torch.is_tensor(phoneme_ids):
             phoneme_ids = torch.from_numpy(np.asarray(phoneme_ids))
         return phoneme_ids.to(self._device()).long()
+
+    # keys a checkpoint may lack: frozen zeros and the RoPE table, which the
+    # net makes itself (the JAX package skips both when it loads)
+    _OPTIONAL_KEYS = ("null_cond", "rotary_emb.inv_freq")
+
+    def load_torch(self, path_or_state) -> dict:
+        """Load the net from a reference `DurationPredictor` checkpoint: a
+        raw state dict, a trainer checkpoint with the predictor under
+        `duration_predictor.` (the reference's, the JAX package's
+        `save_torch`, or this package's trainer's, which nests it under
+        `net.`), or a path to one. The aligner (training only; the NS2
+        package's names) and any codec weights are not loaded, as in the
+        JAX package: the aligner retrains from its init. Returns the state
+        dict loaded into `net`."""
+        sd = path_or_state
+        if not isinstance(sd, Mapping):
+            sd = torch.load(sd, map_location="cpu", weights_only=False)
+        for wrapper in ("state_dict", "model"):
+            if wrapper in sd and isinstance(sd[wrapper], Mapping):
+                sd = sd[wrapper]
+        for prefix in ("duration_predictor.", "net."):
+            if any(k.startswith(prefix) for k in sd):
+                sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        sd = {k: torch.as_tensor(v) for k, v in sd.items()
+              if not k.startswith(("aligner.", "align_loss.", "audio_enc_dec."))}
+        own = self.net.state_dict()
+        missing = [k for k in own if k not in sd and not k.endswith(self._OPTIONAL_KEYS)]
+        unexpected = [k for k in sd if k not in own]
+        if missing or unexpected:
+            raise KeyError(f"not a DurationPredictor checkpoint of this geometry: missing "
+                           f"{missing[:5]}, unexpected {unexpected[:5]}")
+        self.net.load_state_dict(sd, strict=False)
+        return sd
+
+    def save_torch(self, path, prefix: str = "") -> dict:
+        """Write the net as a reference `DurationPredictor` state dict, fp32,
+        inside a `{'model', 'optim', 'scheduler'}` checkpoint; `prefix=
+        'duration_predictor.'` gives the keys of a wrapper's state dict. The
+        aligner is left out (the JAX package's `save_torch` does the same),
+        so the reference loads it with `strict=False`. Returns the
+        checkpoint."""
+        model = {f"{prefix}{k}": v.detach().to("cpu", torch.float32, copy=True)
+                 for k, v in self.net.state_dict().items()}
+        return save_reference_checkpoint(path, model)
 
     def loss_fn(self, *, cond, phoneme_ids, mel=None, phoneme_len=None, mel_len=None,
                 phoneme_mask=None, mel_mask=None, cond_drop_prob: float = 0.0, generator=None,

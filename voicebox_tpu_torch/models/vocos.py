@@ -10,11 +10,15 @@ codes to features as a sum of per-quantizer embeddings.
 State-dict keys follow the upstream Vocos checkpoint layout
 (`backbone.embed`, `backbone.norm`, `backbone.convnext.{i}.*`,
 `backbone.final_layer_norm`, `head.out`,
-`feature_extractor.codebook_weights`). No checkpoint is loaded here.
+`feature_extractor.codebook_weights`); `Vocos.from_pretrained` loads a
+local upstream checkpoint, or builds a published geometry at random init
+when the name is not a file (nothing is downloaded).
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional
 
 import torch
@@ -155,6 +159,43 @@ class Vocos(nn.Module):
         if num_bandwidths > 0:
             self.feature_extractor = EncodecFeatures(num_quantizers, codebook_size,
                                                      input_channels)
+
+    @classmethod
+    def from_pretrained(cls, path_or_name: str, **kwargs) -> "Vocos":
+        """A Vocos of a published geometry, from a local upstream checkpoint
+        when `path_or_name` is a file, else at random init (no download). A
+        name ending in `vocos-encodec-24khz` takes that geometry (input 128,
+        4 bandwidths, n_fft 1280, hop 320), any other vocos-mel-24khz's
+        (input 100, n_fft 1024, hop 256); `kwargs` override the rest of the
+        constructor's arguments. A checkpoint's keys that this module lacks
+        (the upstream encodec feature extractor, the iSTFT window) are
+        skipped, and a parameter the file lacks keeps its init, with a
+        warning."""
+        if path_or_name.endswith("vocos-encodec-24khz"):
+            kwargs.setdefault("n_fft", 1280)
+            kwargs.setdefault("hop_length", 320)
+            model = cls(input_channels=128, num_bandwidths=4, **kwargs)
+        else:
+            model = cls(input_channels=100, **kwargs)
+        if os.path.exists(path_or_name):
+            try:
+                sd = torch.load(path_or_name, map_location="cpu", weights_only=True)
+            except Exception:
+                warnings.warn(f"torch.load(weights_only=True) failed for {path_or_name!r}; "
+                              "loading it with the full unpickler: only for trusted files",
+                              stacklevel=2)
+                sd = torch.load(path_or_name, map_location="cpu", weights_only=False)
+            for wrapper in ("state_dict", "model"):
+                if wrapper in sd and isinstance(sd[wrapper], dict):
+                    sd = sd[wrapper]
+            own = model.state_dict()
+            found = {k: v for k, v in sd.items() if k in own}
+            missing = sorted(set(own) - set(found))
+            if missing:
+                warnings.warn(f"{path_or_name}: {len(missing)} tensors not in the checkpoint "
+                              f"keep their init: {missing[:5]}", stacklevel=2)
+            model.load_state_dict(found, strict=False)
+        return model
 
     @classmethod
     def encodec_24khz(cls) -> "Vocos":

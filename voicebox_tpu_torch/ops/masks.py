@@ -20,6 +20,7 @@ __all__ = [
     "mask_from_frac_lengths",
     "coin_flip",
     "normal",
+    "split_generator",
     "uniform",
 ]
 
@@ -29,6 +30,15 @@ def uniform(shape, generator: Optional[torch.Generator] = None, device=None,
     """U[0, 1) of `shape`, drawn on the generator's device, then moved."""
     gen_device = generator.device if generator is not None else device
     return torch.rand(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+
+
+def split_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A new generator on `device`, seeded by one draw from `generator`: the
+    deterministic counterpart of `jax.random.split` for one child. The draw
+    is read back to the host, so a generator on the card costs a device
+    synchronization and one on the CPU none."""
+    seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+    return torch.Generator(device=device).manual_seed(int(seed.item()))
 
 
 def normal(shape, generator: Optional[torch.Generator] = None, device=None,

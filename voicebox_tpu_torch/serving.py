@@ -26,16 +26,31 @@ group (where the JAX engine splits its key).
     audio, lengths = engine.synthesize(["hello"], return_lengths=True)
     clips = engine.synthesize(["hello"], trim=True)   # list of trimmed tensors
 
-`DynamicBatcher` coalesces single requests from many threads into bucket
-groups on one worker thread.
+Texts longer than the largest text bucket are served by long-form
+windowed infilling (`ConditionalFlowMatcherWrapper.sample_long_stream`):
+the text is cut into segments of the largest bucket, same-bucket segments
+go through one predictor forward (or one seq2seq decode) together, their
+frame-rate ids are joined on the host, and one window program of
+`long_window_frames` with `long_overlap_frames` of overlap runs over the
+whole stream, its horizon snapped up to window + k x hop.
+`synthesize_stream` yields such a text window by window. Voice cloning
+(`clone`, `clone_stream`) rides the same windows: the prompt's latents fill
+the first window's kept span and its ids lead the id stream; the stream
+holds only the continuation. A raw-audio prompt is zero-padded onto
+`prompt_seconds_buckets` before the codec encodes it (and, in semantic
+mode, before the wav2vec reads it); in duration mode the prompt's ids come
+from its transcript (`prompt_text`), the predictor conditioned on the
+prompt's latents.
 
-Not ported yet, and raising NotImplementedError: texts longer than the
-largest text bucket and `long_window_frames` / `long_overlap_frames` other
-than their defaults (long-form windowed sampling, item 12), voice cloning
-(`clone`, `clone_stream`, `DynamicBatcher.submit_clone`, which ride the
-long-form sampler, item 12), raw-audio prompt buckets
-(`prompt_seconds_buckets`, which only cloning reads, item 12) and
-`compilation_cache_dir` (item 12).
+    audio = engine.clone("text to say", prompt_wave, prompt_text="what the prompt says")
+    for chunk in engine.synthesize_stream(long_text):  # one chunk per window
+        play(chunk)
+
+`DynamicBatcher` coalesces single requests from many threads into bucket
+groups on one worker thread; over-bucket texts form their own group, and
+clones (`submit_clone`) run one at a time on the same thread.
+`compilation_cache_dir` moves the kernels' build directory (the
+counterpart of JAX's persistent compilation cache).
 """
 
 from __future__ import annotations
@@ -50,25 +65,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import kernels
 from .models.duration import masked_frame_durations
+from .ops.interp import curtail_or_pad
+from .ops.masks import split_generator
+from .ops.stft import resample
 
 __all__ = ["DynamicBatcher", "TTSEngine", "split_generator"]
-
-_LONG_FORM = (
-    "texts longer than the largest text bucket are served by long-form windowed "
-    "sampling (sample_long_stream), not ported yet (ROADMAP Queue 1, item 12)"
-)
-_CLONING = (
-    "voice cloning rides the long-form window sampler (sample_long_stream), not "
-    "ported yet (ROADMAP Queue 1, item 12)"
-)
-
-
-def split_generator(generator: torch.Generator, device) -> torch.Generator:
-    """A new generator on `device`, seeded by one draw from `generator`: the
-    deterministic counterpart of `jax.random.split` for one child."""
-    seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
-    return torch.Generator(device=device).manual_seed(int(seed.item()))
 
 
 class TTSEngine:
@@ -95,21 +98,10 @@ class TTSEngine:
         compilation_cache_dir: Optional[str] = None,
     ):
         if compilation_cache_dir is not None:
-            raise NotImplementedError(
-                "compilation_cache_dir persists XLA programs, which the port does not "
-                "compile; its kernels cache by source hash in build/kernels/ (ROADMAP "
-                "Queue 1, item 12)"
-            )
-        if prompt_seconds_buckets:
-            raise NotImplementedError(
-                "prompt_seconds_buckets buckets the raw-audio prompts of voice "
-                "cloning, which is not ported yet (ROADMAP Queue 1, item 12)"
-            )
-        if (long_window_frames, long_overlap_frames) != (768, 128):
-            raise NotImplementedError(
-                "long_window_frames and long_overlap_frames set long-form windowed "
-                "sampling (sample_long_stream), not ported yet (ROADMAP Queue 1, item 12)"
-            )
+            kernels.set_build_dir(compilation_cache_dir)
+        if not 0 < long_overlap_frames < long_window_frames:
+            raise ValueError(f"need 0 < long_overlap_frames ({long_overlap_frames}) < "
+                             f"long_window_frames ({long_window_frames})")
         if cfm_wrapper.text_to_semantic is None and cfm_wrapper.duration_predictor is None:
             raise ValueError(
                 "TTSEngine needs a conditioning pipeline: attach a TextToSemantic "
@@ -131,8 +123,11 @@ class TTSEngine:
         if frame_buckets is None:
             frame_buckets = tuple(b * frames_per_token for b in self.text_buckets)
         self.frame_buckets = tuple(sorted(frame_buckets))
+        self.long_window_frames = long_window_frames
+        self.long_overlap_frames = long_overlap_frames
         self.enable_long_form = enable_long_form
-        self.prompt_seconds_buckets = None
+        self.prompt_seconds_buckets = (tuple(sorted(prompt_seconds_buckets))
+                                       if prompt_seconds_buckets else None)
         self.warm_overflow_buckets = warm_overflow_buckets
         self._warm = False
 
@@ -187,12 +182,18 @@ class TTSEngine:
             return self._semantic_sample(ids, generator)
         return self._duration_sample(ids, generator)
 
-    def _predict_durations(self, ids: np.ndarray) -> np.ndarray:
+    def _predict_durations(self, ids: np.ndarray, cond=None) -> np.ndarray:
         """(batch, length) bucket-padded phoneme ids -> integer frames per
         position on the host, clipped >= 1 and zeroed at pads: one
-        predictor forward (no voice prompt: zero cond, fully dropped)."""
+        predictor forward. Without `cond` (no voice prompt) the cond is zero
+        and fully dropped; prompt latents `cond` (1, p, d) are cut or
+        zero-padded on the host to the phoneme length and broadcast over
+        the batch, so the forward keeps its bucket's shape."""
         dp = self.wrapper.duration_predictor
-        durations = dp.forward_with_cond_scale(cond=None, phoneme_ids=torch.from_numpy(ids))
+        if cond is not None:
+            cond = curtail_or_pad(torch.as_tensor(cond, dtype=torch.float32).cpu(), ids.shape[1])
+            cond = cond.expand(ids.shape[0], -1, -1)
+        durations = dp.forward_with_cond_scale(cond=cond, phoneme_ids=torch.from_numpy(ids))
         return masked_frame_durations(ids, durations.float().cpu().numpy())
 
     @staticmethod
@@ -254,46 +255,60 @@ class TTSEngine:
         """texts -> audio (or latents when decode_to_audio=False) padded to
         the enclosing (batch, text-length) bucket and trimmed back along the
         batch. Requests beyond the largest batch bucket run in successive
-        groups. The time axis spans the group's frame horizon;
-        `return_lengths=True` also returns per-request valid lengths
-        (samples of audio, frames of latents) as int32, and `trim=True`
-        returns a LIST of per-request tensors cut to those lengths. Texts
-        longer than the largest text bucket raise: NotImplementedError
-        (long-form serving is not ported yet), or ValueError with
-        `enable_long_form=False`, as the JAX engine does."""
+        groups. Texts longer than the largest text bucket go through
+        long-form windowed infilling (`_stream_long`), one at a time, each
+        with its own split generator; with `enable_long_form=False` they
+        raise ValueError. The time axis spans the longest horizon (outputs
+        of other horizons zero-padded to it); `return_lengths=True` also
+        returns per-request valid lengths (samples of audio, frames of
+        latents) as int32, and `trim=True` returns a LIST of per-request
+        tensors cut to those lengths."""
         tok = self._tokenizer()
         ids_all = np.asarray(tok.texts_to_tensor_ids(list(texts)))
         valid = (ids_all >= 0).sum(axis=1)
         max_bucket = self.text_buckets[-1]
         long_rows = [i for i in range(len(texts)) if valid[i] > max_bucket]
-        if long_rows:
-            if not self.enable_long_form:
-                raise ValueError(
-                    f"text of {int(valid[long_rows[0]])} tokens exceeds the largest text "
-                    f"bucket {max_bucket} and long-form serving is disabled; raise "
-                    "text_buckets or split the text"
-                )
-            raise NotImplementedError(_LONG_FORM)
+        if long_rows and not self.enable_long_form:
+            raise ValueError(
+                f"text of {int(valid[long_rows[0]])} tokens exceeds the largest text "
+                f"bucket {max_bucket} and long-form serving is disabled; raise "
+                "text_buckets, split the text, or construct the engine with "
+                "enable_long_form=True"
+            )
+        short_rows = [i for i in range(len(texts)) if i not in set(long_rows)]
 
-        ids_all = ids_all[:, : max(1, int(valid.max()))]
-        length = self._bucket(ids_all.shape[1], self.text_buckets)
-        max_batch = self.batch_buckets[-1]
-        results = []  # (tensor with batch dim 1, length)
-        for start in range(0, len(texts), max_batch):
-            chunk = ids_all[start : start + max_batch]
-            ids = self._pad_ids(chunk, self._bucket(chunk.shape[0], self.batch_buckets), length)
-            chunk_gen = None if generator is None else split_generator(generator, self.device)
-            out, out_lens = self._group_sample(ids, chunk_gen)
-            results += [(out[j : j + 1], int(out_lens[j])) for j in range(chunk.shape[0])]
+        results = {}  # row -> (tensor with batch dim 1, length)
+        if short_rows:
+            ids_short = ids_all[short_rows]
+            ids_short = ids_short[:, : max(1, int(valid[short_rows].max()))]
+            length = self._bucket(ids_short.shape[1], self.text_buckets)
+            max_batch = self.batch_buckets[-1]
+            for start in range(0, len(short_rows), max_batch):
+                rows = short_rows[start : start + max_batch]
+                chunk = ids_short[start : start + max_batch]
+                ids = self._pad_ids(chunk, self._bucket(chunk.shape[0], self.batch_buckets),
+                                    length)
+                chunk_gen = None if generator is None else split_generator(generator,
+                                                                           self.device)
+                out, out_lens = self._group_sample(ids, chunk_gen)
+                for j, row in enumerate(rows):
+                    results[row] = (out[j : j + 1], int(out_lens[j]))
+        time_axis = -1 if self._outputs_audio else 1
+        for row in long_rows:
+            row_gen = None if generator is None else split_generator(generator, self.device)
+            full = torch.cat(list(self._stream_long(ids_all[row : row + 1, : int(valid[row])],
+                                                    generator=row_gen)), dim=time_axis)
+            results[row] = (full, full.shape[time_axis])
 
+        ordered = [results[i] for i in range(len(texts))]
         if trim:
             if self._outputs_audio:  # audio: time is the last axis
-                return [o[0][..., :n] for o, n in results]
-            return [o[0][:n] for o, n in results]  # latents (n, d)
-        time_axis = results[0][0].dim() - 1 if self._outputs_audio else 1
-        horizon = max(o.shape[time_axis] for o, _ in results)
+                return [o[0][..., :n] for o, n in ordered]
+            return [o[0][:n] for o, n in ordered]  # latents (n, d)
+        time_axis = ordered[0][0].dim() - 1 if self._outputs_audio else 1
+        horizon = max(o.shape[time_axis] for o, _ in ordered)
         stacked = []
-        for o, _ in results:
+        for o, _ in ordered:
             pad = horizon - o.shape[time_axis]
             if pad:
                 widths = [0, 0] * (o.dim() - 1 - time_axis) + [0, pad]
@@ -301,31 +316,257 @@ class TTSEngine:
             stacked.append(o)
         out = torch.cat(stacked, dim=0)
         if return_lengths:
-            return out, torch.tensor([n for _, n in results], dtype=torch.int32)
+            return out, torch.tensor([n for _, n in ordered], dtype=torch.int32)
         return out
 
-    def synthesize_stream(self, text: str, generator: Optional[torch.Generator] = None):
-        """Single-text streaming: an in-bucket text yields its trimmed
-        one-shot result as one chunk. Over-bucket texts (windowed
-        infilling) are not ported yet and raise."""
-        ids = np.asarray(self._tokenizer().texts_to_tensor_ids([text]))
-        if int((ids[0] >= 0).sum()) > self.text_buckets[-1]:
-            raise NotImplementedError(_LONG_FORM)
-        yield self.synthesize([text], generator=generator, trim=True)[0]
+    # ------------------------------------------------------------------
+    # long-form (over-bucket) serving
 
-    def clone(self, text: str, prompt, *, prompt_ids=None, prompt_text=None, generator=None):
-        raise NotImplementedError(_CLONING)
+    def synthesize_stream(self, text: str, generator: Optional[torch.Generator] = None):
+        """Single-text streaming: a generator of audio (or latent) chunks.
+        An over-bucket text streams by windowed infilling, its first chunk
+        after one window; an in-bucket text yields its trimmed one-shot
+        result as one chunk."""
+        ids = np.asarray(self._tokenizer().texts_to_tensor_ids([text]))
+        n_tokens = int((ids[0] >= 0).sum())
+        if n_tokens <= self.text_buckets[-1]:
+            yield self.synthesize([text], generator=generator, trim=True)[0]
+            return
+        if not self.enable_long_form:
+            raise ValueError("text exceeds the largest text bucket and enable_long_form=False")
+        yield from self._stream_long(ids[:, :n_tokens], generator=generator)
+
+    def _long_ratio(self) -> float:
+        """Latent frames per conditioning id on the long path: the wrapper's
+        wav2vec / codec rate ratio in semantic mode; 1.0 in duration mode,
+        whose aligned ids are at the frame rate."""
+        if self.mode == "semantic":
+            return self.wrapper.frames_per_semantic_token()
+        return 1.0
+
+    def _segment_groups(self, ids_row: np.ndarray):
+        """Cut an over-bucket id row (1, n) into segments of the largest text
+        bucket and stack same-bucket segments into groups of at most the
+        largest batch bucket. Returns (number of segments, [(segment
+        indices, (batch, length) padded ids), ...])."""
+        seg = self.text_buckets[-1]
+        items = []  # (bucket length, (1, length) padded row)
+        for s in range(0, ids_row.shape[1], seg):
+            chunk = ids_row[:, s : s + seg]
+            length = self._bucket(chunk.shape[1], self.text_buckets)
+            items.append((length, self._pad_ids(chunk, 1, length)))
+        by_len: dict = {}
+        for i, (length, _) in enumerate(items):
+            by_len.setdefault(length, []).append(i)
+        max_batch = self.batch_buckets[-1]
+        groups = []
+        for length, idxs in by_len.items():
+            for start in range(0, len(idxs), max_batch):
+                sel = idxs[start : start + max_batch]
+                batch = self._bucket(len(sel), self.batch_buckets)
+                stacked = self._pad_ids(np.concatenate([items[i][1] for i in sel], axis=0),
+                                        batch, length)
+                groups.append((sel, stacked))
+        return len(items), groups
+
+    def _long_frame_ids(self, ids_row: np.ndarray, cond=None):
+        """(1, n_tokens) over-bucket ids -> (conditioning ids (1, m) on the
+        host, exact frames). Each segment group runs one bucket forward: the
+        seq2seq decode (its valid ids kept, at least one), or the duration
+        predictor (under the prompt latents `cond`, duration mode) and the
+        host alignment at each segment's exact duration sum, so the long
+        path never clamps a predicted span."""
+        n_segments, groups = self._segment_groups(ids_row)
+        parts = [None] * n_segments
+        if self.mode == "semantic":
+            t2s = self.wrapper.text_to_semantic
+            for sel, stacked in groups:
+                sem, mask = t2s.generate(torch.from_numpy(stacked).long(),
+                                         max_length=self.max_semantic_token_ids,
+                                         return_target_mask=True, spec_decode=self.spec_decode)
+                sem, n_valid = sem.cpu().numpy(), mask.sum(dim=1).cpu().numpy()
+                for j, i in enumerate(sel):
+                    parts[i] = sem[j : j + 1, : max(int(n_valid[j]), 1)]
+        else:
+            for sel, stacked in groups:
+                per = self._predict_durations(stacked, cond=cond)
+                for j, i in enumerate(sel):
+                    parts[i] = self._align_ids_np(stacked[j : j + 1], per[j : j + 1],
+                                                  max(int(per[j].sum()), 1))
+        cond_ids = np.concatenate(parts, axis=1)
+        return cond_ids, int(np.ceil(cond_ids.shape[1] * self._long_ratio()))
+
+    def _stream_long(self, ids_row: np.ndarray, generator=None):
+        """An over-bucket request -> its chunks (`_drive_long`)."""
+        cond_ids, exact = self._long_frame_ids(ids_row)
+        yield from self._drive_long(cond_ids, exact, generator=generator)
+
+    def _drive_long(self, cond_ids: np.ndarray, exact: int, generator=None, prompt=None,
+                    skip_frames: int = 0):
+        """Stream `cond_ids` over `exact` latent frames through
+        `sample_long_stream`, the first window conditioned on `prompt`
+        (latents aligned with the first `skip_frames` ids). The horizon is
+        snapped up to window + k x hop (the ids padded with their last id),
+        so every request runs the shapes warmup ran; the prompt's span and
+        the grid's tail are trimmed off the emitted stream by a host-side
+        budget."""
+        window, overlap = self.long_window_frames, self.long_overlap_frames
+        hop = window - overlap
+        total = window + int(np.ceil(max(exact - window, 0) / hop)) * hop
+        n_pad_ids = int(np.ceil(total / self._long_ratio()))
+        if n_pad_ids > cond_ids.shape[1]:
+            cond_ids = np.concatenate(
+                [cond_ids, np.repeat(cond_ids[:, -1:], n_pad_ids - cond_ids.shape[1], axis=1)],
+                axis=1)
+        as_audio = self._outputs_audio
+        per_frame = self.wrapper.voicebox.audio_enc_dec.downsample_factor if as_audio else 1
+        # emit frames [skip_frames, exact)
+        budget = (exact - skip_frames) * per_frame
+        skip = skip_frames * per_frame
+        time_axis = -1 if as_audio else 1
+        for chunk in self.wrapper.sample_long_stream(
+            semantic_token_ids=torch.from_numpy(np.ascontiguousarray(cond_ids)).long(),
+            total_frames=total, window_frames=window, overlap_frames=overlap, prompt=prompt,
+            steps=self.steps, cond_scale=self.cond_scale, decode_to_audio=self.decode_to_audio,
+            quantize=self.quantize, param_store_dtype=self.param_store_dtype,
+            generator=generator,
+        ):
+            n = chunk.shape[time_axis]
+            lo = min(skip, n)
+            hi = min(lo + budget, n)
+            skip -= lo
+            budget -= hi - lo
+            if hi > lo:
+                yield chunk if (lo, hi) == (0, n) else chunk.narrow(time_axis, lo, hi - lo)
+            if budget == 0:
+                return
+
+    # ------------------------------------------------------------------
+    # in-context voice cloning
+
+    def _duration_prompt_ids(self, prompt_lat, prompt_text: str) -> np.ndarray:
+        """Frame-rate phoneme ids (1, p) of a duration-mode prompt of p
+        latent frames: the transcript's durations under the prompt latents,
+        scaled by cumulative rounding (float64 on the host) to sum to
+        exactly p."""
+        tok = self._tokenizer()
+        ids = np.asarray(tok.texts_to_tensor_ids([prompt_text]))
+        n = int((ids[0] >= 0).sum())
+        if n == 0:
+            raise ValueError("empty prompt_text")
+        if n > self.text_buckets[-1]:
+            raise ValueError(f"prompt transcript of {n} tokens exceeds the largest text "
+                             f"bucket {self.text_buckets[-1]}")
+        ids_b = self._pad_ids(ids[:, :n], 1, self._bucket(n, self.text_buckets))
+        per = self._predict_durations(ids_b, cond=prompt_lat)[0]
+        p = int(prompt_lat.shape[1])
+        scaled = per.astype(np.float64) * (p / max(int(per.sum()), 1))
+        cum = np.round(np.cumsum(scaled)).astype(np.int64)
+        aligned = np.repeat(ids_b[0], np.diff(np.concatenate([[0], cum])))
+        assert aligned.shape[0] == p, (aligned.shape, p)
+        return aligned[None, :]
+
+    def _prepare_prompt(self, prompt, prompt_ids, prompt_text=None):
+        """A voice prompt -> (latents (1, p, d) on the device, ids (1, n_p) on
+        the host). Raw audio (1, n_samples) at the codec's rate is
+        zero-padded to a `prompt_seconds_buckets` bucket, encoded, and its
+        valid frames (and, in semantic mode, the wav2vec's valid ids) are
+        sliced back. Without `prompt_ids`, duration mode derives them from
+        `prompt_text` (`_duration_prompt_ids`) and semantic mode from the
+        audio through the wav2vec."""
+        codec = self.wrapper.voicebox.audio_enc_dec
+        prompt = torch.as_tensor(prompt)
+        if prompt.dim() == 2:  # raw audio (1, n_samples)
+            if codec is None:
+                raise ValueError("raw-audio prompts need an audio_enc_dec on the VoiceBox; "
+                                 "pass prompt latents (1, p, dim) and prompt_ids instead")
+            if not self.prompt_seconds_buckets:
+                raise ValueError("raw-audio prompts need TTSEngine(prompt_seconds_buckets=...)"
+                                 ", the grid their encode runs on")
+            sr = codec.sampling_rate
+            n = prompt.shape[1]
+            buckets = [int(round(s * sr)) for s in self.prompt_seconds_buckets]
+            if n > buckets[-1]:
+                raise ValueError(f"prompt of {n / sr:.1f}s exceeds the largest prompt bucket "
+                                 f"({self.prompt_seconds_buckets[-1]}s)")
+            target = self._bucket(n, buckets)
+            padded = torch.zeros(1, target, device=self.device)
+            padded[:, :n] = prompt.to(self.device, torch.float32)
+            with torch.no_grad():
+                lat = codec.encode(padded)
+            lat = lat[:, : int(np.ceil(n / (target / lat.shape[1])))]
+            if prompt_ids is None:
+                if self.mode == "duration":
+                    if prompt_text is None:
+                        raise ValueError("duration mode derives prompt_ids from the prompt's "
+                                         "transcript: pass prompt_text= (or prompt_ids=)")
+                    prompt_ids = self._duration_prompt_ids(lat, prompt_text)
+                else:
+                    w2v = self.wrapper.text_to_semantic.wav2vec
+                    if w2v is None:
+                        raise ValueError("prompt_ids come from audio only through a wav2vec; "
+                                         "pass prompt_ids=")
+                    with torch.no_grad():
+                        ids = w2v(resample(padded, sr, w2v.target_sample_hz))
+                    n_p = int(np.ceil(n / (target / ids.shape[1])))
+                    prompt_ids = ids[:, : max(n_p, 1)].cpu().numpy()
+            return lat, np.asarray(prompt_ids)
+        if prompt.dim() != 3:
+            raise ValueError("prompt must be raw audio (1, n_samples) or latents (1, p, dim)")
+        prompt = prompt.to(self.device)
+        if prompt_ids is None and self.mode == "duration" and prompt_text:
+            prompt_ids = self._duration_prompt_ids(prompt, prompt_text)
+        if prompt_ids is None:
+            raise ValueError("latent prompts need prompt_ids (the ids of the prompt span: "
+                             "wav2vec ids of its audio, or prompt_text= in duration mode)")
+        return prompt, np.asarray(prompt_ids)
 
     def clone_stream(self, text: str, prompt, *, prompt_ids=None, prompt_text=None,
-                     generator=None):
-        raise NotImplementedError(_CLONING)
+                     generator: Optional[torch.Generator] = None):
+        """In-context voice cloning: `text` spoken in the voice of `prompt`,
+        yielded as audio (or latent) chunks, window by window. The prompt
+        fills the first window's kept span (its length is data, not a
+        shape) and the stream holds only the continuation. `prompt` is raw
+        audio (1, n_samples) at the codec's rate, or latents (1, p, dim)
+        with `prompt_ids`; in duration mode `prompt_text` (its transcript)
+        can stand for `prompt_ids`, and the continuation's durations are
+        also conditioned on the prompt."""
+        if not self.enable_long_form:
+            raise ValueError("cloning rides the long-form path; construct the engine with "
+                             "enable_long_form=True")
+        ids_row = np.asarray(self._tokenizer().texts_to_tensor_ids([text]))
+        n_tokens = int((ids_row[0] >= 0).sum())
+        if n_tokens == 0:
+            raise ValueError("empty text")
+        prompt_lat, p_ids = self._prepare_prompt(prompt, prompt_ids, prompt_text)
+        p_frames = int(prompt_lat.shape[1])
+        if p_frames > self.long_window_frames - 1:
+            raise ValueError(f"prompt spans {p_frames} frames, must be < long_window_frames="
+                             f"{self.long_window_frames}")
+        gen_ids, gen_exact = self._long_frame_ids(
+            ids_row[:, :n_tokens], cond=prompt_lat if self.mode == "duration" else None)
+        cond_ids = np.concatenate([np.asarray(p_ids).astype(gen_ids.dtype), gen_ids], axis=1)
+        yield from self._drive_long(cond_ids, p_frames + gen_exact, generator=generator,
+                                    prompt=prompt_lat, skip_frames=p_frames)
+
+    def clone(self, text: str, prompt, *, prompt_ids=None, prompt_text=None,
+              generator: Optional[torch.Generator] = None):
+        """One-shot voice cloning: the whole continuation, audio (1, 1,
+        samples) or latents (1, frames, dim)."""
+        chunks = list(self.clone_stream(text, prompt, prompt_ids=prompt_ids,
+                                        prompt_text=prompt_text, generator=generator))
+        return torch.cat(chunks, dim=-1 if self._outputs_audio else 1)
 
     def warmup(self, verbose: bool = False) -> float:
         """Run every (batch, text-length) bucket once, and with
         `warm_overflow_buckets` the sampler at every frame bucket only an
-        overflow reaches; returns seconds. On the card this builds the
-        kernels, plans cuFFT, fills the allocator and makes the quantized
-        copy of the denoiser."""
+        overflow reaches; then, with long-form on, one two-window stream
+        (window + one hop: the window sampler and every decode shape of the
+        stream), one codec encode (and, in semantic mode, one wav2vec) per
+        prompt bucket, and in duration mode one predictor forward under a
+        prompt per (batch, text) bucket. Returns seconds. On the card this
+        builds the kernels, plans cuFFT, fills the allocator and makes the
+        quantized copy of the denoiser before the first request."""
         t0 = time.perf_counter()
         for batch in self.batch_buckets:
             for length in self.text_buckets:
@@ -349,6 +590,42 @@ class TTSEngine:
                     )
                     if verbose:
                         print(f"warm overflow bucket batch={batch} frames={fb}", flush=True)
+        if self.enable_long_form:
+            window, overlap = self.long_window_frames, self.long_overlap_frames
+            total = 2 * window - overlap
+            n_ids = int(np.ceil(total / self._long_ratio()))
+            for _ in self.wrapper.sample_long_stream(
+                semantic_token_ids=torch.zeros(1, n_ids, dtype=torch.long), total_frames=total,
+                window_frames=window, overlap_frames=overlap, steps=self.steps,
+                cond_scale=self.cond_scale, decode_to_audio=self.decode_to_audio,
+                quantize=self.quantize, param_store_dtype=self.param_store_dtype,
+            ):
+                pass
+            if verbose:
+                print(f"warm long-form window={window} overlap={overlap}", flush=True)
+        codec = self.wrapper.voicebox.audio_enc_dec
+        if self.enable_long_form and self.prompt_seconds_buckets and codec is not None:
+            sr = codec.sampling_rate
+            w2v = self.wrapper.text_to_semantic.wav2vec if self.mode == "semantic" else None
+            for secs in self.prompt_seconds_buckets:
+                dummy = torch.zeros(1, int(round(secs * sr)), device=self.device)
+                with torch.no_grad():
+                    codec.encode(dummy)
+                    if w2v is not None:
+                        w2v(resample(dummy, sr, w2v.target_sample_hz))
+                if verbose:
+                    print(f"warm prompt bucket {secs}s", flush=True)
+        if self.enable_long_form and self.mode == "duration":
+            # the prompt-conditioned predictor; its cond width is the
+            # predictor's own (its codec's latent width, else its dim)
+            d = self.wrapper.duration_predictor.cond_dim
+            for batch in self.batch_buckets:
+                for length in self.text_buckets:
+                    ids = np.full((batch, length), -1, dtype=np.int32)
+                    ids[:, 0] = 0
+                    self._predict_durations(ids, cond=np.zeros((1, length, d), np.float32))
+            if verbose:
+                print("warm prompt-conditioned duration predictor", flush=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm = True
@@ -360,9 +637,12 @@ class DynamicBatcher:
 
     `submit(text)` returns a `concurrent.futures.Future` at once; one worker
     thread drains the queue for up to `max_wait_ms` after the first pending
-    request, groups what it collected by text bucket and makes one
-    `engine.synthesize(..., trim=True)` call per group. All device work
-    happens on that thread; submitters block only in `Future.result()`.
+    request, groups what it collected by text bucket (over-bucket texts in a
+    group of their own, served by the long-form path) and makes one
+    `engine.synthesize(..., trim=True)` call per group. `submit_clone`
+    queues a voice clone (`engine.clone`); clones run one at a time, each
+    with its own split generator. All device work happens on that thread;
+    submitters block only in `Future.result()`.
 
         engine.warmup()
         with DynamicBatcher(engine, max_wait_ms=8.0) as batcher:
@@ -405,11 +685,18 @@ class DynamicBatcher:
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
-            self._queue.put((text, fut))
+            self._queue.put(("synth", text, fut))
         return fut
 
     def submit_clone(self, text: str, prompt, *, prompt_ids=None, prompt_text=None) -> Future:
-        raise NotImplementedError(_CLONING)
+        """Enqueue one voice clone; the Future resolves to `engine.clone`'s
+        output (the whole trimmed continuation)."""
+        fut: Future = Future()
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            self._queue.put(("clone", (text, prompt, prompt_ids, prompt_text), fut))
+        return fut
 
     def synthesize(self, text: str, timeout: Optional[float] = None):
         """Blocking convenience wrapper around `submit`."""
@@ -438,7 +725,7 @@ class DynamicBatcher:
                     self._queue.put(item)
                     break
                 continue
-            _, fut = item
+            *_, fut = item
             if fut.set_running_or_notify_cancel():
                 fut.set_exception(RuntimeError("DynamicBatcher closed"))
 
@@ -478,7 +765,7 @@ class DynamicBatcher:
         ids = np.asarray(tok.texts_to_tensor_ids([text]))
         n = int((ids[0] >= 0).sum())
         if n > self.engine.text_buckets[-1]:
-            return -1  # over-bucket texts form their own group (and raise)
+            return -1  # over-bucket texts form their own (long-form) group
         return self.engine._bucket(n, self.engine.text_buckets)
 
     def _worker(self):
@@ -488,17 +775,30 @@ class DynamicBatcher:
             if batch is None:
                 return
             groups: dict = {}
-            for text, fut in batch:
+            clones = []
+            for kind, payload, fut in batch:
                 # False: cancelled while queued; once running it can no
                 # longer be cancelled, so setting its result cannot raise
                 if not fut.set_running_or_notify_cancel():
                     continue
+                if kind == "clone":
+                    clones.append((payload, fut))
+                    continue
                 try:
-                    key = self._bucket_key(text, tok)
+                    key = self._bucket_key(payload, tok)
                 except Exception as e:  # a tokenizer failure fails that request
                     fut.set_exception(e)
                     continue
-                groups.setdefault(key, []).append((text, fut))
+                groups.setdefault(key, []).append((payload, fut))
+            for (text, prompt, prompt_ids, prompt_text), fut in clones:
+                call_gen = split_generator(self._generator, self.engine.device)
+                try:
+                    fut.set_result(self.engine.clone(text, prompt, prompt_ids=prompt_ids,
+                                                     prompt_text=prompt_text,
+                                                     generator=call_gen))
+                    self.stats["requests"] += 1
+                except Exception as e:  # the worker keeps serving; the clone fails
+                    fut.set_exception(e)
             for items in groups.values():
                 call_gen = split_generator(self._generator, self.engine.device)
                 try:
