@@ -19,7 +19,9 @@ imports nothing of JAX. Its phases print one line each or more:
    duration-predictor shapes, on masked and ragged inputs and at the edges
    of K1's design (kv off the 128-key tile and off 8, a kv that wraps the
    K/V ring many times, masked keys inside a tile, n under one 64-row
-   tile), each case with its tolerance; CUDA-event times of K1, the plain
+   tile), at phase 19's fp32 shapes (head dims 16, 32 and 64) and at the
+   fp32 design's edges at head dims 16 and 32 (`k23_f32_edges`, each kind
+   of mask), each case with its tolerance; CUDA-event times of K1, the plain
    version and SDPA; bf16 K1 at each tile height it can take (the host's
    choice marked); the host time of one bf16 K1 call, and what encoding its
    tensor maps adds to it;
@@ -31,8 +33,9 @@ imports nothing of JAX. Its phases print one line each or more:
    64-row tile and off 8, n under one tile, n and kv of 4100 that wrap the
    ring many times, masked runs inside tiles) and those of the fp32 design
    (`k23_f32_edges`: n and kv at 1 and around its tiles, 64 owned rows and
-   64 or 32 streamed, at both head dims, under each kind of mask; with one
-   key, dq and dk held to a rounding floor); a second launch on the same
+   64 or 32 streamed, at head dims 16, 32, 64 and 128, under each kind of
+   mask; with one key, dq and dk held to a rounding floor) and phase 19's
+   training shapes; a second launch on the same
    inputs must give bit-identical dq, dk and dv; CUDA-event times of K2,
    K3, the plain backward and SDPA's backward (each of the two gives dq, dk
    and dv together) and attention forward + backward through K1/K2/K3
@@ -180,12 +183,31 @@ imports nothing of JAX. Its phases print one line each or more:
    Every K1 and K4 launch shape of phase 18 must be one that phases 3 and
    5 checked and timed (phase 5 also checks and times fp32 K4 at the
    decode's shapes against cuBLAS fp32);
-19. one JSON line for the kernels (one row per kernel and main path; on the
+19. trained weights (`voicebox_tpu_torch/canaries/`): the semantic quality
+   canary (HuBERT k-means on four synthetic melodies, a TextToSemantic with
+   4 x 16 heads, a CFM denoiser with 4 x 32 heads, 400 + 2000 Adam steps,
+   sampled from text with 16 midpoint steps) and the duration canary (a
+   DurationPredictor trained with the aligner, MAS and forward-sum, 400 +
+   2000 steps, sampled through `sample(texts=)`), each held to
+   tests/test_e2e_quality.py's gates: mel-spectral distance under half its
+   untrained anchor (a fresh model at seed 99) and under the corpus's
+   cross-utterance distance; both denoisers sampled again under w8a16 (fp32
+   K4) and held to the first gate; the generalization split (16 train / 4
+   held-out melodies, 600 + 900 steps): held-out texts and oracle ids each
+   under half their untrained anchor; the full-width TextToSemantic (dim
+   512, 6 + 6, 8 x 64 heads, 500 ids) overfit on a deterministic pattern
+   (Adam 3e-4, up to 4000 steps, stopped under loss 5e-3): greedy pattern
+   accuracy >= 0.99, speculative decode equal to greedy token for token,
+   eos before the 256-id buffer ends; plain, speculative and w8a16 decode
+   times, acceptance, the w8a16 decode's agreement, a profiled decode's ms
+   and kernels a position. Every K1, K2, K3 and K4 launch of the phase is
+   tallied by shape and must be one that phases 3-5 checked and timed;
+20. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the process exits nonzero and prints no result.
-Weights are random, made from a seed.
+Weights are random, made from a seed, except where phase 19 trains them.
 """
 
 from __future__ import annotations
@@ -216,6 +238,7 @@ from voicebox_tpu_torch.models.codec import EncodecVoco, MelVoco
 from voicebox_tpu_torch.models.encodec import EncodecModel, ResidualVQ, _LSTM
 from voicebox_tpu_torch.models.primitives import GEGLU, l2norm
 from voicebox_tpu_torch.models.vocos import Vocos
+from voicebox_tpu_torch.ops import flash_attention as flash_module
 from voicebox_tpu_torch.ops.flash_attention import (
     _launch_k1,
     attention_delta,
@@ -241,6 +264,7 @@ from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
 from voicebox_tpu_torch.ops.mas import maximum_path
 from voicebox_tpu_torch.ops.stft import amplitude_to_db, mel_spectrogram
 from voicebox_tpu_torch.training.data import PairedDataset
+from voicebox_tpu_torch.utils.profiling import kernel_summary
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 
 SEED = 0
@@ -326,11 +350,33 @@ K1_CASES = [
     # default 768 frames + 16 registers at batch 1, x 2 for CFG, no mask (the
     # duration predictor's and the encoder's shapes are the cases above)
     ("longform_bf16", (2, 4, 784, 784, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    # the trained-weight canaries (phase 19), fp32: the denoiser (4 x 32
+    # heads, qk-norm, 121 mel frames + 2 registers, no mask) in training at
+    # batch 4 (16 on the held-out split) and sampling at batch 1 and 4; the
+    # seq2seq encoder (no qk-norm) and the duration predictor (qk-norm) over
+    # 7 graphemes, 4 x 16 heads, masked; the full-width seq2seq's encoder
+    # over 16 graphemes in training (batch 8) and decoding (batch 1)
+    *[(f"canary_vb_b{b}_f32", (b, 4, 123, 123, 32), torch.float32, "qk", None, 1e-3, 1e-3)
+      for b in (1, 4, 16)],
+    ("canary_dp_b4_f32", (4, 4, 7, 7, 16), torch.float32, "qk", "prefix", 1e-3, 1e-3),
+    *[(f"canary_enc_b{b}_f32", (b, 4, 7, 7, 16), torch.float32, "randn", "all", 1e-5, 1e-5)
+      for b in (1, 16)],
+    *[(f"canary_t2s_b{b}_f32", (b, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-5,
+       1e-5) for b in (1, 8)],
+    # the edges of the fp32 design at the narrow head dims: n and kv at 1,
+    # around the 16-row query and 32-key tiles (`k23_f32_edges`), under each
+    # kind of mask in turn
+    *[(f"edge_n{n}_kv{kv}_d{d}_f32", (2, 4, n, kv, d), torch.float32,
+       "qk" if mask in ("prefix", "empty_row") else "randn", mask,
+       *((1e-3, 1e-3) if mask in ("prefix", "empty_row") else (1e-5, 1e-5)))
+      for j, d in enumerate((16, 32)) for i, (n, kv) in enumerate(k23_f32_edges())
+      for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
 ]
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
-            *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_"))),
+            *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_",
+                                                                 "canary_"))),
             "longform_bf16")
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
@@ -385,11 +431,20 @@ K23_CASES = [
     # exact arithmetic)
     *[(f"edge_n{n}_kv{kv}_d{d}_f32", (2, 4, n, kv, d), torch.float32,
        "qk" if mask in ("prefix", "empty_row") else "randn", mask, 1e-4)
-      for j, d in enumerate((64, 128)) for i, (n, kv) in enumerate(k23_f32_edges())
+      for j, d in enumerate((64, 128, 16, 32)) for i, (n, kv) in enumerate(k23_f32_edges())
       for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
+    # the trained-weight canaries' training (phase 19), as K1's cases above
+    *[(f"canary_vb_b{b}_f32", (b, 4, 123, 123, 32), torch.float32, "qk", None, 1e-4)
+      for b in (4, 16)],
+    # (dq and dk under qk-norm at d = 16 and 32 are held to their rounding
+    # floor: the same shape on a soft softmax holds them relatively)
+    ("canary_vb_b4_randn_f32", (4, 4, 123, 123, 32), torch.float32, "randn", None, 1e-4),
+    ("canary_dp_b4_f32", (4, 4, 7, 7, 16), torch.float32, "qk", "prefix", 1e-4),
+    ("canary_enc_b16_f32", (16, 4, 7, 7, 16), torch.float32, "randn", "all", 1e-4),
+    ("canary_t2s_b8_f32", (8, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-4),
 ]
 K23_TIMED = ("train_bf16", "reference_split_bf16", "mel_train_bf16", "dp_train_f32",
-             "train_f32")
+             "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
 FLAGSHIP = dict(
@@ -495,7 +550,8 @@ def phase_device() -> str:
 # the kernel sources, the kernels each holds and their bf16 instantiations
 # (K1: d 64 and 128 x 64 and 128 query rows; K2, K3: d 64 and 128; K4: 64
 # and 128 channels x 64, 128 and 256 rows), every one of which must be
-# wgmma + TMA, with no spill
+# wgmma + TMA, with no spill; the fp32 K1, K2 and K3 instantiations (d 16,
+# 32, 64 and 128) must not spill either
 SOURCES_BF16 = {"flash_attention_fwd": {"k1": 4}, "flash_attention_bwd": {"k2": 2, "k3": 2},
                 "w8a16_matmul": {"k4": len(K4_TILES[torch.bfloat16])}}
 
@@ -521,10 +577,14 @@ def phase_build() -> None:
             )
             spills = {fn: _spill_bytes(ptxas.get(fn, [])) for fn in bf16}
             assert all(s == 0 for s in spills.values()), f"{kernel} spills: {spills}"
-        if name == "flash_attention_bwd":  # fp32 K2/K3 at d = 64 and 128: no spill
+        if name == "flash_attention_bwd":  # fp32 K2/K3 at d = 16, 32, 64 and 128: no spill
             f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
                    if fn.split()[:2] in (["k2", "f32"], ["k3", "f32"])}
-            assert len(f32) == 4 and not any(f32.values()), f"fp32 K2/K3 spills: {f32}"
+            assert len(f32) == 8 and not any(f32.values()), f"fp32 K2/K3 spills: {f32}"
+        if name == "flash_attention_fwd":  # fp32 K1 at d = 16, 32, 64 and 128: no spill
+            f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
+                   if fn.split()[:2] == ["k1", "f32"]}
+            assert len(f32) == 4 and not any(f32.values()), f"fp32 K1 spills: {f32}"
         if name == "w8a16_matmul":  # fp32 K4's GEMV: its sums and weights stay in registers
             gemv = [(_spill_bytes(lines), _stack_bytes(lines)) for fn, lines in ptxas.items()
                     if fn == "k4 f32 gemv"]
@@ -750,8 +810,14 @@ def phase_k23_check(smi: str) -> dict:
         auto = torch.autograd.grad(reference_attention(*leaves, mask, scale), leaves,
                                    do.float())
         # with one key (kv = 1) dq and dk are 0 in exact arithmetic and
-        # rounding noise on every side: each is held to its floor, absolutely
-        graded = 1 if shape[3] == 1 else 3
+        # rounding noise on every side: each is held to its floor, absolutely.
+        # So are they at head dims 16 and 32 under qk-norm's scale 10: logits
+        # up to 10 d leave a short row's softmax one-hot to within rounding
+        # but not exactly (at d = 64 and 128 it is exact), so on the
+        # dominant key ds = p (dp - delta) is the rounding noise of the
+        # difference, as with one key, and every side's dq and dk carry it
+        floored = shape[3] == 1 or (shape[4] in (16, 32) and inputs == "qk")
+        graded = 1 if floored else 3
         err_plain = [_rel_err(a, b) for a, b in zip(got[-graded:], plain[-graded:])]
         err_auto = [_rel_err(a, b) for a, b in zip(got[-graded:], auto[-graded:])]
         norm_plain = [_norm_err(a, b) for a, b in zip(got[-graded:], plain[-graded:])]
@@ -770,12 +836,13 @@ def phase_k23_check(smi: str) -> dict:
                 f"{tol_auto:g})")
         ok = (max(err_plain + err_auto) <= tol and max(norm_plain) <= tol_plain
               and max(norm_auto) <= tol_auto)
-        if graded == 1:
+        if floored:
             floors = single_key_floor(q, k, v, do, scale)
             worst = [max((g.float() - r.float()).abs().max().item() for r in (p, a))
                      for g, p, a in zip(got[:2], plain[:2], auto[:2])]
-            line += (f"; one key: dq/dk max |err| vs plain and autograd "
-                     f"{worst[0]:.3e}/{worst[1]:.3e} (floor {floors[0]:.3e}/{floors[1]:.3e})")
+            line += (f"; {'one key' if shape[3] == 1 else 'one-hot rows'}: dq/dk max |err| "
+                     f"vs plain and autograd {worst[0]:.3e}/{worst[1]:.3e} (floor "
+                     f"{floors[0]:.3e}/{floors[1]:.3e})")
             ok = ok and all(w <= f for w, f in zip(worst, floors))
         if mask_kind == "empty_row":
             zero = int(torch.count_nonzero(dq[-1])) + int(torch.count_nonzero(dk[-1]))
@@ -794,7 +861,8 @@ def phase_k23_check(smi: str) -> dict:
         del again
         log("k23", line)
         assert ok, f"K2/K3 disagree with the plain backward on {name}"
-        results[name] = {"max_abs_err": abs_err, "shape": shape, "dtype": dtype}
+        results[name] = {"max_abs_err": abs_err, "shape": shape, "dtype": dtype,
+                         "masked": mask is not None}
         if name in K23_TIMED:
             sm = _sdpa_mask(mask)
             lv = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1067,12 +1135,19 @@ def phase_k4_check(smi: str) -> dict:
 # (phase 18): the (k, n) of each decoder matmul and of the head (to_q is
 # to_out's (512, 512)), at m = the rows of a decode step (batch 1, 4) or of
 # a verify chunk (batch 4 x (gamma + 1) = 24); the cross-attention's to_kv
-# runs once per request at m = batch x text bucket (1 x 32, 4 x 128)
+# runs once per request at m = batch x text bucket (1 x 32, 4 x 128) and,
+# on the trained decode of phase 19, 1 x 16 graphemes
 K4_DECODE_SHAPES = {"dec_to_qkv": (512, 1536), "dec_to_out": (512, 512),
                     "dec_ff_proj_in": (512, 2730), "dec_ff_proj_out": (1365, 512),
                     "to_logits": (512, 502)}
 K4_DECODE_ROWS = (1, 4, 24)
-K4_DECODE_KV = ("dec_to_kv", (512, 1024), (32, 512))
+K4_DECODE_KV = ("dec_to_kv", (512, 1024), (16, 32, 512))
+# the quality canaries' denoiser under w8a16 (phase 19; dim 128, GEGLU 2 x
+# 341): m = 123 tokens (one text at a time, the GEMV route) and 4 x 123 (the
+# duration canary's batched texts, the tiled route)
+K4_CANARY_SHAPES = {"canary_to_qkv": (128, 384), "canary_to_out": (128, 128),
+                    "canary_ff_proj_in": (128, 682), "canary_ff_proj_out": (341, 128)}
+K4_CANARY_ROWS = (123, 492)
 # m past the GEMV route's rows of one stage, where it meets the tiled route
 K4_CROSSOVER_ROWS = (32, 64, 128, 192, 256)
 
@@ -1089,6 +1164,7 @@ def phase_k4_decode_check(smi: str) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(name, m, kn) for name, kn in K4_DECODE_SHAPES.items() for m in K4_DECODE_ROWS]
     cases += [(K4_DECODE_KV[0], m, K4_DECODE_KV[1]) for m in K4_DECODE_KV[2]]
+    cases += [(name, m, kn) for name, kn in K4_CANARY_SHAPES.items() for m in K4_CANARY_ROWS]
     rtol, atol = K4_TOL[torch.float32]
     routes = K4_TILES[torch.float32]
     results = {}
@@ -1403,16 +1479,24 @@ def _min_median(times) -> str:
 @contextlib.contextmanager
 def shape_tally():
     """Count by operand shape, while the block runs, the calls of K1's
-    wrapper from the attention modules and of the w8a16 `QuantLinear`s
-    (each one call of K4's wrapper): {("k1", (b, h, n, kv, d), dtype,
-    masked) or ("k4", (m, k, n), dtype): calls}. On CUDA tensors each call
-    is one launch."""
+    wrapper from the attention modules, of K2's and K3's from the kernels'
+    backward, and of the w8a16 `QuantLinear`s (each one call of K4's
+    wrapper): {("k1" | "k2" | "k3", (b, h, n, kv, d), dtype, masked) or
+    ("k4", (m, k, n), dtype): calls}. On CUDA tensors each call is one
+    launch."""
     tally = collections.Counter()
     k1, forward = attention_module.flash_attention, QuantLinear.forward
+    k23 = flash_module._kernel_backward  # one K2 and one K3 call
 
     def attend(q, k, v, mask=None, scale=None, **kw):
         tally["k1", (*q.shape[:3], k.shape[2], q.shape[3]), q.dtype, mask is not None] += 1
         return k1(q, k, v, mask=mask, scale=scale, **kw)
+
+    def backward(q, k, v, mask, *args):
+        for kernel in ("k2", "k3"):
+            tally[kernel, (*q.shape[:3], k.shape[2], q.shape[3]), q.dtype,
+                  mask is not None] += 1
+        return k23(q, k, v, mask, *args)
 
     def quant_forward(layer, x):
         if layer.mode == "w8a16":
@@ -1421,10 +1505,12 @@ def shape_tally():
         return forward(layer, x)
 
     attention_module.flash_attention, QuantLinear.forward = attend, quant_forward
+    flash_module._kernel_backward = backward
     try:
         yield tally
     finally:
         attention_module.flash_attention, QuantLinear.forward = k1, forward
+        flash_module._kernel_backward = k23
 
 
 # per quantized module, ||quantized - bf16|| / ||bf16|| <= QUANT_MODULE_TOL x
@@ -1914,7 +2000,8 @@ def _profile(step) -> dict:
     the idle share 1 - busy / wall, the number of device kernels, the number
     of record_function ranges the profiler also put on the device's timeline
     (left out of the kernels and of busy), the device time of K1, K2 and K3,
-    K4's device time and launches, and the largest kernels by device time. The idle share is None when the
+    K4's device time and launches, and the largest kernels by device time
+    (`utils/profiling.py::kernel_summary`). The idle share is None when the
     profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1927,26 +2014,9 @@ def _profile(step) -> dict:
     # device activity only: the profiler also puts each record_function range
     # (such as the optimizer's step) on the device's timeline
     on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels_ = [e for e in on_device if not getattr(e, "is_user_annotation", False)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels_)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in kernels_:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    attention = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name
-                    or "flash_bwd" in name)
-    k4 = [(t, n) for name, (t, n) in by_name.items() if "w8a16" in name]
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "kernels": len(kernels_),
-            "annotations": len(on_device) - len(kernels_), "attention_ms": attention / 1e3,
-            "k4_ms": sum(t for t, _ in k4) / 1e3, "k4_kernels": sum(n for _, n in k4),
-            "idle": 1.0 - busy / wall_us if spans else None,
-            "top": [(name[:60], t / 1e3, n) for name, (t, n) in top]}
+    kernels_ = [(e.name, e.time_range.start, e.time_range.end) for e in on_device
+                if not getattr(e, "is_user_annotation", False)]
+    return {**kernel_summary(kernels_, wall_us), "annotations": len(on_device) - len(kernels_)}
 
 
 def phase_train(smi: str) -> dict:
@@ -3333,6 +3403,201 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
             "train": (train_counts, ttally), "long": (long_counts, ltally)}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: trained weights. The quality canaries of `voicebox_tpu_torch/
+# canaries/` at the JAX scripts' budgets and seeds (the generalization split
+# at tests/test_e2e_quality.py's shortened one), and the full-width seq2seq
+# overfit and decoded. The gates are tests/test_e2e_quality.py's.
+CANARY_BUDGET = dict(tts_steps=400, cfm_steps=2000)
+DURATION_BUDGET = dict(dp_steps=400, cfm_steps=2000)
+GEN_SPLIT = dict(n_train=16, n_held=4, tts_steps=600, cfm_steps=900)
+CANARY_ODE_STEPS, GEN_ODE_STEPS = 16, 12
+ORACLE_ANCHOR_SEED = 98  # the oracle ids' untrained anchor, as the JAX test draws it
+# decodes timed per variant (the JAX script times 24): the script's time limit
+SPEC_TIMED_REPS = 8
+
+
+def _assert_k23_checked(tally, k23: dict, path: str) -> None:
+    """Every K2 and K3 launch of a path ran at a shape, dtype and masking
+    that phase 4 held against the plain backward and timed."""
+    for key, count in tally.items():
+        if key[0] not in ("k2", "k3"):
+            continue
+        _, shape, dtype, masked = key
+        found = [n for n, r in k23.items() if tuple(r["shape"]) == shape and r["dtype"] == dtype
+                 and r["masked"] == masked and "times" in r]
+        assert found, (f"{path} ran {key[0]} {count} times at {shape} {dtype} masked={masked}, "
+                       "which no check timed")
+
+
+def _gate(label: str, msd: float, untrained: float, cross=None) -> str:
+    """tests/test_e2e_quality.py's gates: trained < 0.5 x untrained and, with
+    a cross-utterance anchor, own-utterance < cross-utterance."""
+    assert math.isfinite(msd) and math.isfinite(untrained), (label, msd, untrained)
+    assert msd < 0.5 * untrained, (
+        f"{label}: trained msd {msd:.2f} not below 0.5 x untrained {untrained:.2f}")
+    line = f"msd {msd:.2f} < 0.5 x untrained {untrained:.2f}"
+    if cross is not None:
+        assert msd < cross, f"{label}: own-utterance msd {msd:.2f} >= cross {cross:.2f}"
+        line += f", < cross-utterance {cross:.2f}"
+    return line
+
+
+def _train_line(train: dict) -> str:
+    return ", ".join(f"{name} {steps} steps in {sec:.2f} s ({steps / sec:.1f} steps/s, final "
+                     f"loss {loss:.4f})" for name, (steps, sec, loss) in train.items())
+
+
+def phase_trained(smi: str, k1: dict, k23: dict, k4_dec: dict) -> tuple:
+    """Phase 19: the port trained to convergence on the card. The semantic
+    and duration canaries at full budget, the generalization split, the
+    semantic and duration canaries' denoisers sampled again under w8a16
+    (fp32 K4: the GEMV route at one text's 123 tokens, the tiled route at
+    four texts' 492), then the full-width TextToSemantic overfit and decoded
+    plainly, speculatively and under w8a16. Every K1, K2, K3 and K4 launch
+    is tallied by shape and must be one phases 3-5 checked and timed."""
+    from voicebox_tpu_torch.canaries import e2e_generalization_canary as gen_canary
+    from voicebox_tpu_torch.canaries import e2e_quality_canary as canary
+    from voicebox_tpu_torch.canaries import e2e_quality_canary_duration as dur_canary
+    from voicebox_tpu_torch.canaries import spec_decode_trained as spec
+
+    def quiet(*_):
+        pass
+
+    t_phase = time.perf_counter()
+    reset_launches()  # the path's run starts here
+    with shape_tally() as tally:
+        # the semantic canary (text -> seq2seq -> ids -> CFM)
+        t0 = time.perf_counter()
+        pipe, gt = canary.build_and_train(**CANARY_BUDGET, device="cuda", verbose=quiet)
+        msd = canary.mel_msd(canary.sample_from_text(pipe, steps=CANARY_ODE_STEPS), gt)
+        msd0 = canary.mel_msd(canary.sample_from_text(pipe, cfm=canary.untrained_cfm(pipe),
+                                                      steps=CANARY_ODE_STEPS), gt)
+        cross = canary.cross_utterance(gt)
+        msd_q = canary.mel_msd(canary.sample_from_text(pipe, steps=CANARY_ODE_STEPS,
+                                                       quantize="w8a16"), gt)
+        log("trained", f"semantic canary: {_gate('semantic canary', msd, msd0, cross)}; "
+                       f"{_train_line(pipe['train'])}; {time.perf_counter() - t0:.1f} s in all "
+                       f"(dB L2 a frame, {CANARY_ODE_STEPS} midpoint steps) on {smi}")
+        log("trained", f"semantic canary under w8a16 (fp32 K4, GEMV route at m = 123): msd "
+                       f"{msd_q:.2f} beside float {msd:.2f}; "
+                       f"{_gate('semantic canary w8a16', msd_q, msd0)}")
+        del pipe
+
+        # the duration canary (text -> predictor + aligner + MAS -> CFM)
+        t0 = time.perf_counter()
+        pipe, gt = dur_canary.build_and_train_duration(**DURATION_BUDGET, device="cuda",
+                                                       verbose=quiet)
+        msd = canary.mel_msd(dur_canary.sample_from_text_duration(pipe, steps=CANARY_ODE_STEPS),
+                             gt)
+        msd0 = canary.mel_msd(dur_canary.sample_from_text_duration(
+            pipe, cfm=canary.untrained_cfm(pipe), steps=CANARY_ODE_STEPS), gt)
+        cross = canary.cross_utterance(gt)
+        msd_q = canary.mel_msd(dur_canary.sample_from_text_duration(
+            pipe, steps=CANARY_ODE_STEPS, quantize="w8a16"), gt)
+        log("trained", f"duration canary: {_gate('duration canary', msd, msd0, cross)}; "
+                       f"{_train_line(pipe['train'])}; {time.perf_counter() - t0:.1f} s in all "
+                       f"on {smi}")
+        log("trained", f"duration canary under w8a16 (fp32 K4, tiled route at m = 492): msd "
+                       f"{msd_q:.2f} beside float {msd:.2f}; "
+                       f"{_gate('duration canary w8a16', msd_q, msd0)}")
+        del pipe
+
+        # the generalization split: held-out texts and oracle ids
+        t0 = time.perf_counter()
+        pipe, _, held, _, gt_he = gen_canary.build_and_train_gen(**GEN_SPLIT, device="cuda",
+                                                                 verbose=quiet)
+        msd = canary.mel_msd(gen_canary.sample_texts(pipe, held, steps=GEN_ODE_STEPS), gt_he)
+        msd0 = canary.mel_msd(gen_canary.sample_texts(pipe, held, cfm=canary.untrained_cfm(pipe),
+                                                      steps=GEN_ODE_STEPS), gt_he)
+        oracle = canary.mel_msd(gen_canary.sample_oracle_ids(pipe, pipe["sem_held"],
+                                                             steps=GEN_ODE_STEPS), gt_he)
+        oracle0 = canary.mel_msd(gen_canary.sample_oracle_ids(
+            pipe, pipe["sem_held"], cfm=canary.untrained_cfm(pipe, ORACLE_ANCHOR_SEED),
+            steps=GEN_ODE_STEPS), gt_he)
+        cross = canary.cross_utterance(gt_he)
+        log("trained", f"generalization split ({GEN_SPLIT['n_train']} train / "
+                       f"{GEN_SPLIT['n_held']} held out): held-out full pipeline "
+                       f"{_gate('held-out pipeline', msd, msd0)}; oracle ids "
+                       f"{_gate('held-out oracle ids', oracle, oracle0)}; cross-utterance "
+                       f"{cross:.2f} (not gated at this split); {_train_line(pipe['train'])}; "
+                       f"{time.perf_counter() - t0:.1f} s in all on {smi}")
+        del pipe
+
+        # the full-width seq2seq, overfit, then decoded
+        t0 = time.perf_counter()
+        t2s, text_ids, sem_ids, trained = spec.train("cuda", verbose=quiet)
+        report = spec.decode_report(t2s, text_ids, sem_ids, reps=SPEC_TIMED_REPS)
+        one = text_ids[:1]
+        prof = _profile(lambda: t2s.generate(one, max_length=spec.MAX_LENGTH))
+        positions = t2s.decode_stats["positions"]
+        log("trained", f"full-width TextToSemantic (dim 512, 6 + 6, 8 x 64, fp32, 500 ids): "
+                       f"loss {trained['loss']:.5f} after {trained['steps']} steps in "
+                       f"{trained['seconds']:.1f} s ({trained['steps'] / trained['seconds']:.1f} "
+                       f"steps/s); greedy pattern accuracy {report['pattern_accuracy']:.4f}, "
+                       f"emitted {report['emitted']} of a {spec.MAX_LENGTH}-id buffer, "
+                       f"speculative == greedy {report['spec_equals_greedy']}; greedy "
+                       f"{report['greedy_ms']:.1f} ms ({report['greedy_ms_per_token']:.3f} ms a "
+                       f"position), speculative (gamma {spec.GAMMA}) {report['spec_ms']:.1f} ms, "
+                       f"speedup {report['speedup']:.3f}, acceptance "
+                       f"{report['acceptance']:.3f} over {report['rounds']} rounds; "
+                       f"{report['timed']} on {smi}")
+        log("trained", f"trained decode profiled: {positions} positions, "
+                       f"{prof['wall_ms'] / positions:.3f} ms and "
+                       f"{prof['kernels'] / positions:.1f} kernels a position, busy "
+                       f"{prof['busy_ms'] / positions:.4f} ms a position, idle "
+                       f"{prof['idle']:.3f}; w8a16 decode: token agreement with the float "
+                       f"decode {report['w8a16_agreement']:.4f}, mask equal "
+                       f"{report['w8a16_mask_equal']}, pattern accuracy "
+                       f"{report['w8a16_pattern_accuracy']:.4f}, emitted "
+                       f"{report['w8a16_emitted']}, {report['w8a16_ms']:.1f} ms "
+                       f"({report['w8a16_ms_per_token']:.3f} ms a position) beside float "
+                       f"{report['greedy_ms_per_token']:.3f}; {time.perf_counter() - t0:.1f} s "
+                       f"in all")
+        assert report["pattern_accuracy"] >= 0.99, report
+        assert report["spec_equals_greedy"], report
+        assert report["emitted"] < spec.MAX_LENGTH, f"no eos before the buffer ended: {report}"
+        del t2s
+    counts = read_launches()
+    assert min(counts.values()) > 0, f"the trained-weight path skipped a kernel: {counts}"
+    _assert_checked(tally, k1, "trained weights")
+    _assert_k23_checked(tally, k23, "trained weights")
+    _assert_k4_checked(tally, k4_dec, "trained weights")
+    log("trained", f"launches {counts}; by shape "
+                   f"{ {(k[0], k[1], str(k[2])[6:]): c for k, c in tally.items()} }; phase 19 "
+                   f"took {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, tally
+
+
+def trained_rows(k1: dict, k23: dict, k4_dec: dict, counts: dict, tally) -> list:
+    """Rows of phase 19's path: fp32 K1, K2, K3 and K4 at the shapes it
+    launched them at, launch-weighted (`_path_row`)."""
+    def part(kernel, key):
+        _, shape, dtype = key[:3]
+        if kernel == "k4":
+            return k4_dec[shape]
+        if kernel == "k1":
+            return next(r for r in k1.values() if tuple(r["shape"]) == shape
+                        and r["dtype"] == dtype and r["masked"] == key[3] and "ms" in r)
+        r = next(r for r in k23.values() if tuple(r["shape"]) == shape and r["dtype"] == dtype
+                 and r["masked"] == key[3] and "times" in r)
+        err = r["max_abs_err"][0] if kernel == "k2" else max(r["max_abs_err"][1:])
+        return {**_k23_timed_row(r, kernel), "shape": r["shape"], "max_abs_err": err}
+
+    rows = []
+    for kernel in ("k1", "k2", "k3", "k4"):
+        parts = [(c, {**part(kernel, key), "dtype": key[2]})
+                 for key, c in sorted(tally.items(), key=str) if key[0] == kernel]
+        path = "trained_w8a16" if kernel == "k4" else "trained"
+        row = _path_row(kernel, f"{NAMES[kernel]}[{path}]", parts, path)
+        assert row["launches"] == counts[kernel], (kernel, row["launches"], counts[kernel])
+        if kernel == "k4":
+            row["library"] = "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time"
+        rows.append(row)
+    return rows
+
+
 def semantic_rows(k1: dict, k4: dict, k4_dec: dict, k23: dict, sem: dict) -> list:
     """Rows of the semantic paths from the shapes each launched its kernels
     at: K1 on the seq2seq encoder (decode and serving, fp32) and the
@@ -3563,6 +3828,8 @@ def main() -> int:
     assert sem["train"][0]["k2"] > 0 and sem["train"][0]["k3"] > 0, sem["train"][0]
     semantic = semantic_rows(k1, k4, k4_dec, k23, sem)
     semantic += engine_rows(k1, k4, sem["long"][1], path="semantic_long")
+    trained_counts, trained_tally = phase_trained(smi, k1, k23, k4_dec)
+    semantic += trained_rows(k1, k23, k4_dec, trained_counts, trained_tally)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {

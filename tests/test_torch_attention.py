@@ -8,6 +8,9 @@ every row, a fully-masked one included. K1 itself runs only on the card:
 version there.
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +22,9 @@ from voicebox_tpu.models.primitives import rotary_frequencies
 from voicebox_tpu.ops.flash_attention import _flash_forward
 from voicebox_tpu.ops.flash_attention import reference_attention as jax_reference_attention
 from voicebox_tpu_torch.models.attention import Attention
+from voicebox_tpu_torch.ops import flash_attention as fa
 from voicebox_tpu_torch.ops.flash_attention import (
+    HEAD_DIMS,
     MASK_FILL,
     flash_attention,
     k1_block_q,
@@ -142,6 +147,30 @@ H100_SMS = 132
     (4, 8, 128, 64, torch.float32, 16),
     (2, 4, 766, 128, torch.float32, 16),     # fp32 slices of larger grids
     (8, 16, 1040, 64, torch.float32, 16),
+    (4, 4, 123, 32, torch.float32, 16),      # the quality canaries' narrow heads
+    (4, 4, 7, 16, torch.float32, 16),
 ])
 def test_k1_tile_height_at_the_paths_shapes(b, h, n, d, dtype, rows):
     assert k1_block_q(b, h, n, d, dtype, H100_SMS) == rows
+
+
+def _entry_head_dims(source: str) -> dict:
+    """{dtype: head dims} the C entry points of `csrc/<source>` launch: a
+    `head_dim == D` branch without a dtype serves both, one with `dtype ==
+    0` (float32) or 1 (bfloat16) that dtype alone."""
+    src = (pathlib.Path(fa.__file__).parents[1] / "csrc" / source).read_text()
+    body = src[src.index('extern "C"'):]
+    found = {torch.float32: set(), torch.bfloat16: set()}
+    for d, dtype in re.findall(r"head_dim == (\d+)(?: && dtype == (\d))?", body):
+        for t, code in ((torch.float32, "0"), (torch.bfloat16, "1")):
+            if dtype in ("", code):
+                found[t].add(int(d))
+    return {t: tuple(sorted(v)) for t, v in found.items()}
+
+
+@pytest.mark.parametrize("source", ["flash_attention_fwd.cu", "flash_attention_bwd.cu"])
+def test_head_dims_follow_the_per_dtype_rule(source):
+    """fp32 K1, K2 and K3 take head dims 16, 32, 64 and 128, bf16 64 and
+    128: the wrappers' rule (`HEAD_DIMS`) is what the C entry points launch."""
+    assert HEAD_DIMS == {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+    assert _entry_head_dims(source) == HEAD_DIMS

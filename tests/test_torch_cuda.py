@@ -40,7 +40,10 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("K1, K2, K3 and K4 run only on an NVIDIA GPU (sm_90a)")
+    # fp32 comparisons: no TF32 in matmuls, nor in cuDNN's convolutions
+    # (on by default; HuBERT's extractor is convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -110,9 +113,14 @@ def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, d=128)
+    # fp32 takes head dims 16, 32, 64 and 128; bf16 only 64 and 128
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                        v[..., :32].contiguous())
+        flash_attention(*(t[..., :32].to(torch.bfloat16).contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(t[..., :16].to(torch.bfloat16).contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
     strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(strided_q, k, v)
@@ -215,6 +223,56 @@ def test_k2_k3_f32_match_plain_at_tile_edges(cuda_device, n, kv, d):
         base = 2.0 ** -20 * d ** -0.5 * (do.norm(dim=-1).max() * v.norm(dim=-1).max()).item()
         floors[:2] = base * k.abs().max().item(), base * q.abs().max().item()
     for name, a, b, floor in zip(("dq", "dk", "dv"), got, ref, floors):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, atol=max(1e-5 * b.abs().max().item(), floor),
+                                   rtol=1e-5, msg=name)
+    again, _, _ = _backward(q, k, v, mask, seed=kv)
+    for name, a, b in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, b), name
+
+
+def _mask(kind, b, kv, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind is None:
+        return None
+    if kind == "prefix":  # padding at each row's end
+        lengths = torch.randint(max(kv // 3, 1), kv + 1, (b,), generator=gen, device=device)
+        lengths[0] = kv
+        return torch.arange(kv, device=device)[None, :] < lengths[:, None]
+    mask = torch.rand(b, kv, generator=gen, device=device) < 0.7
+    if kind == "empty_row":
+        mask[-1] = False  # every key of the last batch element masked
+    return mask
+
+
+# fp32 K1, K2 and K3 at the narrow head dims of small models (the quality
+# canaries' 16 and 32), at the fp32 tiling's edges (`k23_f32_edges`: n and
+# kv at 1 and around the tiles) and the canaries' own shapes, under each
+# kind of mask: K1 to 1e-5 of the plain version, K2/K3 as in
+# test_k2_k3_f32_match_plain_at_tile_edges (dq and dk at kv = 1 held to the
+# rounding floor); a second launch of each gives the same bits
+@pytest.mark.parametrize("mask_kind", [None, "prefix", "random", "empty_row"])
+@pytest.mark.parametrize("n,kv", [*k23_f32_edges(), (7, 7), (9, 9), (123, 123)])
+@pytest.mark.parametrize("d", [16, 32])
+def test_f32_narrow_heads_match_plain(cuda_device, d, n, kv, mask_kind):
+    q, k, v, _ = _qkv(cuda_device, 2, 4, n, kv, d=d, seed=n + kv + d)
+    mask = _mask(mask_kind, 2, kv, cuda_device, n + kv)
+    out, lse = flash_attention(q, k, v, mask, return_lse=True)
+    out2, lse2 = flash_attention(q, k, v, mask, return_lse=True)
+    ref, ref_lse = reference_attention(q, k, v, mask, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if mask_kind == "empty_row":
+        mean_v = v[-1].mean(dim=1, keepdim=True).expand_as(out[-1])
+        torch.testing.assert_close(out[-1], mean_v, atol=1e-5, rtol=1e-5)
+    got, plain, do = _backward(q, k, v, mask, seed=kv)
+    floors = [0.0, 0.0, 0.0]
+    if kv == 1:
+        base = 2.0 ** -20 * d ** -0.5 * (do.norm(dim=-1).max() * v.norm(dim=-1).max()).item()
+        floors[:2] = base * k.abs().max().item(), base * q.abs().max().item()
+    for name, a, b, floor in zip(("dq", "dk", "dv"), got, plain, floors):
         assert bool(torch.isfinite(a).all()), name
         torch.testing.assert_close(a, b, atol=max(1e-5 * b.abs().max().item(), floor),
                                    rtol=1e-5, msg=name)

@@ -81,7 +81,10 @@
 //    tile's lse and delta, K2 its key flags, into registers before the
 //    products, which hide their latency;
 //  * blocks of 64 owned rows (256 threads), streamed tiles of 64 rows at
-//    d = 64 and 32 at d = 128 (F32Tile says why).
+//    d <= 64 and 32 at d = 128 (F32Tile says why). Head dims 16 and 32
+//    (fp32 only, the narrow heads of small models) run the same code: a
+//    thread's D / 16 gradient columns are 1 or 2 neighbouring floats
+//    (F32Cols), nothing is padded to 64 columns.
 // Both launch on the caller's stream and allocate nothing; the host encodes
 // the four tensor maps of a bf16 launch on each call.
 
@@ -103,15 +106,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 // streams the other side in tiles of STR rows. Thread (ty, tx), ty <
 // OWN / 4, tx < 16, owns rows ty + (OWN / 4) i (i < 4) of the block's rows;
 // of each streamed tile, rows tx + 16 c (c < STR / 16); of the gradients,
-// columns 64 g + 4 tx (g < D / 64). A warp holds 4 ty x 8 tx, so that a
-// 16-byte read of an owned row is shared by 8 lanes and one of a streamed
-// row by 4, and each reads one 128-byte wavefront from shared memory.
-// OWN is 64; STR is 64 at d = 64 and 32 at d = 128, where 64 streamed rows
-// would take 238 KB of K3's shared memory, past the 227 KB a block can have.
+// the D / 16 columns F32Cols<D> gives tx (4 at 64 g + 4 tx at d = 64 and
+// 128, 2 at 2 tx at d = 32, tx at d = 16). A warp holds 4 ty x 8 tx, so
+// that a 16-byte read of an owned row is shared by 8 lanes and one of a
+// streamed row by 4, and each reads one 128-byte wavefront from shared
+// memory: rows of D + 4 floats put the 8 streamed rows' 16-byte reads in
+// distinct banks at every D of 16 to 128 (row starts 20, 36, 68 or 132
+// floats apart cover all 32 banks once over 8 rows).
+// OWN is 64; STR is 64 at d <= 64 and 32 at d = 128, where 64 streamed rows
+// would take 238 KB of K3's shared memory, past the 227 KB a block can have
+// (at d = 32 a block takes 90 KB).
 template <int D>
 struct F32Tile {
   static constexpr int OWN = 64;
-  static constexpr int STR = D == 64 ? 64 : 32;
+  static constexpr int STR = D == 128 ? 32 : 64;
   static constexpr int kThreads = 4 * OWN;
   static constexpr int kTy = OWN / 4;       // row groups
   static constexpr int kNc = STR / 16;      // streamed rows of a thread
@@ -166,13 +174,19 @@ __device__ __forceinline__ void f32_scores(float (&acc)[4][NC], const float* own
   }
 }
 
-// acc[i][g][e] += sum over streamed rows r < rows (rounded up to 16; the
-// rows past it hold zeros in both operands) of t[r][4 ty + i] * op[r][64 g
-// + 4 tx + e]: t is P^T or dS^T, whose column 4 ty + i is owned row ty +
-// kTy i, and op the streamed operand (K2: K; K3: dO or Q)
+// a thread's gradient: 4 owned rows x its F32Cols<D> columns
 template <int D>
-__device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 64][4], const float* t,
-                                               const float* op, int rows, int ty, int tx) {
+using F32Acc = float[4][F32Cols<D>::G][F32Cols<D>::W];
+
+// acc[i][g][e] += sum over streamed rows r < rows (rounded up to 16; the
+// rows past it hold zeros in both operands) of t[r][4 ty + i] *
+// op[r][F32Cols<D>::col(g, tx) + e]: t is P^T or dS^T, whose column 4 ty +
+// i is owned row ty + kTy i, and op the streamed operand (K2: K; K3: dO or
+// Q)
+template <int D>
+__device__ __forceinline__ void f32_accumulate(F32Acc<D>& acc, const float* t, const float* op,
+                                               int rows, int ty, int tx) {
+  using C = F32Cols<D>;
   constexpr int kLd = F32Tile<D>::kLd, kLdT = F32Tile<D>::kLdT;
   for (int r0 = 0; r0 < rows; r0 += 16) {
 #pragma unroll
@@ -181,14 +195,13 @@ __device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 64][4], const
       const float4 a = *reinterpret_cast<const float4*>(t + r * kLdT + 4 * ty);
       const float ai[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 b = *reinterpret_cast<const float4*>(op + r * kLd + 64 * g + 4 * tx);
+      for (int g = 0; g < C::G; ++g) {
+        float b[C::W];
+        ld_f32<C::W>(b, op + r * kLd + C::col(g, tx));
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[i][g][0] = fmaf(ai[i], b.x, acc[i][g][0]);
-          acc[i][g][1] = fmaf(ai[i], b.y, acc[i][g][1]);
-          acc[i][g][2] = fmaf(ai[i], b.z, acc[i][g][2]);
-          acc[i][g][3] = fmaf(ai[i], b.w, acc[i][g][3]);
+#pragma unroll
+          for (int e = 0; e < C::W; ++e) acc[i][g][e] = fmaf(ai[i], b[e], acc[i][g][e]);
         }
       }
     }
@@ -198,28 +211,26 @@ __device__ __forceinline__ void f32_accumulate(float (&acc)[4][D / 64][4], const
 // rows ty + kTy i of a gradient into out rows [row0, ...) of an (n_rows,
 // D) matrix, once; rows past n_rows are not stored
 template <int D>
-__device__ __forceinline__ void f32_store(const float (&acc)[4][D / 64][4],
-                                          float* __restrict__ out, int row0, int n_rows, int ty,
-                                          int tx) {
+__device__ __forceinline__ void f32_store(const F32Acc<D>& acc, float* __restrict__ out,
+                                          int row0, int n_rows, int ty, int tx) {
+  using C = F32Cols<D>;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + F32Tile<D>::kTy * i;
     if (row >= n_rows) continue;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      *reinterpret_cast<float4*>(out + (size_t)row * D + 64 * g + 4 * tx) =
-          make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2], acc[i][g][3]);
-    }
+    for (int g = 0; g < C::G; ++g) st_f32<C::W>(out + (size_t)row * D + C::col(g, tx), acc[i][g]);
   }
 }
 
 template <int D>
-__device__ __forceinline__ void f32_zero(float (&acc)[4][D / 64][4]) {
+__device__ __forceinline__ void f32_zero(F32Acc<D>& acc) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      acc[i][g][0] = acc[i][g][1] = acc[i][g][2] = acc[i][g][3] = 0.0f;
+    for (int g = 0; g < F32Cols<D>::G; ++g) {
+#pragma unroll
+      for (int e = 0; e < F32Cols<D>::W; ++e) acc[i][g][e] = 0.0f;
     }
   }
 }
@@ -281,7 +292,7 @@ __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     delta_r[i] = valid ? delta[bh * n_q + row] : 0.0f;
     live[i] = valid && !(lse_r[i] < kEmptyRowLse);
   }
-  float acc[4][D / 64][4];
+  F32Acc<D> acc;
   f32_zero<D>(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -376,7 +387,7 @@ __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     real[i] = key < n_kv;
     kept[i] = real[i] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
   }
-  float dk_acc[4][D / 64][4], dv_acc[4][D / 64][4];
+  F32Acc<D> dk_acc, dv_acc;
   f32_zero<D>(dk_acc);
   f32_zero<D>(dv_acc);
 
@@ -925,8 +936,9 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Each returns 0 or the cudaError_t of the launch.
+// Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16;
+// head_dim 64 or 128 in either, 16 or 32 in float32. Each returns 0 or the
+// cudaError_t of the launch.
 extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, const void* lse,
                                          const void* delta, void* dq, int batch, int heads,
@@ -938,6 +950,8 @@ extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const voi
   if (head_dim == 128 && dtype == 1) return launch_dq_bf16<128>(a, dq);
   if (head_dim == 64 && dtype == 0) return launch_dq_f32<64>(a, dq);
   if (head_dim == 128 && dtype == 0) return launch_dq_f32<128>(a, dq);
+  if (head_dim == 32 && dtype == 0) return launch_dq_f32<32>(a, dq);
+  if (head_dim == 16 && dtype == 0) return launch_dq_f32<16>(a, dq);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -952,5 +966,7 @@ extern "C" int vb_flash_attention_bwd_dkv(const void* q, const void* k, const vo
   if (head_dim == 128 && dtype == 1) return launch_dkv_bf16<128>(a, dk, dv);
   if (head_dim == 64 && dtype == 0) return launch_dkv_f32<64>(a, dk, dv);
   if (head_dim == 128 && dtype == 0) return launch_dkv_f32<128>(a, dk, dv);
+  if (head_dim == 32 && dtype == 0) return launch_dkv_f32<32>(a, dk, dv);
+  if (head_dim == 16 && dtype == 0) return launch_dkv_f32<16>(a, dk, dv);
   return static_cast<int>(cudaErrorInvalidValue);
 }

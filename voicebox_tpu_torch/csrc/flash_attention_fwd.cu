@@ -31,7 +31,10 @@
 //    D/16 columns of O and reads 16-byte vectors from shared memory; 16-row
 //    query tiles, so that the predictor's batch 1 still runs 16 blocks;
 //    32-key tiles, double-buffered with cp.async, and a key loop bounded by
-//    the real kv, so kv = 32 computes 32 keys.
+//    the real kv, so kv = 32 computes 32 keys. The same code runs the narrow
+//    heads of small models (head dim 16 and 32, fp32 only): a thread's D/16
+//    columns of O are then 2 or 1 neighbouring floats (F32Cols), read and
+//    written as 8- or 4-byte vectors, so nothing is padded to 64 columns.
 //
 // Both paths mask ragged n and kv here, with no padding copies: TMA (bf16)
 // and cp.async (fp32) fill rows past n or kv with zeros, keys past kv get
@@ -300,8 +303,8 @@ struct F32Smem {
 
 // grid: (query tiles of 16 rows, heads, batch). Thread (ty, tx) = (tid / 16,
 // tid % 16) owns rows ty RM .. ty RM + RM - 1 of the tile; of S, keys tx
-// and tx + 16 of each K tile; of O, columns 64 g + 4 tx .. + 3 for each
-// 64-column group g.
+// and tx + 16 of each K tile; of O, the D / 16 columns F32Cols<D> gives it
+// (4 at 64 g + 4 tx at D = 64 and 128, 2 at 2 tx at D = 32, tx at D = 16).
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -311,7 +314,8 @@ __global__ void __launch_bounds__(kF32Threads)
   using L = F32Smem<D>;
   constexpr int BQ = kF32BlockQ;
   constexpr int RM = BQ / 8;
-  constexpr int CG = D / 64;
+  using C = F32Cols<D>;
+  constexpr int G = C::G, W = C::W;
   constexpr int kLd = L::kLd;
   extern __shared__ float4 smem_f32[];
   float* sm = reinterpret_cast<float*>(smem_f32);
@@ -333,14 +337,17 @@ __global__ void __launch_bounds__(kF32Threads)
   cp_async_rows<D, kF32BlockK, kF32Threads>(sm + L::kV, v_bh, 0, n_kv);
   cp_async_commit();
 
-  float o[RM][CG][4];
+  float o[RM][G][W];
   float m_run[RM], l_run[RM];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.0f;
 #pragma unroll
-    for (int g = 0; g < CG; ++g) o[i][g][0] = o[i][g][1] = o[i][g][2] = o[i][g][3] = 0.0f;
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) o[i][g][e] = 0.0f;
+    }
   }
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -400,9 +407,9 @@ __global__ void __launch_bounds__(kF32Threads)
       l_run[i] = l_run[i] * alpha + p0 + p1;
       m_run[i] = m_new;
 #pragma unroll
-      for (int g = 0; g < CG; ++g) {
+      for (int g = 0; g < G; ++g) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][g][e] *= alpha;
+        for (int e = 0; e < W; ++e) o[i][g][e] *= alpha;
       }
       p_s[(ty * RM + i) * L::kLdP + tx] = p0;
       p_s[(ty * RM + i) * L::kLdP + tx + 16] = p1;
@@ -420,16 +427,14 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(v_s + (kk + u) * kLd + 64 * g + 4 * tx);
+        for (int g = 0; g < G; ++g) {
+          float vv[W];
+          ld_f32<W>(vv, v_s + (kk + u) * kLd + C::col(g, tx));
 #pragma unroll
           for (int i = 0; i < RM; ++i) {
             const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
-            o[i][g][0] = fmaf(p, vv.x, o[i][g][0]);
-            o[i][g][1] = fmaf(p, vv.y, o[i][g][1]);
-            o[i][g][2] = fmaf(p, vv.z, o[i][g][2]);
-            o[i][g][3] = fmaf(p, vv.w, o[i][g][3]);
+#pragma unroll
+            for (int e = 0; e < W; ++e) o[i][g][e] = fmaf(p, vv[e], o[i][g][e]);
           }
         }
       }
@@ -447,9 +452,11 @@ __global__ void __launch_bounds__(kF32Threads)
     if (r < n_q) {
       const float inv = 1.0f / l;
 #pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        *reinterpret_cast<float4*>(out_bh + (size_t)r * D + 64 * g + 4 * tx) =
-            make_float4(o[i][g][0] * inv, o[i][g][1] * inv, o[i][g][2] * inv, o[i][g][3] * inv);
+      for (int g = 0; g < G; ++g) {
+        float res[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) res[e] = o[i][g][e] * inv;
+        st_f32<W>(out_bh + (size_t)r * D + C::col(g, tx), res);
       }
       if (tx == 0) lse[bh * n_q + r] = m_run[i] + logf(l);
     }
@@ -519,9 +526,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// block_q: query rows per block, 64 or 128 for bfloat16 (one or two
-// consumer warpgroups), 16 for float32. Returns 0 or the cudaError_t of the
-// launch.
+// head_dim: 64 or 128 in either dtype, 16 or 32 in float32. block_q: query
+// rows per block, 64 or 128 for bfloat16 (one or two consumer warpgroups),
+// 16 for float32. Returns 0 or the cudaError_t of the launch.
 extern "C" int vb_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, void* lse, int batch,
                                       int heads, int n_q, int n_kv, int head_dim, int dtype,
@@ -532,6 +539,10 @@ extern "C" int vb_flash_attention_fwd(const void* q, const void* k, const void* 
     err = launch<64>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
   } else if (head_dim == 128) {
     err = launch<128>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
+  } else if (head_dim == 32 && dtype == 0 && block_q == kF32BlockQ) {  // fp32 only
+    err = launch_f32<32>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
+  } else if (head_dim == 16 && dtype == 0 && block_q == kF32BlockQ) {
+    err = launch_f32<16>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, scale, s);
   }
   return static_cast<int>(err);
 }

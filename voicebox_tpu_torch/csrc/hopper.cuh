@@ -340,19 +340,62 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows are padded by 4 floats (16 bytes, so that 16-byte reads of 8
 // neighbouring rows fall in distinct banks), by the block's THREADS threads
 // in 16-byte copies; rows past n_rows are zero-filled, so that p = 0 never
-// meets a stale value
+// meets a stale value. A tile of fewer vectors than threads (K1's 16 query
+// rows at D = 16) leaves the last threads without a copy.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void cp_async_rows(float* dst, const float* __restrict__ src, int row0,
                                               int n_rows) {
   constexpr int kVecs = D / 4;
-  static_assert(ROWS * kVecs % THREADS == 0, "each thread copies the same number of vectors");
+  constexpr int kAll = ROWS * kVecs;
+  static_assert(kAll % THREADS == 0 || kAll < THREADS,
+                "each thread copies the same number of vectors, or at most one");
 #pragma unroll
-  for (int j = 0; j < ROWS * kVecs / THREADS; ++j) {
+  for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
     const int i = j * THREADS + threadIdx.x;
+    if (kAll < THREADS && i >= kAll) break;
     const int r = i / kVecs;
     const int c = (i % kVecs) * 4;
     const bool valid = row0 + r < n_rows;
     cp_async16(dst + r * (D + 4) + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
+  }
+}
+
+// The columns of a D-wide fp32 row that each of 16 threads owns (K1's O,
+// K2's and K3's gradients): D / 16 columns, as G chunks of W = min(4, D /
+// 16) neighbouring floats, chunk g of thread tx at column 16 W g + W tx,
+// each read or written as one W-float vector. D = 64 and 128 give 4
+// columns at 64 g + 4 tx; D = 32 gives 2 at 2 tx, D = 16 one at tx. The 16
+// threads read one contiguous run of 16 W floats (one wavefront), and D is
+// never padded to 64.
+template <int D>
+struct F32Cols {
+  static_assert(D % 16 == 0, "16 threads share a row");
+  static constexpr int W = D / 16 < 4 ? D / 16 : 4;
+  static constexpr int G = D / 16 / W;
+  static __device__ __forceinline__ int col(int g, int tx) { return 16 * W * g + W * tx; }
+};
+
+// W = 4, 2 or 1 floats from (to) an address aligned to W floats, as one access
+template <int W>
+__device__ __forceinline__ void ld_f32(float (&v)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (W == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int W>
+__device__ __forceinline__ void st_f32(float* p, const float (&v)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
   }
 }
 

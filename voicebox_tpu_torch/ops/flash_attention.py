@@ -62,6 +62,7 @@ from .. import kernels
 from .remat import checkpoint_name, saves
 
 __all__ = [
+    "HEAD_DIMS",
     "MASK_FILL",
     "attention_delta",
     "flash_attention",
@@ -78,7 +79,10 @@ MASK_FILL = -0.7 * torch.finfo(torch.float32).max
 _K1 = "flash_attention_fwd"
 _BWD = "flash_attention_bwd"  # K2 and K3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# head dims each dtype's kernels are built for: fp32 also takes the narrow
+# heads of small models (the quality canaries' 16 and 32); bf16's wgmma
+# tiles take 64-column chunks
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 
 
 def reference_attention(
@@ -184,8 +188,9 @@ def _check_operands(kernel, q, k, v, mask):
     b, h, n_q, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"{kernel} shapes: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{kernel} takes head dim 64 or 128, got {d}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{kernel} takes head dim {' or '.join(map(str, HEAD_DIMS[q.dtype]))} "
+                         f"in {str(q.dtype)[6:]}, got {d}")
     if n_q == 0 or k.shape[2] == 0 or h > 65535 or b > 65535:
         raise ValueError(f"{kernel} cannot launch for q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -394,8 +399,9 @@ def flash_attention(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention forward, same contract as `reference_attention`, and
     differentiable in q, k and v. CUDA tensors go through K1 and, backward,
-    K2 + K3 (contiguous float32 or bfloat16, head dim 64 or 128, else
-    ValueError); CPU tensors through the plain version.
+    K2 + K3 (contiguous float32 at head dim 16, 32, 64 or 128, or bfloat16
+    at 64 or 128 (`HEAD_DIMS`), else ValueError); CPU tensors through the
+    plain version.
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
