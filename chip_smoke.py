@@ -202,7 +202,23 @@ imports nothing of JAX. Its phases print one line each or more:
    times, acceptance, the w8a16 decode's agreement, a profiled decode's ms
    and kernels a position. Every K1, K2, K3 and K4 launch of the phase is
    tallied by shape and must be one that phases 3-5 checked and timed;
-20. one JSON line for the kernels (one row per kernel and main path; on the
+20. files and HTTP: 8 seeded 10 s mono 24 kHz clips written as 16-bit FLAC
+   (tests/flac_ref_encoder.py) and WAV, the native reader asserted built and
+   every clip read back bit for bit (FLAC, WAV and `wav_read_batch`, ms a
+   clip); phase 14's mel trainer over `AudioDataset` of the FLAC folder
+   (10 steps, prefetch on) beside the same trainer over `ArrayDataset` of
+   the decoded waves at the same seed, losses equal step for step within
+   1e-6 relative (cuDNN deterministic for the phase), both runs' steps/s,
+   the prefetch thread's decode ms a batch, a profiled step's idle share;
+   phase 18's `TextToSemanticTrainer` over `SpeechTextDataset` of 8 WAV +
+   transcript pairs at 16 kHz (3 steps, finite losses, steps/s);
+   `examples/serve_http.py`'s engine warmed behind `make_server` on
+   127.0.0.1:0, four `/synthesize` and one `/clone` sent at once (every
+   answer a 24 kHz 16-bit mono WAV, `/healthz` counting 5 requests and a
+   batch of more than 1, 400 and 404, the server and batcher closed), each
+   request's latency. Every K1, K2 and K3 launch of the phase is tallied by
+   shape and must be one that phases 3-4 checked and timed;
+21. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -212,9 +228,11 @@ Weights are random, made from a seed, except where phase 19 trains them.
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -222,8 +240,12 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -231,7 +253,8 @@ import torch
 import torch.nn.functional as F
 
 import voicebox_tpu_torch as vbt
-from voicebox_tpu_torch import kernels
+from voicebox_tpu_torch import kernels, native
+from voicebox_tpu_torch.examples import serve_http
 from voicebox_tpu_torch.models import attention as attention_module
 from voicebox_tpu_torch.models import cfm as cfm_module
 from voicebox_tpu_torch.models.codec import EncodecVoco, MelVoco
@@ -263,7 +286,7 @@ from voicebox_tpu_torch.ops.quant import (
 from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
 from voicebox_tpu_torch.ops.mas import maximum_path
 from voicebox_tpu_torch.ops.stft import amplitude_to_db, mel_spectrogram
-from voicebox_tpu_torch.training.data import PairedDataset
+from voicebox_tpu_torch.training.data import AudioDataset, PairedDataset, SpeechTextDataset
 from voicebox_tpu_torch.utils.profiling import kernel_summary
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 
@@ -288,6 +311,8 @@ HBM_BYTES_PER_S = 3.35e12
 
 # the semantic engine's buckets (phase 18)
 SEM_BATCHES, SEM_TEXT_BUCKETS = (1, 2, 4), (32, 64, 128)
+# the example HTTP server's engine (phase 20, `examples/serve_http.py`)
+HTTP_BATCHES, HTTP_TEXT_BUCKETS = (1, 2, 4), (32, 64)
 
 # (name, (b, h, n, kv, d), dtype, inputs, mask, atol, rtol). "qk": q and k
 # qk-normed to norm sqrt(d) with scale 10, as the denoiser calls attention
@@ -363,6 +388,16 @@ K1_CASES = [
       for b in (1, 16)],
     *[(f"canary_t2s_b{b}_f32", (b, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-5,
        1e-5) for b in (1, 8)],
+    # the example HTTP server's engine (phase 20, `examples/serve_http.py`):
+    # its TextToSemantic encoder (fp32, 4 x 32 heads, no qk-norm, the text
+    # padding masked) at each (batch, text) bucket, its denoiser (bf16, 4 x
+    # 64 heads, qk-norm, 512 ids + 8 registers, x 2 for CFG) under the
+    # generated mask at each batch bucket, and its long-form window unmasked
+    *[(f"http_t2s_b{b}_n{n}_f32", (b, 4, n, n, 32), torch.float32, "randn", "prefix", 1e-5,
+       1e-5) for b in HTTP_BATCHES for n in HTTP_TEXT_BUCKETS],
+    *[(f"http_b{b}_bf16", (2 * b, 4, 520, 520, 64), torch.bfloat16, "qk", "prefix", 1e-2, 1e-2)
+      for b in HTTP_BATCHES],
+    ("http_long_bf16", (2, 4, 520, 520, 64), torch.bfloat16, "qk", None, 1e-2, 1e-2),
     # the edges of the fp32 design at the narrow head dims: n and kv at 1,
     # around the 16-row query and 32-key tiles (`k23_f32_edges`), under each
     # kind of mask in turn
@@ -376,7 +411,7 @@ K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
             *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_",
-                                                                 "canary_"))),
+                                                                 "canary_", "http_"))),
             "longform_bf16")
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
@@ -3573,10 +3608,79 @@ def phase_trained(smi: str, k1: dict, k23: dict, k4_dec: dict) -> tuple:
 def trained_rows(k1: dict, k23: dict, k4_dec: dict, counts: dict, tally) -> list:
     """Rows of phase 19's path: fp32 K1, K2, K3 and K4 at the shapes it
     launched them at, launch-weighted (`_path_row`)."""
+    rows = tally_rows(k1, k23, counts, tally, "trained")
+    k4 = tally_rows(k1, k23, counts, tally, "trained_w8a16", ("k4",), k4_dec)[0]
+    k4["library"] = "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time"
+    return rows + [k4]
+
+
+# ---------------------------------------------------------------------------
+# phase 20: files and HTTP. A user's path with a folder of recordings: the
+# port's native reader, BASELINE config 2's mel training and config 5's
+# seq2seq trained from files, and `examples/serve_http.py` answering
+# concurrent requests.
+FILES_CLIPS, FILES_TURN_STEPS, FILES_SEQ2SEQ_STEPS = 8, 5, 3  # 2 turns each from files, memory
+FILES_SR = 24000
+HTTP_TEXTS = ("hello from the card", "a second short line", "four requests at once",
+              "the last of them")  # each in text bucket 32: one batch of four
+HTTP_PROMPT_SAMPLES = 48_000  # a 2 s prompt at 24 kHz
+HTTP_MAX_WAIT_MS = 50.0
+
+
+def _write_wav16(path, pcm: np.ndarray, sample_rate: int) -> None:
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.astype("<i2").tobytes())
+
+
+def _flac_writer():
+    """`write_flac` of tests/flac_ref_encoder.py (numpy only), loaded by path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "flac_ref_encoder.py")
+    spec = importlib.util.spec_from_file_location("flac_ref_encoder", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.write_flac
+
+
+def _pcm16(waves) -> list:
+    return [np.round(np.clip(w, -1.0, 32767 / 32768) * 32768).astype(np.int16) for w in waves]
+
+
+def _host_ms_per(fn, items) -> float:
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    return (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+def _steps_timed(trainer, steps: int) -> tuple:
+    """(losses, CUDA-event ms per step, host-clock ms per step) of `steps`
+    training steps."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    logs = [trainer.train_step() for _ in range(steps)]
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    return losses, start.elapsed_time(end) / steps, host
+
+
+def tally_rows(k1: dict, k23: dict, counts: dict, tally, path: str, kernels_=("k1", "k2", "k3"),
+               k4_table=None) -> list:
+    """One row per kernel of a path from the shapes it launched it at
+    (`shape_tally`), launch-weighted (`_path_row`); each shape must be one
+    that phases 3-5 checked and timed, and the launches must equal the
+    path's count."""
     def part(kernel, key):
         _, shape, dtype = key[:3]
         if kernel == "k4":
-            return k4_dec[shape]
+            return k4_table[shape]
         if kernel == "k1":
             return next(r for r in k1.values() if tuple(r["shape"]) == shape
                         and r["dtype"] == dtype and r["masked"] == key[3] and "ms" in r)
@@ -3586,15 +3690,280 @@ def trained_rows(k1: dict, k23: dict, k4_dec: dict, counts: dict, tally) -> list
         return {**_k23_timed_row(r, kernel), "shape": r["shape"], "max_abs_err": err}
 
     rows = []
-    for kernel in ("k1", "k2", "k3", "k4"):
+    for kernel in kernels_:
         parts = [(c, {**part(kernel, key), "dtype": key[2]})
                  for key, c in sorted(tally.items(), key=str) if key[0] == kernel]
-        path = "trained_w8a16" if kernel == "k4" else "trained"
         row = _path_row(kernel, f"{NAMES[kernel]}[{path}]", parts, path)
         assert row["launches"] == counts[kernel], (kernel, row["launches"], counts[kernel])
-        if kernel == "k4":
-            row["library"] = "cuBLAS fp32 (TF32 off) on the weight dequantized ahead of time"
         rows.append(row)
+    return rows
+
+
+def _files_mel(smi: str, k1: dict, k23: dict, folder: str, waves_read: list) -> tuple:
+    """(b): phase 14's trainer over `AudioDataset(folder)` of the FLAC clips,
+    prefetch on, against the same trainer over `ArrayDataset` of the decoded
+    waves, at the same seed."""
+    decode_ms = []
+
+    class TimedAudio(AudioDataset):  # times each item's decode on the thread that asks
+        def __getitem__(self, idx):
+            t0 = time.perf_counter()
+            out = super().__getitem__(idx)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    def trainer_over(dataset):
+        def build():
+            vb = vbt.VoiceBox(audio_enc_dec=MelVoco(), dtype=torch.bfloat16,
+                              param_dtype=torch.float32, **MEL_FLAGSHIP)
+            return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+        return vbt.VoiceBoxTrainer(
+            seeded(build, SEED + 20), batch_size=TRAIN_BATCH, dataset=dataset,
+            num_train_steps=1000, lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0,
+            log_every=1000, save_results_every=1000, seed=SEED, prefetch_batches=2)
+
+    depth = MEL_FLAGSHIP["depth"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same batches give the same losses
+    try:
+        trainers = {
+            "files": trainer_over(TimedAudio(folder, audio_extension=".flac",
+                                             sample_rate=FILES_SR)),
+            "memory": trainer_over(vbt.ArrayDataset(waves_read)),
+        }
+        # warm-up (with step 0's validation): the allocator, cuFFT's plans
+        losses = {k: _steps_timed(tr, TRAIN_WARMUP)[0] for k, tr in trainers.items()}
+        ms, host = {k: [] for k in trainers}, {k: [] for k in trainers}
+        counts, tally = collections.Counter(), collections.Counter()
+        for which in ("files", "memory", "memory", "files"):  # in turns
+            reset_launches()  # the path's run (the file-backed turns): counted and tallied
+            with shape_tally() as turn:
+                got, step_ms, step_host = _steps_timed(trainers[which], FILES_TURN_STEPS)
+            if which == "files":
+                counts.update(read_launches())
+                tally.update(turn)
+            losses[which] += got
+            ms[which].append(step_ms)
+            host[which].append(step_host)
+        want = {"k1": 2 * depth * FILES_TURN_STEPS, "k2": 2 * depth * FILES_TURN_STEPS,
+                "k3": 2 * depth * FILES_TURN_STEPS, "k4": 0}
+        assert dict(counts) == want, f"file-backed mel training launched {counts}, expected {want}"
+        _assert_checked(tally, k1, "file-backed mel training")
+        _assert_k23_checked(tally, k23, "file-backed mel training")
+        prof = _profile(trainers["files"].train_step)
+        del trainers
+        torch.cuda.empty_cache()
+        f_losses, m_losses = losses["files"], losses["memory"]
+        f_ms, m_ms = (sum(ms[k]) / 2 for k in ("files", "memory"))
+        f_host, m_host = (sum(host[k]) / 2 for k in ("files", "memory"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(f_losses, m_losses))
+    assert all(math.isfinite(x) for x in f_losses), f_losses
+    assert rel <= 1e-6, f"losses from files {f_losses} vs from memory {m_losses}: rel {rel:.3e}"
+    per_batch = sum(decode_ms) / len(decode_ms) * TRAIN_BATCH
+    idle = prof["idle"]
+    log("files", f"(b) flagship mel training (dim 512, depth 24, 4 x 128 heads, bf16 over fp32, "
+                 f"vocos-mel-24khz MelVoco), batch {TRAIN_BATCH} x 10 s from AudioDataset of "
+                 f"{FILES_CLIPS} FLAC clips, prefetch 2: {TRAIN_WARMUP} + {2 * FILES_TURN_STEPS} "
+                 f"steps (warm-up + timed in turns with the in-memory run), losses "
+                 f"{[round(x, 5) for x in f_losses]}; from ArrayDataset of the same decoded "
+                 f"waves at the same seed: max relative difference {rel:.3e} (tol 1e-6)")
+    log("files", f"steps/s over {2 * FILES_TURN_STEPS} timed steps each (turns files, memory, "
+                 f"memory, files of {FILES_TURN_STEPS} steps) from files {1e3 / f_ms:.3f} "
+                 f"({f_ms:.2f} ms a step, CUDA events; host "
+                 f"clock {1e3 / f_host:.3f}), from memory {1e3 / m_ms:.3f} ({m_ms:.2f} ms; host "
+                 f"{1e3 / m_host:.3f}); the prefetch thread's decode {per_batch:.2f} ms a batch "
+                 f"of {TRAIN_BATCH} ({len(decode_ms)} items decoded, "
+                 f"{sum(decode_ms) / len(decode_ms):.2f} ms each, host clock); profiled "
+                 f"file-backed step: wall {prof['wall_ms']:.2f} ms, device busy "
+                 f"{prof['busy_ms']:.2f} ms over {prof['kernels']} kernels, idle share "
+                 f"{'not measured' if idle is None else f'{idle:.3f}'} on {smi}")
+    return counts, tally
+
+
+def _files_seq2seq(smi: str, k1: dict, k23: dict, folder: str) -> tuple:
+    """(c): phase 18's TextToSemanticTrainer over `SpeechTextDataset` of 8
+    WAV + transcript pairs at 16 kHz, the targets through HuBERT-base."""
+    hubert = seeded(lambda: vbt.HubertWithKmeans(output_layer=9), SEED + 70).cuda().eval()
+    t2s = seeded(lambda: vbt.TextToSemantic(**T2S_FULL, wav2vec=hubert,
+                                            tokenizer=GraphemeTokenizer()), SEED + 72)
+    trainer = vbt.TextToSemanticTrainer(
+        t2s, batch_size=FILES_CLIPS,
+        dataset=SpeechTextDataset(folder, audio_extension=".wav", sample_rate=16000),
+        num_train_steps=1000, lr=3e-4, max_grad_norm=0.5, valid_frac=0.0,
+        semantic_bucket_multiple=512, text_bucket_multiple=64, log_every=1000,
+        save_results_every=1000, seed=SEED)
+    depth = T2S_FULL["source_depth"]
+    trainer.train_step()  # warm-up, with step 0's validation
+    reset_launches()
+    with shape_tally() as tally:
+        losses, ms, host = _steps_timed(trainer, FILES_SEQ2SEQ_STEPS)
+    counts = read_launches()
+    want = {"k1": depth * FILES_SEQ2SEQ_STEPS, "k2": depth * FILES_SEQ2SEQ_STEPS,
+            "k3": depth * FILES_SEQ2SEQ_STEPS, "k4": 0}
+    assert counts == want, f"file-backed seq2seq training launched {counts}, expected {want}"
+    assert all(math.isfinite(x) for x in losses), losses
+    _assert_checked(tally, k1, "file-backed seq2seq training")
+    _assert_k23_checked(tally, k23, "file-backed seq2seq training")
+    log("files", f"(c) TextToSemanticTrainer (dim 512, 6 + 6 layers, 8 x 64 heads, fp32; "
+                 f"HuBERT-base layer 9, 500 clusters) over SpeechTextDataset of {FILES_CLIPS} "
+                 f"WAV + .txt pairs (10 s at 16 kHz), batch {FILES_CLIPS}: "
+                 f"{FILES_SEQ2SEQ_STEPS} steps, losses {[round(x, 4) for x in losses]}, "
+                 f"{1e3 / ms:.3f} steps/s ({ms:.2f} ms a step, CUDA events; host clock "
+                 f"{1e3 / host:.3f}); K1 by shape "
+                 f"{ {k[1]: c for k, c in tally.items() if k[0] == 'k1'} } on {smi}")
+    del trainer, t2s, hubert
+    torch.cuda.empty_cache()
+    return counts, tally
+
+
+def _http_call(url: str, body=None) -> tuple:
+    """(status, body, ms) of one request."""
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, data = e.code, e.read()
+    return code, data, (time.perf_counter() - t0) * 1e3
+
+
+def _wav_frames(body: bytes) -> int:
+    with wave.open(io.BytesIO(body), "rb") as w:
+        assert (w.getframerate(), w.getsampwidth(), w.getnchannels()) == (24000, 2, 1), (
+            w.getframerate(), w.getsampwidth(), w.getnchannels())
+        return w.getnframes()
+
+
+def _files_http(smi: str, k1: dict) -> tuple:
+    """(d): `examples/serve_http.py`'s engine, warmed, behind `make_server`
+    on 127.0.0.1:0: four `/synthesize` and one `/clone` sent at once, then
+    `/healthz`, a malformed body and an unknown path."""
+    with shape_tally() as wtally:
+        engine = serve_http.build_engine()
+        warm_s = engine.warmup()
+    _assert_checked(wtally, k1, "the example server's warmup")
+    batcher = vbt.DynamicBatcher(engine, max_wait_ms=HTTP_MAX_WAIT_MS)
+    server = serve_http.make_server(batcher, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, name="http", daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address
+    rs = np.random.RandomState(SEED + 80)
+    prompt = (0.2 * np.sin(2 * np.pi * 180.0 * np.arange(HTTP_PROMPT_SAMPLES) / 24000)
+              + 0.02 * rs.randn(HTTP_PROMPT_SAMPLES)).astype(np.float32)
+    clone = json.dumps({"text": "in the voice of the prompt",
+                        "prompt_wav": base64.b64encode(serve_http.to_wav_bytes(prompt)).decode()})
+    try:
+        reset_launches()  # the path's run: the requests
+        with shape_tally() as tally:
+            with ThreadPoolExecutor(len(HTTP_TEXTS) + 1) as pool:
+                futures = [pool.submit(_http_call, base + "/synthesize",
+                                       json.dumps({"text": t}).encode()) for t in HTTP_TEXTS]
+                futures.append(pool.submit(_http_call, base + "/clone", clone.encode()))
+                answers = [f.result() for f in futures]
+            torch.cuda.synchronize()
+        counts = read_launches()
+        for (code, body, _), what in zip(answers, [*HTTP_TEXTS, "clone"]):
+            assert code == 200, f"{what}: {code} {body[:200]!r}"
+            assert _wav_frames(body) > 0, what
+        code, body, _ = _http_call(base + "/healthz")
+        stats = json.loads(body)
+        assert code == 200 and stats["requests"] == len(answers), stats
+        assert stats["occupancy_sum"] > stats["batches"], f"no batch of more than 1: {stats}"
+        bad = _http_call(base + "/synthesize", b"{not json")[0]
+        missing = _http_call(base + "/nowhere")[0]
+        assert (bad, missing) == (400, 404), (bad, missing)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    thread.join(30)
+    assert not thread.is_alive() and not batcher._thread.is_alive(), "the server did not close"
+    _assert_checked(tally, k1, "the example server's requests")
+    assert counts["k1"] > 0 and counts["k2"] == counts["k3"] == counts["k4"] == 0, counts
+    ms = [a[2] for a in answers]
+    log("files", f"(d) examples/serve_http.py on the card (TextToSemantic dim 128 2 + 2 layers 4 "
+                 f"x 32 fp32, 512 ids; VoiceBox dim 256 depth 4 4 x 64 bf16; MelVoco; text "
+                 f"buckets {HTTP_TEXT_BUCKETS}, batch buckets {HTTP_BATCHES}): warmup "
+                 f"{warm_s:.1f} s; {len(HTTP_TEXTS)} POST /synthesize and 1 POST /clone (2 s "
+                 f"prompt) at once, max_wait_ms {HTTP_MAX_WAIT_MS:g}: latencies "
+                 f"{', '.join(f'{m:.1f}' for m in ms[:-1])} ms, clone {ms[-1]:.1f} ms (host "
+                 f"clock, request to response); healthz {stats}; 400 and 404 as expected; K1 "
+                 f"launches {counts['k1']} on {smi}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, tally
+
+
+def phase_files(smi: str, k1: dict, k23: dict) -> dict:
+    """Phase 20: (a) 8 seeded 10 s clips written as 16-bit FLAC and WAV and
+    read back bit for bit through the native reader, with decode times;
+    (b) mel training from the FLAC folder against the same waves in
+    memory; (c) seq2seq training from WAV + transcripts; (d) the example
+    HTTP server. Every K1, K2 and K3 launch is tallied by shape."""
+    t_phase = time.perf_counter()
+    assert native.native_available() and native.flac_available(), (
+        "the native WAV / FLAC reader did not build")
+    write_flac = _flac_writer()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="phase20_") as tmp:
+        flac_dir, wav_dir, pair_dir = (os.path.join(tmp, d) for d in ("flac", "wav", "pairs"))
+        for d in (flac_dir, wav_dir, pair_dir):
+            os.makedirs(d)
+        pcm = _pcm16(_waves(FILES_CLIPS, WAVE_SAMPLES, SEED + 81))
+        t0 = time.perf_counter()
+        flacs, wavs = [], []
+        for i, p in enumerate(pcm):
+            flacs.append(os.path.join(flac_dir, f"clip{i}.flac"))
+            wavs.append(os.path.join(wav_dir, f"clip{i}.wav"))
+            write_flac(flacs[-1], p[None].astype(np.int64), FILES_SR, block_size=4096)
+            _write_wav16(wavs[-1], p, FILES_SR)
+        write_s = time.perf_counter() - t0
+        want = [p.astype(np.float32) / np.float32(32768) for p in pcm]
+        for reader, paths in ((native.flac_read, flacs), (native.wav_read, wavs)):
+            for path, w in zip(paths, want):
+                got, sr = reader(path)
+                assert sr == FILES_SR and np.array_equal(got, w), f"{path} read back differently"
+        batch, lengths = native.wav_read_batch(wavs, WAVE_SAMPLES)
+        assert lengths.tolist() == [WAVE_SAMPLES] * FILES_CLIPS
+        assert np.array_equal(batch, np.stack(want))
+        flac_ms = _host_ms_per(native.flac_read, flacs)
+        wav_ms = _host_ms_per(native.wav_read, wavs)
+        t0 = time.perf_counter()
+        native.wav_read_batch(wavs, WAVE_SAMPLES)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / FILES_CLIPS
+        log("files", f"(a) {FILES_CLIPS} seeded 10 s mono 24 kHz clips written as 16-bit FLAC "
+                     f"(tests/flac_ref_encoder.py, blocks of 4096) and WAV in {write_s:.1f} s, "
+                     f"read back bit for bit by the native reader: FLAC {flac_ms:.3f} ms, WAV "
+                     f"{wav_ms:.3f} ms, wav_read_batch {batch_ms:.3f} ms a 10 s clip (host "
+                     f"clock, mean over {FILES_CLIPS})")
+        out["mel"] = _files_mel(smi, k1, k23, flac_dir, want)
+        texts = _texts(FILES_CLIPS, SEED + 82)
+        for i, (w, text) in enumerate(zip(_pcm16(_waves(FILES_CLIPS, HUBERT_SAMPLES,
+                                                         SEED + 83)), texts)):
+            _write_wav16(os.path.join(pair_dir, f"utt{i}.wav"), w, 16000)
+            with open(os.path.join(pair_dir, f"utt{i}.txt"), "w") as f:
+                f.write(text + "\n")
+        out["seq2seq"] = _files_seq2seq(smi, k1, k23, pair_dir)
+    out["http"] = _files_http(smi, k1)
+    log("files", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def files_rows(k1: dict, k23: dict, files: dict) -> list:
+    """Phase 20's rows: bf16 K1, K2 and K3 on mel training from files, fp32
+    K1, K2 and K3 on seq2seq training from files, and K1 on the example
+    server's requests (the bf16 denoiser and the fp32 encoder apart)."""
+    rows = tally_rows(k1, k23, *files["mel"], "files_mel_train")
+    rows += tally_rows(k1, k23, *files["seq2seq"], "files_seq2seq_train")
+    counts, tally = files["http"]
+    for dtype, path in ((torch.bfloat16, "http_serve"), (torch.float32, "http_serve_encoder")):
+        part = collections.Counter({k: c for k, c in tally.items() if k[2] == dtype})
+        rows += tally_rows(k1, k23, {"k1": sum(part.values())}, part, path, ("k1",))
+    assert sum(r["launches"] for r in rows[-2:]) == counts["k1"], (rows[-2:], counts)
     return rows
 
 
@@ -3830,6 +4199,11 @@ def main() -> int:
     semantic += engine_rows(k1, k4, sem["long"][1], path="semantic_long")
     trained_counts, trained_tally = phase_trained(smi, k1, k23, k4_dec)
     semantic += trained_rows(k1, k23, k4_dec, trained_counts, trained_tally)
+    files = phase_files(smi, k1, k23)
+    for path, (counts, _) in files.items():
+        assert counts["k1"] > 0, f"the {path} path of phase 20 launched no K1: {counts}"
+    assert min(files[p][0][k] for p in ("mel", "seq2seq") for k in ("k2", "k3")) > 0, files
+    semantic += files_rows(k1, k23, files)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {

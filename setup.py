@@ -3,8 +3,9 @@ from setuptools import find_packages, setup
 setup(
     name="voicebox-tpu",
     packages=find_packages(exclude=["tests*"]),
-    # the PyTorch port builds its CUDA kernels from these sources at first use
-    package_data={"voicebox_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port builds its CUDA kernels and its native WAV / FLAC
+    # decoders from these sources at first use
+    package_data={"voicebox_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     version="0.1.0",
     license="MIT",
     description=(

@@ -35,6 +35,17 @@ from voicebox_tpu_torch.utils.convert import attention_state_dict
 ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, b, h, n, kv, d, masked_frac=0.3, empty_batch=None):
     rs = np.random.RandomState(seed)
     q = rs.randn(b, h, n, d).astype(np.float32)

@@ -39,6 +39,17 @@ from voicebox_tpu_torch.utils.convert import voicebox_state_dict
 BATCH, STEPS = 2, 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _draws(seed, d_in, m=BATCH, frames=FRAMES):
     rs = np.random.RandomState(seed)
     return {"noise": _t(rs.randn(m, frames, d_in).astype(np.float32)),
@@ -128,9 +139,13 @@ def _jax_step(jt, batch, draws):
                          cond_drop_mask=jnp.asarray(draws["cond_drop_mask"]), target=flow,
                          cond_mask=jnp.asarray(draws["cond_mask"]), train=True)
 
+    @jax.jit
+    def opt_step(grads, state, p):
+        updates, state = jt.optimizer.update(grads, state, p)
+        return optax.apply_updates(p, updates), state
+
     loss, grads = jax.jit(jax.value_and_grad(micro))(jt.params)
-    updates, jt.opt_state = jt.optimizer.update(grads, jt.opt_state, jt.params)
-    jt.params = optax.apply_updates(jt.params, updates)
+    jt.params, jt.opt_state = opt_step(grads, jt.opt_state, jt.params)
     return float(loss)
 
 

@@ -47,6 +47,17 @@ PROMPT_TEXT = "hello you"
 PROMPT_BUCKETS = (0.01, 0.02)  # 240 and 480 samples at 24 kHz
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _prompt(seed, frames=6, width=LATENT):
     return np.random.RandomState(seed).randn(1, frames, width).astype(np.float32)
 

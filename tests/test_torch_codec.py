@@ -37,6 +37,17 @@ RATIOS = (2, 2, 2, 2)  # frame hop 16 = the tiny vocoder's hop
 N_FILTERS = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _audio_close(out, ref):
     np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
 

@@ -625,3 +625,53 @@ def test_hubert_card_matches_cpu(cuda_device):
     d = d.sort(dim=-1).values
     tie = (d[..., 1] - d[..., 0]) < 1e-3 * d[..., 1]
     assert bool(((gpu(wav.to(cuda_device)).cpu() == cpu(wav)) | tie).all())
+
+
+def test_native_reader_and_audio_dataset_feed_a_card_trainer(cuda_device, tmp_path):
+    """WAV and FLAC clips read back bit for bit by the port's native reader
+    on the card's machine, then `AudioDataset` of the FLAC folder feeding a
+    raw-wave `VoiceBoxTrainer` on the card one step (prefetch on, the batch
+    pinned and moved to the device)."""
+    import importlib.util
+    import pathlib
+    import wave
+
+    import numpy as np
+
+    from voicebox_tpu_torch import (ConditionalFlowMatcherWrapper, MelVoco, VoiceBoxTrainer,
+                                    native)
+    from voicebox_tpu_torch.models.vocos import Vocos
+    from voicebox_tpu_torch.training.data import AudioDataset
+
+    encoder = pathlib.Path(__file__).with_name("flac_ref_encoder.py")
+    spec = importlib.util.spec_from_file_location("flac_ref_encoder", encoder)
+    flac = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flac)
+    assert native.native_available() and native.flac_available()
+    rs = np.random.RandomState(0)
+    pcm = [(rs.randn(n) * 3000).astype(np.int16) for n in (4000, 4500, 5000, 3900)]
+    for i, p in enumerate(pcm):
+        flac.write_flac(tmp_path / f"c{i}.flac", p[None].astype(np.int64), 24000, block_size=1024)
+        with wave.open(str(tmp_path / f"c{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(24000)
+            w.writeframes(p.tobytes())
+        for suffix, read in ((".flac", native.flac_read), (".wav", native.wav_read)):
+            got, sr = read(tmp_path / f"c{i}{suffix}")
+            assert sr == 24000 and np.array_equal(got, p.astype(np.float32) / 32768)
+
+    vb = VoiceBox(audio_enc_dec=MelVoco(vocos=Vocos(input_channels=8, dim=16, intermediate_dim=24,
+                                                    num_layers=1, n_fft=256, hop_length=64),
+                                        n_mels=8, n_fft=256, win_length=160),
+                  dim=64, depth=2, dim_head=64, heads=1, num_register_tokens=2,
+                  condition_on_text=False, dtype=torch.bfloat16, param_dtype=torch.float32)
+    cfm = ConditionalFlowMatcherWrapper(vb, device=cuda_device)
+    trainer = VoiceBoxTrainer(cfm, batch_size=2, dataset=AudioDataset(tmp_path), valid_frac=0.0,
+                              num_train_steps=1, log_every=1000, device=cuda_device)
+    x, mask, _ = trainer._next_batch(trainer.dl_iter)
+    assert x.device.type == mask.device.type == "cuda" and x.shape[0] == 2
+    before = flash_attention.launches
+    out = trainer.train_step()
+    assert out["loss"].device.type == "cuda" and torch.isfinite(out["loss"]).item()
+    assert flash_attention.launches > before

@@ -54,6 +54,17 @@ DP_CONFIG = dict(dim_phoneme_emb=32, dim=32, depth=2, dim_head=8, heads=4,
                  aligner_dim_in=N_MELS, aligner_attn_channels=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.cache
 def _models():
     jcodec = JaxMelVoco(vocos=JaxVocos(**VOCOS, params={}), **MEL)  # encode only: no weights

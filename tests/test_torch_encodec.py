@@ -38,6 +38,17 @@ HOP = 8
 N_SAMPLES = 960  # 0.04 s at 24 kHz: 120 frames
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(out, ref, atol=2e-4):
     np.testing.assert_allclose(out, ref, atol=atol * max(1.0, np.abs(ref).max()), rtol=0)
 

@@ -55,6 +55,17 @@ IDS = [f"n{n}-kv{kv}-d{d}-{mask}" for n, kv, d, mask in CASES]
 TOL = {"randn": 1e-5, "qk": 1e-4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _case(n, kv, d, mask_kind):
     """numpy inputs (b = 2, h = 2) from a seed of the case, the scale, the

@@ -17,6 +17,17 @@ from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
 _jax_value_and_grad = jax.jit(jax.value_and_grad(jax_forward_sum_loss))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, b, t_mel, t_ph):
     rs = np.random.RandomState(seed)
     logits = rs.randn(b, 1, t_mel, t_ph).astype(np.float32) * 2

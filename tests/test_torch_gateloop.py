@@ -35,6 +35,17 @@ ATOL = 2e-4
 DIM = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @jax.jit
 def _jax_vjp(a, x, g):
     out, vjp = jax.vjp(jax_recurrence, a, x)

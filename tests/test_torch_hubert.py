@@ -33,6 +33,17 @@ CFG = dict(num_clusters=20, conv_dim=16, dim=32, depth=3, heads=4, ff_dim=64,
 N_SAMPLES = 4000  # 12 frames
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(large, output_layer):
     return dict(CFG, layer_norm_first=large, extractor_norm_mode="layer" if large else "group",
                 output_layer=output_layer)

@@ -8,10 +8,22 @@ import subprocess
 from pathlib import Path
 
 import pytest
+import torch
 
 from voicebox_tpu_torch import kernels
 
 CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture

@@ -16,6 +16,17 @@ from voicebox_tpu_torch.utils.kmeans import (fit_kmeans, kmeans_assign, kmeanspp
 ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _blobs(seed=0, k=5, per=40, d=6, spread=0.3):
     rs = np.random.RandomState(seed)
     centers = rs.randn(k, d).astype(np.float32) * 3

@@ -44,6 +44,17 @@ LONG_ENGINE = dict(long_window_frames=WINDOW, long_overlap_frames=OVERLAP)
 LONG_TEXT = "a text of forty one characters, no less."  # 40 graphemes: 3 segments of 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _chain_noise(rng, windows: int, shape) -> list:
     """The y0 of each window of the JAX loop: split once per window."""
     out = []

@@ -17,6 +17,17 @@ from voicebox_tpu_torch.ops.mas import maximum_path
 _jax_mas = jax.jit(jax_maximum_path)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _masks(x_lens, y_lens, t_x, t_y):
     px = np.arange(t_x)[None, :] < np.asarray(x_lens)[:, None]
     py = np.arange(t_y)[None, :] < np.asarray(y_lens)[:, None]

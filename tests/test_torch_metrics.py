@@ -22,6 +22,17 @@ DB_ATOL = 1e-2
 MSD_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _wave(n, b=None, seed=0):
     rs = np.random.RandomState(seed)
     shape = (n,) if b is None else (b, n)

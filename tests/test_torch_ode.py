@@ -36,6 +36,17 @@ from voicebox_tpu_torch.utils.convert import voicebox_state_dict
 LAMBDA = -2.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _exact(y0, t):
     """dy/dt = lambda y + cos(t): y = (y0 + l / (1 + l^2)) e^(lt) + (l cos t - sin t)
     ... solved for y(0) = y0 (a particular solution plus the homogeneous)."""

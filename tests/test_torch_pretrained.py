@@ -36,6 +36,17 @@ from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
 ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.cache
 def _jax_dp(seed):
     jdp = JaxDP(tokenizer=JaxGraphemes(), **DP_CONFIG)

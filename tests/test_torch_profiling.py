@@ -62,6 +62,17 @@ HOST = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _trace(device=DEVICE, host=HOST, repeat=2):
     events = [{"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "GPU 0"}}]
     ts = 1000.0

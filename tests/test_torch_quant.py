@@ -48,6 +48,17 @@ CONFIG = dict(num_cond_tokens=N_COND, dim_cond_emb=24, dim=64, depth=2, dim_head
               heads=2, num_register_tokens=2, attn_qk_norm=True, dim_in=DIM_IN)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_round(a):
     return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
 

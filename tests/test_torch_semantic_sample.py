@@ -46,6 +46,17 @@ CONFIG = dict(num_cond_tokens=tt.CFG["num_semantic_token_ids"], dim_cond_emb=32,
 WAV2VEC_RATES = types.SimpleNamespace(target_sample_hz=16000, downsample_factor=320)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _Rates(torch.nn.Module):
     target_sample_hz, downsample_factor = 16000, 320
 

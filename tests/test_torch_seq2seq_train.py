@@ -34,6 +34,17 @@ TEXTS = ["hello there", "a short one", "speech", "semantic ids", "seq to seq", "
          "decoder", "ok", "zero shot", "encoder side"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _id_items():
     rs = np.random.RandomState(5)
     return PairedDataset([(t, rs.randint(0, tt.CFG["num_semantic_token_ids"],

@@ -49,6 +49,17 @@ ENGINE = dict(text_buckets=(8, 16), batch_buckets=(1, 2), steps=2, decode_to_aud
               frames_per_token=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.cache
 def _wrappers():
     """The JAX wrapper (perturbed weights, qk gains ~0.25, durations of a

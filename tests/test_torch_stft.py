@@ -25,6 +25,17 @@ from voicebox_tpu.ops import stft as jstft
 from voicebox_tpu_torch.ops import stft as tstft
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _wave(n, b=2, seed=0):
     rs = np.random.RandomState(seed)
     t = np.arange(n) / 24000.0

@@ -38,6 +38,17 @@ from voicebox_tpu_torch.utils.convert import voicebox_state_dict
 ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(params):
     vb = VoiceBox(dim_in=DIM_IN, **CONFIG)
     vb.load_state_dict(_xla_inv_freq(voicebox_state_dict(params), "transformer."), strict=True)
@@ -195,6 +206,11 @@ def test_trainer_steps_match_a_jax_loop():
                          cond_drop_mask=dm, target=flow, cond_mask=cm, train=True)
 
     grad_fn = jax.jit(jax.value_and_grad(micro))
+
+    @jax.jit
+    def opt_step(grads, state, p):
+        updates, state = opt.update(grads, state, p)
+        return optax.apply_updates(p, updates), state
     jparams, state = params, opt.init(params)
     for ((x, mask), (ids, _)), draws, loss in zip(batches, step_draws, losses):
         assert x.shape == (BATCH * ACCUM, FRAMES, d_in)
@@ -208,8 +224,7 @@ def test_trainer_steps_match_a_jax_loop():
             grads = g if grads is None else jax.tree.map(jnp.add, grads, g)
         grads = jax.tree.map(lambda a: a / ACCUM, grads)
         np.testing.assert_allclose(loss, total / ACCUM, atol=ATOL, rtol=0)
-        updates, state = opt.update(grads, state, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, state = opt_step(grads, state, jparams)
 
     ref_final = voicebox_state_dict(jax.tree.map(np.asarray, jparams))
     ref_updates = {k: ref_final[k].numpy() - init[k].numpy() for k in init}

@@ -51,6 +51,17 @@ from voicebox_tpu_torch.training.optimizer import (ParamsEMA, adam_state,
 from voicebox_tpu_torch.utils.convert import voicebox_state_dict
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_ulp(x):
     """One bf16 ulp at |x| (8 significant bits)."""
     x = np.maximum(np.abs(np.asarray(x, np.float64)), np.finfo(np.float32).tiny)
@@ -152,6 +163,11 @@ def _jax_mixed_run(jvb, params, batches, step_draws, accum, moment_dtype):
 
     grad_fn = jax.jit(jax.value_and_grad(micro))
     cast = jax.jit(lambda t: jax.tree.map(lambda a: a.astype(jnp.bfloat16), t))
+
+    @jax.jit
+    def opt_step(grads, state, p):
+        updates, state = opt.update(grads, state, p)
+        return optax.apply_updates(p, updates), state
     master = jax.tree.map(jnp.asarray, params)
     state, live = opt.init(master), cast(master)
     for ((x, mask), (ids, _)), draws in zip(batches, step_draws):
@@ -167,8 +183,7 @@ def _jax_mixed_run(jvb, params, batches, step_draws, accum, moment_dtype):
                 g = jax.tree.map(lambda a: a.astype(jnp.float32), g)
             acc = g if acc is None else jax.tree.map(jnp.add, acc, g)
         grads = jax.tree.map(lambda a: a / accum, acc)
-        updates, state = opt.update(grads, state, master)
-        master = optax.apply_updates(master, updates)
+        master, state = opt_step(grads, state, master)
         live = cast(master)
     return voicebox_state_dict(jax.tree.map(np.asarray, master))
 

@@ -34,6 +34,17 @@ from voicebox_tpu_torch.training.optimizer import (
 from voicebox_tpu_torch.utils.convert import voicebox_state_dict
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _u(key, shape, dtype=jnp.float32):
     """JAX's uniforms for `key`, as the port takes them."""
     return torch.from_numpy(np.array(jax.random.uniform(key, shape, dtype=dtype)))

@@ -17,6 +17,17 @@ from voicebox_tpu_torch.utils.convert import transformer_state_dict
 ATOL = 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _perturbed(params, rs, scale=0.1):
     """numpy copy of a flax tree with noise on every leaf (identity inits
     such as zero adaptive-norm projections must not hide a bug). qk-norm

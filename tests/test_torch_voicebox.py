@@ -31,6 +31,17 @@ ATOL = 2e-4
 B, N = 2, 20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Beside the other test workers on the same cores, torch's intra-op
+    threads oversubscribe them; the file runs on one thread and gives the
+    cores back."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _LatentCodec:
     """Stands in for an attached codec: VoiceBox reads only its width."""
 

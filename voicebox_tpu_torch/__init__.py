@@ -18,7 +18,10 @@ quantized decode, semantic-mode `sample(texts=)` and `TTSEngine`,
 `TextToSemanticTrainer`), the GateLoop layer, and long-form windowed
 sampling with voice cloning (`sample_long`, `sample_long_stream`,
 `TTSEngine` over its largest text bucket, `clone`, `clone_stream`,
-`DynamicBatcher.submit_clone`). On CUDA tensors every attention call runs K1
+`DynamicBatcher.submit_clone`), and training from audio files
+(`training.data.AudioDataset`, `SpeechTextDataset`, `load_audio` over the
+native WAV / FLAC decoders in `native/`) with the runnable `examples/`,
+an HTTP server among them. On CUDA tensors every attention call runs K1
 forward and K2 + K3 backward, and every quantized "w8a16" matmul runs K4,
 the hand-written Hopper kernels in `csrc/`. Entry points run on the card
 unless the caller passes `device="cpu"`.

@@ -1,22 +1,29 @@
-"""Host-side batching of in-memory datasets, numpy only.
+"""Host-side data: audio files, datasets and batching, numpy only.
 
-Counterpart of the in-memory parts of `voicebox_tpu/training/data.py`:
+Counterpart of `voicebox_tpu/training/data.py`. File-backed datasets:
+`load_audio` (.wav and .flac through the port's native C++ decoders,
+`voicebox_tpu_torch/native`, else scipy or soundfile), `AudioDataset` (a
+folder of audio files, each item a float32 mono wave, optionally resampled;
+`item_length` reads the length from the header alone) and
+`SpeechTextDataset` (audio files with same-stem transcripts, each item
+`(text, wave)`, the LibriTTS / LJSpeech layout). In-memory datasets:
 `ArrayDataset` (latents (n, d), raw waves (n,), or (latents, frame-aligned
 ids) pairs), `PairedDataset` (K-field tuples whose first field may be
-text), `collate_with_mask` with its bucket grid, `DataLoader` (without
-multi-process sharding), `AlignedPairedDataLoader` for (latents,
+text) and `TokenizedTextDataset` (text tokenized once, cached). Batching:
+`collate_with_mask` with its bucket grid, `DataLoader` (`get_dataloader`;
+without multi-process sharding), `AlignedPairedDataLoader` for (latents,
 frame-aligned ids) pairs, `PairedDataLoader` with an independent bucket
 grid, pad value and maximum length per field (the duration trainer's
-phonemes and waves), `TokenizedTextDataset` (text tokenized once, cached)
-and `random_split`. Shuffling uses numpy's `RandomState(seed)`, as the JAX
-package does, so both visit the items in the same order. Batches are padded
-to bucketed lengths: the bucket grid `k * multiple - offset` keeps frames +
-registers on the 128 boundary (752 frames + 16 registers = 768 tokens; for
-raw waves the trainer sets it in samples). `PrefetchLoader` collates the
-next batches on a background thread (with an optional `transform`, such as
-copying into pinned host memory) while the device works. The file-backed
-audio datasets and multi-host sharding are not ported yet (ROADMAP Queue 1,
-items 12 and 15).
+phonemes and waves) and `random_split`. Shuffling uses numpy's
+`RandomState(seed)`, as the JAX package does, so both visit the items in
+the same order. Batches are padded to bucketed lengths: the bucket grid
+`k * multiple - offset` keeps frames + registers on the 128 boundary (752
+frames + 16 registers = 768 tokens; for raw waves the trainer sets it in
+samples). `PrefetchLoader` decodes and collates the next batches on a
+background thread (with an optional `transform`, such as copying into
+pinned host memory) while the device works; the native decoders release
+the GIL. The sharded loader (`shard`, `_local_rows`) is not ported yet
+(ROADMAP Queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import math
 import queue
 import threading
+from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,14 +39,157 @@ import numpy as np
 __all__ = [
     "AlignedPairedDataLoader",
     "ArrayDataset",
+    "AudioDataset",
     "DataLoader",
     "PairedDataLoader",
     "PairedDataset",
     "PrefetchLoader",
+    "SpeechTextDataset",
     "TokenizedTextDataset",
     "collate_with_mask",
+    "get_dataloader",
+    "load_audio",
+    "pad_to_multiple",
     "random_split",
 ]
+
+
+def load_audio(path) -> Tuple[np.ndarray, int]:
+    """Load an audio file -> (float32 mono wave in [-1, 1], sample_rate).
+
+    .wav goes through the native decoder when g++ can build it, else scipy;
+    .flac through the native FLAC decoder, else soundfile, as every other
+    format does."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".wav":
+        from ..native import wav_read
+
+        native = wav_read(path)
+        if native is not None:
+            return native
+
+        from scipy.io import wavfile
+
+        sr, data = wavfile.read(str(path))
+        if data.dtype == np.int16:
+            data = data.astype(np.float32) / 32768.0
+        elif data.dtype == np.int32:
+            data = data.astype(np.float32) / 2147483648.0
+        elif data.dtype == np.uint8:
+            data = (data.astype(np.float32) - 128.0) / 128.0
+        else:
+            data = data.astype(np.float32)
+        if data.ndim == 2:  # channels last -> mono
+            data = data.mean(axis=1)
+        return data, sr
+    if suffix == ".flac":
+        from ..native import flac_read
+
+        native = flac_read(path)
+        if native is not None:
+            return native
+    try:
+        import soundfile as sf
+    except ImportError as e:
+        raise ImportError(
+            f"loading {suffix} requires the native decoder toolchain (g++) "
+            "for .flac or the 'soundfile' package; convert to .wav otherwise"
+        ) from e
+    data, sr = sf.read(str(path), dtype="float32")
+    if data.ndim == 2:
+        data = data.mean(axis=1)
+    return data, sr
+
+
+def _resampled(wave: np.ndarray, sr: int, sample_rate: Optional[int]) -> np.ndarray:
+    if sample_rate is not None and sr != sample_rate:
+        from ..ops.stft import resample_np
+
+        wave = resample_np(wave, sr, sample_rate)
+    return wave
+
+
+class AudioDataset:
+    """The audio files under a folder (`**/*{audio_extension}`, sorted), each
+    item a float32 mono wave, resampled to `sample_rate` when given."""
+
+    def __init__(self, folder, audio_extension: str = ".flac", sample_rate: Optional[int] = None):
+        path = Path(folder)
+        if not path.exists():
+            raise ValueError(f"folder {folder} does not exist")
+        self.audio_extension = audio_extension
+        self.sample_rate = sample_rate
+        self.files = sorted(path.glob(f"**/*{audio_extension}"))
+        if not self.files:
+            raise ValueError(f"no {audio_extension} files under {folder}")
+        self._length_cache: dict = {}
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx) -> np.ndarray:
+        wave, sr = load_audio(self.files[idx])
+        return _resampled(wave, sr, self.sample_rate)
+
+    def item_length(self, idx) -> int:
+        """The item's length in samples at the output rate, read from the
+        header alone (.wav through `wave`, .flac from STREAMINFO) and cached
+        per index; other formats, or an unreadable header, decode once. A
+        resampled length is `resample_np`'s, ceil(n * new / orig), where the
+        JAX package rounds (ROADMAP Queue 3)."""
+        if idx in self._length_cache:
+            return self._length_cache[idx]
+        path = self.files[idx]
+        n = sr = None
+        if path.suffix.lower() == ".wav":
+            import wave as wave_mod
+
+            try:
+                with wave_mod.open(str(path), "rb") as w:
+                    n, sr = w.getnframes(), w.getframerate()
+            except Exception:
+                pass
+        elif path.suffix.lower() == ".flac":
+            from ..native import flac_info
+
+            info = flac_info(path)
+            if info is not None:
+                n, sr = info
+        if n is None:
+            n = len(self[idx])
+            sr = self.sample_rate
+        if self.sample_rate is not None and sr != self.sample_rate:
+            n = -(-n * self.sample_rate // sr)  # resample_np's length, ceil(n new / orig)
+        self._length_cache[idx] = int(n)
+        return self._length_cache[idx]
+
+
+class SpeechTextDataset:
+    """Audio files paired with same-stem transcripts (`x.flac` + `x.txt`,
+    the LibriTTS / LJSpeech layout); audio without a transcript is skipped.
+    Each item is `(text, float32 mono wave)`, the wave resampled to
+    `sample_rate` when given."""
+
+    def __init__(self, folder, audio_extension: str = ".flac", text_extension: str = ".txt",
+                 sample_rate: Optional[int] = None):
+        path = Path(folder)
+        if not path.exists():
+            raise ValueError(f"folder {folder} does not exist")
+        self.sample_rate = sample_rate
+        self.files = [(audio, audio.with_suffix(text_extension))
+                      for audio in sorted(path.glob(f"**/*{audio_extension}"))
+                      if audio.with_suffix(text_extension).exists()]
+        if not self.files:
+            raise ValueError(f"no ({audio_extension}, {text_extension}) pairs under {folder}")
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx):
+        audio_path, txt_path = self.files[idx]
+        wave, sr = load_audio(audio_path)
+        return txt_path.read_text().strip(), _resampled(wave, sr, self.sample_rate)
 
 
 class ArrayDataset:
@@ -56,6 +207,10 @@ class ArrayDataset:
 
     def __getitem__(self, idx):
         return self.items[idx]
+
+    def item_length(self, idx) -> int:
+        item = self.items[idx]
+        return int((item[0] if isinstance(item, tuple) else item).shape[0])
 
 
 class PairedDataset:
@@ -126,7 +281,16 @@ def random_split(dataset, valid_frac: float, seed: int = 42):
     return _Subset(dataset, perm[:n_train]), _Subset(dataset, perm[n_train:])
 
 
-def _pad_to_multiple(length: int, multiple: int) -> int:
+def _item_length(dataset, idx) -> int:
+    """Length of item `idx` along axis 0, through the dataset's cheap
+    `item_length` where it has one, else by decoding."""
+    fn = getattr(dataset, "item_length", None)
+    if fn is not None:
+        return int(fn(idx))
+    return int(np.asarray(dataset[idx]).shape[0])
+
+
+def pad_to_multiple(length: int, multiple: int) -> int:
     return int(math.ceil(length / multiple)) * multiple
 
 
@@ -134,11 +298,11 @@ def _bucket_target(max_len: int, multiple: int, offset: int, align: int) -> int:
     """The bucket length for a batch whose longest item is `max_len`: of the
     grids k * multiple and k * multiple - offset, the one whose model length
     (bucket + offset, padded to `align`) is smaller, then the shorter."""
-    t0 = _pad_to_multiple(max_len, multiple)
+    t0 = pad_to_multiple(max_len, multiple)
     if offset <= 0:
         return t0
-    t1 = _pad_to_multiple(max_len + offset, multiple) - offset
-    return min((t0, t1), key=lambda t: (_pad_to_multiple(t + offset, align), t))
+    t1 = pad_to_multiple(max_len + offset, multiple) - offset
+    return min((t0, t1), key=lambda t: (pad_to_multiple(t + offset, align), t))
 
 
 def _capped(target: int, max_length: Optional[int], multiple: int, offset: int) -> int:
@@ -232,6 +396,11 @@ class DataLoader:
             yield from iter(self)
 
 
+def get_dataloader(ds, *, batch_size: int, pad_to_longest: bool = True, **kwargs) -> DataLoader:
+    """The reference's constructor (data.py:89-91)."""
+    return DataLoader(ds, batch_size=batch_size, pad_to_longest=pad_to_longest, **kwargs)
+
+
 class AlignedPairedDataLoader(DataLoader):
     """Batches (latents (n, d), frame-aligned ids (n,)) pairs on one shared
     bucket grid, so the ids keep their alignment through padding. Yields
@@ -284,7 +453,7 @@ class PairedDataLoader:
     @staticmethod
     def _collate_field(items: List[np.ndarray], multiple: int, pad_value,
                        max_length: Optional[int]):
-        target = _pad_to_multiple(max(it.shape[0] for it in items), multiple)
+        target = pad_to_multiple(max(it.shape[0] for it in items), multiple)
         if max_length is not None and target > max_length:
             target = max_length
         batch = np.full((len(items), target, *items[0].shape[1:]), pad_value,

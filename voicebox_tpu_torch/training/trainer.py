@@ -31,10 +31,13 @@ The JAX trainer's single-device options:
   the card), the `torch.profiler` window `profile_dir` / `profile_steps`.
 
 Datasets hold latents (n, d), (latents (n, d), frame-aligned ids (n,))
-pairs or raw waves (n,) (`training.data.ArrayDataset`). Waves go through
+pairs or raw waves (n,) (`training.data.ArrayDataset`, or the files of
+`training.data.AudioDataset`). Waves go through
 the denoiser's frozen codec (`MelVoco` or `EncodecVoco`) on the device,
 without gradient, and their frame masks come from `ceil(len / ds)` with
-ds = samples / frames, as the JAX trainer computes them; their buckets are
+ds = samples / frames, as the JAX trainer computes them; a text-conditioned
+denoiser takes their semantic ids from the frozen wav2vec of the wrapper's
+`TextToSemantic`, resampled to its rate; their buckets are
 in samples, `(registers + frame_offset) * downsample` below a multiple of
 `128 * downsample`, so frames + registers land on the 128 grid (a 10 s wave
 of 240 000 samples, 938 mel frames at hop 256, pads to 257 792 samples =
@@ -190,6 +193,12 @@ class VoiceBoxTrainer(TrainerBase):
         self._raw_audio = not self._paired and np.asarray(probe).ndim == 1
         if self._raw_audio and vb.audio_enc_dec is None:
             raise ValueError("a dataset of raw waves needs an audio_enc_dec on the VoiceBox")
+        # raw waves for a text-conditioned denoiser: ids through the frozen
+        # wav2vec of the wrapper's TextToSemantic, as the JAX trainer derives them
+        self._derive_ids = self._raw_audio and vb.condition_on_text
+        if self._derive_ids and getattr(cfm_wrapper.text_to_semantic, "wav2vec", None) is None:
+            raise ValueError("raw waves for a text-conditioned VoiceBox need a TextToSemantic "
+                             "with a wav2vec on the wrapper to derive the semantic ids")
         align_multiple = 128
         if bucket_offset is None:
             bucket_offset = vb.transformer.num_register_tokens
@@ -261,9 +270,12 @@ class VoiceBoxTrainer(TrainerBase):
 
         x, mask = put(x, torch.float32), put(mask, torch.bool)
         if self._raw_audio:
+            wave = x
             with torch.no_grad():
-                x = self.cfm_wrapper.voicebox.audio_enc_dec.encode(x)
+                x = self.cfm_wrapper.voicebox.audio_enc_dec.encode(wave)
             mask = frame_mask(mask, x.shape[1])
+            if self._derive_ids:
+                return x, mask, self.cfm_wrapper._wav2vec_ids(wave, None)
         return x, mask, None if ids is None else put(ids, torch.int64)
 
     # ------------------------------------------------------------------
