@@ -163,13 +163,13 @@ imports nothing of JAX. Its phases print one line each or more:
    `TextToSemanticTrainer` steps, losses and parameter updates;
 18. the semantic stack at full width, random weights: HuBERT-base (layer 9,
    500 clusters) on 8 x 10 s; the TextToSemantic (dim 512, 6 + 6 layers, 8 x
-   64 heads, fp32, 500 ids) decoding 1024 ids: plain greedy and speculative
+   64 heads, fp32, 500 ids) decoding 256 ids: plain greedy and speculative
    (gamma 5, 3 draft layers; equal before the first near tie) with ms and
    kernels per token and the acceptance, and `quantize="w8a16"` (fp32 K4 on
    every decoder matmul) at batch 1 over 128 ids and batch 4 speculative
    over 64, its ms, kernels, device busy and K4 device ms a token beside
    the float decode's, and K4's launch-weighted ms a launch; semantic-mode
-   `TTSEngine` (text buckets 32/64/128, batch buckets 1/2/4, 1024 ids,
+   `TTSEngine` (text buckets 64/128, batch buckets 1/2/4, 256 ids,
    `spec_decode`, the flagship bf16 denoiser with w8a16, EncodecVoco):
    warmup, one request each at batch 1 and 2, four batcher submits, each
    group exactly 6 + 96 K1 and 384 K4 launches, latency, RTF, the decode's
@@ -218,7 +218,29 @@ imports nothing of JAX. Its phases print one line each or more:
    batch of more than 1, 400 and 404, the server and batcher closed), each
    request's latency. Every K1, K2 and K3 launch of the phase is tallied by
    shape and must be one that phases 3-4 checked and timed;
-21. one JSON line for the kernels (one row per kernel and main path; on the
+21. LoRA and data parallelism: (a) rank-8 adapters (alpha 16) on the seeded
+   flagship (EncodecVoco attached, bf16 compute over fp32 weights), Adam on
+   the adapters only at batch 8 x 752 frames, 2 warm-up and 10 timed
+   steps: each exactly 24 K1, K2 and K3 launches and a finite loss, every
+   base parameter bit-identical, every adapter moved; the counts of adapter
+   and base weights, steps/s, a profiled step's idle share and kernels,
+   peak memory beside phase 10's; the fold at qk gains 0.25, the folded
+   bf16 forward against the hooked one and each adapted Linear alone, in
+   units of the hooked bf16 against fp32; the folded model under w8a16
+   serving one 750-frame request: finite audio through exactly 96 K1 and
+   384 K4 launches at shapes phases 3 and 5 checked. (b) two processes
+   (`chip_smoke.py --dp-worker`) under gloo at world 2 sharing cuda:0,
+   each running `VoiceBoxTrainer` at phase 10's geometry, qk gains 0.25,
+   global batch 8 (4 rows a rank), under "replicated" and "fsdp", 2 warm-up
+   and 3 timed steps on explicit draws: each rank's step exactly 24 K1, K2
+   and K3, rank 0's losses and parameters equal to the single-process
+   trainer's on the same global batch and draws (2 micro-batches of 4 rows,
+   so "replicated" to the bit), ms a step, the reduction's share, peak
+   memory per rank; then `checkpoint_backend="orbax"` under "fsdp" with an
+   EMA: saved after 2 steps, loaded by ranks built from other weights, the
+   third step's loss, every parameter, moment and EMA shard equal to the
+   uninterrupted run's to the bit, each rank's shard file written;
+22. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -247,6 +269,7 @@ import urllib.error
 import urllib.request
 import wave
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -284,8 +307,11 @@ from voicebox_tpu_torch.ops.quant import (
     w8a16_matmul_reference,
 )
 from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
+from voicebox_tpu_torch.ops.lora import (fold_lora, lora_dense, lora_init, lora_parameters,
+                                         lora_scale, merge_lora_params)
 from voicebox_tpu_torch.ops.mas import maximum_path
 from voicebox_tpu_torch.ops.stft import amplitude_to_db, mel_spectrogram
+from voicebox_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from voicebox_tpu_torch.training.data import AudioDataset, PairedDataset, SpeechTextDataset
 from voicebox_tpu_torch.utils.profiling import kernel_summary
 from voicebox_tpu_torch.utils.tokenizer import GraphemeTokenizer
@@ -311,6 +337,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 # the semantic engine's buckets (phase 18)
 SEM_BATCHES, SEM_TEXT_BUCKETS = (1, 2, 4), (32, 64, 128)
+# the semantic stack's id horizon (phase 18: the decodes, the engine's
+# warmup and requests), cut from 1024 to 256 to keep the script inside its
+# clock (ROADMAP names this depth the first to cut); the engine's text
+# buckets leave out 32, which no engine request of phase 18 reaches
+SEM_IDS = 256
+SEM_ENGINE_TEXT_BUCKETS = (64, 128)
 # the example HTTP server's engine (phase 20, `examples/serve_http.py`)
 HTTP_BATCHES, HTTP_TEXT_BUCKETS = (1, 2, 4), (32, 64)
 
@@ -325,6 +357,8 @@ K1_CASES = [
     ("flagship_cfg_bf16", (2, 4, 766, 766, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
     ("reference_split_bf16", (2, 16, 1040, 1040, 64), torch.bfloat16, "qk", None, 1e-2, 1e-2),
     ("train_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    # one of phase 21's two data-parallel ranks: 4 of the 8 rows
+    ("rank_train_bf16", (4, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
     ("flagship_cfg_f32", (2, 4, 766, 766, 128), torch.float32, "qk", None, 1e-3, 1e-3),
     ("reference_split_f32", (2, 16, 1040, 1040, 64), torch.float32, "qk", None, 1e-3, 1e-3),
     ("mask_empty_row_bf16", (3, 4, 300, 300, 128), torch.bfloat16, "randn", "empty_row", 1e-2, 1e-2),
@@ -365,11 +399,12 @@ K1_CASES = [
     # heads, no qk-norm, the text padding masked) at each (batch, text)
     # bucket of the semantic engine and at the trainer's batch of 8 at text
     # bucket 64 (128 is dp_train_f32's shape); the denoiser under the
-    # generated mask: 2b x 4 x 128 heads over 1024 ids + 16 registers
+    # generated mask: 2b x 4 x 128 heads over SEM_IDS ids + 16 registers
     *[(f"t2s_b{b}_n{n}_f32", (b, 8, n, n, 64), torch.float32, "randn", "prefix", 1e-5, 1e-5)
       for b in SEM_BATCHES for n in SEM_TEXT_BUCKETS],
     ("t2s_train_n64_f32", (8, 8, 64, 64, 64), torch.float32, "randn", "prefix", 1e-5, 1e-5),
-    *[(f"semantic_b{b}_bf16", (2 * b, 4, 1040, 1040, 128), torch.bfloat16, "qk", "prefix", 1e-2,
+    *[(f"semantic_b{b}_bf16", (2 * b, 4, SEM_IDS + 16, SEM_IDS + 16, 128), torch.bfloat16, "qk",
+       "prefix", 1e-2,
        1e-2) for b in SEM_BATCHES],
     # long-form and cloning (phases 9b and 18): every window of the engine's
     # default 768 frames + 16 registers at batch 1, x 2 for CFG, no mask (the
@@ -407,7 +442,8 @@ K1_CASES = [
       for j, d in enumerate((16, 32)) for i, (n, kv) in enumerate(k23_f32_edges())
       for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
 ]
-K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "engine_b1_bf16",
+K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_train_bf16",
+            "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
             *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_",
@@ -432,6 +468,7 @@ K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 # masked key's exp(s - lse) overflows.
 K23_CASES = [
     ("train_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 2e-2),
+    ("rank_train_bf16", (4, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 2e-2),
     ("train_randn_bf16", (8, 4, 768, 768, 128), torch.bfloat16, "randn", "all", 2e-2),
     ("train_f32", (8, 4, 768, 768, 128), torch.float32, "qk", "all", 1e-4),
     ("reference_split_bf16", (8, 16, 768, 768, 64), torch.bfloat16, "qk", "all", 2e-2),
@@ -478,7 +515,8 @@ K23_CASES = [
     ("canary_enc_b16_f32", (16, 4, 7, 7, 16), torch.float32, "randn", "all", 1e-4),
     ("canary_t2s_b8_f32", (8, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-4),
 ]
-K23_TIMED = ("train_bf16", "reference_split_bf16", "mel_train_bf16", "dp_train_f32",
+K23_TIMED = ("train_bf16", "rank_train_bf16", "reference_split_bf16", "mel_train_bf16",
+             "dp_train_f32",
              "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
@@ -499,6 +537,9 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 # the small fp32 denoiser of the card-vs-CPU phases
 SMALL = dict(num_cond_tokens=100, dim_cond_emb=64, dim=128, depth=2, dim_head=64, heads=2,
              num_register_tokens=4)
+
+
+MEASURED: dict = {}  # numbers one phase prints beside another's
 
 
 def log(phase: str, msg: str) -> None:
@@ -969,11 +1010,12 @@ def single_key_floor(q, k, v, do, scale) -> tuple:
 # the feed-forward's proj_in (GEGLU, 2 x 1365) and proj_out. m is batch x 2
 # for CFG x (frames + 16 registers): the engine's groups give 544 (batch 1,
 # 256 frames), 2112 (batch 2, 512) and 8320 (batch 4, 1024); 1532 is
-# batch 1 at 750 frames; the semantic engine's 1024 ids give 2080, 4160 and
-# 8320; a long-form window (768 frames + 16 registers, batch 1) gives 1568
+# batch 1 at 750 frames; the semantic engine's 256 ids (SEM_IDS) give 544,
+# 1088 and 2176; a long-form window (768 frames + 16 registers, batch 1)
+# gives 1568
 K4_SHAPES = {"to_qkv": (512, 1536), "to_out": (512, 512), "ff_proj_in": (512, 2730),
              "ff_proj_out": (1365, 512)}
-K4_ROWS = (544, 1532, 1568, 2080, 2112, 4160, 8320)  # + 2080, 4160: semantic batches 1, 2
+K4_ROWS = (544, 1088, 1532, 1568, 2112, 2176, 8320)  # 1088, 2176: semantic batches 2, 4
 K4_RAGGED_ROWS = (37, 1)
 # tolerance of |K4 - plain| <= rtol |plain| + atol max|plain|. Both sum exact
 # products (bf16 x int8, or fp32 x int8 in fp32) in fp32, in another order
@@ -2103,6 +2145,7 @@ def phase_train(smi: str) -> dict:
     counts = read_launches()
     gpu_ms = start.elapsed_time(end)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    MEASURED.update(train_peak_gib=peak_gib, train_steps_s=TRAIN_TIMED / (gpu_ms / 1e3))
 
     losses = torch.stack([lg["loss"] for lg in logs]).tolist()
     norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
@@ -3143,8 +3186,8 @@ def phase_semantic_card_vs_cpu() -> None:
 T2S_FULL = dict(dim=512, num_semantic_token_ids=500, source_depth=6, target_depth=6, heads=8,
                 dim_head=64)
 HUBERT_SAMPLES = 160_000  # 10 s at 16 kHz: 499 frames
-SEM_ENGINE = dict(text_buckets=SEM_TEXT_BUCKETS, batch_buckets=SEM_BATCHES,
-                  max_semantic_token_ids=1024, spec_decode=True, steps=STEPS,
+SEM_ENGINE = dict(text_buckets=SEM_ENGINE_TEXT_BUCKETS, batch_buckets=SEM_BATCHES,
+                  max_semantic_token_ids=SEM_IDS, spec_decode=True, steps=STEPS,
                   cond_scale=CFG_SCALE, quantize="w8a16")
 SEM_REQUESTS = (["the semantic engine reads this line aloud"],  # batch 1, text bucket 64
                 ["a second request of some forty characters", "and a shorter one beside"])
@@ -3188,7 +3231,7 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     t2s = seeded(lambda: vbt.TextToSemantic(**T2S_FULL, wav2vec=hubert, tokenizer=tok),
                  SEED + 72).eval()
 
-    def decode(texts, max_length=1024, **kw):
+    def decode(texts, max_length=SEM_IDS, **kw):
         """One generate at the engine's text bucket, timed on the host."""
         text = torch.from_numpy(tok.texts_to_tensor_ids(texts)).long()
         bucket = next(b for b in SEM_TEXT_BUCKETS if b >= text.shape[1])
@@ -3217,8 +3260,8 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     acc = s_st["accepted"] / max(1, s_st["rounds"] * s_st["gamma"])
     qs_acc = qs_st["accepted"] / max(1, qs_st["rounds"] * qs_st["gamma"])
     log("semantic", f"TextToSemantic dim 512 6 + 6 layers 8 x 64 fp32, 500 ids, vocab "
-                    f"{tok.vocab_size}, batch 1 text bucket {text1.shape[1]}, max_length 1024: "
-                    f"plain greedy "
+                    f"{tok.vocab_size}, batch 1 text bucket {text1.shape[1]}, max_length "
+                    f"{SEM_IDS}: plain greedy "
                     f"{g_st['positions']} positions in {g_ms:.1f} ms = "
                     f"{g_ms / g_st['positions']:.3f} ms per token, {per_token:.1f} kernels per "
                     f"token (profiled over 32 steps and the prefill: device busy "
@@ -3271,7 +3314,7 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     engine = vbt.TTSEngine(cfm, **SEM_ENGINE,
                            prompt_seconds_buckets=LONG_ENGINE["prompt_seconds_buckets"])
     t_warm = engine.warmup()
-    n_buckets = len(SEM_BATCHES) * len(SEM_TEXT_BUCKETS)
+    n_buckets = len(SEM_BATCHES) * len(SEM_ENGINE_TEXT_BUCKETS)
     log("semantic", f"semantic TTSEngine({SEM_ENGINE}) over the flagship bf16 denoiser (500 "
                     f"cond tokens, EncodecVoco): warmup of {n_buckets} buckets in "
                     f"{t_warm:.2f} s")
@@ -3297,7 +3340,7 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
                         texts, generator=gen, return_lengths=True))
                     launched = {k: v - before[k] for k, v in read_launches().items()}
                     assert launched == per_group, f"a group launched {launched}, want {per_group}"
-                    assert bool(torch.isfinite(audio).all()) and audio.shape[-1] == 1024 * hop
+                    assert bool(torch.isfinite(audio).all()) and audio.shape[-1] == SEM_IDS * hop
                     runs.append((len(texts), ms, decode_ms[-1], lens.tolist()))
             with vbt.DynamicBatcher(engine, max_wait_ms=100.0, seed=SEED) as batcher:
                 futures = [batcher.submit(t) for t in BATCHER_TEXTS]
@@ -3310,13 +3353,13 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     assert all(bool(torch.isfinite(c).all()) for c in clips)
     _assert_checked(etally, k1, "semantic serving")
     _assert_k4_checked(etally, k4, "semantic serving")
-    horizon_s = 1024 * hop / sr
+    horizon_s = SEM_IDS * hop / sr
     for b in sorted({r[0] for r in runs}):
         part = [r for r in runs if r[0] == b]
         lat = [r[1] for r in part]
         share = float(np.median([r[2] / r[1] for r in part]))
-        log("semantic", f"semantic request batch {b}: horizon 1024 frames = {horizon_s:.2f} s, "
-                        f"valid samples {part[0][3]}; latency {_min_median(lat)} (all "
+        log("semantic", f"semantic request batch {b}: horizon {SEM_IDS} frames = "
+                        f"{horizon_s:.2f} s, valid samples {part[0][3]}; latency {_min_median(lat)} (all "
                         f"{[round(x, 1) for x in lat]}), RTF of the horizon median "
                         f"{np.median(lat) / 1e3 / horizon_s:.4f}; the seq2seq decode's share "
                         f"{share:.3f}; K1/K4 launches {per_group['k1']}/{per_group['k4']} each on "
@@ -3374,10 +3417,10 @@ def phase_semantic(smi: str, k1: dict, k4: dict, k4_dec: dict) -> dict:
     # the request's denoiser half alone, profiled (a whole request's ~6e5
     # kernels take minutes of the profiler's post-processing); the decode
     # half's profile is above
-    ids = torch.zeros(1, 1024, dtype=torch.long, device="cuda")
+    ids = torch.zeros(1, SEM_IDS, dtype=torch.long, device="cuda")
     den = _profile(lambda: cfm.sample(semantic_token_ids=ids, steps=STEPS,
                                       cond_scale=CFG_SCALE, quantize="w8a16", generator=gen))
-    log("semantic", f"profiled denoiser half of a batch-1 request (1024 ids, w8a16, decode "
+    log("semantic", f"profiled denoiser half of a batch-1 request ({SEM_IDS} ids, w8a16, decode "
                     f"to audio): wall {den['wall_ms']:.1f} ms, device busy {den['busy_ms']:.1f} "
                     f"ms over {den['kernels']} kernels, idle share "
                     f"{'not measured' if den['idle'] is None else f'{den['idle']:.3f}'}")
@@ -4100,6 +4143,459 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
     }
 
 
+# phase 21: LoRA fine-tuning and data-parallel training at full width
+LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16, 1e-3
+LORA_WARMUP, LORA_TIMED = 2, 10
+DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 2, 3, 16
+DP_MODES = ("replicated", "fsdp")
+DP_TIMEOUT_S = 600
+# The single-process reference takes the global batch as 2 micro-batches of
+# 4 rows: the rows, draws and kernel shapes of the two ranks, summed in the
+# same order, so "replicated" must equal it to the bit. "fsdp" clips by a
+# norm summed over the shards in another order: its losses within
+# DP_FSDP_RTOL, its parameters within DP_UPDATE_RTOL of the single
+# process's update (5 steps). (A reference at 8 rows a micro-batch differs
+# from either by bf16 rounding that the flagship's chaotic gradients at unit
+# qk gains amplify: 2.4e-3 of the loss after one step on the H100.)
+# The flagship at unit qk gains is chaotic (ROADMAP Queue 3: gradient norms
+# of 1e12 at init): the clip's norm summed in another order moved "fsdp"'s
+# loss by 1.2e-3 two steps later on the H100. Phase 21 (b) trains at qk
+# gains of 0.25 (`_soften_qk_gains`), where rounding stays rounding.
+DP_FSDP_RTOL, DP_UPDATE_RTOL = 1e-5, 1e-3
+DP_QK_GAIN = 0.25
+# the fold: folded against hooked in units of hooked bf16 against fp32,
+# for the whole forward and for each adapted Linear on its own
+FOLD_FLOOR_TIMES = 2.0
+FOLD_QK_GAIN = 0.25
+
+
+def _lora_flagship():
+    vb = vbt.VoiceBox(audio_enc_dec=EncodecVoco(), dtype=torch.bfloat16,
+                      param_dtype=torch.float32, **FLAGSHIP)
+    return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_lora(smi: str, k1: dict, k4: dict) -> tuple:
+    """(a): rank-8 adapters on the seeded flagship (EncodecVoco attached, bf16
+    compute over fp32 weights), Adam on the adapters only at batch 8 x 752
+    frames; then folded, and the folded model served under w8a16."""
+    cfm = seeded(_lora_flagship, SEED + 41)
+    vb = cfm.voicebox
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    lora = lora_init(vb, rank=LORA_RANK, generator=gen)
+    n_lora = sum(p.numel() for p in lora_parameters(lora))
+    n_base = sum(p.numel() for p in vb.parameters())
+    merge_lora_params(vb, lora)
+    base = {n: p.detach().clone() for n, p in vb.named_parameters()}
+    start_a = [ab["lora_a"].detach().clone() for ab in lora.values()]
+    scale = lora_scale(LORA_ALPHA, LORA_RANK)
+    opt = torch.optim.Adam(lora_parameters(lora), lr=LORA_LR)
+    x = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, LATENT_DIM, generator=gen, device="cuda")
+    ids = torch.randint(0, FLAGSHIP["num_cond_tokens"], (TRAIN_BATCH, TRAIN_FRAMES),
+                        generator=gen, device="cuda")
+    mask = torch.ones(TRAIN_BATCH, TRAIN_FRAMES, dtype=torch.bool, device="cuda")
+    cfm.train()
+
+    def step():
+        with lora_dense(scale):
+            loss = cfm.loss_fn(x, mask=mask, cond_token_ids=ids, generator=gen)
+            loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    for _ in range(LORA_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    depth = FLAGSHIP["depth"]
+    reset_launches()  # the LoRA path's run starts here
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shape_tally() as tally:
+        start.record()
+        for _ in range(LORA_TIMED):
+            before = read_launches()
+            losses.append(step())
+            after = read_launches()
+            got = {k: after[k] - before[k] for k in after}
+            assert got == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
+                f"a LoRA step launched {got}, expected {depth} of K1, K2 and K3")
+        end.record()
+        torch.cuda.synchronize()
+    counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).tolist()
+    assert all(math.isfinite(v) for v in losses), losses
+    _assert_checked(tally, k1, "the LoRA step")
+    changed = [n for n, p in vb.named_parameters() if not torch.equal(p, base[n])]
+    assert not changed, f"LoRA training moved base parameters: {changed[:5]}"
+    frozen = [n for n, ab in lora.items() if not ab["lora_b"].detach().any()]
+    frozen += [n for (n, ab), a0 in zip(lora.items(), start_a) if torch.equal(ab["lora_a"], a0)]
+    assert not frozen, f"adapters that did not move: {frozen[:5]}"
+    prof = _profile(step)
+    idle = prof["idle"]
+    log("lora", f"flagship + rank-{LORA_RANK} adapters (alpha {LORA_ALPHA}, scale {scale}) on "
+                f"{len(lora)} Linears: {n_lora:,} adapter weights beside {n_base:,} base "
+                f"({n_base / n_lora:.1f}x fewer trainable, {100 * n_lora / n_base:.3f}%); Adam "
+                f"lr {LORA_LR} on the adapters only, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames; "
+                f"{LORA_TIMED} timed steps after {LORA_WARMUP}: losses "
+                f"{[round(v, 4) for v in losses]}, K1/K2/K3 {depth}/{depth}/{depth} a step; "
+                f"every base parameter bit-identical, every adapter moved")
+    log("lora", f"steps/s {LORA_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, "
+                f"{gpu_ms / LORA_TIMED:.2f} ms/step) beside phase 10's full step "
+                f"{MEASURED.get('train_steps_s', float('nan')):.3f}; peak memory {peak_gib:.2f} "
+                f"GiB beside phase 10's {MEASURED.get('train_peak_gib', float('nan')):.2f} GiB; "
+                f"profiled step: wall {prof['wall_ms']:.2f} ms, busy {prof['busy_ms']:.2f} ms, "
+                f"{prof['kernels']} kernels, idle share "
+                f"{'not measured' if idle is None else f'{idle:.3f}'} on {smi}")
+
+    # the fold: the folded bf16 forward against the hooked one, beside the
+    # hooked bf16 forward against the same in fp32 compute, at soft qk gains
+    cfm.eval()
+    _soften_qk_gains(vb, FOLD_QK_GAIN)
+    folded = fold_lora(vb, lora, scale)
+    twin = vbt.VoiceBox(audio_enc_dec=vb.audio_enc_dec, dtype=torch.float32,
+                        **FLAGSHIP).cuda()
+    twin.load_state_dict(vb.state_dict())
+    merge_lora_params(twin, lora)
+    cond = torch.randn(1, FRAMES, LATENT_DIM, generator=gen, device="cuda")
+    fids = torch.randint(0, FLAGSHIP["num_cond_tokens"], (1, FRAMES), generator=gen,
+                         device="cuda")
+    kw = dict(times=torch.full((1,), 0.4, device="cuda"), cond=cond, cond_token_ids=fids,
+              cond_drop_mask=torch.zeros(1, dtype=torch.bool, device="cuda"))
+    xt = torch.randn(1, FRAMES, LATENT_DIM, generator=gen, device="cuda")
+    with torch.no_grad():
+        with lora_dense(scale):
+            hooked, hooked32 = vb(xt, **kw), twin(xt, **kw)
+        plain = folded(xt, **kw)
+    floor, gap = _rel(hooked, hooked32), _rel(plain, hooked)
+    del twin
+    # each adapted Linear on its own: the folded bf16 product and the hooked
+    # one against the hooked product in fp32, on N(0, 1) rows
+    ratios = []
+    with torch.no_grad():
+        for name, ab in lora.items():
+            lin, flin = vb.get_submodule(name), folded.get_submodule(name)
+            xs = torch.randn(FRAMES, lin.in_features, generator=gen, device="cuda")
+            ref = F.linear(xs, lin.weight) + scale * ((xs @ ab["lora_a"]) @ ab["lora_b"])
+            with lora_dense(scale):
+                hooked_lin = lin(xs.to(torch.bfloat16))
+            ratios.append(_rel(flin(xs.to(torch.bfloat16)), ref) / _rel(hooked_lin, ref))
+    log("lora", f"fold (qk gains {FOLD_QK_GAIN}): whole forward ||folded - hooked|| / ||hooked|| "
+                f"= {gap:.3e} against the bf16 floor ||hooked bf16 - hooked fp32|| / ||fp32|| = "
+                f"{floor:.3e} (the depth-24 forward at random weights amplifies bf16 rounding); "
+                f"per adapted Linear, error of the folded bf16 product / error of the hooked one "
+                f"(both against hooked fp32): max {max(ratios):.3f}, median "
+                f"{float(np.median(ratios)):.3f} over {len(ratios)} (bound {FOLD_FLOOR_TIMES})")
+    assert gap <= FOLD_FLOOR_TIMES * floor, (gap, floor)
+    assert max(ratios) <= FOLD_FLOOR_TIMES, ratios
+
+    # the folded model served under w8a16: one 750-frame request at CFG 1.3
+    served = vbt.ConditionalFlowMatcherWrapper(folded)
+    reset_launches()  # the folded request's run starts here
+    with shape_tally() as serve_tally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = served.sample(cond=cond, semantic_token_ids=fids, steps=STEPS,
+                              cond_scale=CFG_SCALE, quantize="w8a16", generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    serve_counts = read_launches()
+    want = (1, 1, FRAMES * served.codec.downsample_factor)
+    assert tuple(audio.shape) == want and bool(torch.isfinite(audio).all()), audio.shape
+    assert (serve_counts["k1"], serve_counts["k4"]) == (K1_PER_WINDOW, K4_PER_WINDOW), (
+        f"the folded w8a16 request launched {serve_counts}, expected {K1_PER_WINDOW} K1 and "
+        f"{K4_PER_WINDOW} K4")
+    parts = {"k1": [], "k4": []}
+    for key, count in sorted(serve_tally.items(), key=str):
+        if key[0] == "k1":
+            _, shape, dtype, masked = key
+            found = [r for r in k1.values() if tuple(r["shape"]) == shape and r["dtype"] == dtype
+                     and r["masked"] == masked and "ms" in r]
+        else:
+            _, shape, dtype = key
+            found = [k4[shape]] if dtype == torch.bfloat16 and shape in k4 else []
+        assert found, f"the folded request ran {key[0]} at {shape} {dtype}, which no check timed"
+        parts[key[0]].append((count, {**found[0], "dtype": dtype}))
+    log("lora", f"folded + w8a16: one request of {FRAMES} frames ({STEPS} steps, CFG "
+                f"{CFG_SCALE}): latency {dt * 1e3:.1f} ms (host clock, the quantized copy built "
+                f"in it), K1 {serve_counts['k1']} and K4 {serve_counts['k4']} launches at "
+                f"{len(serve_tally)} checked shapes, audio finite {want}")
+    del cfm, vb, folded, served, opt, lora, base
+    torch.cuda.empty_cache()
+    return counts, tally, parts
+
+
+def lora_rows(k1: dict, k23: dict, counts: dict, parts: dict) -> list:
+    rows = [_k1_row("lora_train", k1["train_bf16"], counts["k1"])]
+    rows += [_k23_row(kk, "lora_train", k23["train_bf16"], counts[kk]) for kk in ("k2", "k3")]
+    rows.append(_path_row("k1", f"{NAMES['k1']}[lora_folded_w8a16]", parts["k1"],
+                          "lora_folded_w8a16"))
+    rows.append({**_path_row("k4", f"{NAMES['k4']}[lora_folded_w8a16]", parts["k4"],
+                             "lora_folded_w8a16"),
+                 "library": "cuBLAS bf16 on the weight dequantized ahead of time"})
+    return rows
+
+
+def _dp_items(same: bool = False) -> list:
+    rs = np.random.RandomState(SEED + 51)
+    items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
+              rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
+             for _ in range(1 if same else DP_ITEMS)]
+    return items * TRAIN_BATCH if same else items
+
+
+def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, **kw):
+    """Phase 10's flagship trainer on cuda:0 (both ranks share the card)."""
+    def build():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          **FLAGSHIP)
+        _soften_qk_gains(vb, DP_QK_GAIN)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device="cuda:0")
+
+    return vbt.VoiceBoxTrainer(
+        seeded(build, seed), batch_size=batch_size, dataset=vbt.ArrayDataset(items),
+        num_train_steps=1000, lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0,
+        log_every=1000, save_results_every=1000, seed=SEED, device="cuda:0", **kw)
+
+
+def _dp_explicit_draws(steps: int) -> list:
+    """Explicit draws of whole steps' global batches, the same on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    m = TRAIN_BATCH
+    return [dict(noise=torch.randn(m, TRAIN_FRAMES, LATENT_DIM, generator=gen, device="cuda"),
+                 times=torch.rand(m, generator=gen, device="cuda"),
+                 cond_mask=torch.rand(m, TRAIN_FRAMES, generator=gen, device="cuda") < 0.7,
+                 cond_drop_mask=torch.rand(m, generator=gen, device="cuda") < 0.2)
+            for _ in range(steps)]
+
+
+def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of phase 21 (b), run as `chip_smoke.py --dp-worker`: gloo at
+    world 2, both ranks on cuda:0; under "replicated" and "fsdp" 2 warm-up
+    and 3 timed steps, held (rank 0) to the single process's losses and
+    parameters; then an "orbax" save after 2 steps and a resume into ranks
+    built from other weights. Writes rank{r}.json."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the bit-identical resume below
+    assert maybe_initialize_distributed(f"file://{init_file}", world, rank, backend="gloo")
+    import torch.distributed as dist
+
+    out = Path(out_dir)
+    res = {"rank": rank}
+    single = torch.load(out / "single.pt") if rank == 0 else None
+    depth = FLAGSHIP["depth"]
+    for mode in DP_MODES:
+        trainer = _dp_trainer(_dp_items(), SEED + 52, param_sharding=mode)
+        dp = trainer.data_parallel
+        collective_s = []
+
+        def timed(fn):
+            def call(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(*a)
+                torch.cuda.synchronize()
+                collective_s.append(time.perf_counter() - t0)
+                return got
+            return call
+
+        dp.reduce, dp.gather_params = timed(dp.reduce), timed(dp.gather_params)
+        draws = iter(_dp_explicit_draws(DP_WARMUP + DP_TIMED))
+        losses = [trainer.train_step(**next(draws))["loss"] for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collective_s.clear()
+        reset_launches()  # this rank's data-parallel run starts here
+        step_s = []
+        with shape_tally() as tally:
+            for _ in range(DP_TIMED):
+                before = read_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(**next(draws))["loss"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                after = read_launches()
+                got = {k: after[k] - before[k] for k in after}
+                assert got == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (mode, got)
+        r = {"launches": read_launches(), "step_ms": [t * 1e3 for t in step_s],
+             "collective_ms": sum(collective_s) * 1e3 / DP_TIMED,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "losses": torch.stack(losses).tolist(),
+             "shapes": [[k[0], list(k[1]), str(k[2]), k[3], c] for k, c in tally.items()],
+             "split": sum(dp.sharded)}
+        if rank == 0:
+            r["n_differ"] = sum(not torch.equal(p.detach().cpu(), single["params"][n])
+                                for n, p in trainer.named_params)
+            update = sum(float((single["params"][n] - single["init"][n]).square().sum())
+                         for n, _ in trainer.named_params)
+            gap = sum(float((p.detach().cpu() - single["params"][n]).square().sum())
+                      for n, p in trainer.named_params)
+            r["update_rel_gap"] = math.sqrt(gap / update)
+            r["max_abs_gap"] = max(float((p.detach().cpu() - single["params"][n]).abs().max())
+                                   for n, p in trainer.named_params)
+        res[mode] = r
+        del trainer, dp
+        torch.cuda.empty_cache()
+
+    # "orbax": every item the same (a checkpoint keeps no loader position),
+    # explicit draws; the run saves after 2 steps and takes a third, ranks
+    # built from other weights load the save and take the same third step
+    draws = _dp_explicit_draws(3)
+    kw = dict(param_sharding="fsdp", checkpoint_backend="orbax", ema_decay=0.999,
+              results_folder=str(out / "orbax"))
+    a = _dp_trainer(_dp_items(same=True), SEED + 53, **kw)
+    for d in draws[:2]:
+        a.train_step(**d)
+    t0 = time.perf_counter()
+    path = a.save()
+    save_s = time.perf_counter() - t0
+    loss_a = a.train_step(**draws[2])["loss"]
+    b = _dp_trainer(_dp_items(same=True), SEED + 54, **kw)
+    t0 = time.perf_counter()
+    b.load(2)
+    load_s = time.perf_counter() - t0
+    assert b.steps == 2, b.steps
+    loss_b = b.train_step(**draws[2])["loss"]
+    torch.cuda.synchronize()
+    differ = [n for (n, p), q in zip(a.named_params, b.params) if not torch.equal(p, q)]
+    differ += [f"{key} {n}" for (n, _), p, q in zip(a.named_params, a.opt_params, b.opt_params)
+               for key in ("exp_avg", "exp_avg_sq")
+               if not torch.equal(a.optimizer.state[p][key], b.optimizer.state[q][key])]
+    differ += [f"ema {n}" for (n, _), x, y in zip(a.named_params, a.ema.shadow, b.ema.shadow)
+               if not torch.equal(x, y)]
+    res["orbax"] = {"loss": [loss_a.item(), loss_b.item()],
+                    "same_loss": bool(torch.equal(loss_a, loss_b)), "differ": differ[:5],
+                    "n_differ": len(differ), "save_s": save_s, "load_s": load_s,
+                    "files": sorted(p.name for p in path.iterdir()),
+                    "mib": sum(p.stat().st_size for p in path.iterdir()) / 2 ** 20}
+    del a, b
+    dist.barrier()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
+    """(b): the single-process trainer at the global batch here, then two
+    ranks spawned under gloo on this card (`dp_worker`); their results."""
+    out = kernels.BUILD_DIR.parent / "phase21"  # in the checkout, ignored by git
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as the ranks run
+    try:
+        # the global batch as the ranks' two micro-batches of 4 rows
+        single = _dp_trainer(_dp_items(), SEED + 52, batch_size=TRAIN_BATCH // DP_WORLD,
+                             grad_accum_every=DP_WORLD)
+        init = {n: p.detach().cpu().clone() for n, p in single.named_params}
+        t0 = time.perf_counter()
+        single_losses = [single.train_step(**d)["loss"]
+                         for d in _dp_explicit_draws(DP_WARMUP + DP_TIMED)]
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        torch.save({"init": init, "params": {n: p.detach().cpu() for n, p in
+                                             single.named_params}}, out / "single.pt")
+        single_losses = torch.stack(single_losses).tolist()
+        init_names = list(init)
+        del single, init
+        torch.cuda.empty_cache()
+
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        logs = [open(out / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(r), str(DP_WORLD), str(out / "init"), str(out)],
+                                  env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(DP_WORLD)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        spawn_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, (f"data-parallel rank {r} exited {p.returncode}:\n"
+                                       + (out / f"rank{r}.log").read_text()[-6000:])
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    finally:
+        torch.backends.cudnn.deterministic = was
+        shutil.rmtree(out / "orbax", ignore_errors=True)
+        (out / "single.pt").unlink(missing_ok=True)
+
+    log("dp", f"two ranks under gloo sharing cuda:0, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames "
+              f"({TRAIN_BATCH // DP_WORLD} rows a rank); single process: losses "
+              f"{[round(v, 5) for v in single_losses]} ({single_s:.1f} s for "
+              f"{len(single_losses)} steps); the ranks' processes {spawn_s:.1f} s")
+    result = {}
+    for mode in DP_MODES:
+        r0 = ranks[0][mode]
+        for rk in ranks:
+            _assert_checked(collections.Counter({
+                (k, tuple(shape), getattr(torch, dt[6:]), masked): c
+                for k, shape, dt, masked, c in rk[mode]["shapes"] if k == "k1"}), k1,
+                f"data-parallel rank {rk['rank']} ({mode})")
+        if mode == "replicated":
+            assert r0["losses"] == single_losses and r0["n_differ"] == 0, (
+                f"replicated differs from the single process: losses {r0['losses']} against "
+                f"{single_losses}, {r0['n_differ']} parameters")
+        else:
+            np.testing.assert_allclose(r0["losses"], single_losses, rtol=DP_FSDP_RTOL, atol=0)
+            assert r0["update_rel_gap"] <= DP_UPDATE_RTOL, (mode, r0["update_rel_gap"])
+        per_rank = "; ".join(
+            f"rank {rk['rank']}: {np.mean(m['step_ms']):.1f} ms/step "
+            f"({', '.join(f'{t:.1f}' for t in m['step_ms'])}), reduction "
+            f"{m['collective_ms']:.1f} ms ({m['collective_ms'] / np.mean(m['step_ms']):.3f}), "
+            f"peak {m['peak_gib']:.2f} GiB" for rk in ranks for m in [rk[mode]])
+        bound = "to the bit" if mode == "replicated" else (
+            f"losses within rtol {DP_FSDP_RTOL}, update gap bound {DP_UPDATE_RTOL}")
+        log("dp", f"{mode}: rank 0 losses {r0['losses']} against the single process's "
+                  f"({bound}); parameters after {DP_WARMUP + DP_TIMED} steps: "
+                  f"{r0['n_differ']} of {len(init_names)} differ, "
+                  f"||rank 0 - single|| / ||single's update|| = {r0['update_rel_gap']:.3e}, "
+                  f"max |gap| {r0['max_abs_gap']:.3e}; {r0['split']} parameters split over the "
+                  f"ranks; "
+                  f"K1/K2/K3 a step {FLAGSHIP['depth']} each on every rank; {per_rank} (gloo "
+                  f"through the host, not NVLink) on {smi}")
+        result[mode] = {kk: sum(rk[mode]["launches"][kk] for rk in ranks)
+                        for kk in ("k1", "k2", "k3")}
+    ob = ranks[0]["orbax"]
+    log("dp", f"orbax (fsdp, EMA): saved after 2 steps ({ob['mib']:.0f} MiB in "
+              f"{', '.join(ob['files'])}; {ob['save_s']:.2f} s), loaded into ranks built from "
+              f"other weights ({ob['load_s']:.2f} s); third step loss uninterrupted "
+              f"{ob['loss'][0]:.6f} resumed {ob['loss'][1]:.6f}; tensors that differ "
+              f"(parameters, moment and EMA shards) on rank 0 / 1: "
+              f"{ranks[0]['orbax']['n_differ']} / {ranks[1]['orbax']['n_differ']}")
+    for rk in ranks:
+        assert rk["orbax"]["same_loss"] and rk["orbax"]["n_differ"] == 0, rk["orbax"]
+    assert {"__0_0.distcp", "__1_0.distcp", ".metadata"} <= set(ob["files"]), ob["files"]
+    return result
+
+
+def dp_rows(k1: dict, k23: dict, dp: dict) -> list:
+    rows = []
+    for mode, counts in dp.items():
+        path = f"data_parallel_{mode}"
+        rows.append({**_k1_row(path, k1["rank_train_bf16"], counts["k1"]),
+                     "launches_are": "both ranks' timed steps"})
+        rows += [{**_k23_row(kk, path, k23["rank_train_bf16"], counts[kk]),
+                  "launches_are": "both ranks' timed steps"} for kk in ("k2", "k3")]
+    return rows
+
+
 def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                 raw, semantic, long_rows) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
@@ -4204,6 +4700,13 @@ def main() -> int:
         assert counts["k1"] > 0, f"the {path} path of phase 20 launched no K1: {counts}"
     assert min(files[p][0][k] for p in ("mel", "seq2seq") for k in ("k2", "k3")) > 0, files
     semantic += files_rows(k1, k23, files)
+    lora_counts, _, lora_parts = phase_lora(smi, k1, k4)
+    assert min(lora_counts[k] for k in ("k1", "k2", "k3")) > 0, lora_counts
+    assert all(lora_parts[k] for k in ("k1", "k4")), "the folded request skipped a kernel"
+    semantic += lora_rows(k1, k23, lora_counts, lora_parts)
+    dp = phase_dp(smi, k1, k23)
+    assert all(min(c.values()) > 0 for c in dp.values()), dp
+    semantic += dp_rows(k1, k23, dp)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4214,4 +4717,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 21 (b)
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

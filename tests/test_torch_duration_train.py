@@ -41,6 +41,7 @@ from voicebox_tpu.utils import tokenizer as jtok
 from voicebox_tpu_torch import DurationPredictorTrainer, MelVoco
 from voicebox_tpu_torch.models import duration as td
 from voicebox_tpu_torch.models.vocos import Vocos
+from voicebox_tpu_torch.parallel.mesh import make_mesh
 from voicebox_tpu_torch.training import PairedDataset
 from voicebox_tpu_torch.utils import tokenizer as ttok
 from voicebox_tpu_torch.utils.convert import aligner_state_dict, duration_predictor_state_dict
@@ -312,10 +313,11 @@ def test_checkpoint_resumes_exactly(tmp_path):
 
 def test_trainer_rejects_what_is_not_ported():
     _, params = _models()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # data parallelism is ported; model-parallel layouts wait for item 15b
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        _trainer(_port(params), mesh=make_mesh(model_parallel=2))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _trainer(_port(params), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _trainer(_port(params), checkpoint_backend="orbax")
     with pytest.raises(ValueError, match="aligner_dim_in"):
         DurationPredictorTrainer(_port(params), batch_size=1, valid_frac=0.0, num_train_steps=1,
                                  dataset=PairedDataset([("a", np.zeros((5, 3), np.float32))]),

@@ -9,6 +9,7 @@ an unknown path, and closes.
 
 import ast
 import base64
+import importlib
 import io
 import json
 import pkgutil
@@ -46,8 +47,7 @@ def _one_torch_thread():
 
 def test_every_example_of_the_jax_package_has_a_port():
     jax_examples = {p.stem for p in (Path(__file__).parents[1] / "examples").glob("*.py")}
-    # LoRA waits for ROADMAP item 14
-    assert set(EXAMPLES) == jax_examples - {"lora_finetune"}
+    assert set(EXAMPLES) == jax_examples
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -59,6 +59,16 @@ def test_example_imports_no_jax_and_has_main(name):
     roots = {m.split(".")[0] for m in imported}
     assert not roots & {"jax", "jaxlib", "flax", "optax", "voicebox_tpu"}, roots
     assert any(isinstance(n, ast.FunctionDef) and n.name == "main" for n in tree.body)
+
+
+def test_lora_finetune_runs_on_the_cpu(capsys):
+    """Two of the example's 50 adapter steps (a step takes ~1.4 s on one CPU
+    thread), then the fold and the 3-step sample."""
+    out = importlib.import_module("voicebox_tpu_torch.examples.lora_finetune").main(
+        ["--device", "cpu", "--steps", "2"])
+    assert out.shape == (4, 128, 64) and bool(torch.isfinite(out).all())
+    printed = capsys.readouterr().out
+    assert "trainable adapter params" in printed and "step   0" in printed
 
 
 def _tiny_engine():

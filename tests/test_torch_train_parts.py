@@ -24,6 +24,7 @@ from voicebox_tpu_torch.models.attention import Attention
 from voicebox_tpu_torch.ops import masks
 from voicebox_tpu_torch.ops.ode import cfm_interpolant
 from voicebox_tpu_torch.training import data
+from voicebox_tpu_torch.training.config import MeshConfig
 from voicebox_tpu_torch.training.optimizer import (
     clip_by_global_norm_f32,
     decay_mask,
@@ -249,10 +250,19 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError, match="raw audio"):
         cfm(torch.zeros(2, 320), semantic_token_ids=torch.zeros(2, 4, dtype=torch.long))
     ds = data.ArrayDataset([np.zeros((20, DIM_IN), np.float32)] * 4)
-    for kw in ({"mesh": object()}, {"checkpoint_backend": "orbax"}):
-        with pytest.raises(NotImplementedError, match="item 15"):
+    # data parallelism is ported; tensor and sequence parallelism wait for item 15b
+    for kw in ({"param_sharding": "tp"}, {"param_sharding": "fsdp+tp"}, {"seq_parallel": 2}):
+        with pytest.raises(NotImplementedError, match="item 15b"):
             VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
                             device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        MeshConfig(model_parallel=2).build()
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
+                        device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="results_folder"):
+        VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
+                        device="cpu", checkpoint_backend="orbax")
     bf16 = ConditionalFlowMatcherWrapper(
         VoiceBox(dim_in=DIM_IN, dtype=torch.bfloat16, **CONFIG), device="cpu")
     with pytest.raises(ValueError, match="fp32 parameters"):

@@ -15,5 +15,7 @@ on the card by default. Nothing runs when a module is imported.
 * `text_to_speech`: the full-width semantic pipeline on random weights;
 * `voice_cloning`: served cloning from a 3 s prompt, whole and streamed;
 * `long_form_tts`: windowed `sample_long` over ~40 s with a prompt;
-* `resume_from_reference`: a reference trainer's `.pt` resumed mid-run.
+* `resume_from_reference`: a reference trainer's `.pt` resumed mid-run;
+* `lora_finetune`: rank-8 adapters on a frozen base, then folded and
+  sampled.
 """

@@ -77,6 +77,7 @@ from ..ops.masks import normal, split_generator, uniform
 from ..ops.ode import cfm_interpolant, odeint, odeint_tsit5_adaptive
 from ..ops.quant import QUANT_MODES, cast_float_params, quantize_voicebox
 from ..ops.stft import resample
+from ..parallel.distributed import is_multihost, local_cuda_device
 from ..utils.convert import denoiser_state
 from .duration import masked_frame_durations
 from .voicebox import VoiceBox
@@ -87,13 +88,16 @@ __all__ = ["ConditionalFlowMatcherWrapper", "is_probably_audio_from_shape", "res
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. "cuda" (the default of every entry
     point) needs a card and raises without one: the port never falls back to
-    the CPU on its own."""
+    the CPU on its own. Under a multi-process group, "cuda" without an index
+    is this process's card (`parallel.distributed.local_cuda_device`)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on an NVIDIA GPU by default; pass "
             "device='cpu' to run on the CPU"
         )
+    if device.type == "cuda" and device.index is None and is_multihost():
+        return local_cuda_device()
     return device
 
 

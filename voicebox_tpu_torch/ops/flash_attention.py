@@ -59,6 +59,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import kernels
+from .masks import uniform
 from .remat import checkpoint_name, saves
 
 __all__ = [
@@ -110,7 +111,7 @@ def reference_attention(
     attn = checkpoint_name(torch.softmax(sim, dim=-1), "attn_probs")
     if dropout > 0.0:
         if keep is None:  # jax.random.bernoulli: uniform < p
-            keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
+            keep = uniform(attn.shape, generator, attn.device) < 1.0 - dropout
         attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
     out = torch.matmul(attn.to(v.dtype), v).to(q.dtype)
     if not return_lse:

@@ -5,15 +5,26 @@ Counterpart of `voicebox_tpu/ops/masks.py`. Every random draw takes an
 explicit `torch.Generator`, or is handed its uniforms directly
 (`uniform_draw=`), so that a test can feed the very numbers another
 framework drew.
+
+`batch_rows(offset, rows, total)` makes a data-parallel rank draw what one
+process would: inside it, `uniform` and `normal` draw a shape whose leading
+axis is `rows` at `total` rows and return rows [offset, offset + rows).
+Every rank draws the global micro-batch's numbers from the same generator
+and keeps its own, so the generators stay in step with a single process's
+and the run equals it. Draws without a batch axis (the duration
+predictor's coin flip) are drawn whole on every rank, as they would be
+once.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import List, Optional, Tuple
 
 import torch
 
 __all__ = [
+    "batch_rows",
     "prob_mask_like",
     "reduce_masks_with_and",
     "mask_from_start_end_indices",
@@ -25,11 +36,34 @@ __all__ = [
 ]
 
 
+_ROWS: List[Tuple[int, int, int]] = []  # (offset, rows, total) of the open blocks
+
+
+@contextlib.contextmanager
+def batch_rows(offset: int, rows: int, total: int):
+    """Inside the block, a draw of leading axis `rows` is drawn at `total`
+    rows and rows [offset, offset + rows) of it are returned."""
+    _ROWS.append((offset, rows, total))
+    try:
+        yield
+    finally:
+        _ROWS.pop()
+
+
+def _draw(fn, shape, generator, device, dtype) -> torch.Tensor:
+    gen_device = generator.device if generator is not None else device
+    shape = tuple(shape)
+    if _ROWS and shape and shape[0] == _ROWS[-1][1]:
+        offset, rows, total = _ROWS[-1]
+        full = fn((total, *shape[1:]), generator=generator, device=gen_device, dtype=dtype)
+        return full[offset:offset + rows].to(device)
+    return fn(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+
+
 def uniform(shape, generator: Optional[torch.Generator] = None, device=None,
             dtype=torch.float32) -> torch.Tensor:
     """U[0, 1) of `shape`, drawn on the generator's device, then moved."""
-    gen_device = generator.device if generator is not None else device
-    return torch.rand(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+    return _draw(torch.rand, shape, generator, device, dtype)
 
 
 def split_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -44,8 +78,7 @@ def split_generator(generator: torch.Generator, device) -> torch.Generator:
 def normal(shape, generator: Optional[torch.Generator] = None, device=None,
            dtype=torch.float32) -> torch.Tensor:
     """N(0, 1) of `shape`, drawn on the generator's device, then moved."""
-    gen_device = generator.device if generator is not None else device
-    return torch.randn(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+    return _draw(torch.randn, shape, generator, device, dtype)
 
 
 def prob_mask_like(shape, prob: float, generator: Optional[torch.Generator] = None,

@@ -1,9 +1,8 @@
-"""The trainers' shared core on one device: optimizer and schedule,
-accumulation and the fp32 clip, the EMA, metrics and trackers, checkpoints,
-the validation loop.
+"""The trainers' shared core: optimizer and schedule, accumulation and the
+fp32 clip, the EMA, metrics and trackers, checkpoints, the validation loop,
+and data parallelism over processes.
 
-Counterpart of `voicebox_tpu/training/base.py`, limited to what the stage
-trainers need on one device:
+Counterpart of `voicebox_tpu/training/base.py`:
 
 * `TrainerBase`: steps from epochs (one epoch is one pass over the
   training split, each step taking `batch_size * grad_accum_every` items),
@@ -19,37 +18,56 @@ trainers need on one device:
   optimizer, the schedule and the EMA, a validation loss every
   `save_results_every` steps (its draws from a generator seeded by the
   step) and a checkpoint every `save_model_every` steps. Subclasses give
-  `_prepare_batch(fields)` (loader fields -> tensors on the device) and
-  `_loss(batch, generator, **draws)`.
+  `_prepare_batch(fields)` (loader fields -> tensors on the device),
+  `_loss(batch, generator, **draws)` and, for a loss that is a mean over
+  tokens rather than rows, `_loss_weight(batch)` (its token count).
 
-The device mesh, multi-host loaders and sharded checkpoints raise
-NotImplementedError (ROADMAP Queue 1, item 15). The port's
-`VoiceBoxTrainer` keeps its own set-up and step on this class's logging,
-EMA view and checkpoints. Metrics and checkpoints are written only when a
-`results_folder` is given, and a checkpoint's `steps` counts the optimizer
-steps it holds.
+Data parallelism (`_setup_parallel`, the counterpart of JAX's
+`_setup_data_mesh` and `_put_batch`): under a process group of more than
+one process a ("data", "model") mesh is built by default (`use_mesh`, as
+JAX builds one over more than one device), or passed as `mesh`.
+`batch_size` is the global batch (`split_batches=False`, the reference's
+per-process batch, raises). Every rank runs the same seeded loader and
+keeps its rank-block of each micro-batch's rows; it draws the loss's
+random numbers at the global micro-batch's shape and keeps its rows
+(`ops/masks.py::batch_rows`), so the run equals the single-process one on
+the same global batch. A token-mean loss is weighted by each rank's share
+of the all-reduced count. The gradients and the loss are reduced once a
+step (`parallel/data_parallel.py`; "replicated" or "fsdp"). Only rank 0
+prints, logs, writes metrics and writes "msgpack" checkpoints; every rank
+runs the validation loss on its rows and takes the mean over ranks. The
+port's `VoiceBoxTrainer` keeps its own set-up and step on this class's
+logging, EMA view, reduction and checkpoints. Metrics and checkpoints are
+written only when a `results_folder` is given, and a checkpoint's `steps`
+counts the optimizer steps it holds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import time
+import warnings
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.cfm import resolve_device
-from .checkpoint import check_backend, load_trainer_checkpoint, save_trainer_checkpoint
+from ..ops.masks import batch_rows
+from ..parallel.data_parallel import DataParallel, check_mode
+from ..parallel.distributed import is_multihost
+from ..parallel.mesh import make_mesh
+from .checkpoint import (ShardedCheckpointer, check_backend, load_trainer_checkpoint,
+                         save_trainer_checkpoint)
 from .data import PairedDataLoader, PrefetchLoader, TokenizedTextDataset, random_split
-from .optimizer import ParamsEMA, clip_by_global_norm_f32, get_optimizer, warmup_cosine_schedule
+from .optimizer import (AdamLowPrecisionMoments, ParamsEMA, adam_state, clip_by_global_norm_f32,
+                        get_optimizer, restore_adam_state, warmup_cosine_schedule)
 
 __all__ = ["StageTrainer", "TrainerBase"]
-
-_MESH = ("mesh: multi-device layouts and multi-host loaders are not ported yet "
-         "(ROADMAP Queue 1, item 15)")
 
 
 class TrainerBase:
@@ -62,16 +80,74 @@ class TrainerBase:
         n_train = int((1 - valid_frac) * dataset_len) if valid_frac > 0 else dataset_len
         return max(1, n_train // (batch_size * grad_accum_every)) * num_epochs
 
+    def _setup_parallel(self, *, mesh, use_mesh: bool, split_batches: Optional[bool],
+                        batch_size: int, param_sharding: str = "replicated",
+                        min_fsdp_size: int = 2 ** 16) -> None:
+        """The data mesh and the parameters' layout over it (module doc).
+        Needs `self.module`, `self.named_params` and `self.device`; sets the
+        tensors the optimizer steps, `self.opt_params`."""
+        check_mode(param_sharding)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a DeviceMesh (parallel.mesh.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        multi = is_multihost()
+        if split_batches is False and multi:
+            raise ValueError(
+                "split_batches=False: the reference's per-process batch_size is not this "
+                "trainer's; batch_size is the global batch, split over the processes")
+        if mesh is None and use_mesh and multi:
+            mesh = make_mesh(device_type=self.device.type)
+        elif mesh is None and multi:
+            warnings.warn("a multi-process run without a mesh: every process trains its own "
+                          "replica with no gradient reduction", stacklevel=3)
+        self.mesh = mesh
+        self.data_parallel = None
+        self.rank, self.world = 0, 1
+        self.opt_params = self.params
+        if mesh is not None:
+            dp = self.data_parallel = DataParallel(mesh, self.module, self.named_params,
+                                                   param_sharding, min_fsdp_size)
+            self.rank, self.world = dp.rank, dp.world
+            if batch_size % self.world:
+                raise ValueError(f"batch_size {batch_size} does not split over {self.world} "
+                                 "processes")
+            self.opt_params = dp.shards
+        self._shard = None if mesh is None else (self.rank, self.world)
+
+    @property
+    def _fsdp(self) -> bool:
+        return self.data_parallel is not None and self.data_parallel.mode == "fsdp"
+
+    def _setup_results(self, *, results_folder, force_clear_prev_results: bool,
+                       checkpoint_backend: str, save_model_every: Optional[int], trackers: tuple):
+        check_backend(checkpoint_backend)
+        if (save_model_every is not None or checkpoint_backend == "orbax") and \
+                results_folder is None:
+            raise ValueError("save_model_every and checkpoint_backend='orbax' need a "
+                             "results_folder to write to")
+        self.checkpoint_backend = checkpoint_backend
+        self.metrics: list = []
+        self._metrics_path = self.results_folder = self.checkpointer = None
+        if results_folder is not None:
+            self.results_folder = Path(results_folder)
+            if force_clear_prev_results and self.results_folder.exists() and self.rank == 0:
+                shutil.rmtree(self.results_folder)
+            self.results_folder.mkdir(parents=True, exist_ok=True)
+            self._metrics_path = self.results_folder / "metrics.jsonl"
+            if checkpoint_backend == "orbax":
+                self.checkpointer = ShardedCheckpointer(self.results_folder / "orbax")
+        self._trackers = tuple(trackers) if self.rank == 0 else ()
+        self._loss_buffer: list = []
+
     def _setup_core(self, *, module: torch.nn.Module, num_train_steps: int,
                     num_warmup_steps: Optional[int], lr: float, initial_lr: float, wd: float,
                     max_grad_norm: Optional[float], moment_dtype, ema_decay: Optional[float],
                     ema_dtype, log_every: int, save_results_every: int,
                     save_model_every: Optional[int], results_folder,
                     force_clear_prev_results: bool, checkpoint_backend: str, trackers: tuple,
-                    seed: int, device):
+                    seed: int, device, batch_size: int, mesh=None, use_mesh: bool = True,
+                    split_batches: Optional[bool] = None):
         check_backend(checkpoint_backend)
-        if save_model_every is not None and results_folder is None:
-            raise ValueError("save_model_every needs a results_folder to write to")
         self.device = resolve_device(device)
         self.module = module.to(self.device)
         self.steps = 0
@@ -81,32 +157,88 @@ class TrainerBase:
         self.max_grad_norm = max_grad_norm
         self.named_params = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
         self.params = [p for _, p in self.named_params]
-        self.optimizer = get_optimizer(self.named_params, lr=lr, wd=wd, moment_dtype=moment_dtype)
-        self.scheduler = warmup_cosine_schedule(self.optimizer, lr, initial_lr,
-                                                self.num_warmup_steps, num_train_steps)
-        self.ema = None if ema_decay is None else ParamsEMA(self.params, ema_decay, ema_dtype)
+        self._setup_parallel(mesh=mesh, use_mesh=use_mesh, split_batches=split_batches,
+                             batch_size=batch_size)
+        self._setup_optimizer(moment_dtype=moment_dtype, ema_decay=ema_decay,
+                              ema_dtype=ema_dtype)
         self.log_every = log_every
         self.save_results_every = save_results_every
         self.save_model_every = save_model_every
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.metrics: list = []
-        self._metrics_path = self.results_folder = None
-        if results_folder is not None:
-            self.results_folder = Path(results_folder)
-            if force_clear_prev_results and self.results_folder.exists():
-                shutil.rmtree(self.results_folder)
-            self.results_folder.mkdir(parents=True, exist_ok=True)
-            self._metrics_path = self.results_folder / "metrics.jsonl"
-        self._trackers = tuple(trackers)
-        self._loss_buffer: list = []
+        self._setup_results(results_folder=results_folder,
+                            force_clear_prev_results=force_clear_prev_results,
+                            checkpoint_backend=checkpoint_backend,
+                            save_model_every=save_model_every, trackers=trackers)
+
+    def _setup_optimizer(self, *, moment_dtype, ema_decay: Optional[float], ema_dtype) -> None:
+        """AdamW and its schedule, and the EMA, over `self.opt_params`."""
+        named = [(n, p) for (n, _), p in zip(self.named_params, self.opt_params)]
+        self.optimizer = get_optimizer(named, lr=self.lr, wd=self.wd, moment_dtype=moment_dtype)
+        self.scheduler = warmup_cosine_schedule(self.optimizer, self.lr, self.initial_lr,
+                                                self.num_warmup_steps, self.num_train_steps)
+        self.ema = (None if ema_decay is None
+                    else ParamsEMA(self.opt_params, ema_decay, ema_dtype))
+
+    # ------------------------------------------------------------------
+    # data parallelism
+
+    def _rows(self, micro: int):
+        """The block a micro-batch's loss runs in: under a mesh, its draws
+        at the global micro-batch's shape, this rank's rows kept."""
+        if self.data_parallel is None:
+            return contextlib.nullcontext()
+        return batch_rows(self.rank * micro, micro, micro * self.world)
+
+    def _draw_rows(self, i: int, micro: int) -> slice:
+        """This rank's rows of micro-batch i in a step's global draws."""
+        start = (i * self.world + self.rank) * micro
+        return slice(start, start + micro)
+
+    def _apply_gradients(self, loss: torch.Tensor, grads: list) -> tuple:
+        """Reduce over the data axis (once a step), clip, step the
+        optimizer, the schedule and the EMA; under "fsdp" rebuild the
+        module's whole weights. Returns (loss, grad_norm), the loss the
+        global batch's. Under a mesh `grads` is emptied once reduced, so
+        that the local gradients are freed before the update."""
+        dp = self.data_parallel
+        if dp is not None:
+            reduced, rest = dp.reduce(grads, loss.reshape(1))
+            grads.clear()
+            for p in self.params:
+                p.grad = None
+            grads, loss = reduced, rest[0]
+        grad_norm = None
+        if self.max_grad_norm is not None:
+            grad_norm = clip_by_global_norm_f32(
+                grads, self.max_grad_norm, group=dp.group if self._fsdp else None,
+                sharded=dp.sharded if self._fsdp else None)
+        if isinstance(self.optimizer, AdamLowPrecisionMoments):
+            self.optimizer.step(dict(zip(self.opt_params, grads)))
+        else:
+            for p, g in zip(self.opt_params, grads):
+                p.grad = g if g.dtype == p.dtype else g.float()
+            self.optimizer.step()
+        self.scheduler.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+        grads = None  # the reduced gradients, freed before the all-gather
+        if dp is not None:
+            dp.gather_params()
+        if self.ema is not None:
+            self.ema.update()
+        return loss, grad_norm
 
     # ------------------------------------------------------------------
     # logging
 
     def print(self, msg):
-        print(msg, flush=True)
+        if getattr(self, "rank", 0) == 0:
+            print(msg, flush=True)
 
     def _log_metrics(self, record: dict, step: Optional[int] = None):
+        if getattr(self, "rank", 0) != 0:
+            return
         step = self.steps if step is None else step
         record = dict(record, step=step, time=time.time())
         self.metrics.append(record)
@@ -144,39 +276,113 @@ class TrainerBase:
     # ------------------------------------------------------------------
     # checkpoints
 
-    def save(self, path, extra_model_state: Optional[dict] = None) -> dict:
-        """Write the run (fp32 weights, moments, step, EMA) in the reference
-        trainer's layout; returns the checkpoint."""
+    def save(self, path=None, extra_model_state: Optional[dict] = None):
+        """Write the run (fp32 weights, moments, step, EMA): "msgpack" to
+        `path` in the reference trainer's layout, by rank 0 (returns the
+        checkpoint there, None elsewhere); "orbax" to
+        `results_folder/orbax/<steps>`, every rank its shards (returns the
+        directory). Every rank calls it."""
         self._flush_losses()
+        if self.checkpoint_backend == "orbax":
+            return self.checkpointer.save(self.steps, self._sharded_state())
+        mus, nus, count = adam_state(self.optimizer, self.opt_params)
+        ema = None if self.ema is None else self.ema.shadow
+        if self._fsdp:
+            gather = self.data_parallel.gather
+            if all(m is not None for m in mus):
+                mus, nus = gather(mus), gather(nus)
+            ema = None if ema is None else gather(ema)
+        if self.rank != 0:
+            return None
         return save_trainer_checkpoint(
             path, module=self.module, named_params=self.named_params, optimizer=self.optimizer,
-            steps=self.steps, lr=self.lr, wd=self.wd, ema=self.ema,
-            extra_model_state=extra_model_state, prefix=self.state_prefix)
+            steps=self.steps, lr=self.lr, wd=self.wd, moments=(mus, nus, count),
+            ema_tensors=ema, extra_model_state=extra_model_state, prefix=self.state_prefix)
+
+    def _save_every(self, steps: int, prefix: str) -> None:
+        """The `save_model_every` checkpoint after step `steps`: "msgpack" to
+        `results_folder/{prefix}.{steps}.pt`, "orbax" to its step directory."""
+        path = self.results_folder / f"{prefix}.{steps}.pt"
+        saved = self.save(path)
+        self.print(f"{steps}: saving model to "
+                   f"{saved if self.checkpoint_backend == 'orbax' else path}")
+
+    def _sharded_state(self) -> dict:
+        """The run as `torch.distributed.checkpoint` state: the tensors the
+        optimizer steps, both moments and the EMA per parameter (an FSDP
+        shard as a `DTensor`), the module's other state, the step counts."""
+        dp = self.data_parallel
+        wrap = (lambda i, t: t) if dp is None else dp.dtensor
+        mus, nus, count = adam_state(self.optimizer, self.opt_params)
+        if any(m is None for m in mus):  # no step yet: zero moments, as a first step sees
+            restore_adam_state(self.optimizer, self.opt_params,
+                               [torch.zeros_like(p) for p in self.opt_params],
+                               [torch.zeros_like(p) for p in self.opt_params], count)
+        state = {"steps": torch.tensor(self.steps), "optim_count": torch.tensor(count)}
+        for i, ((name, _), p) in enumerate(zip(self.named_params, self.opt_params)):
+            st = self.optimizer.state[p]
+            state[f"model.{name}"] = wrap(i, p.detach())
+            state[f"optim.{name}.exp_avg"] = wrap(i, st["exp_avg"])
+            state[f"optim.{name}.exp_avg_sq"] = wrap(i, st["exp_avg_sq"])
+            if self.ema is not None:
+                state[f"ema.{name}"] = wrap(i, self.ema.shadow[i])
+        trained = {n for n, _ in self.named_params}
+        for name, t in self.module.state_dict().items():
+            if name not in trained:
+                state[f"module.{name}"] = t
+        return state
+
+    def _set_step(self, steps: int) -> None:
+        """The step count, and the schedule at it as if it had stepped there."""
+        self.steps = steps
+        sched = self.scheduler
+        sched.last_epoch = steps
+        for group, base, factor in zip(self.optimizer.param_groups, sched.base_lrs,
+                                       sched.lr_lambdas):
+            group["lr"] = base * factor(steps)
+        sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
 
     def _module_state(self, model: dict) -> dict:
         """The module's state dict out of a checkpoint's `model` dict."""
         n = len(self.state_prefix)
         return {k[n:]: v for k, v in model.items() if k.startswith(self.state_prefix)}
 
-    def load(self, path) -> None:
+    def load(self, path=None) -> None:
         """Resume from a checkpoint written by `save`: weights, moments, step
-        count (and so the learning rate), EMA."""
-        self.steps = load_trainer_checkpoint(
+        count (and so the learning rate), EMA. "msgpack": every rank reads
+        the file at `path`; "orbax": `path` is a step (int), a step
+        directory or None / "latest". Every rank calls it."""
+        dp = self.data_parallel
+        if self.checkpoint_backend == "orbax":
+            state = self._sharded_state()
+            self.checkpointer.load(path, state)
+            restore_adam_state(self.optimizer, self.opt_params,
+                               [self.optimizer.state[p]["exp_avg"] for p in self.opt_params],
+                               [self.optimizer.state[p]["exp_avg_sq"] for p in self.opt_params],
+                               int(state["optim_count"]))
+            if dp is not None:
+                dp.gather_params()
+            self._set_step(int(state["steps"]))
+            return
+        steps = load_trainer_checkpoint(
             path, module=self.module, named_params=self.named_params, optimizer=self.optimizer,
-            ema=self.ema, prefix=self.state_prefix, module_state=self._module_state)
-        sched = self.scheduler  # at the loaded step, as if it had stepped there
-        sched.last_epoch = self.steps
-        for group, base, factor in zip(self.optimizer.param_groups, sched.base_lrs,
-                                       sched.lr_lambdas):
-            group["lr"] = base * factor(self.steps)
-        sched._last_lr = [g["lr"] for g in self.optimizer.param_groups]
+            ema=self.ema, prefix=self.state_prefix, module_state=self._module_state,
+            opt_params=self.opt_params, shard=None if dp is None else dp.shard_of)
+        if self._fsdp:  # the masters from the loaded whole weights
+            with torch.no_grad():
+                for i, (p, s) in enumerate(zip(self.params, self.opt_params)):
+                    if s is not p:
+                        s.copy_(dp.shard_of(i, p.detach()))
+        self._set_step(steps)
 
     @property
     def ema_params(self) -> Optional[dict]:
-        """{name: EMA tensor} (None without `ema_decay`)."""
+        """{name: EMA tensor} (None without `ema_decay`); whole tensors (an
+        FSDP run gathers them: every rank reads it)."""
         if self.ema is None:
             return None
-        return {n: e for (n, _), e in zip(self.named_params, self.ema.shadow)}
+        shadow = self.data_parallel.gather(self.ema.shadow) if self._fsdp else self.ema.shadow
+        return {n: e for (n, _), e in zip(self.named_params, shadow)}
 
     # ------------------------------------------------------------------
     # the loop
@@ -216,8 +422,10 @@ class StageTrainer(TrainerBase):
                 f"{len(self.valid_ds)} items) must each hold a batch of {batch_size}"
             )
         kw = dict(bucket_multiples=tuple(bucket_multiples), pad_values=tuple(pad_values),
-                  max_lengths=tuple(max_lengths))
-        dl = PairedDataLoader(self.ds, batch_size * grad_accum_every, seed=seed, **kw)
+                  max_lengths=tuple(max_lengths), shard=self._shard)
+        # micro-batch groups of batch_size rows: a rank keeps its block of each
+        dl = PairedDataLoader(self.ds, batch_size * grad_accum_every, seed=seed,
+                              shard_group_size=batch_size, **kw)
         valid_dl = PairedDataLoader(self.valid_ds, batch_size, seed=seed + 1, **kw)
         if prefetch_batches > 0:
             pin = self._pinned if self.device.type == "cuda" else None
@@ -242,16 +450,38 @@ class StageTrainer(TrainerBase):
     def _loss(self, batch: dict, generator, **draws) -> torch.Tensor:  # pragma: no cover
         raise NotImplementedError
 
+    def _loss_weight(self, batch: dict) -> Optional[torch.Tensor]:
+        """The count a token-mean loss divides by, or None for a mean over
+        rows (equal on every rank, so a plain mean over ranks is right)."""
+        return None
+
+    def _rank_weights(self, micro_batches) -> Optional[list]:
+        """Under a mesh, each micro-batch loss's factor world * count /
+        (the count over ranks): the mean over ranks of the weighted losses
+        is the token mean over the global micro-batch."""
+        if self.data_parallel is None:
+            return None
+        counts = [self._loss_weight(mb) for mb in micro_batches]
+        if counts[0] is None:
+            return None
+        counts = torch.stack(counts).float()
+        return list(counts * self.world / self.data_parallel.total(counts))
+
     def _gradients(self, batch: dict, draws: dict):
         """(mean loss, gradients): the loss and its backward per micro-batch,
         the gradients summed in the parameters' `.grad` and averaged."""
         accum = self.grad_accum_every
         micro = next(iter(batch.values())).shape[0] // accum
+        slices = [slice(i * micro, (i + 1) * micro) for i in range(accum)]
+        micro_batches = [{k: v[sl] for k, v in batch.items()} for sl in slices]
+        weights = self._rank_weights(micro_batches)
         loss_sum = torch.zeros((), device=self.device)
-        for i in range(accum):
-            sl = slice(i * micro, (i + 1) * micro)
-            loss = self._loss({k: v[sl] for k, v in batch.items()}, self.generator,
-                              **{k: v[sl] for k, v in draws.items()})
+        for i, mb in enumerate(micro_batches):
+            rows = self._draw_rows(i, micro)
+            with self._rows(micro):
+                loss = self._loss(mb, self.generator, **{k: v[rows] for k, v in draws.items()})
+            if weights is not None:
+                loss = loss * weights[i]
             loss.backward()
             loss_sum += loss.detach()
         for p in self.params:  # an unused parameter still decays, as under optax
@@ -270,14 +500,7 @@ class StageTrainer(TrainerBase):
         batch = self._prepare_batch(next(self.dl_iter))
         self.module.train()
         loss, grads = self._gradients(batch, draws)
-        grad_norm = None
-        if self.max_grad_norm is not None:
-            grad_norm = clip_by_global_norm_f32(grads, self.max_grad_norm)
-        self.optimizer.step()
-        self.scheduler.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.ema is not None:
-            self.ema.update()
+        loss, grad_norm = self._apply_gradients(loss, grads)
 
         self._loss_buffer.append((steps, loss))
         if steps % self.log_every == 0:
@@ -285,13 +508,17 @@ class StageTrainer(TrainerBase):
         if steps % self.save_results_every == 0:
             batch = self._prepare_batch(next(self.valid_dl_iter))
             gen = torch.Generator(device=self.device).manual_seed(steps)
-            with torch.no_grad():
-                valid_loss = float(self._loss(batch, gen))
+            with torch.no_grad(), self._rows(next(iter(batch.values())).shape[0]):
+                valid_loss = self._loss(batch, gen)
+            weights = self._rank_weights([batch])
+            if weights is not None:
+                valid_loss = valid_loss * weights[0]
+            if self.data_parallel is not None:
+                valid_loss = self.data_parallel.mean(valid_loss)
+            valid_loss = float(valid_loss)
             self.print(f"{steps}: valid loss {valid_loss:0.3f}")
             self._log_metrics({"valid_loss": valid_loss})
         self.steps += 1
         if self.save_model_every is not None and steps % self.save_model_every == 0:
-            path = self.results_folder / f"{self.ckpt_prefix}.{steps}.pt"
-            self.save(path)
-            self.print(f"{steps}: saving model to {path}")
+            self._save_every(steps, self.ckpt_prefix)
         return {"loss": loss, "grad_norm": grad_norm}

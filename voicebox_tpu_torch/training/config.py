@@ -8,8 +8,11 @@ Counterpart of `voicebox_tpu/training/config.py`: `TrainConfig` holds what
     trainer = cfg.build(cfm, dataset)
     json.dumps(cfg.to_dict())
 
-`MeshConfig` keeps the JAX package's name; building a mesh raises, as
-multi-device layouts wait for ROADMAP item 15.
+`MeshConfig(data_parallel=, model_parallel=)` builds the ("data", "model")
+DeviceMesh over the process group (`parallel.mesh.make_mesh`); a "model"
+axis wider than 1 raises, as tensor parallelism waits for ROADMAP item 15b.
+`TrainConfig` also records `use_mesh`, `param_sharding`, `seq_parallel`
+and `min_fsdp_size`, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ class MeshConfig:
     model_parallel: int = 1
 
     def build(self):
-        raise NotImplementedError(
-            "MeshConfig: multi-device layouts are not ported yet (ROADMAP Queue 1, item 15)")
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(self.data_parallel, self.model_parallel)
 
 
 @dataclass(frozen=True)
@@ -66,6 +70,10 @@ class TrainConfig:
     bucket_offset: Optional[int] = None
     prefetch_batches: int = 2
     checkpoint_backend: str = "msgpack"
+    use_mesh: bool = True
+    param_sharding: str = "replicated"
+    seq_parallel: int = 1
+    min_fsdp_size: int = 2 ** 16
     mesh: Optional[MeshConfig] = field(default=None)
 
     def to_dict(self) -> dict:

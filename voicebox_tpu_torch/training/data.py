@@ -10,8 +10,8 @@ folder of audio files, each item a float32 mono wave, optionally resampled;
 `ArrayDataset` (latents (n, d), raw waves (n,), or (latents, frame-aligned
 ids) pairs), `PairedDataset` (K-field tuples whose first field may be
 text) and `TokenizedTextDataset` (text tokenized once, cached). Batching:
-`collate_with_mask` with its bucket grid, `DataLoader` (`get_dataloader`;
-without multi-process sharding), `AlignedPairedDataLoader` for (latents,
+`collate_with_mask` with its bucket grid, `DataLoader` (`get_dataloader`),
+`AlignedPairedDataLoader` for (latents,
 frame-aligned ids) pairs, `PairedDataLoader` with an independent bucket
 grid, pad value and maximum length per field (the duration trainer's
 phonemes and waves) and `random_split`. Shuffling uses numpy's
@@ -22,8 +22,19 @@ frames + 16 registers = 768 tokens; for raw waves the trainer sets it in
 samples). `PrefetchLoader` decodes and collates the next batches on a
 background thread (with an optional `transform`, such as copying into
 pinned host memory) while the device works; the native decoders release
-the GIL. The sharded loader (`shard`, `_local_rows`) is not ported yet
-(ROADMAP Queue 1, item 15).
+the GIL.
+
+Data parallelism (`shard=(rank, world)`, as the JAX package's loaders take
+it): every process runs the same seeded loader, so all agree on the order
+and on each batch's items; each yields only its rank-block of
+`shard_group_size / world` rows inside every group of `shard_group_size`
+rows (default: the whole batch), which matches the trainer's split of a
+step's batch into micro-batches. `DataLoader` and `AlignedPairedDataLoader`
+agree on the bucket length from `_item_length` of every row (a dataset's
+`item_length`, which reads a file's header alone) and decode only their
+own rows; `PairedDataLoader` reads every row of the batch to agree on each
+field's target (K-field tuples have no length accessor), then collates
+only its own.
 """
 
 from __future__ import annotations
@@ -271,6 +282,9 @@ class _Subset:
     def __getitem__(self, idx):
         return self.dataset[self.indices[idx]]
 
+    def item_length(self, idx) -> int:
+        return _item_length(self.dataset, self.indices[idx])
+
 
 def random_split(dataset, valid_frac: float, seed: int = 42):
     """(train, valid) subsets: a seeded permutation, the first
@@ -282,16 +296,44 @@ def random_split(dataset, valid_frac: float, seed: int = 42):
 
 
 def _item_length(dataset, idx) -> int:
-    """Length of item `idx` along axis 0, through the dataset's cheap
-    `item_length` where it has one, else by decoding."""
+    """Length of item `idx` along axis 0 (of its first field for a tuple),
+    through the dataset's cheap `item_length` where it has one, else by
+    decoding."""
     fn = getattr(dataset, "item_length", None)
     if fn is not None:
         return int(fn(idx))
-    return int(np.asarray(dataset[idx]).shape[0])
+    item = dataset[idx]
+    return int(np.shape(item[0] if isinstance(item, tuple) else item)[0])
 
 
 def pad_to_multiple(length: int, multiple: int) -> int:
     return int(math.ceil(length / multiple)) * multiple
+
+
+def _rank_positions(n_rows: int, shard: Optional[Tuple[int, int]],
+                    group: Optional[int] = None) -> np.ndarray:
+    """The positions in a batch of `n_rows` that rank `shard[0]` of
+    `shard[1]` yields: its block of `group / world` rows inside each group
+    of `group` rows (default: one group of the whole batch)."""
+    if shard is None:
+        return np.arange(n_rows)
+    rank, world = shard
+    group = group or n_rows
+    block = group // world
+    return np.concatenate([np.arange(g + rank * block, g + (rank + 1) * block)
+                           for g in range(0, n_rows, group)])
+
+
+def _check_shard(shard, batch_size: int, group: Optional[int]) -> None:
+    if shard is None:
+        return
+    rank, world = shard
+    group = group or batch_size
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    if batch_size % group or group % world:
+        raise ValueError(f"a batch of {batch_size} in groups of {group} does not split over "
+                         f"{world} processes")
 
 
 def _bucket_target(max_len: int, multiple: int, offset: int, align: int) -> int:
@@ -345,7 +387,8 @@ def collate_with_mask(
 class DataLoader:
     """Shuffling batch iterator yielding (batch, mask) numpy pairs with
     bucketed shapes. A short last batch wraps around to the full batch size
-    unless `drop_last`."""
+    unless `drop_last`. With `shard=(rank, world)` it yields this rank's
+    rows only (module doc)."""
 
     def __init__(
         self,
@@ -359,6 +402,8 @@ class DataLoader:
         drop_last: bool = False,
         bucket_offset: int = 0,
         align_multiple: int = 128,
+        shard: Optional[Tuple[int, int]] = None,
+        shard_group_size: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -370,6 +415,20 @@ class DataLoader:
         self.drop_last = drop_last
         self.bucket_offset = bucket_offset
         self.align_multiple = align_multiple
+        _check_shard(shard, batch_size, shard_group_size)
+        self.shard, self.shard_group_size = shard, shard_group_size
+
+    def _local_rows(self, idx: np.ndarray) -> np.ndarray:
+        """The items of the batch `idx` that this rank decodes."""
+        return idx[_rank_positions(len(idx), self.shard, self.shard_group_size)]
+
+    def _global_target(self, idx: np.ndarray) -> Optional[int]:
+        """Under `shard`, the bucket length every rank agrees on, from the
+        lengths of all the batch's rows (none decoded)."""
+        if self.shard is None or not self.pad_to_longest:
+            return None
+        return _bucket_target(max(_item_length(self.dataset, int(i)) for i in idx),
+                              self.bucket_multiple, self.bucket_offset, self.align_multiple)
 
     def _batches(self) -> Iterator[np.ndarray]:
         n = len(self.dataset)
@@ -385,10 +444,10 @@ class DataLoader:
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         for idx in self._batches():
             yield collate_with_mask(
-                [np.asarray(self.dataset[int(i)]) for i in idx],
+                [np.asarray(self.dataset[int(i)]) for i in self._local_rows(idx)],
                 bucket_multiple=self.bucket_multiple, pad_to_longest=self.pad_to_longest,
                 max_length=self.max_length, bucket_offset=self.bucket_offset,
-                align_multiple=self.align_multiple,
+                align_multiple=self.align_multiple, force_target=self._global_target(idx),
             )
 
     def cycle(self):
@@ -408,15 +467,18 @@ class AlignedPairedDataLoader(DataLoader):
 
     def __iter__(self):
         for idx in self._batches():
-            rows = [self.dataset[int(i)] for i in idx]
+            rows = [self.dataset[int(i)] for i in self._local_rows(idx)]
             for x, ids in rows:
                 if np.shape(x)[0] != np.shape(ids)[0]:
                     raise ValueError(
                         f"aligned pairs must have equal lengths per item, got "
                         f"latents {np.shape(x)[0]} vs ids {np.shape(ids)[0]}"
                     )
-            target = _bucket_target(max(np.shape(x)[0] for x, _ in rows), self.bucket_multiple,
-                                    self.bucket_offset, self.align_multiple)
+            target = self._global_target(idx)
+            if target is None:
+                target = _bucket_target(max(np.shape(x)[0] for x, _ in rows),
+                                        self.bucket_multiple, self.bucket_offset,
+                                        self.align_multiple)
             target = _capped(target, self.max_length, self.bucket_multiple, self.bucket_offset)
             xs, mask = collate_with_mask([np.asarray(x) for x, _ in rows], force_target=target)
             ids = np.full((len(rows), target), -1, dtype=np.int32)
@@ -432,12 +494,15 @@ class PairedDataLoader:
     `bucket_multiples[f]` (capped at `max_lengths[f]`) with
     `pad_values[f]` (-1 for ids). Yields one (padded, mask) pair per field.
     A short last batch wraps around to the full batch size unless
-    `drop_last`."""
+    `drop_last`. With `shard=(rank, world)` it yields this rank's rows only
+    (module doc)."""
 
     def __init__(self, dataset, batch_size: int, *, bucket_multiples: Sequence[int],
                  pad_values: Optional[Sequence] = None,
                  max_lengths: Optional[Sequence[Optional[int]]] = None, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = False):
+                 seed: int = 0, drop_last: bool = False,
+                 shard: Optional[Tuple[int, int]] = None,
+                 shard_group_size: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.bucket_multiples = tuple(bucket_multiples)
@@ -449,11 +514,19 @@ class PairedDataLoader:
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
         self.drop_last = drop_last
+        _check_shard(shard, batch_size, shard_group_size)
+        self.shard, self.shard_group_size = shard, shard_group_size
+
+    def _local_positions(self, n_rows: int) -> np.ndarray:
+        """The positions in a batch of `n_rows` that this rank yields."""
+        return _rank_positions(n_rows, self.shard, self.shard_group_size)
 
     @staticmethod
     def _collate_field(items: List[np.ndarray], multiple: int, pad_value,
-                       max_length: Optional[int]):
+                       max_length: Optional[int], force_target: Optional[int] = None):
         target = pad_to_multiple(max(it.shape[0] for it in items), multiple)
+        if force_target is not None:
+            target = force_target
         if max_length is not None and target > max_length:
             target = max_length
         batch = np.full((len(items), target, *items[0].shape[1:]), pad_value,
@@ -475,10 +548,13 @@ class PairedDataLoader:
                     return
                 idx = np.concatenate([idx, np.resize(order, self.batch_size - len(idx))])
             rows = [self.dataset[int(i)] for i in idx]
+            local = [rows[int(p)] for p in self._local_positions(len(rows))]
             yield tuple(
-                self._collate_field([np.asarray(row[f]) for row in rows],
-                                    self.bucket_multiples[f], self.pad_values[f],
-                                    self.max_lengths[f])
+                self._collate_field(
+                    [np.asarray(row[f]) for row in local], self.bucket_multiples[f],
+                    self.pad_values[f], self.max_lengths[f],
+                    force_target=pad_to_multiple(max(np.shape(row[f])[0] for row in rows),
+                                                 self.bucket_multiples[f]))
                 for f in range(len(self.bucket_multiples))
             )
 

@@ -1,7 +1,7 @@
 """DurationPredictorTrainer: train the phoneme-duration model end to end.
 
-Counterpart of `voicebox_tpu/training/duration_trainer.py` on one device,
-on `StageTrainer`'s loop (AdamW under warmup -> cosine, accumulation, the
+Counterpart of `voicebox_tpu/training/duration_trainer.py`, on
+`StageTrainer`'s loop (AdamW under warmup -> cosine, accumulation, the
 fp32 clip, the optional EMA, validation, checkpoints). A step runs
 `DurationPredictor.loss_fn`: on the card the transformer's attention runs
 K1 forward and K2 + K3 backward in fp32, MAS (`ops/mas.py`) runs as torch
@@ -34,7 +34,7 @@ import torch
 
 from ..models.codec import frame_mask
 from ..ops.stft import amplitude_to_db, mel_spectrogram
-from .base import _MESH, StageTrainer
+from .base import StageTrainer
 
 __all__ = ["DurationPredictorTrainer"]
 
@@ -69,6 +69,8 @@ class DurationPredictorTrainer(StageTrainer):
         results_folder: Optional[str] = None,
         force_clear_prev_results: bool = False,
         mesh=None,
+        use_mesh: bool = True,
+        split_batches: Optional[bool] = None,
         seed: int = 0,
         phoneme_bucket_multiple: int = 16,
         frame_bucket_multiple: int = 128,
@@ -79,8 +81,6 @@ class DurationPredictorTrainer(StageTrainer):
         trackers: tuple = (),
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         if num_train_steps is None and num_epochs is None:
             raise ValueError("either num_train_steps or num_epochs must be specified")
         if num_epochs is not None:
@@ -95,6 +95,7 @@ class DurationPredictorTrainer(StageTrainer):
             save_model_every=save_model_every, results_folder=results_folder,
             force_clear_prev_results=force_clear_prev_results,
             checkpoint_backend=checkpoint_backend, trackers=trackers, seed=seed, device=device,
+            batch_size=batch_size, mesh=mesh, use_mesh=use_mesh, split_batches=split_batches,
         )
 
         probe = dataset[0]

@@ -15,7 +15,8 @@ Counterpart of `voicebox_tpu/training/optimizer.py` (`get_optimizer`,
   -lr (update + wd p);
 * the clip is optax's: scale = max_norm / norm when norm >= max_norm, else 1,
   with the squares summed in fp32 (`torch.nn.utils.clip_grad_norm_` adds
-  1e-6 to the norm and does not match);
+  1e-6 to the norm and does not match); under FSDP the sum of squares of
+  the shards is all-reduced first;
 * the schedule is optax's linear warmup initial_lr -> lr over the warmup
   steps, then cosine decay from lr over `num_train_steps` steps, evaluated
   at the number of steps taken (a `LambdaLR` stepped after each update);
@@ -36,10 +37,11 @@ step) per parameter of either optimizer, for the checkpoints.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
 
 __all__ = [
@@ -213,13 +215,30 @@ def restore_adam_state(optimizer: torch.optim.Optimizer, params, mus, nus, count
 
 
 @torch.no_grad()
-def clip_by_global_norm_f32(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_f32(grads: Iterable[torch.Tensor], max_norm: float,
+                            group=None, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Scale the gradients in place by max_norm / norm when the global norm
     (squares summed in fp32) is at least max_norm; returns the norm before
-    clipping, a 0-d fp32 tensor on the gradients' device. No host sync."""
-    grads = [g for g in grads if g is not None]
+    clipping, a 0-d fp32 tensor on the gradients' device. No host sync.
+
+    Under FSDP (`group`: the data-parallel process group) some gradients
+    are this rank's shards (`sharded`, one flag per gradient) and the rest
+    are whole on every rank: the sum of squares counts each shard once and
+    each whole gradient on the group's first rank only, then is all-reduced
+    over `group` before the scale, so every rank clips by the norm of the
+    whole gradient."""
+    grads, flags = list(grads), list(sharded or [False] * len(grads))
+    keep = [i for i, g in enumerate(grads) if g is not None]
+    grads = [grads[i] for i in keep]
     norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
-    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        first = dist.get_rank(group) == 0
+        counted = torch.tensor([flags[i] or first for i in keep], device=norms[0].device)
+        sumsq = (torch.stack(norms).square() * counted).sum()
+        dist.all_reduce(sumsq, group=group)
+        norm = sumsq.sqrt()
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm.clamp_min(1e-16))
     torch._foreach_mul_(grads, scale)
     return norm

@@ -1,11 +1,13 @@
 """TextToSemanticTrainer: train the text -> semantic seq2seq.
 
-Counterpart of `voicebox_tpu/training/seq2seq_trainer.py` on one device, on
+Counterpart of `voicebox_tpu/training/seq2seq_trainer.py`, on
 `StageTrainer`'s loop (AdamW under warmup -> cosine, accumulation, the fp32
 clip, the optional EMA, validation, checkpoints under `text_to_semantic.`).
 A step runs `TextToSemantic.loss_fn`, the teacher-forced cross-entropy with
 eos at each row's true length; on the card the encoder's attention runs K1
-forward and K2 + K3 backward in fp32.
+forward and K2 + K3 backward in fp32. The loss is a mean over the batch's
+tokens, so under a mesh each rank's loss is weighted by its share of the
+token count (`_loss_weight`).
 
 Dataset items are 2-tuples of either
 
@@ -28,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .base import _MESH, StageTrainer
+from .base import StageTrainer
 from .trainer import swapped
 
 __all__ = ["TextToSemanticTrainer"]
@@ -64,6 +66,8 @@ class TextToSemanticTrainer(StageTrainer):
         results_folder: Optional[str] = None,
         force_clear_prev_results: bool = False,
         mesh=None,
+        use_mesh: bool = True,
+        split_batches: Optional[bool] = None,
         seed: int = 0,
         text_bucket_multiple: int = 64,
         semantic_bucket_multiple: int = 128,
@@ -74,8 +78,6 @@ class TextToSemanticTrainer(StageTrainer):
         trackers: tuple = (),
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         if num_train_steps is None and num_epochs is None:
             raise ValueError("either num_train_steps or num_epochs must be specified")
         if num_epochs is not None:
@@ -90,6 +92,7 @@ class TextToSemanticTrainer(StageTrainer):
             save_model_every=save_model_every, results_folder=results_folder,
             force_clear_prev_results=force_clear_prev_results,
             checkpoint_backend=checkpoint_backend, trackers=trackers, seed=seed, device=device,
+            batch_size=batch_size, mesh=mesh, use_mesh=use_mesh, split_batches=split_batches,
         )
 
         probe = np.asarray(dataset[0][1])
@@ -139,6 +142,11 @@ class TextToSemanticTrainer(StageTrainer):
 
     def _loss(self, batch: dict, generator, **draws) -> torch.Tensor:
         return self.t2s.loss_fn(batch["text_ids"], batch["semantic_ids"])
+
+    def _loss_weight(self, batch: dict) -> torch.Tensor:
+        """The loss's token count: each row's ids and its eos."""
+        ids = batch["semantic_ids"]
+        return ((ids != -1).sum(dim=-1) + 1).sum()
 
     def generate(self, *args, use_ema: bool = False, **kwargs):
         """`t2s.generate` with the trained weights, or the EMA's."""

@@ -1,14 +1,27 @@
 """The VoiceBox trainer: CFM loss, gradient accumulation, fp32 global-norm
 clip, AdamW and the warmup -> cosine schedule, on latent datasets.
 
-Counterpart of `voicebox_tpu/training/trainer.py::VoiceBoxTrainer` on one
-device. A step takes `batch_size * grad_accum_every` items, runs the loss and
-its backward per micro-batch (on the card: K1 forward, K2 + K3 backward in
-every attention layer), averages the gradients, clips, steps the optimizer
-and then the schedule. Losses stay on the device between log boundaries and
+Counterpart of `voicebox_tpu/training/trainer.py::VoiceBoxTrainer`. A step
+takes `batch_size * grad_accum_every` items, runs the loss and its backward
+per micro-batch (on the card: K1 forward, K2 + K3 backward in every
+attention layer), averages the gradients, clips, steps the optimizer and
+then the schedule. Losses stay on the device between log boundaries and
 are fetched together. Every `save_results_every` steps a validation batch
 gives a loss, with the span and CFG masks drawn from a generator seeded by
 the step.
+
+Data parallelism over processes (`training/base.py`): `mesh` (a
+`parallel.mesh.make_mesh` DeviceMesh; by default one is built under a
+process group of more than one process, unless `use_mesh=False`),
+`split_batches` (None or True: `batch_size` is the global batch),
+`param_sharding` ("replicated", or "fsdp": the parameters of at least
+`min_fsdp_size` elements, their moments and EMA split over "data"; see
+`parallel/data_parallel.py`). Each rank decodes its rows only (the
+loaders' `shard`), draws at the global micro-batch's shape and keeps its
+rows, and the gradients are reduced once a step, so a run equals the
+single-process one on the same global batch. `param_sharding="tp"` or
+"fsdp+tp" and `seq_parallel > 1` raise NotImplementedError: tensor and
+sequence parallelism wait for ROADMAP item 15b.
 
 The JAX trainer's single-device options:
 
@@ -41,8 +54,9 @@ denoiser takes their semantic ids from the frozen wav2vec of the wrapper's
 in samples, `(registers + frame_offset) * downsample` below a multiple of
 `128 * downsample`, so frames + registers land on the 128 grid (a 10 s wave
 of 240 000 samples, 938 mel frames at hop 256, pads to 257 792 samples =
-1008 frames + 16 registers). The device mesh and sharded checkpoints are
-not ported yet (ROADMAP item 15). The module's parameters must be fp32: the
+1008 frames + 16 registers). Checkpoints are "msgpack" (the reference's
+`.pt`) or "orbax" (sharded, `training/checkpoint.py`). The module's
+parameters must be fp32: the
 denoiser computes in its `dtype` (bf16 on the card) and casts each weight
 at use, as the JAX trainer does. Unlike the JAX trainer, metrics and
 checkpoints are written only when a `results_folder` is given, and a
@@ -52,7 +66,6 @@ checkpoint's `steps` counts the optimizer steps it holds.
 from __future__ import annotations
 
 import contextlib
-import shutil
 from pathlib import Path
 from typing import Optional
 
@@ -65,13 +78,6 @@ from ..utils.convert import denoiser_state
 from .base import TrainerBase
 from .checkpoint import check_backend
 from .data import AlignedPairedDataLoader, DataLoader, PrefetchLoader, random_split
-from .optimizer import (
-    AdamLowPrecisionMoments,
-    ParamsEMA,
-    clip_by_global_norm_f32,
-    get_optimizer,
-    warmup_cosine_schedule,
-)
 
 __all__ = ["VoiceBoxTrainer"]
 
@@ -120,7 +126,12 @@ class VoiceBoxTrainer(TrainerBase):
         save_model_every: Optional[int] = None,
         results_folder: Optional[str] = None,
         force_clear_prev_results: bool = False,
+        split_batches: Optional[bool] = None,
         mesh=None,
+        use_mesh: bool = True,
+        param_sharding: str = "replicated",  # replicated | fsdp (tp, fsdp+tp: item 15b)
+        seq_parallel: int = 1,
+        min_fsdp_size: int = 2 ** 16,
         seed: int = 0,
         bucket_multiple: int = 256,
         max_length: Optional[int] = None,
@@ -136,12 +147,11 @@ class VoiceBoxTrainer(TrainerBase):
         trackers: tuple = (),
         device="cuda",
     ):
-        if mesh is not None:
+        if seq_parallel > 1:
             raise NotImplementedError(
-                "mesh: multi-device layouts are not ported yet (ROADMAP Queue 1, item 15)")
+                "seq_parallel > 1: sequence parallelism (ring attention, the halo conv) is not "
+                "ported yet (ROADMAP Queue 1, item 15b)")
         check_backend(checkpoint_backend)
-        if save_model_every is not None and results_folder is None:
-            raise ValueError("save_model_every needs a results_folder to write to")
         self.device = resolve_device(device)
         self.cfm_wrapper = cfm_wrapper.to(self.device)
         self.batch_size = batch_size
@@ -177,12 +187,11 @@ class VoiceBoxTrainer(TrainerBase):
                 f"param_dtype=torch.float32); got {wrong[:3]}..."
             )
         self.params = [p for _, p in self.named_params]
-        self.optimizer = get_optimizer(self.named_params, lr=lr, wd=wd,
-                                       moment_dtype=moment_dtype)
-        self.scheduler = warmup_cosine_schedule(
-            self.optimizer, lr, initial_lr, self.num_warmup_steps, self.num_train_steps
-        )
-        self.ema = None if ema_decay is None else ParamsEMA(self.params, ema_decay, ema_dtype)
+        self._setup_parallel(mesh=mesh, use_mesh=use_mesh, split_batches=split_batches,
+                             batch_size=batch_size, param_sharding=param_sharding,
+                             min_fsdp_size=min_fsdp_size)
+        self._setup_optimizer(moment_dtype=moment_dtype, ema_decay=ema_decay,
+                              ema_dtype=ema_dtype)
         self.param_dtype = param_dtype
         self._live = None
         if param_dtype is not None:
@@ -211,8 +220,10 @@ class VoiceBoxTrainer(TrainerBase):
                     bucket_multiple = align_multiple
         loader = AlignedPairedDataLoader if self._paired else DataLoader
         kw = dict(bucket_multiple=bucket_multiple, max_length=max_length, drop_last=drop_last,
-                  bucket_offset=bucket_offset, align_multiple=align_multiple)
-        dl = loader(self.ds, batch_size * grad_accum_every, seed=seed, **kw)
+                  bucket_offset=bucket_offset, align_multiple=align_multiple, shard=self._shard)
+        # micro-batch groups of batch_size rows: a rank keeps its block of each
+        dl = loader(self.ds, batch_size * grad_accum_every, seed=seed,
+                    shard_group_size=batch_size, **kw)
         valid_dl = loader(self.valid_ds, batch_size, seed=seed + 1, **kw)
         if prefetch_batches > 0:
             pin = self._pinned if self.device.type == "cuda" else None
@@ -225,16 +236,10 @@ class VoiceBoxTrainer(TrainerBase):
         self._profiler = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.steps = 0
-        self.metrics: list = []
-        self._metrics_path = self.results_folder = None
-        if results_folder is not None:
-            self.results_folder = Path(results_folder)
-            if force_clear_prev_results and self.results_folder.exists():
-                shutil.rmtree(self.results_folder)
-            self.results_folder.mkdir(parents=True, exist_ok=True)
-            self._metrics_path = self.results_folder / "metrics.jsonl"
-        self._trackers = tuple(trackers)
-        self._loss_buffer: list = []
+        self._setup_results(results_folder=results_folder,
+                            force_clear_prev_results=force_clear_prev_results,
+                            checkpoint_backend=checkpoint_backend,
+                            save_model_every=save_model_every, trackers=trackers)
         self._log_init_hps()
 
     # ------------------------------------------------------------------
@@ -284,11 +289,12 @@ class VoiceBoxTrainer(TrainerBase):
     def _module_state(self, model: dict) -> dict:
         return denoiser_state(model)
 
-    def load(self, path) -> None:
+    def load(self, path=None) -> None:
         """Resume from a checkpoint written by `save`, by the JAX package's
         `save_torch` or by the reference trainer: weights, moments, step
         count (and so the learning rate), EMA; the bf16 live copies are
-        recast from the loaded weights."""
+        recast from the loaded weights. With "orbax", `path` is a step, a
+        step directory or None (the newest)."""
         super().load(path)
         if self._live is not None:
             torch._foreach_copy_(self._live, [p.detach() for p in self.params])
@@ -298,12 +304,13 @@ class VoiceBoxTrainer(TrainerBase):
     load_torch = load
 
     def generate(self, *args, use_ema: bool = False, **kwargs):
-        """`cfm_wrapper.sample` with the fp32 weights, or the EMA's."""
+        """`cfm_wrapper.sample` with the fp32 weights, or the EMA's (an FSDP
+        run gathers them: every rank calls it)."""
         if not use_ema:
             return self.cfm_wrapper.sample(*args, **kwargs)
         if self.ema is None:
             raise ValueError("use_ema=True needs VoiceBoxTrainer(ema_decay=...)")
-        with swapped(self.params, self.ema.shadow):
+        with swapped(self.params, list(self.ema_params.values())):
             return self.cfm_wrapper.sample(*args, **kwargs)
 
     # ------------------------------------------------------------------
@@ -321,9 +328,11 @@ class VoiceBoxTrainer(TrainerBase):
         loss_sum = torch.zeros((), device=self.device)
         acc = None
         for i in range(accum):
-            sl = slice(i * micro, (i + 1) * micro)
-            loss = self._loss(x[sl], mask[sl], None if ids is None else ids[sl],
-                              generator=self.generator, **{k: v[sl] for k, v in draws.items()})
+            sl, rows = slice(i * micro, (i + 1) * micro), self._draw_rows(i, micro)
+            with self._rows(micro):
+                loss = self._loss(x[sl], mask[sl], None if ids is None else ids[sl],
+                                  generator=self.generator,
+                                  **{k: v[rows] for k, v in draws.items()})
             loss.backward()
             loss_sum += loss.detach()
             if self._live is not None:
@@ -385,19 +394,7 @@ class VoiceBoxTrainer(TrainerBase):
         else:
             with swapped(self.params, self._live):
                 loss, grads = self._gradients(x, mask, ids, draws)
-        grad_norm = None
-        if self.max_grad_norm is not None:
-            grad_norm = clip_by_global_norm_f32(grads, self.max_grad_norm)
-        if isinstance(self.optimizer, AdamLowPrecisionMoments):
-            self.optimizer.step(dict(zip(self.params, grads)))
-        else:
-            for p, g in zip(self.params, grads):
-                p.grad = g if g.dtype == p.dtype else g.float()
-            self.optimizer.step()
-        self.scheduler.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.ema is not None:
-            self.ema.update()
+        loss, grad_norm = self._apply_gradients(loss, grads)
         if self._live is not None:  # the next step's live copies
             torch._foreach_copy_(self._live, [p.detach() for p in self.params])
 
@@ -407,15 +404,16 @@ class VoiceBoxTrainer(TrainerBase):
         if steps % self.save_results_every == 0:
             x, mask, ids = self._next_batch(self.valid_dl_iter)
             gen = torch.Generator(device=self.device).manual_seed(steps)
-            with torch.no_grad():
-                valid_loss = float(self._loss(x, mask, ids, generator=gen))
+            with torch.no_grad(), self._rows(x.shape[0]):
+                valid_loss = self._loss(x, mask, ids, generator=gen)
+            if self.data_parallel is not None:  # equal rows: the mean of the ranks' means
+                valid_loss = self.data_parallel.mean(valid_loss)
+            valid_loss = float(valid_loss)
             self.print(f"{steps}: valid loss {valid_loss:0.3f}")
             self._log_metrics({"valid_loss": valid_loss})
         self.steps += 1
         if self.save_model_every is not None and steps % self.save_model_every == 0:
-            path = self.results_folder / f"voicebox.{steps}.pt"
-            self.save(path)
-            self.print(f"{steps}: saving model to {path}")
+            self._save_every(steps, "voicebox")
         return {"loss": loss, "grad_norm": grad_norm}
 
     def train(self):

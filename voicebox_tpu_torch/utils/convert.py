@@ -22,6 +22,9 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 * `text_to_semantic_state_dict`: `TextToSemantic` params -> the port's
   keys (`net.` + the encoder's reference keys and the decoder's JAX
   names);
+* `lora_from_jax`: a JAX `lora_init` tree (`lora_a` (in, r), `lora_b`
+  (r, out) under each adapted Dense's flax path) -> the port's adapters,
+  keyed by module name (`ops/lora.py`); A and B keep their layout;
 * `vocos_state_dict`: the upstream Vocos layout;
 * `seanet_encoder_state_dict`, `seanet_decoder_state_dict`,
   `encodec_model_state_dict`: upstream facebook/encodec's layout, the
@@ -81,6 +84,7 @@ __all__ = [
     "hubert_state_dict",
     "load_hubert_state_dict",
     "text_to_semantic_state_dict",
+    "lora_from_jax",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -471,6 +475,38 @@ def text_to_semantic_state_dict(params: Mapping, dim_head: int = 64) -> StateDic
     out[f"{prefix}final_norm.gamma"] = _t(params["final_norm"]["gamma"])
     _dense(out, f"{prefix}to_logits", params["to_logits"], bias=False)
     out[f"{prefix}rotary_emb.inv_freq"] = _t(rotary_inv_freq(dim_head))
+    return out
+
+
+# a transformer block's adapted Denses (flax path under `block_{i}`) -> their
+# place in the port's block [skip_combiner, gateloop, attn_prenorm, attn,
+# ff_prenorm, ff]
+_LORA_PLACES = {("attn", "to_qkv"): "3.to_qkv", ("attn", "to_out"): "3.to_out",
+                ("ff", "proj_in"): "5.0", ("ff", "proj_out"): "5.3", ("skip_combiner",): "0"}
+
+
+def lora_from_jax(lora: Mapping, prefix: str = "") -> Dict[str, Dict[str, torch.nn.Parameter]]:
+    """JAX `lora_init` adapters (nested dicts of numpy leaves) -> `{module
+    name: {"lora_a": Parameter, "lora_b": Parameter}}` for the port's
+    `merge_lora_params` and `fold_lora`. `prefix` is the transformer's owner
+    in the port (`"net."` for a `DurationPredictor`'s adapters)."""
+    out: Dict[str, Dict[str, torch.nn.Parameter]] = {}
+
+    def walk(tree: Mapping, path: Tuple[str, ...]) -> None:
+        if "lora_a" in tree:
+            blocks = [i for i, k in enumerate(path) if k.startswith("block_")]
+            if not blocks or tuple(path[blocks[-1] + 1:]) not in _LORA_PLACES:
+                raise ValueError(f"no port place for the adapter at {'/'.join(path)}")
+            b = blocks[-1]
+            name = ".".join(path[:b]) + f".layers.{int(path[b][6:])}." + _LORA_PLACES[
+                tuple(path[b + 1:])]
+            out[prefix + name] = {k: torch.nn.Parameter(_t(tree[k])) for k in ("lora_a",
+                                                                               "lora_b")}
+            return
+        for key, sub in tree.items():
+            walk(sub, path + (key,))
+
+    walk(lora, ())
     return out
 
 
