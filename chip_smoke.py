@@ -163,13 +163,13 @@ imports nothing of JAX. Its phases print one line each or more:
    `TextToSemanticTrainer` steps, losses and parameter updates;
 18. the semantic stack at full width, random weights: HuBERT-base (layer 9,
    500 clusters) on 8 x 10 s; the TextToSemantic (dim 512, 6 + 6 layers, 8 x
-   64 heads, fp32, 500 ids) decoding 256 ids: plain greedy and speculative
+   64 heads, fp32, 500 ids) decoding 128 ids: plain greedy and speculative
    (gamma 5, 3 draft layers; equal before the first near tie) with ms and
    kernels per token and the acceptance, and `quantize="w8a16"` (fp32 K4 on
    every decoder matmul) at batch 1 over 128 ids and batch 4 speculative
    over 64, its ms, kernels, device busy and K4 device ms a token beside
    the float decode's, and K4's launch-weighted ms a launch; semantic-mode
-   `TTSEngine` (text buckets 64/128, batch buckets 1/2/4, 256 ids,
+   `TTSEngine` (text buckets 64/128, batch buckets 1/2/4, 128 ids,
    `spec_decode`, the flagship bf16 denoiser with w8a16, EncodecVoco):
    warmup, one request each at batch 1 and 2, four batcher submits, each
    group exactly 6 + 96 K1 and 384 K4 launches, latency, RTF, the decode's
@@ -231,16 +231,41 @@ imports nothing of JAX. Its phases print one line each or more:
    384 K4 launches at shapes phases 3 and 5 checked. (b) two processes
    (`chip_smoke.py --dp-worker`) under gloo at world 2 sharing cuda:0,
    each running `VoiceBoxTrainer` at phase 10's geometry, qk gains 0.25,
-   global batch 8 (4 rows a rank), under "replicated" and "fsdp", 2 warm-up
-   and 3 timed steps on explicit draws: each rank's step exactly 24 K1, K2
+   global batch 8 (4 rows a rank), under "replicated" and "fsdp", 1 warm-up
+   and 2 timed steps on explicit draws: each rank's step exactly 24 K1, K2
    and K3, rank 0's losses and parameters equal to the single-process
    trainer's on the same global batch and draws (2 micro-batches of 4 rows,
    so "replicated" to the bit), ms a step, the reduction's share, peak
    memory per rank; then `checkpoint_backend="orbax"` under "fsdp" with an
-   EMA: saved after 2 steps, loaded by ranks built from other weights, the
-   third step's loss, every parameter, moment and EMA shard equal to the
-   uninterrupted run's to the bit, each rank's shard file written;
-22. one JSON line for the kernels (one row per kernel and main path; on the
+   EMA: saved after 1 step, loaded by ranks built from other weights, the
+   second step's loss, every parameter, moment and EMA shard equal to the
+   uninterrupted run's to the bit, each rank's shard file written; the peak
+   a rank of each layout over its timed steps, and beside it each part's
+   (forward and backward, reduction, AdamW, gather): "fsdp"'s peak must be
+   under "replicated"'s on both ranks;
+22. tensor and sequence parallelism, in phase 21 (b)'s two rank processes
+   (`tp_sp_worker`), phase 10's trainer at qk gains 0.25 and the global
+   batch of 8 x 752 on each rank, 1 warm-up and 2 timed steps on explicit
+   draws: (a) `param_sharding="tp"` at model 2 (each rank 2 of the 4 heads:
+   24 K1, K2 and K3 a step at (8, 2, 768, 768, 128); the feed-forward's
+   `proj_in` split and gathered, `proj_out` whole); (b) `seq_parallel=2`
+   (each rank 376 frames + 16 registers; ring attention: 48 K1, K2 and K3 a
+   step, its own block (8, 4, 392, 392, 128) and the other rank's (8, 4,
+   392, 376, 128); the halo conv); first, ring attention alone on the card
+   (K1, K2 and K3 per block) against the plain ring on the same tensors,
+   with and without the registers, ragged and with a row of no key, in bf16
+   and fp32; each rank's ms a step, the collectives' share (host clock
+   around synchronized calls), peak memory and launches; rank 0's losses
+   and the first step's reduced gradients (gathered whole, leaf by leaf)
+   against one process at 8 rows a micro-batch, within TP_SP_TIMES_FLOOR of
+   the distance between two single-process runs that differ in summation
+   order (the parameters' distance after the steps printed); then a 4080-frame
+   utterance's vector field on each rank's 2040 frames against one
+   process's: in bf16 at depth 24 (within the bf16-vs-fp32 floor) and in
+   fp32 at depth 4 (within 1e-4). Every K1, K2 and K3 launch (counted where
+   it is made, ring attention's included) at a shape phases 3 and 4 checked
+   and timed;
+23. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -253,6 +278,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import gc
 import importlib.util
 import io
 import json
@@ -306,6 +332,8 @@ from voicebox_tpu_torch.ops.quant import (
     w8a16_matmul,
     w8a16_matmul_reference,
 )
+from voicebox_tpu_torch.ops import ring_attention as ring_module
+from voicebox_tpu_torch.ops.ring_attention import ring_attention, ring_attention_prefixed
 from voicebox_tpu_torch.ops.forward_sum import forward_sum_loss
 from voicebox_tpu_torch.ops.lora import (fold_lora, lora_dense, lora_init, lora_parameters,
                                          lora_scale, merge_lora_params)
@@ -338,10 +366,11 @@ HBM_BYTES_PER_S = 3.35e12
 # the semantic engine's buckets (phase 18)
 SEM_BATCHES, SEM_TEXT_BUCKETS = (1, 2, 4), (32, 64, 128)
 # the semantic stack's id horizon (phase 18: the decodes, the engine's
-# warmup and requests), cut from 1024 to 256 to keep the script inside its
-# clock (ROADMAP names this depth the first to cut); the engine's text
-# buckets leave out 32, which no engine request of phase 18 reaches
-SEM_IDS = 256
+# warmup and requests), cut from 1024 to 256 (PR 15) and to 128 (PR 16,
+# when phase 22 took the script to 1242 s on a slow host) to keep the
+# script inside its clock; the engine's text buckets leave out 32, which no
+# engine request of phase 18 reaches
+SEM_IDS = 128
 SEM_ENGINE_TEXT_BUCKETS = (64, 128)
 # the example HTTP server's engine (phase 20, `examples/serve_http.py`)
 HTTP_BATCHES, HTTP_TEXT_BUCKETS = (1, 2, 4), (32, 64)
@@ -442,7 +471,22 @@ K1_CASES = [
       for j, d in enumerate((16, 32)) for i, (n, kv) in enumerate(k23_f32_edges())
       for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
 ]
+# phase 22's ranks: a "tp" rank's 2 of the 4 heads; a sequence-parallel
+# rank's ring blocks, its 376 frames + 16 registers against its own keys,
+# then against the other rank's 376, in training and on a long utterance
+# (2040 frames a rank) with no mask
+TP_SP_K1 = [
+    ("tp_rank_bf16", (8, 2, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("sp_own_bf16", (8, 4, 392, 392, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("sp_remote_bf16", (8, 4, 392, 376, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("sp_long_own_bf16", (1, 4, 2056, 2056, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("sp_long_remote_bf16", (1, 4, 2056, 2040, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("sp_long_own_f32", (1, 4, 2056, 2056, 128), torch.float32, "qk", None, 1e-3, 1e-3),
+    ("sp_long_remote_f32", (1, 4, 2056, 2040, 128), torch.float32, "qk", None, 1e-3, 1e-3),
+]
+K1_CASES += TP_SP_K1
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_train_bf16",
+            *(name for name, *_ in TP_SP_K1),
             "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
@@ -515,7 +559,11 @@ K23_CASES = [
     ("canary_enc_b16_f32", (16, 4, 7, 7, 16), torch.float32, "randn", "all", 1e-4),
     ("canary_t2s_b8_f32", (8, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-4),
 ]
+TP_SP_K23 = [(name, shape, dtype, inputs, mask, 2e-2)
+             for name, shape, dtype, inputs, mask, *_ in TP_SP_K1 if "long" not in name]
+K23_CASES += TP_SP_K23
 K23_TIMED = ("train_bf16", "rank_train_bf16", "reference_split_bf16", "mel_train_bf16",
+             *(name for name, *_ in TP_SP_K23),
              "dp_train_f32",
              "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
@@ -1010,12 +1058,13 @@ def single_key_floor(q, k, v, do, scale) -> tuple:
 # the feed-forward's proj_in (GEGLU, 2 x 1365) and proj_out. m is batch x 2
 # for CFG x (frames + 16 registers): the engine's groups give 544 (batch 1,
 # 256 frames), 2112 (batch 2, 512) and 8320 (batch 4, 1024); 1532 is
-# batch 1 at 750 frames; the semantic engine's 256 ids (SEM_IDS) give 544,
-# 1088 and 2176; a long-form window (768 frames + 16 registers, batch 1)
+# batch 1 at 750 frames; the semantic engine's 128 ids (SEM_IDS) give 288,
+# 576 and 1152; a long-form window (768 frames + 16 registers, batch 1)
 # gives 1568
 K4_SHAPES = {"to_qkv": (512, 1536), "to_out": (512, 512), "ff_proj_in": (512, 2730),
              "ff_proj_out": (1365, 512)}
-K4_ROWS = (544, 1088, 1532, 1568, 2112, 2176, 8320)  # 1088, 2176: semantic batches 2, 4
+K4_ROWS = tuple(sorted({544, 1532, 1568, 2112, 8320,  # the semantic batches 1, 2, 4:
+                        *(2 * b * (SEM_IDS + 16) for b in SEM_BATCHES)}))
 K4_RAGGED_ROWS = (37, 1)
 # tolerance of |K4 - plain| <= rtol |plain| + atol max|plain|. Both sum exact
 # products (bf16 x int8, or fp32 x int8 in fp32) in fp32, in another order
@@ -1555,25 +1604,29 @@ def _min_median(times) -> str:
 
 @contextlib.contextmanager
 def shape_tally():
-    """Count by operand shape, while the block runs, the calls of K1's
-    wrapper from the attention modules, of K2's and K3's from the kernels'
-    backward, and of the w8a16 `QuantLinear`s (each one call of K4's
-    wrapper): {("k1" | "k2" | "k3", (b, h, n, kv, d), dtype, masked) or
-    ("k4", (m, k, n), dtype): calls}. On CUDA tensors each call is one
-    launch."""
+    """Count by operand shape, while the block runs, each launch of K1, K2
+    and K3 wherever it is called from (the attention modules' kernels and
+    ring attention's blocks: the launch functions are wrapped) and each call
+    of the w8a16 `QuantLinear`s (one call of K4's wrapper, one launch on CUDA
+    tensors): {("k1" | "k2" | "k3", (b, h, n, kv, d), dtype, masked) or
+    ("k4", (m, k, n), dtype): count}. Tallies may nest."""
     tally = collections.Counter()
-    k1, forward = attention_module.flash_attention, QuantLinear.forward
-    k23 = flash_module._kernel_backward  # one K2 and one K3 call
+    forward = QuantLinear.forward
+    saved = {name: getattr(flash_module, name) for name in
+             ("_launch_k1", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 
-    def attend(q, k, v, mask=None, scale=None, **kw):
-        tally["k1", (*q.shape[:3], k.shape[2], q.shape[3]), q.dtype, mask is not None] += 1
-        return k1(q, k, v, mask=mask, scale=scale, **kw)
-
-    def backward(q, k, v, mask, *args):
-        for kernel in ("k2", "k3"):
+    def counted(kernel, fn):
+        def call(q, k, v, mask, *args, **kw):
             tally[kernel, (*q.shape[:3], k.shape[2], q.shape[3]), q.dtype,
                   mask is not None] += 1
-        return k23(q, k, v, mask, *args)
+            try:
+                return fn(q, k, v, mask, *args, **kw)
+            finally:  # K2 and K3 count on the name they are called by: this one
+                if call.launches:
+                    call.root.launches += call.launches
+                    call.launches = 0
+        call.launches, call.root = 0, getattr(fn, "root", fn)
+        return call
 
     def quant_forward(layer, x):
         if layer.mode == "w8a16":
@@ -1581,13 +1634,15 @@ def shape_tally():
             tally["k4", (m, layer.in_features, layer.out_features), layer.compute_dtype] += 1
         return forward(layer, x)
 
-    attention_module.flash_attention, QuantLinear.forward = attend, quant_forward
-    flash_module._kernel_backward = backward
+    for kernel, name in zip(("k1", "k2", "k3"), saved):
+        setattr(flash_module, name, counted(kernel, saved[name]))
+    QuantLinear.forward = quant_forward
     try:
         yield tally
     finally:
-        attention_module.flash_attention, QuantLinear.forward = k1, forward
-        flash_module._kernel_backward = k23
+        for name, fn in saved.items():
+            setattr(flash_module, name, fn)
+        QuantLinear.forward = forward
 
 
 # per quantized module, ||quantized - bf16|| / ||bf16|| <= QUANT_MODULE_TOL x
@@ -4146,7 +4201,8 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
 # phase 21: LoRA fine-tuning and data-parallel training at full width
 LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16, 1e-3
 LORA_WARMUP, LORA_TIMED = 2, 10
-DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 2, 3, 16
+# 1 + 2 steps (2 + 3 until phase 22 took the script past its clock)
+DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 1, 2, 16
 DP_MODES = ("replicated", "fsdp")
 DP_TIMEOUT_S = 600
 # The single-process reference takes the global batch as 2 micro-batches of
@@ -4154,7 +4210,7 @@ DP_TIMEOUT_S = 600
 # same order, so "replicated" must equal it to the bit. "fsdp" clips by a
 # norm summed over the shards in another order: its losses within
 # DP_FSDP_RTOL, its parameters within DP_UPDATE_RTOL of the single
-# process's update (5 steps). (A reference at 8 rows a micro-batch differs
+# process's update (after DP_WARMUP + DP_TIMED steps). (A reference at 8 rows a micro-batch differs
 # from either by bf16 rounding that the flagship's chaotic gradients at unit
 # qk gains amplify: 2.4e-3 of the loss after one step on the H100.)
 # The flagship at unit qk gains is chaotic (ROADMAP Queue 3: gradient norms
@@ -4351,11 +4407,13 @@ def _dp_items(same: bool = False) -> list:
     return items * TRAIN_BATCH if same else items
 
 
-def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, **kw):
-    """Phase 10's flagship trainer on cuda:0 (both ranks share the card)."""
+def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, dtype=torch.bfloat16,
+                depth: int = FLAGSHIP["depth"], **kw):
+    """Phase 10's flagship trainer on cuda:0 (both ranks share the card);
+    `dtype` and `depth` change the denoiser's compute dtype and depth."""
     def build():
-        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
-                          **FLAGSHIP)
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=dtype, param_dtype=torch.float32,
+                          **{**FLAGSHIP, "depth": depth})
         _soften_qk_gains(vb, DP_QK_GAIN)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device="cuda:0")
 
@@ -4363,6 +4421,22 @@ def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, **kw):
         seeded(build, seed), batch_size=batch_size, dataset=vbt.ArrayDataset(items),
         num_train_steps=1000, lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0,
         log_every=1000, save_results_every=1000, seed=SEED, device="cuda:0", **kw)
+
+
+def _first_gradients(trainer) -> dict:
+    """Wrap `trainer._apply_gradients` so that its first call's gradients
+    (the step's mean, before the clip) land in the returned dict, on the
+    host, by parameter name."""
+    grads, apply = {}, trainer._apply_gradients
+
+    def applied(loss, g):
+        if not grads:
+            grads.update({n: x.detach().float().cpu() for (n, _), x in
+                          zip(trainer.named_params, g)})
+        return apply(loss, g)
+
+    trainer._apply_gradients = applied
+    return grads
 
 
 def _dp_explicit_draws(steps: int) -> list:
@@ -4378,10 +4452,11 @@ def _dp_explicit_draws(steps: int) -> list:
 
 def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
     """One rank of phase 21 (b), run as `chip_smoke.py --dp-worker`: gloo at
-    world 2, both ranks on cuda:0; under "replicated" and "fsdp" 2 warm-up
-    and 3 timed steps, held (rank 0) to the single process's losses and
-    parameters; then an "orbax" save after 2 steps and a resume into ranks
-    built from other weights. Writes rank{r}.json."""
+    world 2, both ranks on cuda:0; under "replicated" and "fsdp" DP_WARMUP
+    warm-up and DP_TIMED timed steps, held (rank 0) to the single process's
+    losses and parameters; then an "orbax" save after 1 step and a resume
+    into ranks built from other weights; then phase 22 (`tp_sp_worker`).
+    Writes rank{r}.json."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4409,11 +4484,36 @@ def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
             return call
 
         dp.reduce, dp.gather_params = timed(dp.reduce), timed(dp.gather_params)
+        # the timed window's peak (`window`), and each part's beside it: the
+        # peak counter is read and reset at each part's start and end, so
+        # the window's is the largest over every stretch, inside a part or
+        # between two (the clip, the batch's copy, the live copies' swaps)
+        part_peaks, window = collections.defaultdict(float), [0]
+
+        def stretch() -> int:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            window[0] = max(window[0], peak)
+            return peak
+
+        def peaked(name, fn):
+            def call(*a, **kw):
+                stretch()
+                got = fn(*a, **kw)
+                part_peaks[name] = max(part_peaks[name], stretch())
+                return got
+            return call
+
         draws = iter(_dp_explicit_draws(DP_WARMUP + DP_TIMED))
         losses = [trainer.train_step(**next(draws))["loss"] for _ in range(DP_WARMUP)]
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # the timed window starts here
         collective_s.clear()
+        trainer._gradients = peaked("forward and backward", trainer._gradients)
+        dp.reduce = peaked("reduction", dp.reduce)
+        trainer.optimizer.step = peaked("AdamW", trainer.optimizer.step)
+        dp.gather_params = peaked("gather", dp.gather_params)
         reset_launches()  # this rank's data-parallel run starts here
         step_s = []
         with shape_tally() as tally:
@@ -4427,9 +4527,11 @@ def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
                 after = read_launches()
                 got = {k: after[k] - before[k] for k in after}
                 assert got == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (mode, got)
+        stretch()  # the timed window ends here
         r = {"launches": read_launches(), "step_ms": [t * 1e3 for t in step_s],
              "collective_ms": sum(collective_s) * 1e3 / DP_TIMED,
-             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "peak_gib": window[0] / 2 ** 30,
+             "part_peaks_gib": {k: v / 2 ** 30 for k, v in part_peaks.items()},
              "losses": torch.stack(losses).tolist(),
              "shapes": [[k[0], list(k[1]), str(k[2]), k[3], c] for k, c in tally.items()],
              "split": sum(dp.sharded)}
@@ -4444,28 +4546,30 @@ def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
             r["max_abs_gap"] = max(float((p.detach().cpu() - single["params"][n]).abs().max())
                                    for n, p in trainer.named_params)
         res[mode] = r
-        del trainer, dp
+        # the timing wrappers hold `dp` in a cycle: collect it before the next
+        # layout's peak, or its whole weights would count there
+        del trainer, dp, peaked, timed, stretch
+        gc.collect()
         torch.cuda.empty_cache()
 
     # "orbax": every item the same (a checkpoint keeps no loader position),
-    # explicit draws; the run saves after 2 steps and takes a third, ranks
-    # built from other weights load the save and take the same third step
-    draws = _dp_explicit_draws(3)
+    # explicit draws; the run saves after 1 step and takes a second, ranks
+    # built from other weights load the save and take the same second step
+    draws = _dp_explicit_draws(2)
     kw = dict(param_sharding="fsdp", checkpoint_backend="orbax", ema_decay=0.999,
               results_folder=str(out / "orbax"))
     a = _dp_trainer(_dp_items(same=True), SEED + 53, **kw)
-    for d in draws[:2]:
-        a.train_step(**d)
+    a.train_step(**draws[0])
     t0 = time.perf_counter()
     path = a.save()
     save_s = time.perf_counter() - t0
-    loss_a = a.train_step(**draws[2])["loss"]
+    loss_a = a.train_step(**draws[1])["loss"]
     b = _dp_trainer(_dp_items(same=True), SEED + 54, **kw)
     t0 = time.perf_counter()
-    b.load(2)
+    b.load(1)
     load_s = time.perf_counter() - t0
-    assert b.steps == 2, b.steps
-    loss_b = b.train_step(**draws[2])["loss"]
+    assert b.steps == 1, b.steps
+    loss_b = b.train_step(**draws[1])["loss"]
     torch.cuda.synchronize()
     differ = [n for (n, p), q in zip(a.named_params, b.params) if not torch.equal(p, q)]
     differ += [f"{key} {n}" for (n, _), p, q in zip(a.named_params, a.opt_params, b.opt_params)
@@ -4479,6 +4583,8 @@ def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
                     "files": sorted(p.name for p in path.iterdir()),
                     "mib": sum(p.stat().st_size for p in path.iterdir()) / 2 ** 20}
     del a, b
+    torch.cuda.empty_cache()
+    res.update(tp_sp_worker(rank, world, out))
     dist.barrier()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -4508,6 +4614,7 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
         init_names = list(init)
         del single, init
         torch.cuda.empty_cache()
+        tp_sp_ref = phase_tp_sp_references(out)
 
         env = dict(os.environ, OMP_NUM_THREADS="4")
         logs = [open(out / f"rank{r}.log", "w") for r in range(DP_WORLD)]
@@ -4534,7 +4641,8 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
     finally:
         torch.backends.cudnn.deterministic = was
         shutil.rmtree(out / "orbax", ignore_errors=True)
-        (out / "single.pt").unlink(missing_ok=True)
+        for name in ("single.pt", "single8.pt", "grads_f32.pt", "long_inputs.pt", "long_ref.pt"):
+            (out / name).unlink(missing_ok=True)
 
     log("dp", f"two ranks under gloo sharing cuda:0, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames "
               f"({TRAIN_BATCH // DP_WORLD} rows a rank); single process: losses "
@@ -4573,26 +4681,541 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
         result[mode] = {kk: sum(rk[mode]["launches"][kk] for rk in ranks)
                         for kk in ("k1", "k2", "k3")}
     ob = ranks[0]["orbax"]
-    log("dp", f"orbax (fsdp, EMA): saved after 2 steps ({ob['mib']:.0f} MiB in "
+    log("dp", f"orbax (fsdp, EMA): saved after 1 step ({ob['mib']:.0f} MiB in "
               f"{', '.join(ob['files'])}; {ob['save_s']:.2f} s), loaded into ranks built from "
-              f"other weights ({ob['load_s']:.2f} s); third step loss uninterrupted "
+              f"other weights ({ob['load_s']:.2f} s); second step loss uninterrupted "
               f"{ob['loss'][0]:.6f} resumed {ob['loss'][1]:.6f}; tensors that differ "
               f"(parameters, moment and EMA shards) on rank 0 / 1: "
               f"{ranks[0]['orbax']['n_differ']} / {ranks[1]['orbax']['n_differ']}")
     for rk in ranks:
         assert rk["orbax"]["same_loss"] and rk["orbax"]["n_differ"] == 0, rk["orbax"]
     assert {"__0_0.distcp", "__1_0.distcp", ".metadata"} <= set(ob["files"]), ob["files"]
+    peaks = [(rk["fsdp"]["peak_gib"], rk["replicated"]["peak_gib"]) for rk in ranks]
+    log("dp", "peak a rank over the timed steps (max_memory_allocated), fsdp against "
+              "replicated: " + "; ".join(
+        f"rank {r}: {f:.3f} against {p:.3f} GiB" for r, (f, p) in enumerate(peaks))
+        + "; rank 0's by part of the step, fsdp against replicated: " + ", ".join(
+            f"{k} {ranks[0]['fsdp']['part_peaks_gib'][k]:.3f} against "
+            f"{ranks[0]['replicated']['part_peaks_gib'][k]:.3f}"
+            for k in ranks[0]["fsdp"]["part_peaks_gib"])
+        + "; gloo took every collective's CUDA tensors itself")
+    log("tp_sp", f"phase 22 (in phase 21 (b)'s ranks; the single-process references "
+                 f"before them)")
+    result["tp_sp"] = phase_tp_sp_report(smi, k1, k23, ranks, tp_sp_ref, single_losses)
+    assert all(f < p for f, p in peaks), f"fsdp's peak is not under replicated's: {peaks}"
     return result
 
 
 def dp_rows(k1: dict, k23: dict, dp: dict) -> list:
     rows = []
-    for mode, counts in dp.items():
+    for mode in DP_MODES:
+        counts = dp[mode]
         path = f"data_parallel_{mode}"
         rows.append({**_k1_row(path, k1["rank_train_bf16"], counts["k1"]),
                      "launches_are": "both ranks' timed steps"})
         rows += [{**_k23_row(kk, path, k23["rank_train_bf16"], counts[kk]),
                   "launches_are": "both ranks' timed steps"} for kk in ("k2", "k3")]
+    return rows
+
+
+# phase 22: tensor and sequence parallelism at full width, in phase 21 (b)'s
+# two rank processes. Both layouts run phase 10's global batch (8 x 752) on
+# each rank, so they are held against one single-process run at 8 rows a
+# micro-batch. Neither is bitwise: "tp" sums the row-parallel partial
+# products of 2 heads (and 2 halves of the gathered feed-forward) where one
+# process sums 4, and the ring merges the blocks' bf16 outputs by their lse
+# where one launch sums all keys; each moves every layer's output by
+# rounding. The bounds are set from the distance between two single-process
+# runs that differ only in summation order (phase 21 (b)'s reference at two
+# micro-batches of 4 rows against this one): TP_SP_TIMES_FLOOR times it,
+# for the losses over the DP_WARMUP + DP_TIMED steps. Neither the
+# parameters after the steps nor the gradients of the bf16 depth-24 model
+# can be held: two single-process runs that differ only in summation order
+# are 1.36 of the update apart after 3 steps (Adam moves each weight whose
+# gradient is rounding noise by ~lr), and their first step's gradients 1.44
+# apart over all leaves (the depth-24 backward at random weights amplifies
+# a rounding to the gradient's size; both on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, PR 16), so the parameters' distance is printed only. The
+# gradients are held in a model where rounding stays rounding
+# (TP_SP_GRAD_MODEL: fp32 compute at depth 4, the flagship's width, heads
+# and registers, one step on the same draws): each layout's first reduced
+# gradients, gathered whole, before the clip and Adam, over every leaf and
+# leaf by leaf, within TP_SP_GRAD_TOL of one process's, the bound fp32 K2
+# and K3 are held to against autograd (phase 4). They read 1.2e-5 to 1.6e-5
+# on the H100 (PR 16; 7-9x two single-process runs' batch-order floor of
+# 1.7e-6: the split sums and the ring's merge reorder more); a gradient
+# that lost one rank's share reads ~0.5, a zero one 1, a flipped one 2.
+# Ring attention alone is held on the card against the plain ring first
+# (`ring_card_check`). The long
+# utterance's field (4080 frames, 2040 a rank) in bf16 is held to
+# SP_LONG_TIMES_FLOOR times the bf16 forward's distance from the fp32
+# forward of the same weights and inputs. At depth 24 and random weights
+# that distance is most of the field (0.88 on the H100): the stack
+# amplifies a rounding ~1000x (fp32 K1 differs from the plain version by
+# ~1e-6 and the fp32 ring's field from one process's by 1.05e-3 at depth
+# 24), so that check only catches a gross fault. The tight one is the same
+# field in fp32 at depth SP_LONG_F32_DEPTH, held to SP_LONG_F32_TOL: ~1e-6
+# a layer, a few times that after 4 (4.8e-6 on the CPU), where a misplaced
+# block, halo or rotary offset moves it by O(1).
+TP_SP_TIMES_FLOOR, TP_SP_GRAD_TOL = 4.0, 1e-4
+TP_SP_GRAD_MODEL = dict(dtype=torch.float32, depth=4)
+SP_LONG_FRAMES, SP_LONG_TIMES_FLOOR = 4080, 1.0
+SP_LONG_F32_DEPTH, SP_LONG_F32_TOL = 4, 1e-4
+TP_SP_PER_STEP = {"tp": 1, "sp": 2}  # K1, K2 and K3 launches a layer on a rank
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Host seconds inside torch.distributed's collectives (synchronized
+    before and after each), summed in `clock["s"]`."""
+    import torch.distributed as dist
+
+    clock = {"s": 0.0, "calls": 0}
+    names = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*a, **kw)
+            torch.cuda.synchronize()
+            clock["s"] += time.perf_counter() - t0
+            clock["calls"] += 1
+            return got
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(saved[n]))
+    try:
+        yield clock
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _long_model(dtype, depth: int = FLAGSHIP["depth"]):
+    def build():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=dtype, param_dtype=torch.float32,
+                          **{**FLAGSHIP, "depth": depth})
+        _soften_qk_gains(vb, DP_QK_GAIN)
+        return vb.to("cuda:0").eval()
+    return seeded(build, SEED + 56)
+
+
+def _long_inputs() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 57)
+    n = SP_LONG_FRAMES
+    span = torch.zeros(1, n, dtype=torch.bool, device="cuda")
+    span[:, n // 4: 3 * n // 4] = True  # the middle half to generate
+    return {"x": torch.randn(1, n, LATENT_DIM, generator=gen, device="cuda"),
+            "cond": torch.randn(1, n, LATENT_DIM, generator=gen, device="cuda"),
+            "cond_mask": span, "times": torch.full((1,), 0.5, device="cuda"),
+            "ids": torch.randint(0, FLAGSHIP["num_cond_tokens"], (1, n), generator=gen,
+                                 device="cuda")}
+
+
+def _long_field(vb, inp) -> torch.Tensor:
+    with torch.no_grad():
+        return vb(inp["x"], times=inp["times"], cond=inp["cond"], cond_mask=inp["cond_mask"],
+                  cond_token_ids=inp["ids"],
+                  cond_drop_mask=torch.zeros(1, dtype=torch.bool, device="cuda")).float()
+
+
+def _leaf_gaps(got: dict, ref: dict) -> dict:
+    """||got - ref|| / ||ref|| per leaf and over every leaf together."""
+    sq = {n: (float((got[n].double() - r.double()).square().sum()),
+              float(r.double().square().sum())) for n, r in ref.items()}
+    return {"leaves": {n: math.sqrt(a / max(b, 1e-300)) for n, (a, b) in sq.items()},
+            "all": math.sqrt(sum(a for a, _ in sq.values())
+                             / sum(b for _, b in sq.values()))}
+
+
+def _ring_check_inputs(rank: int, world: int, prefixed: bool) -> dict:
+    """A sequence-parallel rank's bf16 ring operands at phase 22's training
+    shape (8 rows, 4 heads of 128, 376 frames a rank, the 16 registers as
+    the prefix), the same draws on every rank: qk-norm'd q and k at scale
+    10; key padding at each row's end over the whole sequence, row 1 with
+    none of its keys on the last rank and (without the prefix) row 2 with no
+    key anywhere."""
+    b, h, d = TRAIN_BATCH, FLAGSHIP["heads"], FLAGSHIP["dim_head"]
+    p, n = FLAGSHIP["num_register_tokens"], TRAIN_FRAMES // world
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 58)
+    q, k, v, do = (torch.randn(b, h, p + world * n, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    q, k = (l2norm(t) * d ** 0.5 for t in (q, k))
+    lengths = torch.randint(n // 3, world * n + 1, (b,), generator=gen, device="cuda")
+    lengths[0], lengths[1], lengths[2] = world * n, (world - 1) * n - 10, 0 if not prefixed \
+        else n // 2
+    frames = torch.arange(world * n, device="cuda")[None, :] < lengths[:, None]
+    mine = slice(p + rank * n, p + (rank + 1) * n)
+    mask = frames[:, rank * n:(rank + 1) * n]
+    if prefixed:
+        mask = torch.cat([torch.ones(b, p, dtype=torch.bool, device="cuda"), mask], dim=1)
+    rows = [torch.cat([t[:, :, :p], t[:, :, mine]], dim=2) if prefixed else t[:, :, mine]
+            for t in (q, k, v, do)]
+    out = {x: t.to(torch.bfloat16).contiguous() for x, t in zip(("q", "k", "v", "do"), rows)}
+    return {**out, "mask": mask.contiguous(), "p": p if prefixed else 0}
+
+
+def _ring_run(inp, group) -> list:
+    """Ring attention's output and the gradients of q, k and v under `inp`'s
+    output gradient (the prefix rows' on every rank): [out, dq, dk, dv]."""
+    qkv = [inp[x].clone().requires_grad_() for x in "qkv"]
+    if inp["p"]:
+        out_p, out_l = ring_attention_prefixed(*qkv, inp["p"], inp["mask"], 10.0, group)
+        out = torch.cat([out_p, out_l], dim=2)
+    else:
+        out = ring_attention(*qkv, inp["mask"], 10.0, group)
+    out.backward(inp["do"])
+    return [out.detach()] + [x.grad for x in qkv]
+
+
+# ring attention on the card in bf16 against the plain fp32 ring, per output
+# (out, dq, dk, dv): within RING_BF16_TIMES_FLOOR x the distance of the same
+# route run by the kernels' plain versions on the host. The floor is the
+# route's: at qk-norm's scale 10 a row's softmax is peaked, so dS = P (dP -
+# delta) is a small difference of bf16-rounded terms and dq, dk read ~7e-3
+# to 9e-3 from fp32 by either run (on the H100, 9e-3 from each other); the
+# plain ring's autograd rounds elsewhere and reads 2.5e-3. The bf16 check
+# holds the kernels; a fault of the route's own logic moves the host's run
+# too, and the fp32 check holds that (9e-6 against NORM_TOL's 1e-4 on the
+# H100): a gradient sent to the wrong rank reads ~1 there, a keyless row
+# counted once per block 1e-2 (both planted on the CPU)
+RING_BF16_TIMES_FLOOR = 2.0
+
+
+@contextlib.contextmanager
+def _ring_route(device: str, route):
+    """Ring attention on `device`'s tensors by `route` while the block runs."""
+    saved = ring_module._ROUTES[device]
+    ring_module._ROUTES[device] = route
+    try:
+        yield
+    finally:
+        ring_module._ROUTES[device] = saved
+
+
+def ring_card_check(rank: int, world: int, group) -> dict:
+    """Ring attention on the card (`_kernel_ring`: K1 per block, delta, K2 +
+    K3 per block against the merged lse, the keys' gradients sent home),
+    with and without the prefix, ragged (row 1 with no key on the last rank)
+    and, without the prefix, a row with no key anywhere; out, dq, dk and dv,
+    ||err|| / ||ref|| against the plain ring (`_plain_ring`, autograd through
+    per-block plain attention) in fp32 on the same values: fp32 within
+    NORM_TOL's bound against autograd; bf16 within RING_BF16_TIMES_FLOOR x
+    the bf16 floor of the route, the same route's distance on the host's
+    copies, where each kernel is its plain version. Printed beside: bf16
+    against the host's run directly, and the plain ring's own distance in
+    bf16. Launches of the check are no path's."""
+    res = {}
+    for prefixed in (True, False):
+        bf16 = _ring_check_inputs(rank, world, prefixed)
+        f32 = {**bf16, **{x: bf16[x].float() for x in ("q", "k", "v", "do")}}
+        host = {x: t.cpu() if torch.is_tensor(t) else t for x, t in bf16.items()}
+        runs, launches = {}, {}
+        for key, inp, route in (("kernels_bf16", bf16, ring_module._kernel_ring),
+                                ("kernels_f32", f32, ring_module._kernel_ring),
+                                ("plain_bf16", bf16, ring_module._plain_ring),
+                                ("plain_f32", f32, ring_module._plain_ring)):
+            with _ring_route("cuda", route):
+                before = read_launches()
+                runs[key] = _ring_run(inp, group)
+                after = read_launches()
+            launches[key] = {k: after[k] - before[k] for k in after}
+        with _ring_route("cpu", ring_module._kernel_ring):
+            runs["host_bf16"] = _ring_run(host, group)
+        torch.cuda.synchronize()
+
+        def errs(key, ref):
+            return [_norm_err(a.cpu(), b.cpu()) for a, b in zip(runs[key], runs[ref])]
+
+        res["prefixed" if prefixed else "ring"] = {
+            "shape": list(bf16["q"].shape), "f32": errs("kernels_f32", "plain_f32"),
+            "bf16": errs("kernels_bf16", "plain_f32"), "floor": errs("host_bf16", "plain_f32"),
+            "vs_host": errs("kernels_bf16", "host_bf16"),
+            "plain_bf16": errs("plain_bf16", "plain_f32"),
+            "finite": all(bool(torch.isfinite(t).all()) for key in runs for t in runs[key]),
+            "launches": [launches[k] for k in ("kernels_bf16", "kernels_f32")],
+            "plain_launches": [launches[k] for k in ("plain_bf16", "plain_f32")]}
+    return res
+
+
+def tp_sp_worker(rank: int, world: int, out: Path) -> dict:
+    """Phase 22 on one rank (called by `dp_worker` after phase 21 (b)):
+    ring attention alone (`ring_card_check`); "tp" at model `world` and
+    sequence parallelism at seq `world`, each DP_WARMUP warm-up and
+    DP_TIMED timed steps of phase 10's trainer on the explicit draws, then
+    one step of TP_SP_GRAD_MODEL whose reduced gradients are kept; then the
+    long utterance's field on this rank's frames."""
+    import torch.distributed as dist
+    from voicebox_tpu_torch.parallel.mesh import make_mesh
+    from voicebox_tpu_torch.parallel.sequence_parallel import sp_forward
+
+    single = torch.load(out / "single8.pt") if rank == 0 else None
+    depth, res = FLAGSHIP["depth"], {}
+    res["ring_check"] = ring_card_check(rank, world, dist.group.WORLD)
+    for layout in ("tp", "sp"):
+        kw = (dict(param_sharding="tp", mesh=make_mesh(model_parallel=world, device_type="cuda"))
+              if layout == "tp" else dict(seq_parallel=world))
+        trainer = _dp_trainer(_dp_items(), SEED + 52, **kw)
+        dp = trainer.data_parallel
+        draws = iter(_dp_explicit_draws(DP_WARMUP + DP_TIMED))
+        losses = [trainer.train_step(**next(draws))["loss"] for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # this rank's run of the layout starts here
+        step_s = []
+        per = TP_SP_PER_STEP[layout] * depth
+        with shape_tally() as tally, collective_clock() as clock:
+            for _ in range(DP_TIMED):
+                before = read_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(**next(draws))["loss"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                after = read_launches()
+                got = {k: after[k] - before[k] for k in after}
+                assert got == {"k1": per, "k2": per, "k3": per, "k4": 0}, (layout, got)
+        r = {"launches": read_launches(), "step_ms": [t * 1e3 for t in step_s],
+             "collective_ms": clock["s"] * 1e3 / DP_TIMED, "collectives": clock["calls"],
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "losses": torch.stack(losses).tolist(),
+             "shapes": [[k[0], list(k[1]), str(k[2]), k[3], c] for k, c in tally.items()]}
+        state = dp.module_state(trainer.module)  # every rank: the pieces gathered whole
+        if rank == 0:
+            names = [n for n, _ in trainer.named_params]
+            update = sum(float((single["params"][n] - single["init"][n]).square().sum())
+                         for n in names)
+            gap = sum(float((state[n].detach().cpu() - single["params"][n]).square().sum())
+                      for n in names)
+            r["update_rel_gap"] = math.sqrt(gap / update)
+            r["held_bytes"] = sum(p.numel() * p.element_size() for p in trainer.params)
+        del trainer, dp, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the gradient check: TP_SP_GRAD_MODEL's first step's reduced
+        # gradients, whole, before the clip
+        trainer = _dp_trainer(_dp_items(), SEED + 59, **TP_SP_GRAD_MODEL, **kw)
+        dp, first = trainer.data_parallel, {}
+
+        def reduced(g, scalars, reduce=dp.reduce):
+            got = reduce(g, scalars)
+            wholes = dp.whole([x.detach() for x in got[0]])
+            first.update({n: x.float().cpu() for n, x in zip(dp.names, wholes)})
+            return got
+
+        dp.reduce = reduced
+        trainer.train_step(**_dp_explicit_draws(1)[0])
+        if rank == 0:
+            r["grad_gap"] = _leaf_gaps(first, torch.load(out / "grads_f32.pt"))
+        res[layout] = r
+        del trainer, dp, first, reduced
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the long utterance: the vector field on this rank's frames, one forward
+    inp = torch.load(out / "long_inputs.pt")
+    n_local = SP_LONG_FRAMES // world
+    frames = slice(rank * n_local, (rank + 1) * n_local)
+    refs = torch.load(out / "long_ref.pt")
+    reset_launches()
+    with shape_tally() as tally:
+        for dtype, depth in ((torch.bfloat16, FLAGSHIP["depth"]),
+                             (torch.float32, SP_LONG_F32_DEPTH)):
+            vb = _long_model(dtype, depth)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                field = sp_forward(vb, dist.group.WORLD)(
+                    inp["x"][:, frames], inp["times"], inp["cond"][:, frames],
+                    cond_mask=inp["cond_mask"][:, frames], cond_token_ids=inp["ids"]).float()
+            torch.cuda.synchronize()
+            name = f"{str(dtype)[6:]}_d{depth}"
+            res[f"sp_long_{name}"] = {
+                "s": time.perf_counter() - t0, "finite": bool(torch.isfinite(field).all()),
+                "rel_gap": _rel(field, refs[name][:, frames].cuda())}
+            del vb, field
+            torch.cuda.empty_cache()
+    res["sp_long"] = {"launches": read_launches(),
+                      "shapes": [[k[0], list(k[1]), str(k[2]), k[3], c]
+                                 for k, c in tally.items()]}
+    return res
+
+
+def _tally_of(shapes) -> collections.Counter:
+    return collections.Counter({(k, tuple(shape), getattr(torch, dt[6:]), masked): c
+                                for k, shape, dt, masked, c in shapes})
+
+
+def phase_tp_sp_references(out: Path) -> dict:
+    """Phase 22's single-process references, before the ranks start: phase
+    10's trainer at 8 rows a micro-batch on the explicit draws, and the long
+    utterance's field in bf16 and fp32."""
+    single = _dp_trainer(_dp_items(), SEED + 52)
+    init = {n: p.detach().cpu().clone() for n, p in single.named_params}
+    losses = [single.train_step(**d)["loss"] for d in _dp_explicit_draws(DP_WARMUP + DP_TIMED)]
+    torch.save({"init": init, "params": {n: p.detach().cpu() for n, p in single.named_params}},
+               out / "single8.pt")
+    losses = torch.stack(losses).tolist()
+    del single, init
+    # the gradient check's: the first step of TP_SP_GRAD_MODEL
+    single = _dp_trainer(_dp_items(), SEED + 59, **TP_SP_GRAD_MODEL)
+    grads = _first_gradients(single)
+    single.train_step(**_dp_explicit_draws(1)[0])
+    torch.save(grads, out / "grads_f32.pt")
+    del single, grads
+    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    inp = _long_inputs()
+    torch.save(inp, out / "long_inputs.pt")
+    fields = {}
+    for dtype, depth in ((torch.bfloat16, FLAGSHIP["depth"]), (torch.float32, FLAGSHIP["depth"]),
+                         (torch.float32, SP_LONG_F32_DEPTH)):
+        vb = _long_model(dtype, depth)
+        name = f"{str(dtype)[6:]}_d{depth}"
+        t0 = time.perf_counter()
+        fields[name] = _long_field(vb, inp).cpu()
+        torch.cuda.synchronize()
+        fields[f"{name}_s"] = time.perf_counter() - t0
+        del vb
+        torch.cuda.empty_cache()
+    torch.save(fields, out / "long_ref.pt")
+    # the summation-order floor of the parameters: phase 21 (b)'s reference
+    # at two micro-batches of 4 rows against this one at 8, after the same
+    # DP_WARMUP + DP_TIMED steps
+    four, eight = torch.load(out / "single.pt"), torch.load(out / "single8.pt")
+    update = sum(float((eight["params"][n] - eight["init"][n]).square().sum())
+                 for n in eight["params"])
+    gap = sum(float((four["params"][n] - eight["params"][n]).square().sum())
+              for n in eight["params"])
+    deep = FLAGSHIP["depth"]
+    return {"losses": losses, "update_floor": math.sqrt(gap / update),
+            "long_floor": _rel(fields[f"bfloat16_d{deep}"], fields[f"float32_d{deep}"]),
+            "long_s": fields[f"bfloat16_d{deep}_s"]}
+
+
+def phase_tp_sp_report(smi: str, k1: dict, k23: dict, ranks: list, ref: dict,
+                       dp_single: list) -> dict:
+    """Phase 22's checks and lines from both ranks' results."""
+    for name in ranks[0]["ring_check"]:
+        checks = [rk["ring_check"][name] for rk in ranks]
+        tol = NORM_TOL[torch.float32][1]
+
+        def by_rank(key):
+            return "; ".join("/".join(f"{x:.2e}" for x in c[key]) for c in checks)
+
+        log("tp_sp", f"ring attention on the card ({name}, q {tuple(checks[0]['shape'])}, "
+                     f"ragged{'' if name == 'prefixed' else ', a row with no key'}), "
+                     f"||err|| / ||ref|| of out/dq/dk/dv by rank against the plain fp32 ring on "
+                     f"the same values: fp32 {by_rank('f32')} (tol {tol:g}); bf16 "
+                     f"{by_rank('bf16')} (tol {RING_BF16_TIMES_FLOOR:g} x the route's floor on "
+                     f"the host, each kernel's plain version: {by_rank('floor')}); for "
+                     f"information, bf16 against the host's run {by_rank('vs_host')}, the plain "
+                     f"ring's in bf16 {by_rank('plain_bf16')}; launches a rank (bf16, fp32) "
+                     f"{checks[0]['launches']}, the plain ring's {checks[0]['plain_launches']}")
+        for c in checks:
+            assert c["finite"] and max(c["f32"]) <= tol, (name, c)
+            assert all(e <= RING_BF16_TIMES_FLOOR * f for e, f in zip(c["bf16"], c["floor"])), (
+                name, c)
+            assert all(min(n[k] for k in ("k1", "k2", "k3")) > 0 for n in c["launches"]), c
+            assert not any(v for n in c["plain_launches"] for v in n.values()), (name, c)
+    floor = max(abs(a - b) / abs(b) for a, b in zip(dp_single, ref["losses"]))
+    counts = {}
+    for layout in ("tp", "sp"):
+        r0 = ranks[0][layout]
+        for rk in ranks:
+            tally = _tally_of(rk[layout]["shapes"])
+            _assert_checked(tally, k1, f"phase 22 rank {rk['rank']} ({layout})")
+            _assert_k23_checked(tally, k23, f"phase 22 rank {rk['rank']} ({layout})")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+        bound = TP_SP_TIMES_FLOOR * max(floor, 1e-6)
+        per_rank = "; ".join(
+            f"rank {rk['rank']}: {np.mean(m['step_ms']):.1f} ms/step "
+            f"({', '.join(f'{t:.1f}' for t in m['step_ms'])}), collectives "
+            f"{m['collective_ms']:.1f} ms ({m['collective_ms'] / np.mean(m['step_ms']):.3f}, "
+            f"{m['collectives'] // DP_TIMED} calls a step), peak {m['peak_gib']:.2f} GiB, "
+            f"K1/K2/K3 {m['launches']['k1']}/{m['launches']['k2']}/{m['launches']['k3']} "
+            f"launches, no collective staged by hand"
+            for rk in ranks for m in [rk[layout]])
+        tally = sum((_tally_of(rk[layout]["shapes"]) for rk in ranks), collections.Counter())
+        shapes = sorted({(k, sh) for (k, sh, *_) in tally})
+        means = {}
+        for kk, results in (("k1", k1), ("k2", k23), ("k3", k23)):
+            timed = {tuple(r["shape"]): (r["ms"] if kk == "k1" else r["times"][kk])
+                     for r in results.values() if r["dtype"] == torch.bfloat16
+                     and ("ms" in r if kk == "k1" else "times" in r)}
+            n = sum(c for (k, *_), c in tally.items() if k == kk)
+            means[kk] = sum(timed[sh] * c for (k, sh, *_), c in tally.items() if k == kk) / n
+        gaps = r0["grad_gap"]  # TP_SP_GRAD_MODEL's first step
+        worst = max(gaps["leaves"], key=gaps["leaves"].get)
+        log("tp_sp", f"{layout} at {DP_WORLD} ranks (phase 10's batch of {TRAIN_BATCH} x "
+                     f"{TRAIN_FRAMES} on each): rank 0 losses {[round(v, 6) for v in r0['losses']]} "
+                     f"against the single process's {[round(v, 6) for v in ref['losses']]}, "
+                     f"largest relative gap {loss_gap:.3e} (bound {bound:.3e} = "
+                     f"{TP_SP_TIMES_FLOOR} x the summation-order floor {floor:.3e}); the first "
+                     f"step's gradients in fp32 at depth {TP_SP_GRAD_MODEL['depth']} "
+                     f"||rank 0 - single|| / ||single|| over all {len(gaps['leaves'])} leaves "
+                     f"{gaps['all']:.3e}, largest leaf {worst} {gaps['leaves'][worst]:.3e} (bound "
+                     f"{TP_SP_GRAD_TOL:g} each); parameters after "
+                     f"{DP_WARMUP + DP_TIMED} steps ||rank 0 - single|| / ||single's update|| = "
+                     f"{r0['update_rel_gap']:.3e} (the floor {ref['update_floor']:.3e}; for "
+                     f"information: Adam moves a weight whose gradient is rounding noise by ~lr); "
+                     f"{r0['held_bytes'] / 2 ** 20:.0f} MiB of parameters a rank; K1/K2/K3 at "
+                     f"{shapes}, mean ms "
+                     f"{means['k1']:.4f}/{means['k2']:.4f}/{means['k3']:.4f}; {per_rank} (gloo "
+                     f"through the host, not NVLink) on {smi}")
+        assert loss_gap <= bound, (layout, r0["losses"], ref["losses"], floor)
+        assert max(gaps["all"], gaps["leaves"][worst]) <= TP_SP_GRAD_TOL, (layout, gaps["all"],
+                                                                           worst)
+        counts[layout] = {kk: sum(rk[layout]["launches"][kk] for rk in ranks)
+                          for kk in ("k1", "k2", "k3")}
+        counts[f"{layout}_tally"] = tally
+    bf, f32 = ([rk[f"sp_long_{n}"] for rk in ranks]
+               for n in (f"bfloat16_d{FLAGSHIP['depth']}", f"float32_d{SP_LONG_F32_DEPTH}"))
+    f32_gaps = ", ".join(f"{r['rel_gap']:.3e}" for r in f32)
+    log("tp_sp", f"a {SP_LONG_FRAMES}-frame utterance's vector field (one forward, "
+                 f"{SP_LONG_FRAMES // DP_WORLD} frames + 16 registers a rank, ring attention and "
+                 f"the halo conv) against the single process's of the same dtype, relative "
+                 f"gap by rank: bf16 {[round(r['rel_gap'], 6) for r in bf]} (bound "
+                 f"{SP_LONG_TIMES_FLOOR} x the bf16-vs-fp32 floor {ref['long_floor']:.3e}), fp32 "
+                 f"at depth {SP_LONG_F32_DEPTH} [{f32_gaps}] (bound {SP_LONG_F32_TOL}); bf16 "
+                 f"{[round(r['s'], 3) for r in bf]} s by rank against {ref['long_s']:.3f} s in one "
+                 f"process (host clock, first call)")
+    for rk, b_, f_ in zip(ranks, bf, f32):
+        _assert_checked(_tally_of(rk["sp_long"]["shapes"]), k1,
+                        f"phase 22 rank {rk['rank']} (long)")
+        assert b_["finite"] and f_["finite"], rk["rank"]
+        assert b_["rel_gap"] <= SP_LONG_TIMES_FLOOR * ref["long_floor"], (rk["rank"], b_)
+        assert f_["rel_gap"] <= SP_LONG_F32_TOL, (rk["rank"], f_)
+    counts["sp_long"] = {kk: sum(rk["sp_long"]["launches"][kk] for rk in ranks)
+                         for kk in ("k1", "k2", "k3")}
+    counts["sp_long_tally"] = sum((_tally_of(rk["sp_long"]["shapes"]) for rk in ranks),
+                                  collections.Counter())
+    return counts
+
+
+def tp_sp_rows(k1: dict, k23: dict, counts: dict) -> list:
+    """K1, K2 and K3 rows of phase 22: "tp" at a rank's heads, each ring
+    block's shape in training and on the long utterance; launches are both
+    ranks' timed steps (or the long forward)."""
+    rows = []
+    for path, cases in (("train_tp", ("tp_rank_bf16",)),
+                        ("train_sp", ("sp_own_bf16", "sp_remote_bf16")),
+                        ("sp_long", ("sp_long_own_bf16", "sp_long_remote_bf16",
+                                     "sp_long_own_f32", "sp_long_remote_f32"))):
+        tally = counts[f"{path[6:] if path.startswith('train_') else path}_tally"]
+        for case in cases:
+            shape, dtype = tuple(k1[case]["shape"]), k1[case]["dtype"]
+            for kk in ("k1",) if path == "sp_long" else ("k1", "k2", "k3"):
+                n = sum(c for (k, sh, dt, _), c in tally.items()
+                        if k == kk and sh == shape and dt == dtype)
+                row = (_k1_row(path, k1[case], n) if kk == "k1"
+                       else _k23_row(kk, path, k23[case], n))
+                rows.append({**row, "name": f"{NAMES[kk]}[{path}:{case}]",
+                             "launches_are": "both ranks' timed steps" if path != "sp_long"
+                             else "both ranks' one forward"})
     return rows
 
 
@@ -4705,8 +5328,12 @@ def main() -> int:
     assert all(lora_parts[k] for k in ("k1", "k4")), "the folded request skipped a kernel"
     semantic += lora_rows(k1, k23, lora_counts, lora_parts)
     dp = phase_dp(smi, k1, k23)
-    assert all(min(c.values()) > 0 for c in dp.values()), dp
+    assert all(min(dp[m].values()) > 0 for m in DP_MODES), dp
     semantic += dp_rows(k1, k23, dp)
+    tp_sp = dp["tp_sp"]
+    assert all(min(tp_sp[p][k] for k in ("k1", "k2", "k3")) > 0 for p in ("tp", "sp")), tp_sp
+    assert tp_sp["sp_long"]["k1"] > 0, tp_sp["sp_long"]
+    semantic += tp_sp_rows(k1, k23, tp_sp)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {

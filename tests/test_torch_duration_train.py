@@ -313,8 +313,8 @@ def test_checkpoint_resumes_exactly(tmp_path):
 
 def test_trainer_rejects_what_is_not_ported():
     _, params = _models()
-    # data parallelism is ported; model-parallel layouts wait for item 15b
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    # a model-parallel mesh spans processes: one process has no group to build it on
+    with pytest.raises(RuntimeError, match="process group"):
         _trainer(_port(params), mesh=make_mesh(model_parallel=2))
     with pytest.raises(TypeError, match="DeviceMesh"):
         _trainer(_port(params), mesh=object())

@@ -4,7 +4,9 @@ no `jax` and nothing of `voicebox_tpu` (read with `ast`) and has a `main`;
 `make_server` on 127.0.0.1:0, answers `/synthesize` and `/clone` (sent
 concurrently) and `/healthz` with 200, each WAV 24 kHz 16-bit mono with
 samples, counts the requests, gives 400 for a malformed body and 404 for
-an unknown path, and closes.
+an unknown path, and closes; a prompt over the engine's largest prompt
+bucket gives 400 (the engine's `ValueError`, the client's fault) and a
+body over `max_body_bytes` 413, the server answering on after both.
 """
 
 import ast
@@ -134,6 +136,31 @@ def test_serve_http_routes():
     thread.join(10)
     assert not thread.is_alive()
     assert batcher._thread is None or not batcher._thread.is_alive()
+
+
+def test_serve_http_gives_400_for_what_the_engine_refuses_and_413_for_a_large_body():
+    batcher = DynamicBatcher(_tiny_engine(), max_wait_ms=10.0)
+    server = serve_http.make_server(batcher, host="127.0.0.1", port=0, max_body_bytes=80_000)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address
+    try:
+        long_prompt = (0.2 * np.sin(np.arange(14_400) * 0.05)).astype(np.float32)  # 0.6 s
+        clone = json.dumps({"text": "in my voice",
+                            "prompt_wav": base64.b64encode(
+                                serve_http.to_wav_bytes(long_prompt)).decode()}).encode()
+        code, body = _call(base + "/clone", clone)  # the largest prompt bucket is 0.5 s
+        assert code == 400 and b"prompt bucket" in body, (code, body)
+        big = json.dumps({"text": "x" * 90_000}).encode()
+        code, body = _call(base + "/synthesize", big)
+        assert code == 413 and b"too large" in body, (code, body)
+        code, body = _call(base + "/healthz")  # the server answers on
+        assert code == 200 and "requests" in json.loads(body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    thread.join(10)
 
 
 def test_wav_bytes_round_trip_and_refusals():

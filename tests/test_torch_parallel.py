@@ -19,7 +19,9 @@ JAX package, on the CPU.
   JAX's `loss_fn` on the same draws, bf16 live parameters and bf16 moments
   under "fsdp", the clip's global norm over shards, a
   `TextToSemanticTrainer` step whose ranks hold unequal token counts
-  against JAX's loss, and an "orbax" save and a bit-identical resume.
+  against JAX's loss, and an "orbax" save and a bit-identical resume;
+  the bytes a rank holds in weights and gradients (and their reduction's
+  buffers) during a step, "fsdp" under "replicated".
 """
 
 import functools
@@ -307,6 +309,8 @@ def _worker(inp, out, rank, world, init_file):
 
     torch.set_num_threads(1)
     warnings.simplefilter("ignore")  # the single-process references run beside the group
+    from voicebox_tpu_torch.parallel import data_parallel
+    data_parallel.BUCKET = 4096  # buckets a fraction of the tiny model, as at full width
     assert maybe_initialize_distributed(f"file://{init_file}", world, rank, backend="gloo")
     data, res = dict(np.load(inp)), {}
 
@@ -341,11 +345,48 @@ def _worker(inp, out, rank, world, init_file):
         trainer.dl_iter = (batches.append(b) or b for b in it)
         return grads
 
+    def held(trainer, grads):
+        """Bytes of the distinct storages of the module's weights, the
+        tensors the optimizer steps and `grads`."""
+        tensors = [p.detach() for p in trainer.params] + [p.detach() for p in trainer.opt_params]
+        tensors += [g for g in grads if g is not None]
+        storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+        return sum(storages.values())
+
     def run(trainer, tag):
         batches = []
+        dp = trainer.data_parallel
+        measure = dp is not None and tag in ("replicated", "fsdp")
+        if measure:
+            reduce_ = dp.reduce
+            buffer_peak = [0]  # the largest buffer a reduction's collective took, in bytes
+
+            def measured(g, scalars):  # the weights and gradients as the reduction starts
+                res[f"{tag}.held_bytes"] = np.array(held(trainer, g))
+                collectives = dist.all_reduce, dist.reduce_scatter_tensor
+
+                def noted(fn):
+                    def call(*tensors, **kw):
+                        buffer_peak[0] = max(buffer_peak[0], sum(
+                            t.numel() * t.element_size() for t in tensors))
+                        return fn(*tensors, **kw)
+                    return call
+
+                dist.all_reduce, dist.reduce_scatter_tensor = map(noted, collectives)
+                try:
+                    return reduce_(g, scalars)
+                finally:
+                    dist.all_reduce, dist.reduce_scatter_tensor = collectives
+
+            dp.reduce = measured
         grads = capture(trainer, batches)
         draws = {k: torch.from_numpy(v) for k, v in _step_draws().items()}
         logs = [trainer.train_step(**(draws if s == 0 else {})) for s in range(STEPS)]
+        if measure:
+            res[f"{tag}.buffer_peak"] = np.array(buffer_peak[0])
+            res[f"{tag}.moment_bytes"] = np.array(sum(
+                t.numel() * t.element_size() for p in trainer.opt_params
+                for t in trainer.optimizer.state[p].values() if torch.is_tensor(t)))
         first = grads[0]
         if trainer.data_parallel is not None and trainer.data_parallel.mode == "fsdp":
             first = trainer.data_parallel.gather(first)
@@ -545,6 +586,23 @@ def test_fsdp_splits_parameters_and_their_moments(spawned):
             assert int(res[f"{case}.split"]) >= 10 and bool(res[f"{case}.moment_shapes_ok"])
     assert bool(res["fsdp.msgpack_written.0"]) and not bool(res["fsdp.msgpack_written.1"])
     assert bool(res["fsdp.msgpack_same.0"]) and bool(res["fsdp.msgpack_same.1"])
+
+
+def test_fsdp_holds_fewer_bytes_than_replicated(spawned):
+    """A rank's weights, optimizer masters and gradients as the reduction
+    starts, plus the reduction's largest flat buffer: under "fsdp" the
+    gradients go through reduce-scatter buckets (4096 elements here) into
+    the shards, where "replicated" all-reduces one flat copy of them all;
+    "fsdp" holds fewer bytes, with the moments and without."""
+    res, _ = spawned
+    step = {m: int(res[f"{m}.held_bytes"]) + int(res[f"{m}.buffer_peak"])
+            for m in ("replicated", "fsdp")}
+    assert int(res["fsdp.buffer_peak"]) < int(res["replicated.buffer_peak"])
+    assert step["fsdp"] < step["replicated"], step
+    with_moments = {m: step[m] + int(res[f"{m}.moment_bytes"]) for m in step}
+    assert with_moments["fsdp"] < with_moments["replicated"], with_moments
+    # the masters split: half the split weights' bytes, not more
+    assert int(res["fsdp.moment_bytes"]) < int(res["replicated.moment_bytes"])
 
 
 @pytest.mark.parametrize("mode", ["replicated", "fsdp"])

@@ -250,12 +250,19 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError, match="raw audio"):
         cfm(torch.zeros(2, 320), semantic_token_ids=torch.zeros(2, 4, dtype=torch.long))
     ds = data.ArrayDataset([np.zeros((20, DIM_IN), np.float32)] * 4)
-    # data parallelism is ported; tensor and sequence parallelism wait for item 15b
-    for kw in ({"param_sharding": "tp"}, {"param_sharding": "fsdp+tp"}, {"seq_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
-                            device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    # data, tensor and sequence parallelism are ported: in one process "tp"
+    # has nothing to split, and the model-parallel meshes need a process group
+    for mode in ("tp", "fsdp+tp"):
+        trainer = VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1,
+                                  valid_frac=0.0, device="cpu", param_sharding=mode)
+        assert trainer.data_parallel is None
+    with pytest.raises(RuntimeError, match="process group"):
+        VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
+                        device="cpu", seq_parallel=2)
+    with pytest.raises(ValueError, match="replicated"):
+        VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,
+                        device="cpu", seq_parallel=2, param_sharding="fsdp")
+    with pytest.raises(RuntimeError, match="process group"):
         MeshConfig(model_parallel=2).build()
     with pytest.raises(TypeError, match="DeviceMesh"):
         VoiceBoxTrainer(cfm, batch_size=2, dataset=ds, num_train_steps=1, valid_frac=0.0,

@@ -8,8 +8,12 @@ engine carries a MelVoco codec and a Vocos vocoder, so a response is WAV
 audio, and voice cloning has its own endpoint (`DynamicBatcher.submit_clone`:
 the prompt conditions the first infilling window, as the reference's
 `sample(cond=prompt_audio, texts=...)`). Counterpart of
-`examples/serve_http.py`, with the same geometry, routes, status codes and
-bodies; the denoiser computes in bf16 on the card.
+`examples/serve_http.py`, with the same geometry, routes and bodies; the
+denoiser computes in bf16 on the card. Unlike the JAX copy, a request the
+engine refuses (a prompt over the largest prompt bucket, a transcript over
+the largest text bucket: its `ValueError`) is the client's fault and gets
+400, not 500, and a body whose `Content-Length` is over `max_body_bytes`
+gets 413 before a byte of it is read.
 
     python3 -m voicebox_tpu_torch.examples.serve_http [port]
 
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 SAMPLE_RATE = 24000
+MAX_BODY_BYTES = 1 << 20  # a 4 s prompt is ~256 KiB of base64
 
 
 def build_engine(device="cuda", batch_buckets=(1, 2, 4), max_semantic_token_ids: int = 512):
@@ -105,13 +110,20 @@ def wav_bytes_to_float(b: bytes) -> np.ndarray:
     return pcm.astype(np.float32) / 32767.0
 
 
-def make_server(batcher, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHTTPServer:
+class _TooLarge(Exception):
+    pass
+
+
+def make_server(batcher, host: str = "0.0.0.0", port: int = 8080,
+                max_body_bytes: int = MAX_BODY_BYTES) -> ThreadingHTTPServer:
     """A `ThreadingHTTPServer` bound to (host, port) that serves `batcher`:
     `POST /synthesize` {"text"} and `POST /clone` {"text", "prompt_wav":
     base64 WAV} answer WAV audio, `GET /healthz` the batcher's counts as
-    JSON; a malformed body gives 400, a failed request 500, any other path
-    404. Port 0 binds a free port (`server.server_address`). The caller
-    runs `serve_forever()` and, to stop, `shutdown()` and `server_close()`."""
+    JSON; a malformed body or a request the engine refuses (`ValueError`)
+    gives 400, a `Content-Length` over `max_body_bytes` 413 (the body
+    unread), any other failure 500, any other path 404. Port 0 binds a free
+    port (`server.server_address`). The caller runs `serve_forever()` and,
+    to stop, `shutdown()` and `server_close()`."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -133,35 +145,46 @@ def make_server(batcher, host: str = "0.0.0.0", port: int = 8080) -> ThreadingHT
 
         def _read_json(self):
             n = int(self.headers.get("Content-Length", 0))
+            if n > max_body_bytes:
+                raise _TooLarge(f"a body of {n} bytes is over the limit of {max_body_bytes}")
             return json.loads(self.rfile.read(n) or b"{}")
+
+        def _refused(self, e: Exception) -> None:
+            if isinstance(e, _TooLarge):
+                self.close_connection = True  # the unread body stays unread
+                self._send(413, f"payload too large: {e}".encode(), "text/plain")
+            else:
+                self._send(400, f"bad request: {e}".encode(), "text/plain")
+
+        def _answer(self, run, what: str) -> None:
+            try:
+                clip = run()
+            except ValueError as e:  # the engine refused the request: the client's fault
+                self._send(400, f"bad request: {e}".encode(), "text/plain")
+                return
+            except Exception as e:
+                self._send(500, f"{what} failed: {e}".encode(), "text/plain")
+                return
+            self._send(200, to_wav_bytes(clip), "audio/wav")
 
         def do_POST(self):
             if self.path == "/synthesize":
                 try:
                     text = self._read_json()["text"]
                 except Exception as e:
-                    self._send(400, f"bad request: {e}".encode(), "text/plain")
+                    self._refused(e)
                     return
-                try:
-                    clip = batcher.synthesize(text, timeout=600)
-                except Exception as e:
-                    self._send(500, f"synthesis failed: {e}".encode(), "text/plain")
-                    return
-                self._send(200, to_wav_bytes(clip), "audio/wav")
+                self._answer(lambda: batcher.synthesize(text, timeout=600), "synthesis")
             elif self.path == "/clone":
                 try:
                     req = self._read_json()
                     text = req["text"]
                     prompt = wav_bytes_to_float(base64.b64decode(req["prompt_wav"]))
                 except Exception as e:
-                    self._send(400, f"bad request: {e}".encode(), "text/plain")
+                    self._refused(e)
                     return
-                try:
-                    clip = batcher.submit_clone(text, prompt[None, :]).result(timeout=600)
-                except Exception as e:
-                    self._send(500, f"cloning failed: {e}".encode(), "text/plain")
-                    return
-                self._send(200, to_wav_bytes(clip), "audio/wav")
+                self._answer(lambda: batcher.submit_clone(text, prompt[None, :])
+                             .result(timeout=600), "cloning")
             else:
                 self._send(404, b"not found", "text/plain")
 

@@ -27,6 +27,8 @@ from torch import nn
 
 from ..ops.gateloop import gated_linear_recurrence_log
 from ..ops.remat import checkpoint_name
+from ..parallel.collectives import copy_to_group, gather_last_from_group, reduce_from_group
+from ..parallel.sequence_parallel import current_shard, halo_exchange
 
 __all__ = [
     "Linear",
@@ -53,7 +55,13 @@ def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 class Linear(nn.Linear):
     """nn.Linear with its weights in `param_dtype` (default `dtype`),
-    computing in `dtype`."""
+    computing in `dtype`. Under tensor parallelism (`tp`, set by
+    `parallel/tensor_parallel.py`) it holds this rank's piece of the weight:
+    "column" rows (its input's gradient all-reduced over "model", its whole
+    bias's rows used), "column_gather" the same with the output all-gathered,
+    "row" columns (the output all-reduced, then the whole bias added)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32, param_dtype=None):
@@ -62,7 +70,18 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tp is not None:
+            return self._tp_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
         return F.linear(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+    def _tp_forward(self, x, weight, bias):
+        tp = self.tp
+        if tp.mode == "row":
+            y = reduce_from_group(F.linear(x, weight), tp.group)
+            return y if bias is None else y + bias
+        y = F.linear(copy_to_group(x, tp.group), weight,
+                     None if bias is None else bias.index_select(0, tp.rows))
+        return gather_last_from_group(y, tp.group) if tp.mode == "column_gather" else y
 
 
 class Conv1d(nn.Conv1d):
@@ -124,7 +143,10 @@ def apply_rotary_pos_emb(pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 class ConvPositionEmbed(nn.Module):
     """Depthwise 1-D conv + tanh GELU on (b, n, dim), masked before and
-    after. The caller adds the residual."""
+    after. The caller adds the residual. Inside `seq_shard` (sequence
+    parallelism) x is this rank's frames: a halo of kernel_size // 2 frames
+    comes from each neighbour and the conv runs without padding over the
+    widened block, the full sequence's conv on the rank's frames."""
 
     def __init__(self, dim: int, kernel_size: int = 31, groups: Optional[int] = None,
                  dtype=torch.float32, param_dtype=None):
@@ -139,7 +161,16 @@ class ConvPositionEmbed(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if mask is not None:
             x = x.masked_fill(~mask[..., None], 0.0)
-        out = self.dw_conv1d(x.transpose(1, 2)).transpose(1, 2)
+        conv = self.dw_conv1d[0]
+        shard = current_shard()
+        if shard is not None and conv.kernel_size[0] > 1:
+            x = halo_exchange(x, conv.kernel_size[0] // 2, shard.group)
+            dt = conv.compute_dtype
+            out = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt), _cast(conv.bias, dt),
+                           groups=conv.groups)
+            out = self.dw_conv1d[1](out).transpose(1, 2)
+        else:
+            out = self.dw_conv1d(x.transpose(1, 2)).transpose(1, 2)
         if mask is not None:
             out = out.masked_fill(~mask[..., None], 0.0)
         return out
@@ -183,15 +214,17 @@ class AdaptiveRMSNorm(nn.Module):
 
 
 class MultiheadRMSNorm(nn.Module):
-    """Per-head qk-norm on (b, h, n, d): gamma (h, 1, d) * sqrt(d) * l2norm."""
+    """Per-head qk-norm on (b, h, n, d): gamma (h, 1, d) * sqrt(d) * l2norm;
+    `heads` (a slice) picks the gains of the heads x holds."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.scale = dim ** 0.5
         self.gamma = nn.Parameter(torch.ones(heads, 1, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (l2norm(x.float()) * self.gamma * self.scale).to(x.dtype)
+    def forward(self, x: torch.Tensor, heads: Optional[slice] = None) -> torch.Tensor:
+        gamma = self.gamma if heads is None else self.gamma[heads]
+        return (l2norm(x.float()) * gamma * self.scale).to(x.dtype)
 
 
 class GEGLU(nn.Module):

@@ -13,6 +13,11 @@ feed-forward + residual. Registers are prepended at rotary position -10000
 and are never masked. `VoiceBox` leaves the skip connections off; the flag
 is kept for checkpoints that carry `skip_combiner_{i}`.
 
+Inside `parallel/sequence_parallel.py::seq_shard` the block runs on this
+rank's frames: rotary positions are offset by the shard, the registers
+are ring attention's replicated prefix, and GateLoop is refused (its
+recurrence spans the whole sequence), as in the JAX package.
+
 `remat=True` rematerialises each block (attention and feed-forward, not the
 skip combiner) in the backward under `remat_policy` (`ops/remat.py`: None is
 full recompute, "dots", "dots_no_batch" and the JAX package's tag names),
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.remat import parse_policy, remat_call
+from ..parallel.sequence_parallel import current_shard
 from .attention import Attention
 from .primitives import (AdaptiveRMSNorm, FeedForward, Linear, RMSNorm, RotaryEmbedding,
                          SimpleGateLoopLayer)
@@ -101,7 +107,7 @@ class Transformer(nn.Module):
             def norm(m, t):
                 return m(t)
         x = attn(norm(attn_prenorm, x), mask=mask, rotary_emb=rotary_emb, train=train,
-                 generator=generator) + x
+                 generator=generator, prefix=self.num_register_tokens) + x
         return ff(norm(ff_prenorm, x)) + x
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -117,7 +123,15 @@ class Transformer(nn.Module):
             if mask is not None:
                 mask = torch.cat([mask.new_ones(batch, num_reg), mask], dim=1)
 
-        positions = torch.arange(seq_len, device=x.device, dtype=torch.float32)
+        shard = current_shard()
+        offset = 0
+        if shard is not None:
+            if self.layers and self.layers[0][1] is not None:
+                raise ValueError("GateLoop's recurrence spans the whole sequence: it is not "
+                                 "supported under sequence parallelism")
+            offset = shard.rank * seq_len  # seq_len is the shard's
+        positions = torch.arange(offset, offset + seq_len, device=x.device,
+                                 dtype=torch.float32)
         if num_reg > 0:
             positions = torch.cat([positions.new_full((num_reg,), -10000.0), positions])
         rotary_emb = self.rotary_emb(positions)

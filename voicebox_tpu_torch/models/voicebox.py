@@ -18,6 +18,15 @@ num / clamp(den, 1e-5), then the mean over the batch. The JAX package's
 128-lane padding (`pad_to_lane_multiple`) is a TPU layout rule and is not
 ported: the masked loss is the same without it.
 
+Under tensor parallelism a `to_cond_emb` whose rows the rule splits holds
+this rank's block of rows (ids outside it give zeros, then one all-reduce
+over "model"). Inside `parallel/sequence_parallel.py::seq_shard` x, cond
+and the masks are this rank's frames: the ids stay whole and their
+embedding is stretched to the global length, then sliced; the span mask
+is built over the global length and sliced; the loss's numerator and
+denominator are summed over "seq", so every rank returns the whole
+sequence's loss.
+
 State-dict keys are the reference's (`export_voicebox_torch`), so the
 exporter's output loads with `strict=True`. The attached codec is frozen and
 holds its own weights, so it is not a registered submodule: it appears in no
@@ -33,6 +42,8 @@ from torch import nn
 
 from ..ops.interp import interpolate_1d
 from ..ops.masks import mask_from_frac_lengths, prob_mask_like, reduce_masks_with_and, uniform
+from ..parallel.collectives import all_reduce, reduce_from_group
+from ..parallel.sequence_parallel import current_shard
 from .primitives import ConvPositionEmbed, LearnedSinusoidalPosEmb, Linear
 from .transformer import Transformer
 
@@ -148,10 +159,16 @@ class VoiceBox(nn.Module):
         if times.dim() == 0 or times.numel() == 1:
             times = times.reshape(1).expand(batch)
 
+        shard = current_shard()
         if cond_mask is None and train:
             lo, hi = self.frac_lengths_mask
             frac = (uniform((batch,), generator, x.device) * (hi - lo) + lo).clamp_min(lo)
-            cond_mask = mask_from_frac_lengths(seq_len, frac, generator)
+            if shard is None:
+                cond_mask = mask_from_frac_lengths(seq_len, frac, generator)
+            else:  # the span over the whole sequence, this rank's frames of it
+                start = shard.rank * seq_len
+                cond_mask = mask_from_frac_lengths(seq_len * shard.size, frac, generator)
+                cond_mask = cond_mask[:, start:start + seq_len]
         elif cond_mask is None:
             cond_mask = torch.ones(batch, seq_len, dtype=torch.bool, device=x.device)
         cond = cond * (~cond_mask[..., None]).to(cond.dtype)
@@ -171,8 +188,16 @@ class VoiceBox(nn.Module):
             # the table in the compute dtype first, as flax's Embed promotes
             # it: the backward's scatter-add then sums in that dtype and
             # rounds once to the parameter's
-            cond_emb = nn.functional.embedding(cond_ids, self.to_cond_emb.weight.to(self.dtype))
-            if cond_emb.shape[-2] != seq_len:
+            cond_emb = self._embed(cond_ids)
+            if shard is not None:
+                # the ids are whole: stretch to the global length, keep the shard
+                n_global = seq_len * shard.size
+                if cond_emb.shape[-2] != n_global:
+                    cond_emb = interpolate_1d(cond_emb.transpose(1, 2),
+                                              n_global).transpose(1, 2)
+                start = shard.rank * seq_len
+                cond_emb = cond_emb[:, start:start + seq_len]
+            elif cond_emb.shape[-2] != seq_len:
                 cond_emb = interpolate_1d(cond_emb.transpose(1, 2), seq_len).transpose(1, 2)
                 if self_attn_mask is not None:
                     self_attn_mask = interpolate_1d(self_attn_mask, seq_len)
@@ -191,8 +216,23 @@ class VoiceBox(nn.Module):
         loss_mask = reduce_masks_with_and(cond_mask, self_attn_mask)
         loss = (x.float() - target.float()).square().mean(dim=-1)
         loss = torch.where(loss_mask, loss, 0.0)
-        den = loss_mask.sum(dim=-1).to(loss.dtype).clamp_min(1e-5)
-        return (loss.sum(dim=-1) / den).mean()
+        num, den = loss.sum(dim=-1), loss_mask.sum(dim=-1).to(loss.dtype)
+        if shard is not None:  # the masked mean over the whole sequence
+            num = reduce_from_group(num, shard.group)
+            den = all_reduce(den.clone(), shard.group)
+        return (num / den.clamp_min(1e-5)).mean()
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The cond-id embedding; under tensor parallelism this rank's rows
+        of the table, the other ids zero, summed over "model"."""
+        table = self.to_cond_emb.weight.to(self.dtype)
+        tp = getattr(self.to_cond_emb, "tp", None)
+        if tp is None:
+            return nn.functional.embedding(ids, table)
+        local = ids - self.to_cond_emb.tp_rows
+        inside = (local >= 0) & (local < table.shape[0])
+        emb = nn.functional.embedding(local.clamp(0, table.shape[0] - 1), table)
+        return reduce_from_group(emb * inside[..., None].to(emb.dtype), tp.group)
 
     def forward_with_cond_scale(self, x: torch.Tensor, *, times, cond_scale: float = 1.0,
                                 **kwargs) -> torch.Tensor:

@@ -13,7 +13,10 @@ Every rank draws the global micro-batch's numbers from the same generator
 and keeps its own, so the generators stay in step with a single process's
 and the run equals it. Draws without a batch axis (the duration
 predictor's coin flip) are drawn whole on every rank, as they would be
-once.
+once. `batch_frames(offset, frames, total)` does the same for a sequence
+split over ranks (`parallel/sequence_parallel.py`): a draw whose second axis
+is `frames` is drawn at `total` frames and frames [offset, offset +
+frames) of it are returned; inside both blocks a draw is cut both ways.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import List, Optional, Tuple
 import torch
 
 __all__ = [
+    "batch_frames",
     "batch_rows",
     "prob_mask_like",
     "reduce_masks_with_and",
@@ -37,6 +41,7 @@ __all__ = [
 
 
 _ROWS: List[Tuple[int, int, int]] = []  # (offset, rows, total) of the open blocks
+_FRAMES: List[Tuple[int, int, int]] = []  # the same for the frames of a split sequence
 
 
 @contextlib.contextmanager
@@ -50,14 +55,26 @@ def batch_rows(offset: int, rows: int, total: int):
         _ROWS.pop()
 
 
+@contextlib.contextmanager
+def batch_frames(offset: int, frames: int, total: int):
+    """Inside the block, a draw whose second axis is `frames` is drawn at
+    `total` frames and frames [offset, offset + frames) of it are returned."""
+    _FRAMES.append((offset, frames, total))
+    try:
+        yield
+    finally:
+        _FRAMES.pop()
+
+
 def _draw(fn, shape, generator, device, dtype) -> torch.Tensor:
     gen_device = generator.device if generator is not None else device
-    shape = tuple(shape)
-    if _ROWS and shape and shape[0] == _ROWS[-1][1]:
-        offset, rows, total = _ROWS[-1]
-        full = fn((total, *shape[1:]), generator=generator, device=gen_device, dtype=dtype)
-        return full[offset:offset + rows].to(device)
-    return fn(shape, generator=generator, device=gen_device, dtype=dtype).to(device)
+    full, cut = list(shape), [slice(None)] * len(shape)
+    for axis, blocks in ((0, _ROWS), (1, _FRAMES)):
+        if blocks and len(full) > axis and full[axis] == blocks[-1][1]:
+            offset, n, total = blocks[-1]
+            full[axis], cut[axis] = total, slice(offset, offset + n)
+    out = fn(tuple(full), generator=generator, device=gen_device, dtype=dtype)
+    return out[tuple(cut)].to(device)
 
 
 def uniform(shape, generator: Optional[torch.Generator] = None, device=None,

@@ -5,8 +5,10 @@ DDP only (trainer.py:89-95); the JAX package runs SPMD over a
 `jax.sharding.Mesh` with a "data" and a "model" axis. Here the mesh is a
 `torch.distributed.device_mesh.DeviceMesh` over the process group's ranks,
 one process per card (or per CPU process), with the same axis names: the
-batch is split over "data", and "model" is reserved for tensor parallelism,
-which waits for ROADMAP item 15b (a "model" axis wider than 1 raises).
+batch is split over "data", the tensor-parallel pieces over "model"
+(`tensor_parallel.py`). Sequence parallelism builds a ("data", "seq") mesh
+instead (`seq_parallel > 1`), as the JAX trainer does: the batch over
+"data", the time axis over "seq".
 """
 
 from __future__ import annotations
@@ -17,34 +19,36 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "make_mesh", "shard_batch"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "make_mesh", "shard_batch"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 
 
 def make_mesh(data_parallel: Optional[int] = None, model_parallel: int = 1,
-              device_type: Optional[str] = None) -> DeviceMesh:
+              device_type: Optional[str] = None, seq_parallel: int = 1) -> DeviceMesh:
     """A ("data", "model") mesh over every rank of the process group, pure
-    data parallelism by default. `device_type` is "cuda" on a machine with
-    a card, else "cpu"; set the process's card (`torch.cuda.set_device`)
-    first."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1: tensor-parallel layouts are not ported yet (ROADMAP Queue 1, "
-            "item 15b)")
+    data parallelism by default; with `seq_parallel > 1` a ("data", "seq")
+    mesh. Consecutive ranks share a "data" row. `device_type` is "cuda" on
+    a machine with a card, else "cpu"; set the process's card
+    (`torch.cuda.set_device`) first."""
+    if model_parallel > 1 and seq_parallel > 1:
+        raise ValueError("sequence parallelism keeps the parameters replicated: a mesh takes "
+                         "model_parallel or seq_parallel, not both")
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("a mesh needs a process group: call parallel.distributed."
                            "maybe_initialize_distributed (or torchrun) first")
     world = dist.get_world_size()
+    inner, axis = (seq_parallel, SEQ_AXIS) if seq_parallel > 1 else (model_parallel, MODEL_AXIS)
     if data_parallel is None:
-        data_parallel = world // model_parallel
-    if data_parallel * model_parallel != world:
-        raise ValueError(f"mesh {data_parallel}x{model_parallel} != {world} processes")
+        data_parallel = world // inner
+    if data_parallel * inner != world:
+        raise ValueError(f"mesh {data_parallel}x{inner} != {world} processes")
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return DeviceMesh(device_type, torch.arange(world).reshape(data_parallel, model_parallel),
-                      mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return DeviceMesh(device_type, torch.arange(world).reshape(data_parallel, inner),
+                      mesh_dim_names=(DATA_AXIS, axis))
 
 
 def shard_batch(mesh: DeviceMesh, batch):

@@ -19,8 +19,8 @@ Conv kernel (k, in / groups, out) where a `Conv1d` weight is (out,
 in / groups, k), so the rule runs on the reversed shape and its axes are
 reversed back. Module names are the JAX package's where the rules read
 them: a feed-forward's `ff.0` and `ff.3` are its `proj_in` and `proj_out`.
-The trainers apply "replicated" and "fsdp"; "tp" and "fsdp+tp" wait for
-ROADMAP item 15b.
+The trainers apply every mode (`data_parallel.py`; the "model" pieces in
+`tensor_parallel.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from .mesh import DATA_AXIS, MODEL_AXIS
 __all__ = ["APPLIED_MODES", "MODES", "module_partition_specs", "param_partition_spec"]
 
 MODES = ("replicated", "fsdp", "tp", "fsdp+tp")
-APPLIED_MODES = ("replicated", "fsdp")
+APPLIED_MODES = ("replicated", "fsdp", "tp", "fsdp+tp")
 
 # parent-name substrings that get Megatron column / row sharding on "model"
 _COLUMN_PARALLEL = ("to_qkv", "proj_in", "to_q", "to_kv")  # shard the output dim

@@ -33,7 +33,9 @@ random numbers at the global micro-batch's shape and keeps its rows
 (`ops/masks.py::batch_rows`), so the run equals the single-process one on
 the same global batch. A token-mean loss is weighted by each rank's share
 of the all-reduced count. The gradients and the loss are reduced once a
-step (`parallel/data_parallel.py`; "replicated" or "fsdp"). Only rank 0
+step (`parallel/data_parallel.py`; "replicated", "fsdp", and for
+`VoiceBoxTrainer` "tp" and "fsdp+tp" over a "model" axis, and sequence
+parallelism over a "seq" axis: `seq_parallel`). Only rank 0
 prints, logs, writes metrics and writes "msgpack" checkpoints; every rank
 runs the validation loss on its rows and takes the mean over ranks. The
 port's `VoiceBoxTrainer` keeps its own set-up and step on this class's
@@ -57,10 +59,10 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.cfm import resolve_device
-from ..ops.masks import batch_rows
 from ..parallel.data_parallel import DataParallel, check_mode
 from ..parallel.distributed import is_multihost
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import SEQ_AXIS, make_mesh
+from ..parallel.sequence_parallel import shard_draws
 from .checkpoint import (ShardedCheckpointer, check_backend, load_trainer_checkpoint,
                          save_trainer_checkpoint)
 from .data import PairedDataLoader, PrefetchLoader, TokenizedTextDataset, random_split
@@ -82,10 +84,11 @@ class TrainerBase:
 
     def _setup_parallel(self, *, mesh, use_mesh: bool, split_batches: Optional[bool],
                         batch_size: int, param_sharding: str = "replicated",
-                        min_fsdp_size: int = 2 ** 16) -> None:
-        """The data mesh and the parameters' layout over it (module doc).
-        Needs `self.module`, `self.named_params` and `self.device`; sets the
-        tensors the optimizer steps, `self.opt_params`."""
+                        min_fsdp_size: int = 2 ** 16, seq_parallel: int = 1) -> None:
+        """The mesh and the parameters' layout over it (module doc). Needs
+        `self.module`, `self.named_params` and `self.device`; sets the
+        tensors the optimizer steps, `self.opt_params` (and, under a "model"
+        axis, `self.named_params` / `self.params` to this rank's pieces)."""
         check_mode(param_sharding)
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError("mesh must be a DeviceMesh (parallel.mesh.make_mesh), got "
@@ -95,6 +98,22 @@ class TrainerBase:
             raise ValueError(
                 "split_batches=False: the reference's per-process batch_size is not this "
                 "trainer's; batch_size is the global batch, split over the processes")
+        self.seq_parallel = int(seq_parallel)
+        mesh_seq = mesh is not None and SEQ_AXIS in (mesh.mesh_dim_names or ())
+        if (self.seq_parallel > 1 or mesh_seq) and param_sharding != "replicated":
+            raise ValueError("sequence parallelism keeps the parameters replicated "
+                             f"(param_sharding='replicated'), got {param_sharding!r}")
+        if mesh_seq:
+            if self.seq_parallel not in (1, mesh[SEQ_AXIS].size()):
+                raise ValueError(f"seq_parallel={seq_parallel} against the mesh's "
+                                 f"{mesh[SEQ_AXIS].size()} 'seq' ranks")
+            self.seq_parallel = mesh[SEQ_AXIS].size()
+        elif self.seq_parallel > 1:
+            # a ("data", "seq") mesh: the batch over "data", the time axis over "seq"
+            if mesh is not None or not use_mesh:
+                raise ValueError("seq_parallel > 1 builds its own mesh (or pass one with a "
+                                 "'seq' axis, make_mesh(seq_parallel=)) and needs use_mesh")
+            mesh = make_mesh(seq_parallel=self.seq_parallel, device_type=self.device.type)
         if mesh is None and use_mesh and multi:
             mesh = make_mesh(device_type=self.device.type)
         elif mesh is None and multi:
@@ -103,10 +122,14 @@ class TrainerBase:
         self.mesh = mesh
         self.data_parallel = None
         self.rank, self.world = 0, 1
+        # the one process that prints, logs and writes (ranks of other axes share a data rank)
+        self.is_first = not multi or torch.distributed.get_rank() == 0
         self.opt_params = self.params
+        self.seq_group = mesh.get_group(SEQ_AXIS) if self.seq_parallel > 1 else None
         if mesh is not None:
             dp = self.data_parallel = DataParallel(mesh, self.module, self.named_params,
                                                    param_sharding, min_fsdp_size)
+            self.named_params, self.params = dp.named_params, dp.params
             self.rank, self.world = dp.rank, dp.world
             if batch_size % self.world:
                 raise ValueError(f"batch_size {batch_size} does not split over {self.world} "
@@ -116,7 +139,8 @@ class TrainerBase:
 
     @property
     def _fsdp(self) -> bool:
-        return self.data_parallel is not None and self.data_parallel.mode == "fsdp"
+        return self.data_parallel is not None and "fsdp" in self.data_parallel.mode
+
 
     def _setup_results(self, *, results_folder, force_clear_prev_results: bool,
                        checkpoint_backend: str, save_model_every: Optional[int], trackers: tuple):
@@ -130,13 +154,13 @@ class TrainerBase:
         self._metrics_path = self.results_folder = self.checkpointer = None
         if results_folder is not None:
             self.results_folder = Path(results_folder)
-            if force_clear_prev_results and self.results_folder.exists() and self.rank == 0:
+            if force_clear_prev_results and self.results_folder.exists() and self.is_first:
                 shutil.rmtree(self.results_folder)
             self.results_folder.mkdir(parents=True, exist_ok=True)
             self._metrics_path = self.results_folder / "metrics.jsonl"
             if checkpoint_backend == "orbax":
                 self.checkpointer = ShardedCheckpointer(self.results_folder / "orbax")
-        self._trackers = tuple(trackers) if self.rank == 0 else ()
+        self._trackers = tuple(trackers) if self.is_first else ()
         self._loss_buffer: list = []
 
     def _setup_core(self, *, module: torch.nn.Module, num_train_steps: int,
@@ -182,12 +206,15 @@ class TrainerBase:
     # ------------------------------------------------------------------
     # data parallelism
 
-    def _rows(self, micro: int):
+    def _rows(self, micro: int, frames: Optional[int] = None):
         """The block a micro-batch's loss runs in: under a mesh, its draws
-        at the global micro-batch's shape, this rank's rows kept."""
+        at the global micro-batch's shape, this rank's rows kept; under
+        sequence parallelism (`frames`: the rank's) also this rank's frames,
+        the denoiser on its shard."""
         if self.data_parallel is None:
             return contextlib.nullcontext()
-        return batch_rows(self.rank * micro, micro, micro * self.world)
+        return shard_draws(self.seq_group, frames,
+                           (self.rank * micro, micro, micro * self.world))
 
     def _draw_rows(self, i: int, micro: int) -> slice:
         """This rank's rows of micro-batch i in a step's global draws."""
@@ -209,9 +236,10 @@ class TrainerBase:
             grads, loss = reduced, rest[0]
         grad_norm = None
         if self.max_grad_norm is not None:
+            group = None if dp is None else dp.clip_group()
             grad_norm = clip_by_global_norm_f32(
-                grads, self.max_grad_norm, group=dp.group if self._fsdp else None,
-                sharded=dp.sharded if self._fsdp else None)
+                grads, self.max_grad_norm, group=group,
+                counted=None if group is None else dp.counted)
         if isinstance(self.optimizer, AdamLowPrecisionMoments):
             self.optimizer.step(dict(zip(self.opt_params, grads)))
         else:
@@ -233,11 +261,11 @@ class TrainerBase:
     # logging
 
     def print(self, msg):
-        if getattr(self, "rank", 0) == 0:
+        if getattr(self, "is_first", True):
             print(msg, flush=True)
 
     def _log_metrics(self, record: dict, step: Optional[int] = None):
-        if getattr(self, "rank", 0) != 0:
+        if not getattr(self, "is_first", True):
             return
         step = self.steps if step is None else step
         record = dict(record, step=step, time=time.time())
@@ -287,15 +315,19 @@ class TrainerBase:
             return self.checkpointer.save(self.steps, self._sharded_state())
         mus, nus, count = adam_state(self.optimizer, self.opt_params)
         ema = None if self.ema is None else self.ema.shadow
-        if self._fsdp:
-            gather = self.data_parallel.gather
+        state = None
+        dp = self.data_parallel
+        if dp is not None and ("fsdp" in dp.mode or dp.splits):  # shards or pieces
+            whole = self.data_parallel.whole
             if all(m is not None for m in mus):
-                mus, nus = gather(mus), gather(nus)
-            ema = None if ema is None else gather(ema)
-        if self.rank != 0:
+                mus, nus = whole(mus), whole(nus)
+            ema = None if ema is None else whole(ema)
+            state = self.data_parallel.module_state(self.module)
+        if not self.is_first:
             return None
         return save_trainer_checkpoint(
-            path, module=self.module, named_params=self.named_params, optimizer=self.optimizer,
+            path, module=self.module, state_dict=state, named_params=self.named_params,
+            optimizer=self.optimizer,
             steps=self.steps, lr=self.lr, wd=self.wd, moments=(mus, nus, count),
             ema_tensors=ema, extra_model_state=extra_model_state, prefix=self.state_prefix)
 
@@ -310,7 +342,10 @@ class TrainerBase:
     def _sharded_state(self) -> dict:
         """The run as `torch.distributed.checkpoint` state: the tensors the
         optimizer steps, both moments and the EMA per parameter (an FSDP
-        shard as a `DTensor`), the module's other state, the step counts."""
+        shard as a `DTensor`), the module's other state, the step counts.
+        Under tensor parallelism every tensor is gathered whole (the
+        reference layout, written once) and `self._unsplit` keeps, for a
+        load, where each whole tensor's pieces go back."""
         dp = self.data_parallel
         wrap = (lambda i, t: t) if dp is None else dp.dtensor
         mus, nus, count = adam_state(self.optimizer, self.opt_params)
@@ -318,14 +353,25 @@ class TrainerBase:
             restore_adam_state(self.optimizer, self.opt_params,
                                [torch.zeros_like(p) for p in self.opt_params],
                                [torch.zeros_like(p) for p in self.opt_params], count)
+        kinds = {"model": [p.detach() for p in self.opt_params],
+                 "exp_avg": [self.optimizer.state[p]["exp_avg"] for p in self.opt_params],
+                 "exp_avg_sq": [self.optimizer.state[p]["exp_avg_sq"] for p in self.opt_params]}
+        if self.ema is not None:
+            kinds["ema"] = list(self.ema.shadow)
+        self._unsplit = []
+        if dp is not None and dp.splits:  # the pieces' wholes, and where they go back
+            for kind, tensors in kinds.items():
+                wholes = dp.whole(tensors)
+                self._unsplit += [(i, t, w) for i, (t, w) in enumerate(zip(tensors, wholes))]
+                kinds[kind] = wholes
+            wrap = (lambda i, t: t)
         state = {"steps": torch.tensor(self.steps), "optim_count": torch.tensor(count)}
-        for i, ((name, _), p) in enumerate(zip(self.named_params, self.opt_params)):
-            st = self.optimizer.state[p]
-            state[f"model.{name}"] = wrap(i, p.detach())
-            state[f"optim.{name}.exp_avg"] = wrap(i, st["exp_avg"])
-            state[f"optim.{name}.exp_avg_sq"] = wrap(i, st["exp_avg_sq"])
+        for i, (name, _) in enumerate(self.named_params):
+            state[f"model.{name}"] = wrap(i, kinds["model"][i])
+            state[f"optim.{name}.exp_avg"] = wrap(i, kinds["exp_avg"][i])
+            state[f"optim.{name}.exp_avg_sq"] = wrap(i, kinds["exp_avg_sq"][i])
             if self.ema is not None:
-                state[f"ema.{name}"] = wrap(i, self.ema.shadow[i])
+                state[f"ema.{name}"] = wrap(i, kinds["ema"][i])
         trained = {n for n, _ in self.named_params}
         for name, t in self.module.state_dict().items():
             if name not in trained:
@@ -356,6 +402,9 @@ class TrainerBase:
         if self.checkpoint_backend == "orbax":
             state = self._sharded_state()
             self.checkpointer.load(path, state)
+            with torch.no_grad():
+                for i, target, whole in self._unsplit:  # each rank's pieces of the wholes
+                    target.copy_(dp.shard_of(i, whole))
             restore_adam_state(self.optimizer, self.opt_params,
                                [self.optimizer.state[p]["exp_avg"] for p in self.opt_params],
                                [self.optimizer.state[p]["exp_avg_sq"] for p in self.opt_params],
@@ -367,12 +416,13 @@ class TrainerBase:
         steps = load_trainer_checkpoint(
             path, module=self.module, named_params=self.named_params, optimizer=self.optimizer,
             ema=self.ema, prefix=self.state_prefix, module_state=self._module_state,
-            opt_params=self.opt_params, shard=None if dp is None else dp.shard_of)
+            opt_params=self.opt_params, shard=None if dp is None else dp.shard_of,
+            localize=None if dp is None or not dp.splits else dp.local_state)
         if self._fsdp:  # the masters from the loaded whole weights
             with torch.no_grad():
                 for i, (p, s) in enumerate(zip(self.params, self.opt_params)):
                     if s is not p:
-                        s.copy_(dp.shard_of(i, p.detach()))
+                        s.copy_(dp.local(p.detach(), dp.axes[i]))
         self._set_step(steps)
 
     @property

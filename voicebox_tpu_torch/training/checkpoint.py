@@ -119,14 +119,17 @@ def save_trainer_checkpoint(
     betas=(0.9, 0.99), eps: float = 1e-8, ema: Optional[ParamsEMA] = None,
     prefix: str, extra_model_state: Optional[dict] = None,
     moments: Optional[tuple] = None, ema_tensors: Optional[Sequence[torch.Tensor]] = None,
+    state_dict: Optional[dict] = None,
 ) -> dict:
-    """`module`'s state dict under `prefix` (the denoiser's `voicebox.`; the
+    """`module`'s state dict (or `state_dict`: a tensor-parallel run's,
+    gathered whole) under `prefix` (the denoiser's `voicebox.`; the
     duration trainer's `duration_predictor.`), `named_params` named as in
     it. `moments` ((exp_avg list, exp_avg_sq list, count)) and
     `ema_tensors` replace the optimizer's and the EMA's own, per parameter
-    (an FSDP run's, gathered whole)."""
+    (an FSDP or tensor-parallel run's, gathered whole)."""
+    state_dict = module.state_dict() if state_dict is None else state_dict
     model = {prefix + k: v.detach().to("cpu", torch.float32, copy=True)
-             for k, v in module.state_dict().items()}
+             for k, v in state_dict.items()}
     names = [prefix + n for n, _ in named_params]
     mus, nus, count = moments or adam_state(optimizer, [p for _, p in named_params])
     mu_sd = {n: m for n, m in zip(names, mus) if m is not None}
@@ -148,6 +151,7 @@ def load_trainer_checkpoint(
     module_state: Optional[Callable[[dict], dict]] = None,
     opt_params: Optional[Sequence[torch.Tensor]] = None,
     shard: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
+    localize: Optional[Callable[[dict], dict]] = None,
 ) -> int:
     """Restore the weights, the moments, the step and the EMA; returns the
     number of steps taken. `module_state` picks `module`'s state dict out of
@@ -155,12 +159,16 @@ def load_trainer_checkpoint(
     `prefix`, the prefix stripped. Moments and EMA are looked up under
     `prefix` + the parameter's name, and go to `opt_params` (the tensors the
     optimizer steps; by default the parameters) through `shard(i, whole)`
-    (this rank's piece of parameter i's; by default the whole)."""
+    (this rank's piece of parameter i's; by default the whole). `localize`
+    turns the whole state dict into the module's (a tensor-parallel
+    rank's pieces)."""
     pkg = torch.load(path, map_location="cpu", weights_only=False)
     if module_state is None:
         state = {k[len(prefix):]: v for k, v in pkg["model"].items() if k.startswith(prefix)}
     else:
         state = module_state(pkg["model"])
+    if localize is not None:
+        state = localize(state)
     with torch.no_grad():
         module.load_state_dict(state, strict=True)
     mu, nu, count = optimizer_state_by_name(pkg)

@@ -9,8 +9,8 @@ Counterpart of `voicebox_tpu/training/config.py`: `TrainConfig` holds what
     json.dumps(cfg.to_dict())
 
 `MeshConfig(data_parallel=, model_parallel=)` builds the ("data", "model")
-DeviceMesh over the process group (`parallel.mesh.make_mesh`); a "model"
-axis wider than 1 raises, as tensor parallelism waits for ROADMAP item 15b.
+DeviceMesh over the process group (`parallel.mesh.make_mesh`); sequence
+parallelism builds its ("data", "seq") mesh from `seq_parallel`.
 `TrainConfig` also records `use_mesh`, `param_sharding`, `seq_parallel`
 and `min_fsdp_size`, as the JAX package's does.
 """

@@ -41,8 +41,9 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.optim.lr_scheduler import LambdaLR
+
+from ..parallel.collectives import all_reduce
 
 __all__ = [
     "AdamLowPrecisionMoments",
@@ -216,28 +217,32 @@ def restore_adam_state(optimizer: torch.optim.Optimizer, params, mus, nus, count
 
 @torch.no_grad()
 def clip_by_global_norm_f32(grads: Iterable[torch.Tensor], max_norm: float,
-                            group=None, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                            group=None, counted: Optional[Sequence[bool]] = None
+                            ) -> torch.Tensor:
     """Scale the gradients in place by max_norm / norm when the global norm
     (squares summed in fp32) is at least max_norm; returns the norm before
     clipping, a 0-d fp32 tensor on the gradients' device. No host sync.
 
-    Under FSDP (`group`: the data-parallel process group) some gradients
-    are this rank's shards (`sharded`, one flag per gradient) and the rest
-    are whole on every rank: the sum of squares counts each shard once and
-    each whole gradient on the group's first rank only, then is all-reduced
-    over `group` before the scale, so every rank clips by the norm of the
-    whole gradient."""
-    grads, flags = list(grads), list(sharded or [False] * len(grads))
+    Under a mesh (`group`: a process group, or a tuple of groups: a mesh's
+    axes) the gradients are this rank's pieces: shards over "data",
+    tensor-parallel pieces, or whole gradients that several ranks hold.
+    `counted` (one flag per gradient, required with `group`) says which of
+    them this rank counts, each distinct piece on one rank; the sum of
+    squares is then all-reduced over each group in turn before the scale,
+    so every rank clips by the norm of the whole gradient."""
+    grads = list(grads)
     keep = [i for i, g in enumerate(grads) if g is not None]
     grads = [grads[i] for i in keep]
     norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
     if group is None:
         norm = torch.linalg.vector_norm(torch.stack(norms))
     else:
-        first = dist.get_rank(group) == 0
-        counted = torch.tensor([flags[i] or first for i in keep], device=norms[0].device)
-        sumsq = (torch.stack(norms).square() * counted).sum()
-        dist.all_reduce(sumsq, group=group)
+        if counted is None:
+            raise ValueError("clip_by_global_norm_f32 needs `counted` with `group`")
+        mine = torch.tensor([counted[i] for i in keep], device=norms[0].device)
+        sumsq = (torch.stack(norms).square() * mine).sum()
+        for g in group if isinstance(group, tuple) else (group,):
+            all_reduce(sumsq, g)
         norm = sumsq.sqrt()
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm.clamp_min(1e-16))
     torch._foreach_mul_(grads, scale)

@@ -14,14 +14,19 @@ Data parallelism over processes (`training/base.py`): `mesh` (a
 `parallel.mesh.make_mesh` DeviceMesh; by default one is built under a
 process group of more than one process, unless `use_mesh=False`),
 `split_batches` (None or True: `batch_size` is the global batch),
-`param_sharding` ("replicated", or "fsdp": the parameters of at least
-`min_fsdp_size` elements, their moments and EMA split over "data"; see
-`parallel/data_parallel.py`). Each rank decodes its rows only (the
-loaders' `shard`), draws at the global micro-batch's shape and keeps its
-rows, and the gradients are reduced once a step, so a run equals the
-single-process one on the same global batch. `param_sharding="tp"` or
-"fsdp+tp" and `seq_parallel > 1` raise NotImplementedError: tensor and
-sequence parallelism wait for ROADMAP item 15b.
+`param_sharding` ("replicated"; "fsdp": the parameters of at least
+`min_fsdp_size` elements, their moments and EMA split over "data"; "tp":
+attention's heads and the feed-forward's columns split over the mesh's
+"model" axis, `make_mesh(model_parallel=m)`; "fsdp+tp": both; see
+`parallel/data_parallel.py` and `parallel/tensor_parallel.py`) and
+`seq_parallel` (> 1: a ("data", "seq") mesh over the process group, each
+rank training on its block of every batch's frames through ring
+attention, `parallel/sequence_parallel.py`; the bucket length must divide
+by it, and the parameters stay replicated). Each rank decodes its rows
+only (the loaders' `shard`; the ranks of one "data" row decode the same
+rows and keep their frames), draws at the global micro-batch's shape and
+keeps its rows and frames, and the gradients are reduced once a step, so a
+run equals the single-process one on the same global batch.
 
 The JAX trainer's single-device options:
 
@@ -129,7 +134,7 @@ class VoiceBoxTrainer(TrainerBase):
         split_batches: Optional[bool] = None,
         mesh=None,
         use_mesh: bool = True,
-        param_sharding: str = "replicated",  # replicated | fsdp (tp, fsdp+tp: item 15b)
+        param_sharding: str = "replicated",  # replicated | fsdp | tp | fsdp+tp
         seq_parallel: int = 1,
         min_fsdp_size: int = 2 ** 16,
         seed: int = 0,
@@ -147,10 +152,6 @@ class VoiceBoxTrainer(TrainerBase):
         trackers: tuple = (),
         device="cuda",
     ):
-        if seq_parallel > 1:
-            raise NotImplementedError(
-                "seq_parallel > 1: sequence parallelism (ring attention, the halo conv) is not "
-                "ported yet (ROADMAP Queue 1, item 15b)")
         check_backend(checkpoint_backend)
         self.device = resolve_device(device)
         self.cfm_wrapper = cfm_wrapper.to(self.device)
@@ -189,7 +190,7 @@ class VoiceBoxTrainer(TrainerBase):
         self.params = [p for _, p in self.named_params]
         self._setup_parallel(mesh=mesh, use_mesh=use_mesh, split_batches=split_batches,
                              batch_size=batch_size, param_sharding=param_sharding,
-                             min_fsdp_size=min_fsdp_size)
+                             min_fsdp_size=min_fsdp_size, seq_parallel=seq_parallel)
         self._setup_optimizer(moment_dtype=moment_dtype, ema_decay=ema_decay,
                               ema_dtype=ema_dtype)
         self.param_dtype = param_dtype
@@ -261,7 +262,25 @@ class VoiceBoxTrainer(TrainerBase):
 
     def _next_batch(self, iterator):
         """(latents, mask, ids or None) as tensors on the device; waves are
-        encoded by the frozen codec."""
+        encoded by the frozen codec. Under sequence parallelism the latents
+        and the mask are this rank's frames, the ids whole."""
+        x, mask, ids = self._whole_batch(iterator)
+        if self.seq_group is None:
+            return x, mask, ids
+        n, size = x.shape[1], self.seq_parallel
+        if n % size:
+            raise ValueError(f"bucket length {n} does not divide by seq_parallel={size}: pick "
+                             "bucket_multiple / bucket_offset so that every bucket does")
+        frames = self._frames(n)
+        return x[:, frames], mask[:, frames], ids
+
+    def _frames(self, n: int) -> slice:
+        """This rank's frames of a sequence of `n` (sequence parallelism)."""
+        local = n // self.seq_parallel
+        start = torch.distributed.get_rank(self.seq_group) * local
+        return slice(start, start + local)
+
+    def _whole_batch(self, iterator):
         item = next(iterator)
         if self._paired:
             (x, mask), (ids, _) = item
@@ -329,10 +348,10 @@ class VoiceBoxTrainer(TrainerBase):
         acc = None
         for i in range(accum):
             sl, rows = slice(i * micro, (i + 1) * micro), self._draw_rows(i, micro)
-            with self._rows(micro):
+            with self._rows(micro, x.shape[1]):
                 loss = self._loss(x[sl], mask[sl], None if ids is None else ids[sl],
                                   generator=self.generator,
-                                  **{k: v[rows] for k, v in draws.items()})
+                                  **{k: self._draw_part(v[rows]) for k, v in draws.items()})
             loss.backward()
             loss_sum += loss.detach()
             if self._live is not None:
@@ -355,6 +374,13 @@ class VoiceBoxTrainer(TrainerBase):
         if accum > 1:
             torch._foreach_div_(acc, accum)
         return loss_sum / accum, acc
+
+    def _draw_part(self, draw: torch.Tensor) -> torch.Tensor:
+        """An explicit draw's part for this rank: its frames under sequence
+        parallelism (a draw of the whole sequence's frames on axis 1)."""
+        if self.seq_group is None or draw.dim() < 2:
+            return draw
+        return draw[:, self._frames(draw.shape[1])]
 
     def _profile_window(self, steps: int) -> None:
         if self.profile_dir is None:
@@ -404,7 +430,7 @@ class VoiceBoxTrainer(TrainerBase):
         if steps % self.save_results_every == 0:
             x, mask, ids = self._next_batch(self.valid_dl_iter)
             gen = torch.Generator(device=self.device).manual_seed(steps)
-            with torch.no_grad(), self._rows(x.shape[0]):
+            with torch.no_grad(), self._rows(x.shape[0], x.shape[1]):
                 valid_loss = self._loss(x, mask, ids, generator=gen)
             if self.data_parallel is not None:  # equal rows: the mean of the ranks' means
                 valid_loss = self.data_parallel.mean(valid_loss)
