@@ -21,8 +21,11 @@ imports nothing of JAX. Its phases print one line each or more:
    K/V ring many times, masked keys inside a tile, n under one 64-row
    tile), at phase 19's fp32 shapes (head dims 16, 32 and 64) and at the
    fp32 design's edges at head dims 16 and 32 (`k23_f32_edges`, each kind
-   of mask), each case with its tolerance; CUDA-event times of K1, the plain
-   version and SDPA; bf16 K1 at each tile height it can take (the host's
+   of mask), at the head dims the kernels are not built for and run
+   zero-padded (bf16 16 and 32, fp32 8: masked, ragged, a fully-masked
+   element) and at phase 22's pipeline stage, each case with its
+   tolerance; CUDA-event times of K1, the plain version and SDPA (the
+   padded widths beside the built width's launch of the same shape); bf16 K1 at each tile height it can take (the host's
    choice marked); the host time of one bf16 K1 call, and what encoding its
    tensor maps adds to it;
 4. K2/K3 check: K2 and K3 against the plain backward and against autograd
@@ -34,8 +37,9 @@ imports nothing of JAX. Its phases print one line each or more:
    ring many times, masked runs inside tiles) and those of the fp32 design
    (`k23_f32_edges`: n and kv at 1 and around its tiles, 64 owned rows and
    64 or 32 streamed, at head dims 16, 32, 64 and 128, under each kind of
-   mask; with one key, dq and dk held to a rounding floor) and phase 19's
-   training shapes; a second launch on the same
+   mask; with one key, dq and dk held to a rounding floor), phase 19's
+   training shapes, the padded head dims and the pipeline stage as in
+   phase 3; a second launch on the same
    inputs must give bit-identical dq, dk and dv; CUDA-event times of K2,
    K3, the plain backward and SDPA's backward (each of the two gives dq, dk
    and dv together) and attention forward + backward through K1/K2/K3
@@ -262,10 +266,21 @@ imports nothing of JAX. Its phases print one line each or more:
    order (the parameters' distance after the steps printed); then a 4080-frame
    utterance's vector field on each rank's 2040 frames against one
    process's: in bf16 at depth 24 (within the bf16-vs-fp32 floor) and in
-   fp32 at depth 4 (within 1e-4). Every K1, K2 and K3 launch (counted where
-   it is made, ring attention's included) at a shape phases 3 and 4 checked
-   and timed;
-23. one JSON line for the kernels (one row per kernel and main path; on the
+   fp32 at depth 4 (within 1e-4); (c) pipeline parallelism
+   (`parallel/pipeline.py`, `pp_worker`): the flagship's transformer with
+   U-Net skips in bf16, 2 stages over the two ranks, 4 microbatches of 2 x
+   752 frames, 1 + 2 forwards and backwards: 48 K1, K2 and K3 a rank a
+   step at (2, 4, 768, 768, 128), rank 0's outputs equal to the
+   unpipelined module's to the bit, the gradients gathered over every leaf
+   within TP_SP_TIMES_FLOOR of the summation-order floor; ms a step, the
+   collectives' share, the predicted bubble 3/7, peak memory a rank beside
+   one process's. Every K1, K2 and K3 launch (counted where it is made,
+   ring attention's included) at a shape phases 3 and 4 checked and timed;
+23. the multi-chip dry run (`voicebox_tpu_torch/dryrun.py`) over two gloo
+   ranks sharing the card: one "fsdp+tp" step, one step of each stage
+   trainer, the sequence-parallel and the pipeline's loss and gradients on
+   tiny shapes, all finite; its seconds;
+24. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -485,8 +500,29 @@ TP_SP_K1 = [
     ("sp_long_remote_f32", (1, 4, 2056, 2040, 128), torch.float32, "qk", None, 1e-3, 1e-3),
 ]
 K1_CASES += TP_SP_K1
+# head dims the kernels are not built for, zero-padded to the next built
+# width and sliced back (bf16 16 and 32 -> 64, fp32 8 -> 16): masked,
+# ragged, a fully-masked element; then timed at the training shape beside
+# the built width's launch of the same (b, h, n) ("pad_ref_"), SDPA and the
+# bound at the true d. Phase 22's pipeline stage: one microbatch of 2 x
+# 752 frames + 16 registers
+PAD_K1 = [
+    *[(f"pad_ragged_d{d}_{t}", (3, 4, 257, 131, d), dtype, "randn", "empty_row", tol, tol)
+      for d, dtype, t, tol in ((16, torch.bfloat16, "bf16", 1e-2), (32, torch.bfloat16, "bf16",
+                                                                    1e-2),
+                               (8, torch.float32, "f32", 1e-5))],
+    *[(f"pad_{'ref_' if ref else ''}d{d}_{t}", (8, 4, 768, 768, d), dtype, "qk", "all", tol, tol)
+      for d, dtype, t, tol, ref in ((16, torch.bfloat16, "bf16", 1e-2, False),
+                                    (32, torch.bfloat16, "bf16", 1e-2, False),
+                                    (64, torch.bfloat16, "bf16", 1e-2, True),
+                                    (8, torch.float32, "f32", 1e-3, False),
+                                    (16, torch.float32, "f32", 1e-3, True))],
+]
+PP_K1 = [("pp_stage_bf16", (2, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2)]
+K1_CASES += PAD_K1 + PP_K1
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_train_bf16",
-            *(name for name, *_ in TP_SP_K1),
+            *(name for name, *_ in TP_SP_K1 + PP_K1),
+            *(name for name, shape, *_ in PAD_K1 if shape[2] == 768),
             "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
@@ -560,10 +596,16 @@ K23_CASES = [
     ("canary_t2s_b8_f32", (8, 8, 16, 16, 64), torch.float32, "randn", "prefix", 1e-4),
 ]
 TP_SP_K23 = [(name, shape, dtype, inputs, mask, 2e-2)
-             for name, shape, dtype, inputs, mask, *_ in TP_SP_K1 if "long" not in name]
-K23_CASES += TP_SP_K23
+             for name, shape, dtype, inputs, mask, *_ in TP_SP_K1 + PP_K1 if "long" not in name]
+# the padded head dims as K1's: the ragged cases on a soft softmax (qk-norm
+# at d = 16 and 32 leaves dq and dk at their rounding floor), the timed ones
+# at the training shape
+PAD_K23 = [(name, shape, dtype, "randn", mask, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+           for name, shape, dtype, inputs, mask, *_ in PAD_K1]
+K23_CASES += TP_SP_K23 + PAD_K23
 K23_TIMED = ("train_bf16", "rank_train_bf16", "reference_split_bf16", "mel_train_bf16",
              *(name for name, *_ in TP_SP_K23),
+             *(name for name, shape, *_ in PAD_K23 if shape[2] == 768),
              "dp_train_f32",
              "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
@@ -590,14 +632,28 @@ SMALL = dict(num_cond_tokens=100, dim_cond_emb=64, dim=128, depth=2, dim_head=64
 MEASURED: dict = {}  # numbers one phase prints beside another's
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line, tagged with the phase and the process's seconds so far."""
+    print(f"[{phase} {time.perf_counter() - _START:.0f}s] {msg}", flush=True)
 
 
 def seeded(build, seed: int):
     """Build modules with torch's default init under a fixed seed, without
     touching the caller's random state."""
     with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+def seeded_on(device: str, build, seed: int):
+    """`seeded` with the modules made on `device` and their init drawn from
+    its generator: the same weights in every process that builds them so,
+    with no host init and no copy (other weights than `seeded`'s)."""
+    with torch.random.fork_rng(devices=[torch.device(device).index or 0]), \
+            torch.device(device):
         torch.manual_seed(seed)
         return build()
 
@@ -2386,7 +2442,9 @@ LEVERS = {
     "d_remat_full": (dict(remat=True), {}),
     "e_remat_dots_attn": (dict(remat=True, remat_policy="dots+attn_out+attn_lse"), {}),
 }
-LEVER_WARMUP, LEVER_TURN_STEPS = 2, 3  # steps before timing; steps per turn
+# steps before timing; steps per turn (3 until the pipeline phase needed
+# the script's time)
+LEVER_WARMUP, LEVER_TURN_STEPS = 2, 2
 ODE_LOOSE = 5e-2  # atol = rtol of the adaptive Tsit5 sample
 SAMPLE_FRAMES = 300
 
@@ -2397,7 +2455,7 @@ def _levers_trainer(model_kw: dict, trainer_kw: dict, items, seed: int, **extra)
                           **FLAGSHIP, **model_kw)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, **extra)
 
-    cfm = seeded(build, seed)
+    cfm = seeded_on("cuda:0", build, seed)
     return vbt.VoiceBoxTrainer(
         cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(items), num_train_steps=1000,
         lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0, log_every=1000,
@@ -4409,8 +4467,10 @@ def _dp_items(same: bool = False) -> list:
 
 def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, dtype=torch.bfloat16,
                 depth: int = FLAGSHIP["depth"], **kw):
-    """Phase 10's flagship trainer on cuda:0 (both ranks share the card);
-    `dtype` and `depth` change the denoiser's compute dtype and depth."""
+    """Phase 10's flagship trainer on cuda:0 (both ranks share the card),
+    its weights made there from `seed` (`seeded_on`: each rank and the
+    single process build the same ones, with no host init); `dtype` and
+    `depth` change the denoiser's compute dtype and depth."""
     def build():
         vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=dtype, param_dtype=torch.float32,
                           **{**FLAGSHIP, "depth": depth})
@@ -4418,7 +4478,7 @@ def _dp_trainer(items, seed: int, batch_size: int = TRAIN_BATCH, dtype=torch.bfl
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device="cuda:0")
 
     return vbt.VoiceBoxTrainer(
-        seeded(build, seed), batch_size=batch_size, dataset=vbt.ArrayDataset(items),
+        seeded_on("cuda:0", build, seed), batch_size=batch_size, dataset=vbt.ArrayDataset(items),
         num_train_steps=1000, lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0,
         log_every=1000, save_results_every=1000, seed=SEED, device="cuda:0", **kw)
 
@@ -4585,6 +4645,7 @@ def dp_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
     del a, b
     torch.cuda.empty_cache()
     res.update(tp_sp_worker(rank, world, out))
+    res["pp"] = pp_worker(rank, world, out)
     dist.barrier()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -4615,6 +4676,7 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
         del single, init
         torch.cuda.empty_cache()
         tp_sp_ref = phase_tp_sp_references(out)
+        pp_ref = phase_pp_references(out)
 
         env = dict(os.environ, OMP_NUM_THREADS="4")
         logs = [open(out / f"rank{r}.log", "w") for r in range(DP_WORLD)]
@@ -4641,7 +4703,8 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
     finally:
         torch.backends.cudnn.deterministic = was
         shutil.rmtree(out / "orbax", ignore_errors=True)
-        for name in ("single.pt", "single8.pt", "grads_f32.pt", "long_inputs.pt", "long_ref.pt"):
+        for name in ("single.pt", "single8.pt", "grads_f32.pt", "long_inputs.pt", "long_ref.pt",
+                     "pp_out.pt", "pp_grads.pt"):
             (out / name).unlink(missing_ok=True)
 
     log("dp", f"two ranks under gloo sharing cuda:0, batch {TRAIN_BATCH} x {TRAIN_FRAMES} frames "
@@ -4702,6 +4765,9 @@ def phase_dp(smi: str, k1: dict, k23: dict) -> dict:
     log("tp_sp", f"phase 22 (in phase 21 (b)'s ranks; the single-process references "
                  f"before them)")
     result["tp_sp"] = phase_tp_sp_report(smi, k1, k23, ranks, tp_sp_ref, single_losses)
+    log("pp", "phase 22 (c) (in phase 21 (b)'s ranks, after (a) and (b); the single-process "
+              "reference before them)")
+    result["pp"] = phase_pp_report(smi, k1, k23, ranks, pp_ref)
     assert all(f < p for f, p in peaks), f"fsdp's peak is not under replicated's: {peaks}"
     return result
 
@@ -4800,8 +4866,8 @@ def _long_model(dtype, depth: int = FLAGSHIP["depth"]):
         vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=dtype, param_dtype=torch.float32,
                           **{**FLAGSHIP, "depth": depth})
         _soften_qk_gains(vb, DP_QK_GAIN)
-        return vb.to("cuda:0").eval()
-    return seeded(build, SEED + 56)
+        return vb.eval()
+    return seeded_on("cuda:0", build, SEED + 56)
 
 
 def _long_inputs() -> dict:
@@ -5219,6 +5285,220 @@ def tp_sp_rows(k1: dict, k23: dict, counts: dict) -> list:
     return rows
 
 
+# phase 22 (c): pipeline parallelism at full width, in phase 21 (b)'s two
+# rank processes. The flagship's transformer as VoiceBox builds it (dim
+# 512, depth 24, 4 x 128 heads, 16 registers, qk-norm at gains 0.25,
+# adaptive RMSNorm on the 2048-wide time embedding, bf16 compute over fp32
+# weights) with the U-Net skips on, so that the V-cycle's skip buffers run;
+# PP_STAGES = 2 stages over the two ranks, PP_MICRO = 4 microbatches of
+# PP_ROWS = 2 x 752 frames, every frame real (mask all True). Each stage
+# holds 6 front and 6 back layers on the card and launches 2 x 6 x 4 = 48
+# K1 a step, and 48 K2 and 48 K3. The same kernels run at the same shapes
+# as in one process and the ring moves bytes, so each microbatch's output
+# must equal the unpipelined module's to the bit. The gradients sum the
+# microbatches' shares in another order than one process does: they are
+# held, gathered over every leaf, within TP_SP_TIMES_FLOOR of the distance
+# between two single-process runs that differ only in that order (the
+# microbatches' forwards made in reverse). Two ranks share one card, so the
+# phase records correctness and overhead, not speed-up; the schedule's
+# predicted bubble is (2S - 1) / (M + 2S - 1) = 3/7.
+PP_STAGES, PP_MICRO, PP_ROWS = 2, 4, 2
+PP_MODEL = dict(dim=FLAGSHIP["dim"], depth=FLAGSHIP["depth"], dim_head=FLAGSHIP["dim_head"],
+                heads=FLAGSHIP["heads"], num_register_tokens=FLAGSHIP["num_register_tokens"],
+                attn_qk_norm=True, adaptive_rmsnorm=True,
+                adaptive_rmsnorm_cond_dim_in=4 * FLAGSHIP["dim"], use_unet_skip_connection=True)
+PP_PER_STEP = 2 * (PP_MODEL["depth"] // 2 // PP_STAGES) * PP_MICRO  # K1, K2, K3 a rank a step
+PP_WARMUP, PP_TIMED = 1, 2
+
+
+def _pp_model():
+    """The pipeline phase's transformer, on the host from a seed: every
+    rank and the single process build the same weights."""
+    def build():
+        tr = vbt.Transformer(**PP_MODEL, dtype=torch.bfloat16, param_dtype=torch.float32)
+        _soften_qk_gains(tr, DP_QK_GAIN)
+        return tr
+    return seeded(build, SEED + 80)
+
+
+def _pp_inputs() -> dict:
+    """The microbatches (M, b, n, dim) in bf16, as VoiceBox hands the
+    transformer its input, the fp32 time condition and the mask."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    shape = (PP_MICRO, PP_ROWS, TRAIN_FRAMES)
+    return {"x": torch.randn(*shape, PP_MODEL["dim"], generator=gen,
+                             device="cuda").to(torch.bfloat16),
+            "cond": torch.randn(*shape[:2], PP_MODEL["adaptive_rmsnorm_cond_dim_in"],
+                                generator=gen, device="cuda"),
+            "mask": torch.ones(shape, dtype=torch.bool, device="cuda")}
+
+
+def _pp_loss(out: torch.Tensor) -> torch.Tensor:
+    return out.float().square().mean()
+
+
+def phase_pp_references(out: Path) -> dict:
+    """The pipeline phase's single-process references, before the ranks
+    start: the unpipelined transformer on the card over each microbatch and
+    the loss's gradients (run A); run B, the microbatches' forwards in
+    reverse and the same loss (the summation-order floor of the gradients),
+    whose seconds and peak memory stand beside the ranks'."""
+    tr = _pp_model().cuda()
+    inp = _pp_inputs()
+    grads, timing = [], {}
+    for order in (range(PP_MICRO), reversed(range(PP_MICRO))):
+        tr.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = {m: tr(inp["x"][m], inp["mask"][m], inp["cond"][m]) for m in order}
+        outs = torch.stack([outs[m] for m in range(PP_MICRO)])
+        _pp_loss(outs).backward()
+        torch.cuda.synchronize()
+        timing.update(s=time.perf_counter() - t0,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        grads.append({n: p.grad.detach().clone() for n, p in tr.named_parameters()})
+        if len(grads) == 1:
+            torch.save(outs.detach().cpu(), out / "pp_out.pt")
+            torch.save({n: g.cpu() for n, g in grads[0].items()}, out / "pp_grads.pt")
+    floor = _leaf_gaps({n: g.cpu() for n, g in grads[1].items()},
+                       {n: g.cpu() for n, g in grads[0].items()})
+    del tr, grads, outs
+    torch.cuda.empty_cache()
+    return {**timing, "floor": floor["all"], "leaves": len(floor["leaves"])}
+
+
+def pp_worker(rank: int, world: int, out: Path) -> dict:
+    """Phase 22 (c) on one rank (after `tp_sp_worker`): the flagship
+    transformer pipelined over the two ranks, PP_WARMUP + PP_TIMED
+    forwards and backwards of the PP_MICRO microbatches, the first one's
+    output (rank 0) and gradients (every rank) against the single process's."""
+    import torch.distributed as dist
+    from voicebox_tpu_torch.parallel import make_pp_forward
+
+    tr = _pp_model()
+    fn = make_pp_forward(tr, dist.group.WORLD, num_microbatches=PP_MICRO, device="cuda:0")
+    inp = _pp_inputs()
+    held = sum(p.numel() * p.element_size() for p in tr.parameters() if p.is_cuda)
+    res = {"held_gib": held / 2 ** 30}
+    first = fn(inp["x"], inp["mask"], inp["cond"])
+    _pp_loss(first).backward()
+    torch.cuda.synchronize()
+    if rank == 0:
+        ref = torch.load(out / "pp_out.pt")
+        got = first.detach().cpu()
+        res["same_bits"] = [bool(torch.equal(got[m], ref[m])) for m in range(PP_MICRO)]
+        res["max_abs"] = float((got.float() - ref.float()).abs().max())
+        res["finite"] = bool(torch.isfinite(got).all())
+    ref = torch.load(out / "pp_grads.pt")
+    sq = {n: (float((p.grad.double().cpu() - ref[n].double()).square().sum()),
+              float(ref[n].double().square().sum()))
+          for n, p in tr.named_parameters() if p.grad is not None}
+    res["grad_sq"] = sq
+    res["grad_same_bits"] = sum(torch.equal(p.grad.cpu(), ref[n]) for n, p in tr.named_parameters()
+                                if p.grad is not None)
+    res["grad_finite"] = all(bool(torch.isfinite(p.grad).all()) for p in tr.parameters()
+                             if p.grad is not None)
+    del ref, first
+    for _ in range(PP_WARMUP - 1):
+        tr.zero_grad(set_to_none=True)
+        _pp_loss(fn(inp["x"], inp["mask"], inp["cond"])).backward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this rank's pipelined run starts here
+    step_s = []
+    with shape_tally() as tally, collective_clock() as clock:
+        for _ in range(PP_TIMED):
+            tr.zero_grad(set_to_none=True)
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _pp_loss(fn(inp["x"], inp["mask"], inp["cond"])).backward()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            after = read_launches()
+            got = {k: after[k] - before[k] for k in after}
+            want = {"k1": PP_PER_STEP, "k2": PP_PER_STEP, "k3": PP_PER_STEP, "k4": 0}
+            assert got == want, (rank, got)
+    res.update(launches=read_launches(), step_ms=[t * 1e3 for t in step_s],
+               collective_ms=clock["s"] * 1e3 / PP_TIMED, collectives=clock["calls"] // PP_TIMED,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               shapes=[[k[0], list(k[1]), str(k[2]), k[3], c] for k, c in tally.items()])
+    del fn, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_pp_report(smi: str, k1: dict, k23: dict, ranks: list, ref: dict) -> dict:
+    """Phase 22 (c)'s checks and lines from both ranks' results."""
+    pp = [rk["pp"] for rk in ranks]
+    r0 = pp[0]
+    sq = {}
+    for r in pp:
+        sq.update(r["grad_sq"])
+    leaves = {n: math.sqrt(a / max(b, 1e-300)) for n, (a, b) in sq.items()}
+    gap = math.sqrt(sum(a for a, _ in sq.values()) / sum(b for _, b in sq.values()))
+    worst = max(leaves, key=leaves.get)
+    bound = TP_SP_TIMES_FLOOR * max(ref["floor"], 1e-6)
+    bubble = (2 * PP_STAGES - 1) / (PP_MICRO + 2 * PP_STAGES - 1)
+    per_rank = "; ".join(
+        f"rank {i}: {np.mean(r['step_ms']):.1f} ms a forward and backward of the {PP_MICRO} "
+        f"microbatches ({', '.join(f'{t:.1f}' for t in r['step_ms'])}), collectives "
+        f"{r['collective_ms']:.1f} ms ({r['collective_ms'] / np.mean(r['step_ms']):.3f}, "
+        f"{r['collectives']} calls a step), peak {r['peak_gib']:.2f} GiB with "
+        f"{r['held_gib']:.2f} GiB of weights on the card, K1/K2/K3 "
+        f"{r['launches']['k1']}/{r['launches']['k2']}/{r['launches']['k3']} launches"
+        for i, r in enumerate(pp))
+    log("pp", f"pipeline at {PP_STAGES} stages over the two ranks, {PP_MICRO} microbatches of "
+              f"{PP_ROWS} x {TRAIN_FRAMES} frames, the flagship transformer with U-Net skips "
+              f"(bf16): rank 0's outputs equal the single process's to the bit "
+              f"{r0['same_bits']} (max |diff| {r0['max_abs']:.3e}); the gradients over "
+              f"all {len(leaves)} leaves ||pipeline - single|| / ||single|| {gap:.3e} (bound "
+              f"{bound:.3e} = {TP_SP_TIMES_FLOOR} x the summation-order floor "
+              f"{ref['floor']:.3e}), largest leaf {worst} {leaves[worst]:.3e}, "
+              f"{sum(r['grad_same_bits'] for r in pp)} leaves equal to the bit; predicted bubble "
+              f"(2S-1)/(M+2S-1) = {bubble:.4f}; {per_rank}; one process: "
+              f"{ref['s'] * 1e3:.1f} ms for the same forward and backward (host clock, second "
+              f"call), peak {ref['peak_gib']:.2f} GiB (gloo through the host, not NVLink) on "
+              f"{smi}")
+    assert all(r0["same_bits"]) and r0["finite"], r0
+    assert all(r["grad_finite"] for r in pp), "non-finite pipeline gradients"
+    # every leaf on exactly one rank
+    assert len(sq) == ref["leaves"] == sum(len(r["grad_sq"]) for r in pp), (len(sq), ref)
+    assert gap <= bound, (gap, bound, worst)
+    for i, r in enumerate(pp):
+        _assert_checked(_tally_of(r["shapes"]), k1, f"phase 22 (c) rank {i}")
+        _assert_k23_checked(_tally_of(r["shapes"]), k23, f"phase 22 (c) rank {i}")
+    return {kk: sum(r["launches"][kk] for r in pp) for kk in ("k1", "k2", "k3")}
+
+
+def pp_rows(k1: dict, k23: dict, counts: dict) -> list:
+    """K1, K2 and K3 rows of the pipeline (both ranks' timed steps)."""
+    case = "pp_stage_bf16"
+    return [{**(_k1_row("train_pp", k1[case], counts["k1"]) if kk == "k1"
+                else _k23_row(kk, "train_pp", k23[case], counts[kk])),
+             "name": f"{NAMES[kk]}[train_pp:{case}]", "launches_are": "both ranks' timed steps"}
+            for kk in ("k1", "k2", "k3")]
+
+
+def phase_dryrun(smi: str) -> None:
+    """Phase 23: the multi-chip dry run (`voicebox_tpu_torch/dryrun.py`, one
+    step of "fsdp+tp", the stage trainers, sequence and pipeline
+    parallelism on tiny shapes) over two gloo ranks sharing cuda:0."""
+    from voicebox_tpu_torch.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(DP_WORLD)
+    assert res["placement"] == "shared", res
+    log("dryrun", f"dryrun_multichip({DP_WORLD}): {res['seconds']:.1f} s of wall, the spawns "
+                  f"included ({res['rank_seconds']:.1f} s inside rank 0), gloo ranks sharing "
+                  f"cuda:0; losses: fsdp+tp "
+                  f"{res['fsdp_tp']['loss']:.4f} at mesh {res['fsdp_tp']['mesh']}, stage trainers "
+                  f"{res['stages']}, sequence-parallel {res['sp']['loss']:.4f} over "
+                  f"{res['sp']['frames']} frames, pipeline {res['pp']['loss']:.4f} over "
+                  f"{res['pp']['stages']} stages; every loss and gradient finite, on {smi}")
+
+
 def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                 raw, semantic, long_rows) -> str:
     """One row per kernel and main path: K1 on the serving path (timed at the
@@ -5334,6 +5614,10 @@ def main() -> int:
     assert all(min(tp_sp[p][k] for k in ("k1", "k2", "k3")) > 0 for p in ("tp", "sp")), tp_sp
     assert tp_sp["sp_long"]["k1"] > 0, tp_sp["sp_long"]
     semantic += tp_sp_rows(k1, k23, tp_sp)
+    assert all(dp["pp"][k] == DP_WORLD * PP_TIMED * PP_PER_STEP for k in ("k1", "k2", "k3")), \
+        dp["pp"]
+    semantic += pp_rows(k1, k23, dp["pp"])
+    phase_dryrun(smi)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -185,3 +185,72 @@ def test_head_dims_follow_the_per_dtype_rule(source):
     128: the wrappers' rule (`HEAD_DIMS`) is what the C entry points launch."""
     assert HEAD_DIMS == {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
     assert _entry_head_dims(source) == HEAD_DIMS
+
+
+def _plain_kernels(monkeypatch):
+    """The kernels' plain versions in the kernels' places, each call's head
+    dim and scale recorded: the padded route then runs on the CPU."""
+    calls = []
+
+    def k1(q, k, v, mask, scale, block_q=None):
+        calls.append(("k1", q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return reference_attention(q, k, v, mask, scale, return_lse=True)
+
+    def k2(q, k, v, mask, do, lse, delta, scale):
+        calls.append(("k2", q.shape[-1], do.shape[-1], scale))
+        return fa._plain_backward(q, k, v, mask, lse, do, delta, scale)[0]
+
+    def k3(q, k, v, mask, do, lse, delta, scale):
+        calls.append(("k3", q.shape[-1], do.shape[-1], scale))
+        return fa._plain_backward(q, k, v, mask, lse, do, delta, scale)[1:]
+
+    for name, fn in (("_k1_kernel", k1), ("_k2_kernel", k2), ("_k3_kernel", k3)):
+        monkeypatch.setattr(fa, name, fn)
+    return calls
+
+
+@pytest.mark.parametrize("d,dtype,width", [
+    (16, torch.bfloat16, 64), (32, torch.bfloat16, 64), (48, torch.bfloat16, 64),
+    (8, torch.float32, 16), (24, torch.float32, 32),
+])
+def test_padded_head_dims_equal_the_plain_version_exactly(monkeypatch, d, dtype, width):
+    """Head dims the kernels are not built for are zero-padded to the next
+    width they are (`kernel_head_dim`) and sliced back: with the plain
+    version standing in for each kernel, out, lse, dq, dk and dv equal the
+    plain version at the true d bit for bit, masked, ragged and with a
+    fully-masked row, the scale taken from the true d."""
+    calls = _plain_kernels(monkeypatch)
+    q, k, v, mask = _inputs(11 + d, 3, 2, 37, 29, d, empty_batch=2)
+    do = np.random.RandomState(d).randn(*q.shape).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(t).to(dtype) for t in (q, k, v, do))
+    mask = torch.from_numpy(mask)
+    assert fa.kernel_head_dim(d, dtype) == width
+    out, lse = fa._launch_k1(q, k, v, mask, None)
+    ref, ref_lse = reference_attention(q, k, v, mask, return_lse=True)
+    delta = fa.attention_delta(do, out)
+    dq = fa._k2(q, k, v, mask, do, lse, delta, None)
+    dk, dv = fa._k3(q, k, v, mask, do, lse, delta, None)
+    want = fa._plain_backward(q, k, v, mask, ref_lse, do, fa.attention_delta(do, ref), None)
+    for name, got, ref_ in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, dq, dk, dv),
+                               (ref, ref_lse, *want)):
+        assert got.shape == ref_.shape and got.dtype == ref_.dtype, name
+        assert got.is_contiguous(), name
+        assert torch.equal(got, ref_), name
+    assert calls == [("k1", width, width, width, d ** -0.5), ("k2", width, width, d ** -0.5),
+                     ("k3", width, width, d ** -0.5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dims_past_128_are_refused(monkeypatch, dtype):
+    calls = _plain_kernels(monkeypatch)
+    q = torch.zeros(1, 1, 4, 192, dtype=dtype)
+    lse = torch.zeros(1, 1, 1, 4)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa._launch_k1(q, q, q, None, None)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa._k2(q, q, q, None, q, lse, lse, None)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa._k3(q, q, q, None, q, lse, lse, None)
+    assert calls == []
+    assert [fa.kernel_head_dim(d, dtype) for d in (1, 64, 65, 128)] == (
+        [64, 64, 128, 128] if dtype == torch.bfloat16 else [16, 64, 128, 128])

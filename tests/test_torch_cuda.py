@@ -113,14 +113,12 @@ def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, d=128)
-    # fp32 takes head dims 16, 32, 64 and 128; bf16 only 64 and 128
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(*(t[..., :32].to(torch.bfloat16).contiguous() for t in (q, k, v)))
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(*(t[..., :16].to(torch.bfloat16).contiguous() for t in (q, k, v)))
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                        v[..., :48].contiguous())
+    # any head dim up to 128 (zero-padded to a built width), none past it
+    wide = [torch.cat([t, t[..., :64]], dim=-1) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        flash_attention(*wide)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        flash_attention(*(t.to(torch.bfloat16) for t in wide))
     strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(strided_q, k, v)
@@ -279,6 +277,29 @@ def test_f32_narrow_heads_match_plain(cuda_device, d, n, kv, mask_kind):
     again, _, _ = _backward(q, k, v, mask, seed=kv)
     for name, a, b in zip(("dq", "dk", "dv"), again, got):
         assert torch.equal(a, b), name
+
+
+# head dims the kernels are not built for, zero-padded to the next built
+# width (bf16 64, fp32 16 or 32) and sliced back, against the plain version
+# at the true d: masked, ragged, a fully-masked element
+@pytest.mark.parametrize("d,dtype", [(16, torch.bfloat16), (32, torch.bfloat16),
+                                     (48, torch.bfloat16), (8, torch.float32),
+                                     (24, torch.float32)])
+def test_padded_head_dims_match_plain(cuda_device, d, dtype):
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _qkv(cuda_device, 3, 4, 257, 131, d=d, seed=d))
+    out, lse = flash_attention(q, k, v, mask, return_lse=True)
+    ref, ref_lse = reference_attention(q, k, v, mask, return_lse=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    (dq, dk, dv), plain, _ = _backward(q, k, v, mask)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * b.float().abs().max().item(), msg=name)
 
 
 def test_k2_k3_fully_masked_rows_follow_the_plain_softmax(cuda_device):

@@ -9,9 +9,18 @@ attn, ff_prenorm, ff] (absent entries are None and hold no keys),
 
 Per block: [skip combine] -> [GateLoop + residual, with
 `use_gateloop_layers`] -> prenorm attention + residual -> prenorm
-feed-forward + residual. Registers are prepended at rotary position -10000
-and are never masked. `VoiceBox` leaves the skip connections off; the flag
-is kept for checkpoints that carry `skip_combiner_{i}`.
+feed-forward + residual. The skip combine is `Linear(cat(x, skip *
+skip_connect_scale))` (2^-0.5 unless given). Registers are prepended at
+rotary position -10000 and are never masked; the rotary table's base is
+`rotary_theta`. `VoiceBox` leaves the skip connections off; the flag is
+kept for checkpoints that carry `skip_combiner_{i}`.
+
+The JAX package's `scan_layers=True` stores the blocks as two stacks,
+`layers_front` and `layers_back`, to bound XLA's compile time; eager
+PyTorch has no such cost, so the port keeps one layout, `layers.{i}`, and
+`utils/convert.py` maps the stacks onto it (front row j is layer j, back
+row j layer depth / 2 + j). `rotary_table`, `layer_forward` and `finish`
+are the pieces of `forward` that `parallel/pipeline.py` runs per stage.
 
 Inside `parallel/sequence_parallel.py::seq_shard` the block runs on this
 rank's frames: rotary positions are offset by the shard, the registers
@@ -59,6 +68,8 @@ class Transformer(nn.Module):
         ff_dropout: float = 0.0,
         remat: bool = False,
         remat_policy: Optional[str] = None,
+        rotary_theta: float = 50000.0,
+        skip_connect_scale: Optional[float] = None,
         dtype=torch.float32,
         param_dtype=None,
     ):
@@ -68,6 +79,8 @@ class Transformer(nn.Module):
         self.remat, self.remat_policy = remat, remat_policy
         self.attn_dropout = attn_dropout
         self.depth = depth
+        self.skip_connect_scale = 2 ** -0.5 if skip_connect_scale is None else skip_connect_scale
+        self.compute_dtype = dtype
         self.num_register_tokens = num_register_tokens
         if num_register_tokens > 0:
             self.register_tokens = nn.Parameter(torch.randn(num_register_tokens, dim))
@@ -93,7 +106,7 @@ class Transformer(nn.Module):
                 FeedForward(dim, mult=ff_mult, dropout=ff_dropout, dtype=dtype,
                             param_dtype=param_dtype),
             ]))
-        self.rotary_emb = RotaryEmbedding(dim_head)
+        self.rotary_emb = RotaryEmbedding(dim_head, theta=rotary_theta)
         self.final_norm = RMSNorm(dim)
 
     def _block(self, layer, x, mask, rotary_emb, norm_cond, train, generator):
@@ -110,6 +123,41 @@ class Transformer(nn.Module):
                  generator=generator, prefix=self.num_register_tokens) + x
         return ff(norm(ff_prenorm, x)) + x
 
+    def rotary_table(self, seq_len: int, device) -> torch.Tensor:
+        """The rotary table of seq_len frames after the registers (at -10000),
+        offset by the shard under `seq_shard`."""
+        num_reg = self.num_register_tokens
+        shard = current_shard()
+        offset = 0
+        if shard is not None:
+            if self.layers and self.layers[0][1] is not None:
+                raise ValueError("GateLoop's recurrence spans the whole sequence: it is not "
+                                 "supported under sequence parallelism")
+            offset = shard.rank * seq_len  # seq_len is the shard's
+        positions = torch.arange(offset, offset + seq_len, device=device, dtype=torch.float32)
+        if num_reg > 0:
+            positions = torch.cat([positions.new_full((num_reg,), -10000.0), positions])
+        return self.rotary_emb(positions)
+
+    def layer_forward(self, i: int, x: torch.Tensor, skip: Optional[torch.Tensor], mask,
+                      rotary_emb, norm_cond, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Layer i: the skip combine (where layer i has one; `skip` is the
+        activation it pops), then the block, rematerialised under `remat`."""
+        layer = self.layers[i]
+        if layer[0] is not None:
+            x = layer[0](torch.cat([x, skip * self.skip_connect_scale], dim=-1))
+        block = partial(self._block, layer, mask=mask, rotary_emb=rotary_emb,
+                        norm_cond=norm_cond, train=train, generator=generator)
+        if self.remat:
+            draws = train and self.attn_dropout > 0 and generator is not None
+            return remat_call(block, x, policy=self.remat_policy, draws=draws)
+        return block(x)
+
+    def finish(self, x: torch.Tensor) -> torch.Tensor:
+        """Registers dropped, then the final norm."""
+        return self.final_norm(x[:, self.num_register_tokens:])
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 adaptive_rmsnorm_cond: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -122,35 +170,14 @@ class Transformer(nn.Module):
             x = torch.cat([registers, x], dim=1)
             if mask is not None:
                 mask = torch.cat([mask.new_ones(batch, num_reg), mask], dim=1)
-
-        shard = current_shard()
-        offset = 0
-        if shard is not None:
-            if self.layers and self.layers[0][1] is not None:
-                raise ValueError("GateLoop's recurrence spans the whole sequence: it is not "
-                                 "supported under sequence parallelism")
-            offset = shard.rank * seq_len  # seq_len is the shard's
-        positions = torch.arange(offset, offset + seq_len, device=x.device,
-                                 dtype=torch.float32)
-        if num_reg > 0:
-            positions = torch.cat([positions.new_full((num_reg,), -10000.0), positions])
-        rotary_emb = self.rotary_emb(positions)
-        draws = train and self.attn_dropout > 0 and generator is not None
-
+        rotary_emb = self.rotary_table(seq_len, x.device)
         skips = []
-        for layer in self.layers:
-            skip_combiner = layer[0]
-            if skip_combiner is None:
+        for i, layer in enumerate(self.layers):
+            skip = None
+            if layer[0] is None:
                 skips.append(x)
             else:
-                x = skip_combiner(torch.cat([x, skips.pop() * 2 ** -0.5], dim=-1))
-            block = partial(self._block, layer, mask=mask, rotary_emb=rotary_emb,
-                            norm_cond=adaptive_rmsnorm_cond, train=train, generator=generator)
-            if self.remat:
-                x = remat_call(block, x, policy=self.remat_policy, draws=draws)
-            else:
-                x = block(x)
-
-        if num_reg > 0:
-            x = x[:, num_reg:]
-        return self.final_norm(x)
+                skip = skips.pop()
+            x = self.layer_forward(i, x, skip, mask, rotary_emb, adaptive_rmsnorm_cond,
+                                   train=train, generator=generator)
+        return self.finish(x)

@@ -40,6 +40,13 @@ The JAX package sends every call with kv <= 4096 to XLA's einsum (a rule
 measured on a TPU); here every attention call on a CUDA tensor goes through
 K1, and every backward through K2 and K3.
 
+The kernels are built for the head dims in `HEAD_DIMS`; the wrappers take
+any head dim up to 128 in either dtype. The scale is resolved from the true
+d, then q, k, v (and dO) are zero-padded to the narrowest built width at or
+above d (`kernel_head_dim`), the kernel runs, and out, dq, dk and dv are
+sliced back to d. That is exact: the zero columns add exact zeros to every
+q.k and P.V sum, and the padded columns of the gradients are zero.
+
 A row whose keys are all masked has one defined answer on every path: every
 real key gets the same filled logit, so the row is mean(V) over the real
 keys and its lse is fill + log(kv), which rounds to the fill. Its gradient
@@ -57,6 +64,7 @@ import functools
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 from .masks import uniform
@@ -71,6 +79,7 @@ __all__ = [
     "flash_attention_bwd_dq",
     "k1_block_q",
     "k23_f32_edges",
+    "kernel_head_dim",
     "reference_attention",
     "reference_attention_backward",
 ]
@@ -82,8 +91,32 @@ _BWD = "flash_attention_bwd"  # K2 and K3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims each dtype's kernels are built for: fp32 also takes the narrow
 # heads of small models (the quality canaries' 16 and 32); bf16's wgmma
-# tiles take 64-column chunks
+# tiles take 64-column chunks. Other head dims up to 128 are zero-padded to
+# the next of these (`kernel_head_dim`)
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim a d-wide call of K1, K2 or K3 launches at: the narrowest
+    width in `HEAD_DIMS[dtype]` at or above d (d itself for a dtype the
+    kernels do not take: the operand checks name it). ValueError past 128."""
+    widths = HEAD_DIMS.get(dtype)
+    if widths is None:
+        return d
+    for width in widths:
+        if d <= width:
+            return width
+    raise ValueError(f"K1, K2 and K3 take head dims up to {widths[-1]} in {str(dtype)[6:]}, "
+                     f"got {d}")
+
+
+def _widen(width: int, *ts: torch.Tensor):
+    """Each of `ts` with its last axis zero-padded to `width`."""
+    return [t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])) for t in ts]
+
+
+def _narrow(d: int, t: torch.Tensor) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def reference_attention(
@@ -190,8 +223,9 @@ def _check_operands(kernel, q, k, v, mask):
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"{kernel} shapes: q {tuple(q.shape)} vs k {tuple(k.shape)}")
     if d not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"{kernel} takes head dim {' or '.join(map(str, HEAD_DIMS[q.dtype]))} "
-                         f"in {str(q.dtype)[6:]}, got {d}")
+        raise ValueError(f"{kernel} launches at head dim "
+                         f"{' or '.join(map(str, HEAD_DIMS[q.dtype]))} in {str(q.dtype)[6:]}, "
+                         f"got {d}")
     if n_q == 0 or k.shape[2] == 0 or h > 65535 or b > 65535:
         raise ValueError(f"{kernel} cannot launch for q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -248,7 +282,16 @@ def _sm_count(index: int) -> int:
 
 
 def _launch_k1(q, k, v, mask, scale, block_q=None):
-    """One K1 launch; `block_q` overrides `k1_block_q`'s tile height."""
+    """One K1 launch at q's head dim, zero-padded to `kernel_head_dim`;
+    `block_q` overrides `k1_block_q`'s tile height."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale  # the true d's
+    out, lse = _k1_kernel(*_widen(kernel_head_dim(d, q.dtype), q, k, v), mask, scale, block_q)
+    return _narrow(d, out), lse
+
+
+def _k1_kernel(q, k, v, mask, scale, block_q=None):
+    """K1 on operands at a head dim it is built for."""
     _check_operands("K1", q, k, v, mask)
     b, h, n_q, d = q.shape
     if block_q is None:
@@ -287,6 +330,19 @@ def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale) -> torch.Tensor
     launches."""
     if q.device.type == "cpu":
         return _plain_backward(q, k, v, mask, lse, do, delta, scale)[0]
+    return _k2(q, k, v, mask, do, lse, delta, scale)
+
+
+def _k2(q, k, v, mask, do, lse, delta, scale):
+    """K2 at q's head dim, its operands zero-padded to `kernel_head_dim`."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale  # the true d's
+    width = kernel_head_dim(d, q.dtype)
+    return _narrow(d, _k2_kernel(*_widen(width, q, k, v), mask, *_widen(width, do), lse, delta,
+                                 scale))
+
+
+def _k2_kernel(q, k, v, mask, do, lse, delta, scale):
     _check_backward_operands("K2", q, k, v, mask, do, lse, delta)
     b, h, n_q, d = q.shape
     dq = torch.empty_like(q)
@@ -310,6 +366,19 @@ def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, scale
     CPU tensors take the plain version. `.launches` counts K3 launches."""
     if q.device.type == "cpu":
         return _plain_backward(q, k, v, mask, lse, do, delta, scale)[1:]
+    return _k3(q, k, v, mask, do, lse, delta, scale)
+
+
+def _k3(q, k, v, mask, do, lse, delta, scale):
+    """K3 at q's head dim, its operands zero-padded to `kernel_head_dim`."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale  # the true d's
+    width = kernel_head_dim(d, q.dtype)
+    dk, dv = _k3_kernel(*_widen(width, q, k, v), mask, *_widen(width, do), lse, delta, scale)
+    return _narrow(d, dk), _narrow(d, dv)
+
+
+def _k3_kernel(q, k, v, mask, do, lse, delta, scale):
     _check_backward_operands("K3", q, k, v, mask, do, lse, delta)
     b, h, n_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -400,9 +469,9 @@ def flash_attention(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention forward, same contract as `reference_attention`, and
     differentiable in q, k and v. CUDA tensors go through K1 and, backward,
-    K2 + K3 (contiguous float32 at head dim 16, 32, 64 or 128, or bfloat16
-    at 64 or 128 (`HEAD_DIMS`), else ValueError); CPU tensors through the
-    plain version.
+    K2 + K3 (contiguous float32 or bfloat16 at any head dim up to 128,
+    zero-padded to a width in `HEAD_DIMS`, else ValueError); CPU tensors
+    through the plain version.
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -17,7 +17,11 @@ forward's transpose:
   whose transpose is itself);
 * `ring_shift`: this rank's tensor to the rank `shift` places on, one
   `all_to_all_single` (JAX's `ppermute` round the ring), the primitive of
-  ring attention and of the halo exchange.
+  ring attention and of the halo exchange;
+* `neighbour_exchange`: a tensor to the next rank and one to the previous,
+  without wrapping round, in one `all_to_all_single`: a pipeline step's
+  traffic (`pipeline.py`, which passes the gradients back by hand with the
+  same call).
 
 Sums run in fp32 (a bf16 tensor is widened for its all-reduce and rounded
 once after); gathers and ring passes move bytes, whatever the dtype.
@@ -33,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather_into", "all_reduce", "copy_to_group", "gather_last_from_group",
-           "mean_over_group", "reduce_from_group", "ring_shift"]
+           "mean_over_group", "neighbour_exchange", "reduce_from_group", "ring_shift"]
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -66,6 +70,41 @@ def ring_shift(t: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     outs[(rank - shift) % world] = n
     dist.all_to_all_single(out, src, outs, ins, group=group)
     return out.view(t.dtype).view(t.shape)
+
+
+def neighbour_exchange(group, device, to_next=None, to_prev=None, from_prev=None,
+                       from_next=None):
+    """Send `to_next` to the next rank of `group` and `to_prev` to the
+    previous one (the first rank has no previous, the last no next), and
+    receive a tensor like the template `from_prev` from the previous rank
+    and one like `from_next` from the next (None: that neighbour sends
+    nothing). One all_to_all_single of bytes; every rank of the group calls
+    it, with templates that match what its neighbours send, a rank with
+    nothing to send or receive too. `device` holds the byte buffers.
+    Returns (from the previous rank, from the next), None where nothing
+    came."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if (to_prev is not None and rank == 0) or (to_next is not None and rank == world - 1):
+        raise ValueError("neighbour_exchange does not wrap round the group")
+    ins, outs, send = [0] * world, [0] * world, []
+    for peer, t in ((rank - 1, to_prev), (rank + 1, to_next)):  # in rank order
+        if t is not None:
+            send.append(t.contiguous().view(-1).view(torch.uint8))
+            ins[peer] = send[-1].numel()
+    for peer, like in ((rank - 1, from_prev), (rank + 1, from_next)):
+        if like is not None:
+            outs[peer] = like.numel() * like.element_size()
+    src = torch.cat(send) if send else torch.empty(0, dtype=torch.uint8, device=device)
+    out = torch.empty(sum(outs), dtype=torch.uint8, device=device)
+    dist.all_to_all_single(out, src, outs, ins, group=group)
+    got, start = [], 0
+    for peer, like in ((rank - 1, from_prev), (rank + 1, from_next)):
+        if like is None:
+            got.append(None)
+            continue
+        got.append(out[start:start + outs[peer]].view(like.dtype).view(like.shape))
+        start += outs[peer]
+    return tuple(got)
 
 
 class _CopyToGroup(torch.autograd.Function):

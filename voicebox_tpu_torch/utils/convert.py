@@ -7,7 +7,13 @@ a flax tree with `jax.tree.map(np.asarray, params)` first) and returns
 
 * `voicebox_state_dict`: the reference layout, the same mapping as
   `voicebox_tpu/utils/port_weights.py::export_voicebox_torch`;
-* `transformer_state_dict`, `attention_state_dict`: its parts;
+* `transformer_state_dict`, `attention_state_dict`: its parts. The
+  transformer comes in either JAX layout: unrolled (`block_{i}`,
+  `skip_combiner_{i}`) or `scan_layers=True` (`layers_front` /
+  `layers_back`, each leaf stacked on a leading depth / 2 axis: front row j
+  is layer j, back row j layer depth / 2 + j with its `skip_combiner`).
+  The port has one layout, `layers.{i}`: the stacks bound XLA's compile
+  time, a cost eager PyTorch does not have;
 * `duration_predictor_state_dict`: the same mapping as
   `export_duration_predictor_torch` (the net, without the aligner);
 * `aligner_state_dict`: the duration predictor's training-only aligner,
@@ -78,6 +84,7 @@ __all__ = [
     "save_reference_checkpoint",
     "duration_predictor_state_dict",
     "transformer_state_dict",
+    "unrolled_layout",
     "voicebox_state_dict",
     "vocos_state_dict",
     "encodec_voco_state_dict",
@@ -135,11 +142,40 @@ def attention_state_dict(tree: Mapping, prefix: str = "") -> StateDict:
     return out
 
 
+def unrolled_layout(tree: Mapping) -> Mapping:
+    """A JAX `Transformer` tree in the `scan_layers=True` layout as the
+    unrolled one: front row j -> `block_{j}`, back row j -> `block_{half +
+    j}` and `skip_combiner_{half + j}`, the same math as the unrolled loop
+    (the back stack pops the front's skips in reverse). Other trees are
+    returned as they are."""
+    if "layers_front" not in tree:
+        return tree
+    front, back = tree["layers_front"], tree["layers_back"]
+
+    def row(sub, j):
+        return {k: row(v, j) if isinstance(v, Mapping) else np.asarray(v)[j]
+                for k, v in sub.items()}
+
+    def leaf(sub):
+        return leaf(next(iter(sub.values()))) if isinstance(sub, Mapping) else sub
+
+    half = np.asarray(leaf(front)).shape[0]
+    out = {k: v for k, v in tree.items() if k not in ("layers_front", "layers_back")}
+    for j in range(half):
+        out[f"block_{j}"] = row(front["block"], j)
+        out[f"block_{half + j}"] = row(back["block"], j)
+        if "skip_combiner" in back:
+            out[f"skip_combiner_{half + j}"] = row(back["skip_combiner"], j)
+    return out
+
+
 def transformer_state_dict(tree: Mapping, prefix: str = "",
                            dim_head: Optional[int] = None,
                            theta: float = 50000.0) -> StateDict:
-    """JAX `Transformer` params (unrolled layout) -> reference keys.
-    `dim_head` is read from a qk-norm gamma when there is one."""
+    """JAX `Transformer` params (unrolled or scan layout) -> reference keys.
+    `dim_head` is read from a qk-norm gamma when there is one; `theta` is
+    the module's `rotary_theta`."""
+    tree = unrolled_layout(tree)
     out: StateDict = {}
 
     def prenorm(key, leaf):
