@@ -11,9 +11,10 @@ imports nothing of JAX. Its phases print one line each or more:
    (`csrc/flash_attention_bwd.cu`) and K4 (`csrc/w8a16_matmul.cu`) built by
    nvcc for sm_90a from the checkout, all at once, with the build time and
    ptxas's registers and spills per instantiation; fails unless every bf16
-   instantiation of K1, K2, K3 and K4 was compiled to wgmma (`HGMMA`) and
-   TMA loads (`UTMALDG`), counted in `cuobjdump -sass` of the built
-   library, and spills no byte;
+   instantiation of K1, K2, K3 and K4 (attention at head dims 64, 128 and
+   256) was compiled to wgmma (`HGMMA`) and TMA loads (`UTMALDG`), counted
+   in `cuobjdump -sass` of the built library, and spills no byte, and no
+   fp32 K1, K2 or K3 instantiation (head dims 16 to 256) spills;
 3. K1 check: K1 against its plain PyTorch version on the card, at the
    serving and training shapes, at the quantized engine's denoiser and
    duration-predictor shapes, on masked and ragged inputs and at the edges
@@ -24,10 +25,14 @@ imports nothing of JAX. Its phases print one line each or more:
    of mask), at the head dims the kernels are not built for and run
    zero-padded (bf16 16 and 32, fp32 8: masked, ragged, a fully-masked
    element) and at phase 22's pipeline stage, each case with its
-   tolerance; CUDA-event times of K1, the plain version and SDPA (the
-   padded widths beside the built width's launch of the same shape); bf16 K1 at each tile height it can take (the host's
-   choice marked); the host time of one bf16 K1 call, and what encoding its
-   tensor maps adds to it;
+   tolerance; at head dim 256 in both dtypes, phase 15b's shapes and the
+   edges of the 64-key design (kv 131, n 40 against kv 300, n = kv = 4100,
+   masked runs inside tiles, a fully-masked element under qk-norm), and
+   head dim 192 zero-padded to 256 (with SDPA's kernels named at d > 128);
+   CUDA-event times of K1, the plain version and SDPA (the padded widths
+   beside the built width's launch of the same shape); bf16 K1 at each
+   tile height it can take (the host's choice marked); the host time of
+   one bf16 K1 call, and what encoding its tensor maps adds to it;
 4. K2/K3 check: K2 and K3 against the plain backward and against autograd
    of the plain forward, by the largest error and by the error's norm, at
    the training shape (bf16 qk-normed and randn, fp32), the reference head
@@ -39,7 +44,10 @@ imports nothing of JAX. Its phases print one line each or more:
    64 or 32 streamed, at head dims 16, 32, 64 and 128, under each kind of
    mask; with one key, dq and dk held to a rounding floor), phase 19's
    training shapes, the padded head dims and the pipeline stage as in
-   phase 3; a second launch on the same
+   phase 3, head dims 256 and 192 as in phase 3 and the fp32 edges at 256
+   (16 streamed rows; under qk-norm at d = 256 each fp32 tolerance is at
+   least `logit_floor`, 8 ulps of the largest logit); a second launch on
+   the same
    inputs must give bit-identical dq, dk and dv; CUDA-event times of K2,
    K3, the plain backward and SDPA's backward (each of the two gives dq, dk
    and dv together) and attention forward + backward through K1/K2/K3
@@ -97,9 +105,9 @@ imports nothing of JAX. Its phases print one line each or more:
    fp32 configuration card vs CPU (3 windows, a latent prompt, the same
    noise); then an over-bucket text whose exact frames (from the seeded
    predictor) reach 2048, i.e. >= 3 windows, through `synthesize_stream`
-   (three times: time to the first chunk on the host and latency, min and
+   (twice: time to the first chunk on the host and latency, min and
    median, RTF) and `synthesize`, a clone from a seeded 3 s raw prompt with
-   `prompt_text` through `clone_stream` (three times) and `clone`, and an
+   `prompt_text` through `clone_stream` (twice) and `clone`, and an
    over-bucket `DynamicBatcher.submit` beside a `submit_clone`. Each request
    makes exactly 96 K1 and 384 K4 launches a window plus 10 K1 a predictor
    forward, every launch's shape tallied and checked; audio is finite and
@@ -155,6 +163,17 @@ imports nothing of JAX. Its phases print one line each or more:
    memory; then the trained predictor drives one
    `sample(texts=...)` through a MelVoco denoiser of the flagship geometry
    conditioned on phoneme ids (10 + 96 K1 launches, finite audio);
+15b. head dim 256: (a) the flagship with its attention split as 2 x 256
+   instead of 4 x 128 (the same parameters and FLOPs), built on the card
+   from a seed: 2 + 3 AdamW steps at batch 8 x 752 frames + 16 registers,
+   each exactly 24 K1, K2 and K3 at (8, 2, 768, 768, 256), then one 10 s
+   request (midpoint, CFG 1.3, EncodecVoco) through exactly 96 K1 at (2, 2,
+   766, 766, 256) to finite audio; steps/s, latency, peak memory and idle
+   shares; (b) the reference DurationPredictor's geometry (dim 512, depth
+   10, fp32) at 2 x 256 through `DurationPredictorTrainer`: 1 + 2 steps,
+   each exactly 10 fp32 K1, K2 and K3 at (8, 2, 128, 128, 256); (c) phase
+   7's small fp32 denoiser at 2 x 256, 3 steps card against CPU. Every
+   launch at a shape phases 3 and 4 checked and timed;
 16. (c) `EncodecVoco.encode` of a 10 s wave through the SEANet encoder at
    the Encodec 24 kHz geometry -> (1, 750, 128), then its decode and the
    SEANet decoder's, with their times;
@@ -175,7 +194,7 @@ imports nothing of JAX. Its phases print one line each or more:
    the float decode's, and K4's launch-weighted ms a launch; semantic-mode
    `TTSEngine` (text buckets 64/128, batch buckets 1/2/4, 128 ids,
    `spec_decode`, the flagship bf16 denoiser with w8a16, EncodecVoco):
-   warmup, one request each at batch 1 and 2, four batcher submits, each
+   warmup, one request at batch 1, four batcher submits, each
    group exactly 6 + 96 K1 and 384 K4 launches, latency, RTF, the decode's
    share, the profiled idle share of the decode and of the denoiser half
    apart; an over-bucket text of two segments (one decode at batch 2) and
@@ -224,7 +243,7 @@ imports nothing of JAX. Its phases print one line each or more:
    shape and must be one that phases 3-4 checked and timed;
 21. LoRA and data parallelism: (a) rank-8 adapters (alpha 16) on the seeded
    flagship (EncodecVoco attached, bf16 compute over fp32 weights), Adam on
-   the adapters only at batch 8 x 752 frames, 2 warm-up and 10 timed
+   the adapters only at batch 8 x 752 frames, 2 warm-up and 4 timed
    steps: each exactly 24 K1, K2 and K3 launches and a finite loss, every
    base parameter bit-identical, every adapter moved; the counts of adapter
    and base weights, steps/s, a profiled step's idle share and kernels,
@@ -519,10 +538,42 @@ PAD_K1 = [
                                     (16, torch.float32, "f32", 1e-3, True))],
 ]
 PP_K1 = [("pp_stage_bf16", (2, 4, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2)]
-K1_CASES += PAD_K1 + PP_K1
+# head dim 256: phase 10b's flagship with its attention split as 2 x 256
+# (training at batch 8 x 752 frames + 16 registers; a 10 s request, x 2 for
+# CFG) and the reference duration predictor at 2 x 256 (fp32, phoneme bucket
+# 128, the text padding masked); the edges of K1's 64-key tiles at that width
+# in both dtypes (kv off the tile and off 8, n under one 64-row tile, a kv
+# that wraps the ring 64 times, masked runs inside tiles, a fully-masked
+# element under qk-norm); the head dim 192, zero-padded to 256, as the other
+# padded widths
+WIDE_EDGES = (("ragged_tma", (2, 4, 257, 131), "randn", "random"),
+              ("short_q", (1, 4, 40, 300), "randn", None),
+              ("long_kv", (1, 4, 4100, 4100), "qk", None),
+              ("mid_tile_mask", (8, 4, 600, 600), "qk", "middle"),
+              ("empty_row_qk", (3, 4, 300, 300), "qk", "empty_row"))
+WIDE_K1 = [
+    ("flagship256_train_bf16", (8, 2, 768, 768, 256), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("flagship256_cfg_bf16", (2, 2, 766, 766, 256), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("dp256_train_f32", (8, 2, 128, 128, 256), torch.float32, "qk", "prefix", 1e-3, 1e-3),
+    *[(f"{case}_d256_{t}", (*shape, 256), dtype, inputs, mask,
+       *((1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-3, 1e-3) if inputs == "qk"
+         else (1e-5, 1e-5)))
+      for dtype, t in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+      for case, shape, inputs, mask in WIDE_EDGES],
+    *[(f"pad_ragged_d192_{t}", (3, 4, 257, 131, 192), dtype, "randn", "empty_row", tol, tol)
+      for dtype, t, tol in ((torch.bfloat16, "bf16", 1e-2), (torch.float32, "f32", 1e-5))],
+    *[(f"pad_{'ref_' if d == 256 else ''}d{d}_{t}", (8, 4, 768, 768, d), dtype, "qk", "all",
+       tol, tol)
+      for dtype, t, tol in ((torch.bfloat16, "bf16", 1e-2), (torch.float32, "f32", 1e-3))
+      for d in (192, 256)],
+]
+K1_CASES += PAD_K1 + PP_K1 + WIDE_K1
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_train_bf16",
             *(name for name, *_ in TP_SP_K1 + PP_K1),
             *(name for name, shape, *_ in PAD_K1 if shape[2] == 768),
+            "flagship256_train_bf16", "flagship256_cfg_bf16", "dp256_train_f32",
+            *(name for name, *_ in WIDE_K1 if name.startswith("pad_d")),
+            *(name for name, *_ in WIDE_K1 if name.startswith("pad_ref_d")),
             "engine_b1_bf16",
             "engine_b2_bf16", "engine_b4_bf16", "dp_b1_f32", "dp_b2_f32", "dp_b4_f32",
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
@@ -583,7 +634,7 @@ K23_CASES = [
     # exact arithmetic)
     *[(f"edge_n{n}_kv{kv}_d{d}_f32", (2, 4, n, kv, d), torch.float32,
        "qk" if mask in ("prefix", "empty_row") else "randn", mask, 1e-4)
-      for j, d in enumerate((64, 128, 16, 32)) for i, (n, kv) in enumerate(k23_f32_edges())
+      for j, d in enumerate((64, 128, 16, 32, 256)) for i, (n, kv) in enumerate(k23_f32_edges())
       for mask in [(None, "prefix", "random", "empty_row")[(i + j) % 4]]],
     # the trained-weight canaries' training (phase 19), as K1's cases above
     *[(f"canary_vb_b{b}_f32", (b, 4, 123, 123, 32), torch.float32, "qk", None, 1e-4)
@@ -601,11 +652,18 @@ TP_SP_K23 = [(name, shape, dtype, inputs, mask, 2e-2)
 # at d = 16 and 32 leaves dq and dk at their rounding floor), the timed ones
 # at the training shape
 PAD_K23 = [(name, shape, dtype, "randn", mask, 2e-2 if dtype == torch.bfloat16 else 1e-4)
-           for name, shape, dtype, inputs, mask, *_ in PAD_K1]
-K23_CASES += TP_SP_K23 + PAD_K23
+           for name, shape, dtype, inputs, mask, *_ in PAD_K1
+           + [c for c in WIDE_K1 if c[0].startswith("pad_")]]
+# head dim 256 as K1's: the two training paths, and the edges of the 64-row
+# tiles in both dtypes
+WIDE_K23 = [(name, shape, dtype, inputs, mask, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+            for name, shape, dtype, inputs, mask, *_ in WIDE_K1
+            if not name.startswith(("pad_", "flagship256_cfg"))]
+K23_CASES += TP_SP_K23 + PAD_K23 + WIDE_K23
 K23_TIMED = ("train_bf16", "rank_train_bf16", "reference_split_bf16", "mel_train_bf16",
              *(name for name, *_ in TP_SP_K23),
              *(name for name, shape, *_ in PAD_K23 if shape[2] == 768),
+             "flagship256_train_bf16", "dp256_train_f32",
              "dp_train_f32",
              "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
@@ -728,12 +786,13 @@ def phase_device() -> str:
 
 
 # the kernel sources, the kernels each holds and their bf16 instantiations
-# (K1: d 64 and 128 x 64 and 128 query rows; K2, K3: d 64 and 128; K4: 64
-# and 128 channels x 64, 128 and 256 rows), every one of which must be
-# wgmma + TMA, with no spill; the fp32 K1, K2 and K3 instantiations (d 16,
-# 32, 64 and 128) must not spill either
-SOURCES_BF16 = {"flash_attention_fwd": {"k1": 4}, "flash_attention_bwd": {"k2": 2, "k3": 2},
+# (K1: d 64, 128 and 256 x 64 and 128 query rows; K2, K3: d 64, 128 and 256;
+# K4: 64 and 128 channels x 64, 128 and 256 rows), every one of which must
+# be wgmma + TMA, with no spill; the fp32 K1, K2 and K3 instantiations (d 16,
+# 32, 64, 128 and 256) must not spill either
+SOURCES_BF16 = {"flash_attention_fwd": {"k1": 6}, "flash_attention_bwd": {"k2": 3, "k3": 3},
                 "w8a16_matmul": {"k4": len(K4_TILES[torch.bfloat16])}}
+F32_HEAD_DIMS = 5  # fp32 K1, K2 and K3 instantiations each: d 16, 32, 64, 128, 256
 
 
 def phase_build() -> None:
@@ -757,14 +816,15 @@ def phase_build() -> None:
             )
             spills = {fn: _spill_bytes(ptxas.get(fn, [])) for fn in bf16}
             assert all(s == 0 for s in spills.values()), f"{kernel} spills: {spills}"
-        if name == "flash_attention_bwd":  # fp32 K2/K3 at d = 16, 32, 64 and 128: no spill
+        if name == "flash_attention_bwd":  # fp32 K2/K3 at d = 16-256: no spill
             f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
                    if fn.split()[:2] in (["k2", "f32"], ["k3", "f32"])}
-            assert len(f32) == 8 and not any(f32.values()), f"fp32 K2/K3 spills: {f32}"
-        if name == "flash_attention_fwd":  # fp32 K1 at d = 16, 32, 64 and 128: no spill
+            assert len(f32) == 2 * F32_HEAD_DIMS and not any(f32.values()), (
+                f"fp32 K2/K3 spills: {f32}")
+        if name == "flash_attention_fwd":  # fp32 K1 at d = 16-256: no spill
             f32 = {fn: _spill_bytes(lines) for fn, lines in ptxas.items()
                    if fn.split()[:2] == ["k1", "f32"]}
-            assert len(f32) == 4 and not any(f32.values()), f"fp32 K1 spills: {f32}"
+            assert len(f32) == F32_HEAD_DIMS and not any(f32.values()), f"fp32 K1 spills: {f32}"
         if name == "w8a16_matmul":  # fp32 K4's GEMV: its sums and weights stay in registers
             gemv = [(_spill_bytes(lines), _stack_bytes(lines)) for fn, lines in ptxas.items()
                     if fn == "k4 f32 gemv"]
@@ -926,6 +986,10 @@ def phase_k1_check(smi: str) -> dict:
             log("k1", f"time {name}: K1 {t['k1']:.4f} ms, plain {t['plain']:.4f} ms, SDPA "
                       f"{t['sdpa']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (CUDA "
                       f"events, mean of 2 x 20, order plain/K1/SDPA/SDPA/K1/plain) on {smi}")
+            if shape[4] > 128:  # which of SDPA's backends takes the wide heads
+                log("k1", f"SDPA {name} launches: " + "; ".join(_device_kernels(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sm,
+                                                           scale=scale))))
         if name in K1_TIMED and dtype == torch.bfloat16:
             b, h, n = shape[:3]
             chosen = k1_block_q(b, h, n, shape[4], dtype, sms)
@@ -1005,6 +1069,15 @@ def phase_k23_check(smi: str) -> dict:
         abs_err = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)]
         typical = [r.float().abs().median().item() for r in plain]
         tol_plain, tol_auto = NORM_TOL[dtype]
+        wide_floor = None
+        if dtype == torch.float32 and inputs == "qk" and shape[4] > 128:
+            # qk-normed logits at d = 256 reach 10 d = 2560: a few ulps of
+            # their fp32 sums in another order (cuBLAS's, for the plain
+            # version and autograd; the kernel's sequential one) are as large
+            # a relative error of p, past the 1e-4 that logits up to 1280
+            # were held to (`logit_floor`)
+            wide_floor = logit_floor(q, k, scale)
+            tol, tol_plain, tol_auto = (max(t, wide_floor) for t in (tol, tol_plain, tol_auto))
         graded_as = "dq/dk/dv" if graded == 3 else "dv"
         line = (f"{name} {tuple(shape)} {str(dtype)[6:]} dq/dk/dv max_abs_err vs plain "
                 f"{abs_err[0]:.3e}/{abs_err[1]:.3e}/{abs_err[2]:.3e} (median |ref| "
@@ -1014,6 +1087,8 @@ def phase_k23_check(smi: str) -> dict:
                 f"||err|| / ||ref|| vs plain {'/'.join(f'{e:.2e}' for e in norm_plain)} (tol "
                 f"{tol_plain:g}), vs autograd {'/'.join(f'{e:.2e}' for e in norm_auto)} (tol "
                 f"{tol_auto:g})")
+        if wide_floor is not None:
+            line += f" (each at least the logit floor {wide_floor:.2e})"
         ok = (max(err_plain + err_auto) <= tol and max(norm_plain) <= tol_plain
               and max(norm_auto) <= tol_auto)
         if floored:
@@ -1067,8 +1142,9 @@ def phase_k23_check(smi: str) -> dict:
                 "ours_fwd_bwd": ours_fwd_bwd,
                 "sdpa_fwd_bwd": sdpa_fwd_bwd,
             }, iters=10)
-            if dtype == torch.float32:  # does it use tensor cores (a TF32 split)?
-                log("k23", f"SDPA's fp32 backward {name} launches: " + "; ".join(_device_kernels(
+            # fp32: does it use tensor cores (a TF32 split)? wide heads: which backend?
+            if dtype == torch.float32 or shape[4] > 128:
+                log("k23", f"SDPA's backward {name} launches: " + "; ".join(_device_kernels(
                     lambda: torch.autograd.grad(sdpa_out, lv, do, retain_graph=True))))
             del sdpa_out
             results[name]["times"] = t
@@ -1098,6 +1174,18 @@ def _device_kernels(fn) -> list:
         torch.cuda.synchronize()
     return sorted({e.name[:120] for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+LOGIT_ULPS = 8  # a sum of 256 products in two orders: up to ~log2(256) ulps apart
+
+
+def logit_floor(q, k, scale) -> float:
+    """The relative error of p that LOGIT_ULPS ulps of the largest |logit|
+    bring: exp turns an absolute error of a logit into the same relative
+    error of its probability, and two fp32 sums of one logit in different
+    orders differ by a few ulps."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).abs().max().item() * scale
+    return LOGIT_ULPS * 2.0 ** -23 * s
 
 
 def single_key_floor(q, k, v, do, scale) -> tuple:
@@ -1472,7 +1560,7 @@ SMALL_TRAIN = dict(lr=1e-3, initial_lr=1e-4, num_warmup_steps=1, wd=1e-2, max_gr
 
 def _small_trainer(device, items, model=None, trainer=None):
     def build():
-        vb = vbt.VoiceBox(dim_in=32, **SMALL, **(model or {}))
+        vb = vbt.VoiceBox(dim_in=32, **{**SMALL, **(model or {})})
         _soften_qk_gains(vb)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device=device)
 
@@ -1507,7 +1595,8 @@ def _update_gap(init: dict, cpu_module, gpu_module, lr: float) -> tuple:
     return worst, n_off, total, cos_min
 
 
-def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW") -> None:
+def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW",
+                        heads: dict = None) -> None:
     """3 steps of the small trainers on the same batches and draws; losses
     and parameter updates held card against CPU."""
     init = {n: p.detach().clone() for n, p in cpu.cfm_wrapper.voicebox.named_parameters()}
@@ -1533,7 +1622,9 @@ def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW") ->
     worst, n_off, total, cos_min = _update_gap(init, cpu.cfm_wrapper.voicebox,
                                                gpu.cfm_wrapper.voicebox, lr)
     frac_off = n_off / total
-    log("train", f"card vs CPU, fp32, dim 128 depth 2 heads 2x64, batch 2 x {frames} frames, "
+    heads = {**SMALL, **(heads or {})}
+    log("train", f"card vs CPU, fp32, dim 128 depth 2 heads {heads['heads']}x"
+                 f"{heads['dim_head']}, batch 2 x {frames} frames, "
                  f"3 {label} steps (lr {lr:g}, clip 0.5): losses card/CPU "
                  f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
                  f"{loss_err:.2e} (tol 1e-4); K1/K2/K3 launches per step {k1_per_step}/{depth}/"
@@ -1912,7 +2003,9 @@ LONG_MIN_FRAMES = 2048  # >= 27.3 s: 3 windows at least (768 + 2 x 640)
 CLONE_MIN_FRAMES = 900  # the prompt's 225 frames and the continuation: 2 windows
 PROMPT_SAMPLES = 72_000  # a 3 s prompt at 24 kHz
 PROMPT_TEXT = "a voice that the engine should keep"
-LONG_REPEATS = 3  # requests of each kind: time to first chunk and latency as min, median
+# requests of each kind: time to first chunk and latency (3 until phase 15b's
+# head-dim-256 paths needed room under the script's clock)
+LONG_REPEATS = 2
 K1_PER_WINDOW = EVALS_PER_REQUEST * FLAGSHIP["depth"]  # 96
 K4_PER_WINDOW = 4 * K1_PER_WINDOW  # 384
 # the streamed decode against the one-shot decode of the same latents, fp32
@@ -3121,6 +3214,218 @@ def phase_duration(smi: str, k1: dict) -> dict:
             "sample_k1_denoiser": den_k1}
 
 
+# phase 15b: head dim 256. (a) the bench flagship with its 512-wide attention
+# split as 2 x 256 instead of 4 x 128 (the same parameters and FLOPs); (b) the
+# reference duration predictor's geometry (dim 512, depth 10, fp32) at 2 x
+# 256; (c) the small fp32 denoiser of phase 7 at 2 x 256, card against CPU
+WIDE = dict(heads=2, dim_head=256)
+FLAGSHIP_WIDE = {**FLAGSHIP, **WIDE}
+WIDE_TRAIN_TIMED = 3  # after phase 10's TRAIN_WARMUP steps
+WIDE_DP_TIMED, WIDE_DP_ITEMS = 2, 16
+
+
+def phase_wide_flagship(smi: str, k1: dict, k23: dict) -> dict:
+    """(a): the flagship at 2 x 256 heads trains through `VoiceBoxTrainer`
+    (bf16 compute over fp32 parameters and AdamW, batch 8 x 752 frames + 16
+    registers), then serves one 10 s request through the midpoint sampler
+    and EncodecVoco, both built on the card from a seed."""
+    def build():
+        vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          **FLAGSHIP_WIDE)
+        return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
+
+    cfm = seeded_on("cuda", build, SEED + 90)
+    rs = np.random.RandomState(SEED + 91)
+    items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
+              rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
+             for _ in range(2 * TRAIN_BATCH)]
+    trainer = vbt.VoiceBoxTrainer(
+        cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(items), num_train_steps=1000,
+        lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0, log_every=1000,
+        save_results_every=1000, seed=SEED,
+    )
+    n_params = sum(p.numel() for p in trainer.params)
+    depth = FLAGSHIP["depth"]
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's training run starts here
+    logs, host_s = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shape_tally() as tally:
+        start.record()
+        for _ in range(WIDE_TRAIN_TIMED):
+            before = read_launches()
+            t0 = time.perf_counter()
+            logs.append(trainer.train_step())
+            host_s.append(time.perf_counter() - t0)
+            step = {k: v - before[k] for k, v in read_launches().items()}
+            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
+                f"a 2 x 256 training step launched {step}, expected {depth} of each")
+        end.record()
+        torch.cuda.synchronize()
+    train_counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = (TRAIN_BATCH, 2, TRAIN_FRAMES + 16, TRAIN_FRAMES + 16, 256)
+    assert {key[:3] for key in tally} == {(k, want, torch.bfloat16) for k in ("k1", "k2", "k3")}, (
+        f"2 x 256 training launched at {sorted(tally, key=str)}, want {want} bf16 only")
+    _assert_checked(tally, k1, "2 x 256 training")
+    _assert_k23_checked(tally, k23, "2 x 256 training")
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
+    assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
+    prof = _profile(trainer.train_step)
+    idle = prof["idle"]
+    log("wide", f"(a) flagship at 2 x 256 heads: dim 512 depth 24, bf16 compute, fp32 params "
+                f"({n_params / 1e6:.1f} M) and AdamW, batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
+                f"frames + 16 registers; {WIDE_TRAIN_TIMED} timed steps after "
+                f"{TRAIN_WARMUP} warm-up: losses {[round(x, 4) for x in losses]}, grad "
+                f"norms {[round(x, 3) for x in norms]}, K1/K2/K3 per step {depth} each at "
+                f"{want}; steps/s {WIDE_TRAIN_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, "
+                f"{gpu_ms / WIDE_TRAIN_TIMED:.2f} ms/step; host clock steps "
+                f"{[round(t * 1e3, 1) for t in host_s]} ms; phase 10's 4 x 128: "
+                f"{MEASURED.get('train_steps_s', float('nan')):.3f}); idle share of one profiled "
+                f"step {'not measured' if idle is None else f'{idle:.3f}'}, device busy "
+                f"{prof['busy_ms']:.2f} ms, K1+K2+K3 {prof['attention_ms']:.3f} ms of it; peak "
+                f"memory {peak_gib:.2f} GiB (phase 10: "
+                f"{MEASURED.get('train_peak_gib', float('nan')):.2f}) on {smi}")
+    del trainer, cfm, logs
+    torch.cuda.empty_cache()
+
+    def build_serving():
+        vb = vbt.VoiceBox(audio_enc_dec=EncodecVoco(), dtype=torch.bfloat16, **FLAGSHIP_WIDE)
+        return vbt.ConditionalFlowMatcherWrapper(vb)
+
+    cfm = seeded_on("cuda", build_serving, SEED + 92).eval()
+    codec = cfm.codec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 93)
+    cond = torch.randn(1, FRAMES, codec.latent_dim, generator=gen, device="cuda")
+    ids = torch.randint(0, FLAGSHIP["num_cond_tokens"], (1, FRAMES), generator=gen,
+                        device="cuda")
+
+    def request():
+        return cfm.sample(cond=cond, semantic_token_ids=ids, steps=STEPS, cond_scale=CFG_SCALE,
+                          generator=gen)
+
+    request()  # warm-up: allocator, cuFFT plans
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's serving run starts here
+    with shape_tally() as stally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = request()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    serve_counts = read_launches()
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = depth * EVALS_PER_REQUEST
+    want = (2, 2, FRAMES + 16, FRAMES + 16, 256)
+    assert serve_counts == {"k1": expected, "k2": 0, "k3": 0, "k4": 0}, serve_counts
+    assert dict(stally) == {("k1", want, torch.bfloat16, False): expected}, dict(stally)
+    _assert_checked(stally, k1, "2 x 256 serving")
+    assert tuple(audio.shape) == (1, 1, FRAMES * codec.downsample_factor), tuple(audio.shape)
+    assert bool(torch.isfinite(audio).all()), "non-finite audio"
+    sprof = _profile(request)
+    serve_idle = "not measured" if sprof["idle"] is None else f"{sprof['idle']:.3f}"
+    audio_s = FRAMES * codec.downsample_factor / codec.sampling_rate
+    log("wide", f"(a) a {audio_s:.1f} s request at 2 x 256 heads (midpoint, {STEPS} steps, CFG "
+                f"{CFG_SCALE}, EncodecVoco): latency {dt * 1e3:.2f} ms (host clock), RTF "
+                f"{dt / audio_s:.5f}, {expected} K1 at {want}, audio finite "
+                f"{tuple(audio.shape)}; idle share of a profiled request "
+                f"{serve_idle}; peak "
+                f"memory {serve_peak:.2f} GiB on {smi}")
+    del cfm, audio
+    torch.cuda.empty_cache()
+    return {"train": train_counts, "train_tally": tally, "serve": serve_counts,
+            "serve_tally": stally}
+
+
+def phase_wide_duration(smi: str, k1: dict, k23: dict) -> dict:
+    """(b): the reference DurationPredictor's geometry (dim 512, depth 10,
+    fp32, MelVoco, aligner on the 100 mels) at 2 x 256 heads trains through
+    `DurationPredictorTrainer` on (text, 10 s wave) items, phonemes bucketed
+    to 128."""
+    tok = GraphemeTokenizer()
+
+    def build():
+        return vbt.DurationPredictor(audio_enc_dec=MelVoco(), tokenizer=tok, aligner_dim_in=100,
+                                     aligner_attn_channels=80, **WIDE)
+
+    dp = seeded_on("cuda", build, SEED + 94)
+    items = list(zip(_texts(WIDE_DP_ITEMS, SEED + 95),
+                     _waves(WIDE_DP_ITEMS, WAVE_SAMPLES, SEED + 96)))
+    trainer = vbt.DurationPredictorTrainer(
+        dp, batch_size=DP_TRAIN_BATCH, dataset=PairedDataset(items), num_train_steps=1000,
+        lr=1e-4, valid_frac=0.0, phoneme_bucket_multiple=DP_PHONEME_BUCKET, log_every=1000,
+        save_results_every=1000, seed=SEED,
+    )
+    depth = DP_DEPTH
+    trainer.train_step()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the path's run starts here
+    logs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shape_tally() as tally:
+        start.record()
+        for _ in range(WIDE_DP_TIMED):
+            before = read_launches()
+            logs.append(trainer.train_step())
+            step = {k: v - before[k] for k, v in read_launches().items()}
+            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
+                f"a 2 x 256 duration step launched {step}, expected {depth} of each")
+        end.record()
+        torch.cuda.synchronize()
+    counts = read_launches()
+    gpu_ms = start.elapsed_time(end)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = (DP_TRAIN_BATCH, 2, DP_PHONEME_BUCKET, DP_PHONEME_BUCKET, 256)
+    assert {key[:3] for key in tally} == {(k, want, torch.float32) for k in ("k1", "k2", "k3")}, (
+        f"2 x 256 duration training launched at {sorted(tally, key=str)}, want {want} fp32")
+    _assert_checked(tally, k1, "2 x 256 duration training")
+    _assert_k23_checked(tally, k23, "2 x 256 duration training")
+    losses = torch.stack([lg["loss"] for lg in logs]).tolist()
+    norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
+    assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
+    prof = _profile(trainer.train_step)
+    idle = prof["idle"]
+    log("wide", f"(b) reference DurationPredictor at 2 x 256 heads: dim 512 depth 10 fp32, "
+                f"MelVoco, batch {DP_TRAIN_BATCH}, phonemes padded to {DP_PHONEME_BUCKET}; "
+                f"{WIDE_DP_TIMED} timed steps: losses {[round(x, 4) for x in losses]}, grad "
+                f"norms {[round(x, 3) for x in norms]}, fp32 K1/K2/K3 per step {depth} each at "
+                f"{want}; ms per step {gpu_ms / WIDE_DP_TIMED:.2f} (CUDA events); profiled "
+                f"step: device busy {prof['busy_ms']:.2f} ms, K1+K2+K3 "
+                f"{prof['attention_ms']:.3f} ms of it, idle share "
+                f"{'not measured' if idle is None else f'{idle:.3f}'}; peak memory "
+                f"{peak_gib:.2f} GiB on {smi}")
+    del trainer, dp
+    torch.cuda.empty_cache()
+    return {"train": counts, "tally": tally}
+
+
+def phase_wide_card_vs_cpu() -> None:
+    """(c): phase 7's small fp32 denoiser at 2 x 256 heads, 3 steps on the
+    card (K1/K2/K3 at d = 256) and on the CPU from the same weights and
+    draws, held as phase 7 holds it."""
+    rs = np.random.RandomState(SEED + 97)
+    items = [(rs.randn(n, 32).astype(np.float32), rs.randint(0, 100, n).astype(np.int32))
+             for n in (96, 90, 93, 96)]
+    cpu, gpu = (_small_trainer(dev, items, model=WIDE) for dev in ("cpu", "cuda"))
+    _compare_small_runs(cpu, gpu, rs, k1_per_step=SMALL["depth"], heads=WIDE)
+
+
+def wide_rows(k1: dict, k23: dict, wide: dict) -> list:
+    """K1, K2 and K3 on phase 15b's paths, each timed at its one shape."""
+    flagship, dp = wide["flagship"], wide["dp"]
+    rows = tally_rows(k1, k23, flagship["train"], flagship["train_tally"], "train_d256")
+    rows += tally_rows(k1, k23, flagship["serve"], flagship["serve_tally"], "serve_d256",
+                       kernels_=("k1",))
+    rows += tally_rows(k1, k23, dp["train"], dp["tally"], "duration_train_d256")
+    return rows
+
+
 def phase_encodec(smi: str) -> None:
     """Path (c): `EncodecVoco.encode` of a 10 s wave through the SEANet
     encoder at the Encodec 24 kHz geometry (n_filters 32, ratios 8/5/4/2, a
@@ -3302,8 +3607,10 @@ HUBERT_SAMPLES = 160_000  # 10 s at 16 kHz: 499 frames
 SEM_ENGINE = dict(text_buckets=SEM_ENGINE_TEXT_BUCKETS, batch_buckets=SEM_BATCHES,
                   max_semantic_token_ids=SEM_IDS, spec_decode=True, steps=STEPS,
                   cond_scale=CFG_SCALE, quantize="w8a16")
-SEM_REQUESTS = (["the semantic engine reads this line aloud"],  # batch 1, text bucket 64
-                ["a second request of some forty characters", "and a shorter one beside"])
+# one request at batch 1, text bucket 64 (a second at batch 2 went when
+# phase 15b's head-dim-256 paths needed room under the script's clock: the
+# batcher's four submits still run a group of more than one)
+SEM_REQUESTS = (["the semantic engine reads this line aloud"],)
 # requests per group; the quantized decode's lengths (its K4 shapes are
 # those of any length: every step and verify chunk)
 SEM_REPEATS, SEM_TRAIN_TIMED = 1, 4
@@ -4258,7 +4565,7 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
 
 # phase 21: LoRA fine-tuning and data-parallel training at full width
 LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16, 1e-3
-LORA_WARMUP, LORA_TIMED = 2, 10
+LORA_WARMUP, LORA_TIMED = 2, 4  # 10 timed steps until phase 15b needed room
 # 1 + 2 steps (2 + 3 until phase 22 took the script past its clock)
 DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 1, 2, 16
 DP_MODES = ("replicated", "fsdp")
@@ -5587,6 +5894,10 @@ def main() -> int:
     assert min(raw["mel"]["train"][k] for k in ("k1", "k2", "k3")) > 0, raw["mel"]
     assert raw["mel"]["serve_k1"] > 0 and raw["dp"]["sample_k1"] > 0, raw
     assert min(raw["dp"]["train"][k] for k in ("k1", "k2", "k3")) > 0, raw["dp"]
+    wide = {"flagship": phase_wide_flagship(smi, k1, k23), "dp": phase_wide_duration(smi, k1, k23)}
+    assert min(wide[p]["train"][k] for p in wide for k in ("k1", "k2", "k3")) > 0, wide
+    assert wide["flagship"]["serve"]["k1"] > 0, wide["flagship"]["serve"]
+    phase_wide_card_vs_cpu()
     phase_encodec(smi)
     phase_semantic_card_vs_cpu()
     sem = phase_semantic(smi, k1, k4, k4_dec)
@@ -5617,6 +5928,7 @@ def main() -> int:
     assert all(dp["pp"][k] == DP_WORLD * PP_TIMED * PP_PER_STEP for k in ("k1", "k2", "k3")), \
         dp["pp"]
     semantic += pp_rows(k1, k23, dp["pp"])
+    semantic += wide_rows(k1, k23, wide)
     phase_dryrun(smi)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)

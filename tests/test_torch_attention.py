@@ -160,6 +160,9 @@ H100_SMS = 132
     (8, 16, 1040, 64, torch.float32, 16),
     (4, 4, 123, 32, torch.float32, 16),      # the quality canaries' narrow heads
     (4, 4, 7, 16, torch.float32, 16),
+    (8, 2, 768, 256, torch.bfloat16, 128),   # 2 x 256 heads, training: 96 blocks of 128 rows
+    (2, 2, 766, 256, torch.bfloat16, 64),    # 2 x 256 heads, serving: 24 blocks of 128 rows
+    (8, 2, 128, 256, torch.float32, 16),     # the duration predictor at 2 x 256 heads
 ])
 def test_k1_tile_height_at_the_paths_shapes(b, h, n, d, dtype, rows):
     assert k1_block_q(b, h, n, d, dtype, H100_SMS) == rows
@@ -181,9 +184,11 @@ def _entry_head_dims(source: str) -> dict:
 
 @pytest.mark.parametrize("source", ["flash_attention_fwd.cu", "flash_attention_bwd.cu"])
 def test_head_dims_follow_the_per_dtype_rule(source):
-    """fp32 K1, K2 and K3 take head dims 16, 32, 64 and 128, bf16 64 and
-    128: the wrappers' rule (`HEAD_DIMS`) is what the C entry points launch."""
-    assert HEAD_DIMS == {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+    """fp32 K1, K2 and K3 take head dims 16, 32, 64, 128 and 256, bf16 64,
+    128 and 256: the wrappers' rule (`HEAD_DIMS`) is what the C entry points
+    launch."""
+    assert HEAD_DIMS == {torch.float32: (16, 32, 64, 128, 256),
+                         torch.bfloat16: (64, 128, 256)}
     assert _entry_head_dims(source) == HEAD_DIMS
 
 
@@ -212,6 +217,8 @@ def _plain_kernels(monkeypatch):
 @pytest.mark.parametrize("d,dtype,width", [
     (16, torch.bfloat16, 64), (32, torch.bfloat16, 64), (48, torch.bfloat16, 64),
     (8, torch.float32, 16), (24, torch.float32, 32),
+    (192, torch.bfloat16, 256), (256, torch.bfloat16, 256),
+    (192, torch.float32, 256), (256, torch.float32, 256),
 ])
 def test_padded_head_dims_equal_the_plain_version_exactly(monkeypatch, d, dtype, width):
     """Head dims the kernels are not built for are zero-padded to the next
@@ -242,15 +249,18 @@ def test_padded_head_dims_equal_the_plain_version_exactly(monkeypatch, d, dtype,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_head_dims_past_128_are_refused(monkeypatch, dtype):
+    """Past the widest built width, now 256 (head dims 129-256 pad to it),
+    every wrapper refuses before a launch."""
     calls = _plain_kernels(monkeypatch)
-    q = torch.zeros(1, 1, 4, 192, dtype=dtype)
+    q = torch.zeros(1, 1, 4, 257, dtype=dtype)
     lse = torch.zeros(1, 1, 1, 4)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         fa._launch_k1(q, q, q, None, None)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         fa._k2(q, q, q, None, q, lse, lse, None)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         fa._k3(q, q, q, None, q, lse, lse, None)
     assert calls == []
-    assert [fa.kernel_head_dim(d, dtype) for d in (1, 64, 65, 128)] == (
-        [64, 64, 128, 128] if dtype == torch.bfloat16 else [16, 64, 128, 128])
+    assert [fa.kernel_head_dim(d, dtype) for d in (1, 64, 65, 128, 129, 256)] == (
+        [64, 64, 128, 128, 256, 256] if dtype == torch.bfloat16
+        else [16, 64, 128, 128, 256, 256])

@@ -100,7 +100,7 @@ def test_k1_matches_plain(cuda_device, dtype, tol, d, b, h, n, kv):
 # both bf16 query-tile heights, whichever the host would choose (fp32 takes
 # one, 16 rows, and test_k1_matches_plain runs it)
 @pytest.mark.parametrize("rows", [64, 128])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
     q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
                      for t in _qkv(cuda_device, 3, 2, 150, 259, d=d))
@@ -113,11 +113,11 @@ def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, d=128)
-    # any head dim up to 128 (zero-padded to a built width), none past it
-    wide = [torch.cat([t, t[..., :64]], dim=-1) for t in (q, k, v)]
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    # any head dim up to 256 (zero-padded to a built width), none past it
+    wide = [torch.cat([t, t, t[..., :1]], dim=-1) for t in (q, k, v)]  # 257
+    with pytest.raises(ValueError, match="head dims up to 256"):
         flash_attention(*wide)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         flash_attention(*(t.to(torch.bfloat16) for t in wide))
     strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -211,7 +211,7 @@ def test_k2_k3_are_deterministic(cuda_device, dtype):
 # exact arithmetic: the plain version's dq and dk are rounding noise there,
 # and the kernels' are held to 16 ulps of |dO| |v|, times scale and |k|
 # (dq) or |q| (dk). A second launch gives the same bits.
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("n,kv", k23_f32_edges())
 def test_k2_k3_f32_match_plain_at_tile_edges(cuda_device, n, kv, d):
     q, k, v, mask = _qkv(cuda_device, 2, 2, n, kv, d=d, seed=n + kv)
@@ -227,6 +227,37 @@ def test_k2_k3_f32_match_plain_at_tile_edges(cuda_device, n, kv, d):
     again, _, _ = _backward(q, k, v, mask, seed=kv)
     for name, a, b in zip(("dq", "dk", "dv"), again, got):
         assert torch.equal(a, b), name
+
+
+# head dims 192 (zero-padded to 256) and 256 at K1's edge shapes, in both
+# dtypes (tolerances as above): K1 against the plain forward, a fully-masked
+# element's rows at mean(V); K2/K3 against the plain backward, and a second
+# launch of each kernel gives the same bits
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("b,h,n,kv", K1_SHAPES)
+def test_wide_heads_match_plain(cuda_device, dtype, tol, d, b, h, n, kv):
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _qkv(cuda_device, b, h, n, kv, d=d, seed=d + n))
+    out, lse = flash_attention(q, k, v, mask, return_lse=True)
+    out2, lse2 = flash_attention(q, k, v, mask, return_lse=True)
+    ref, ref_lse = reference_attention(q, k, v, mask, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if b > 1:
+        mean_v = v[-1].float().mean(dim=1, keepdim=True).expand_as(out[-1])
+        torch.testing.assert_close(out[-1].float(), mean_v, atol=tol, rtol=tol)
+    got, plain, _ = _backward(q, k, v, mask)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, plain):
+        assert a.dtype == dtype and a.shape == b_.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), b_.float(),
+                                   atol=tol * b_.float().abs().max().item(), rtol=tol, msg=name)
+    again, _, _ = _backward(q, k, v, mask)
+    for name, a, b_ in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, b_), name
 
 
 def _mask(kind, b, kv, device, seed):

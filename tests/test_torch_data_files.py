@@ -21,6 +21,7 @@ import torch
 from scipy.io import wavfile
 
 from flac_ref_encoder import write_flac
+from jax_native_decoders import jax_native_decoders
 from voicebox_tpu.training import data as jdata
 from voicebox_tpu_torch import ConditionalFlowMatcherWrapper, MelVoco, VoiceBox, VoiceBoxTrainer
 from voicebox_tpu_torch import HubertWithKmeans, TextToSemantic, TextToSemanticTrainer
@@ -39,6 +40,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_decoders(tmp_path_factory):
+    """The JAX package's decoders load in this worker even where its own
+    in-package build lost a race with another worker's
+    (`jax_native_decoders`)."""
+    with jax_native_decoders(tmp_path_factory.mktemp("jax_native")):
+        yield
 
 
 def _pcm(n, seed, bps=16):

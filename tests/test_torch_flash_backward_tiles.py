@@ -1,8 +1,8 @@
 """The port's fp32 attention backward at the edges of the fp32 K2/K3 tiling,
 against the JAX package, on the CPU.
 
-`k23_f32_edges()` lists (n, kv) at 1, one under, at and one over the 32-
-and 64-row tiles of the fp32 kernels, and at the duration predictor's
+`k23_f32_edges()` lists (n, kv) at 1, one under, at and one over the 16-,
+32- and 64-row tiles of the fp32 kernels, and at the duration predictor's
 phoneme buckets (32, 64, 128). Each pair runs at head dims 64 and 128 and
 under one of four masks: none, prefix (the predictor's text padding),
 random, and a batch element whose every key is masked. The prefix and
@@ -166,7 +166,8 @@ def test_cpu_autograd_matches_jax_at_tile_edges(n, kv, d, mask_kind):
 
 def test_edges_cover_each_tile_size_and_bucket():
     """Every edge the tiling has is in the list, on both sides: n and kv
-    each take 1, one under, at and one over 32 and 64, and 128."""
+    each take 1, one under, at and one over 16 (head dim 256's streamed
+    tiles), 32 and 64, and 128."""
     edges = k23_f32_edges()
-    want = {1, 31, 32, 33, 63, 64, 65, 128}
+    want = {1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128}
     assert {n for n, _ in edges} == want and {kv for _, kv in edges} == want

@@ -17,6 +17,7 @@ import torch
 from scipy.io import wavfile
 
 from flac_ref_encoder import write_flac
+from jax_native_decoders import jax_native_decoders
 from voicebox_tpu import native as jnative
 from voicebox_tpu_torch import kernels
 from voicebox_tpu_torch import native
@@ -33,6 +34,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_decoders(tmp_path_factory):
+    """The JAX package's decoders load in this worker even where its own
+    in-package build lost a race with another worker's
+    (`jax_native_decoders`)."""
+    with jax_native_decoders(tmp_path_factory.mktemp("jax_native")):
+        yield
 
 
 def _sig(n, seed=0, amp=3000.0, bps=16):
@@ -162,3 +172,39 @@ def test_library_lands_under_the_build_directory(tmp_path, monkeypatch):
     after = sorted(p.relative_to(PACKAGE) for p in PACKAGE.rglob("*")
                    if "__pycache__" not in p.parts)
     assert after == before
+
+
+def test_fixture_decodes_where_the_jax_loader_gave_up(files, tmp_path, monkeypatch):
+    """The fault planted: the JAX loader has given up on its FLAC library in
+    this process. Through the fixture's route the JAX package's own source
+    still decodes every FLAC kind, bit for bit the samples written and the
+    port's decoder's output."""
+    monkeypatch.setattr(jnative, "_flac_tried", True)
+    monkeypatch.setattr(jnative, "_flac_lib", None)
+    assert not jnative.flac_available()
+    with jax_native_decoders(tmp_path / "lib"):
+        assert jnative.flac_available()
+        assert jnative._FLAC_LIB_PATH == tmp_path / "lib" / "libvbflac.so"
+        for spec in FLAC_KINDS:
+            bps, ch = spec[:2]
+            amp = 3000.0 if bps == 16 else 3e5
+            written = np.mean([_sig(5000, seed=c, amp=amp, bps=bps) for c in range(ch)], axis=0)
+            ref = jnative.flac_read(files[spec])
+            _same(native.flac_read(files[spec]), ref)
+            np.testing.assert_array_equal(ref[0], (written / 2.0 ** (bps - 1)).astype(np.float32))
+    assert not jnative.flac_available()  # the loader's state restored on exit
+
+
+@pytest.mark.parametrize("fault", ["missing_compiler", "broken_source"])
+def test_fixture_fails_rather_than_skips(tmp_path, monkeypatch, fault):
+    monkeypatch.setattr(jnative, "_flac_tried", True)
+    monkeypatch.setattr(jnative, "_flac_lib", None)
+    kw = {"cxx": "g++-missing-from-this-path"}
+    if fault == "broken_source":
+        broken = tmp_path / "flacio.cpp"
+        broken.write_text(jnative._FLAC_SRC.read_text().replace("{", "{ not C++ ", 1))
+        kw = {"sources": {"_FLAC_SRC": broken}}
+    with pytest.raises(pytest.fail.Exception, match="failed"):
+        with jax_native_decoders(tmp_path / "lib", **kw):
+            pass
+    assert not (tmp_path / "lib" / "libvbflac.so").exists()

@@ -55,6 +55,12 @@
 //    shared memory;
 //  * dQ, dK and dV stay in fp32 registers across the whole loop and are
 //    stored once, as bf16 pairs; rows past n or kv are not stored.
+//  * head dim 256 (2 x 256-wide heads): the tiles stay 64 rows (K2 195 KB
+//    of shared memory, K3 211 KB). K2's dQ takes 128 registers a thread
+//    beside S and dP (32 each), within one warpgroup's 255. K3's dK and dV
+//    would take 256, so K3 runs two consumer warpgroups, one gradient each,
+//    with P handed from the dV warpgroup to the dK warpgroup in fp32
+//    through shared memory (flash_bwd_dkv_bf16 says how).
 // fp32, the duration predictor's training (batch 8 x 8 heads, 128 rows and
 // keys, head dim 64): K2 does 403 MFLOP over ~10 MB and K3 537 MFLOP over
 // ~12 MB, above the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s, 20
@@ -81,9 +87,9 @@
 //    tile's lse and delta, K2 its key flags, into registers before the
 //    products, which hide their latency;
 //  * blocks of 64 owned rows (256 threads), streamed tiles of 64 rows at
-//    d <= 64 and 32 at d = 128 (F32Tile says why). Head dims 16 and 32
-//    (fp32 only, the narrow heads of small models) run the same code: a
-//    thread's D / 16 gradient columns are 1 or 2 neighbouring floats
+//    d <= 64, 32 at d = 128 and 16 at d = 256 (F32Tile says why). Head dims
+//    16 and 32 (fp32 only, the narrow heads of small models) run the same
+//    code: a thread's D / 16 gradient columns are 1 or 2 neighbouring floats
 //    (F32Cols), nothing is padded to 64 columns.
 // Both launch on the caller's stream and allocate nothing; the host encodes
 // the four tensor maps of a bf16 launch on each call.
@@ -111,15 +117,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // that a 16-byte read of an owned row is shared by 8 lanes and one of a
 // streamed row by 4, and each reads one 128-byte wavefront from shared
 // memory: rows of D + 4 floats put the 8 streamed rows' 16-byte reads in
-// distinct banks at every D of 16 to 128 (row starts 20, 36, 68 or 132
+// distinct banks at every D of 16 to 256 (row starts 20, 36, 68, 132 or 260
 // floats apart cover all 32 banks once over 8 rows).
-// OWN is 64; STR is 64 at d <= 64 and 32 at d = 128, where 64 streamed rows
-// would take 238 KB of K3's shared memory, past the 227 KB a block can have
-// (at d = 32 a block takes 90 KB).
+// OWN is 64; STR is 64 at d <= 64, 32 at d = 128, where 64 streamed rows
+// would take 238 KB of K3's shared memory, past the 227 KB a block can have,
+// and 16 at d = 256, where 32 would take 277 KB (16 take 204 KB; at d = 32 a
+// block takes 90 KB).
 template <int D>
 struct F32Tile {
   static constexpr int OWN = 64;
-  static constexpr int STR = D == 128 ? 32 : 64;
+  static constexpr int STR = D == 256 ? 16 : D == 128 ? 32 : 64;
   static constexpr int kThreads = 4 * OWN;
   static constexpr int kTy = OWN / 4;       // row groups
   static constexpr int kNc = STR / 16;      // streamed rows of a thread
@@ -449,7 +456,24 @@ __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
 
 constexpr int kRows = 64;    // rows of every tile, owned or streamed
 constexpr int kStages = 2;   // ring depth
-constexpr int kThreads = 128 + 32;  // one consumer warpgroup, then the producer warp
+
+// consumer warpgroups of K3: one up to head dim 128; two at 256, where dK
+// and dV (64 x 256 fp32 each) would take 256 registers a thread of one. K2
+// has one at every head dim. With one consumer warpgroup the loads come from
+// one producer warp; with two, from a whole producer warpgroup (one warp of
+// it works), whose registers pay for the consumers' 240 (setmaxnreg): ptxas
+// gives a block of wgmma warpgroups 65536 / (threads rounded up to 128)
+// registers a thread, which at 288 threads is 168 and spills.
+template <int D>
+struct K3Shape {
+  static constexpr int kWarpgroups = D == 256 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWarpgroups + (kWarpgroups == 2 ? 128 : 32);
+};
+constexpr int kThreadsDq = 128 + 32;
+// named barriers of K3's hand-off of P between its two warpgroups (0 is
+// __syncthreads()'s)
+constexpr int kBarPFull = 1;
+constexpr int kBarPEmpty = 2;
 
 // Shared memory in bytes, at a 1024-byte aligned base. Each 64-row operand
 // tile is stored as D / 64 column chunks of (64 x 64) bf16, 128 bytes a row,
@@ -466,6 +490,12 @@ struct Bf16Smem {
   static constexpr int kRing = 2 * kTile;  // after the owned pair
   static constexpr int kBytes = kRing + kStages * kStage;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  // K3 with two warpgroups: after the ring, one tile of P in fp32 (64 x 64,
+  // element e of thread t at e * 128 + t), from the dV warpgroup to the dK
+  // warpgroup: 211 KB in all at d = 256
+  static constexpr int kPx = kBytes;
+  static constexpr int kAllocDkv =
+      kBytes + (K3Shape<D>::kWarpgroups == 2 ? 64 * 64 * 4 : 0) + 1024;
 };
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -545,10 +575,11 @@ __device__ __forceinline__ float prob(float s, float scale_l2, float lse_l2, boo
 // grid: (query tiles of 64 rows, heads, batch). Warpgroup 0 consumes; warp 4
 // issues the loads. q, dout, dq (b, h, n_q, D) and k, v (b, h, n_kv, D)
 // through 3-D tensor maps (D, rows, b h); mask (b, n_kv) bytes or null; lse,
-// delta (b, h, n_q) fp32. Two blocks share an SM (at most 204 registers a
-// thread).
+// delta (b, h, n_q) fp32. Two blocks share an SM up to d = 128 (at most 204
+// registers a thread); at d = 256 the block takes 195 KB of shared memory and
+// dQ alone 128 registers a thread, and one block takes the SM.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreadsDq, D == 256 ? 1 : 2)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -685,9 +716,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // grid: (key tiles of 64 keys, heads, batch); the same operands, dk and dv
 // (b, h, n_kv, D). Two blocks share an SM at d = 64; at d = 128 dK and dV
-// alone take 128 registers a thread, and one block takes the SM.
+// alone take 128 registers a thread, and one block takes the SM. At d = 256
+// they would take 256, more than a thread can have, so two consumer
+// warpgroups split the work by gradient: warpgroup 0 computes S^T = K Q^T,
+// P^T from it and dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, takes
+// P^T in fp32 from warpgroup 0 through shared memory (one 16 KB tile, two
+// named barriers), forms dS^T and accumulates dK += dS^T Q. Each holds one
+// 64 x 256 accumulator (128 registers) and runs two of the four products of
+// a tile, nothing is computed twice, and P reaches dS in the fp32 it has
+// with one warpgroup, so the sums are those of d <= 128.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(K3Shape<D>::kThreads, D == 64 ? 2 : 1)
     flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -696,6 +735,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
                        const float* __restrict__ delta, bf16* __restrict__ dk,
                        bf16* __restrict__ dv, int heads, int n_q, int n_kv, float scale) {
   using L = Bf16Smem<D>;
+  constexpr int NWG = K3Shape<D>::kWarpgroups;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
@@ -711,17 +751,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       // the TMA's expect_tx and one arrival from each producer lane after
       // its lse and delta stores
       mbar_init(&full_bar[s], 1 + 32);
-      mbar_init(&empty_bar[s], 128);
+      mbar_init(&empty_bar[s], NWG * 128);
     }
     mbar_init(&own_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128) {
+  if (threadIdx.x >= NWG * 128) {
     // producer warp: K and V once, then Q and dO tiles and their rows'
     // lse and delta through the ring
-    const int lane = threadIdx.x - 128;
+    if constexpr (NWG == 2) setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - NWG * 128;
+    if (lane >= 32) return;  // the rest of a producer warpgroup
     if (lane == 0) {
       mbar_expect_tx(&own_bar, 2 * L::kTile);
 #pragma unroll
@@ -760,15 +802,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       mbar_arrive(&full_bar[s]);  // releases this lane's stores
     }
   } else {
-    // consumer warpgroup: 64 keys, rows r and r + 8 of the accumulators
+    // consumer warpgroup wg: 64 keys, rows r and r + 8 of the accumulators
     // (keys); the columns are query rows
-    const int lane = threadIdx.x % 32;
+    if constexpr (NWG == 2) setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
     const int quad = lane % 4;
-    const int r = blockIdx.x * kRows + (threadIdx.x / 32) * 16 + lane / 4;
+    const int r = blockIdx.x * kRows + (tid / 32) * 16 + lane / 4;
     uint32_t k_base = smem_u32(smem);
     uint32_t v_base = smem_u32(smem + L::kTile);
     const float scale_l2 = scale * kLog2e;
     const float inv_kv = 1.0f / (float)n_kv;
+    float* p_x = reinterpret_cast<float*>(smem + L::kPx);  // two warpgroups: P^T, fp32
 
     bool real[2], kept[2];  // this thread's two keys
 #pragma unroll
@@ -778,9 +824,15 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       kept[j] = real[j] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
     }
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    // one warpgroup: dK and dV; two: warpgroup 0 dV, warpgroup 1 dK, each
+    // in acc
+    float acc[D / 2], dk_acc[NWG == 1 ? D / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    if constexpr (NWG == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.0f;
+    }
 
     mbar_wait(&own_bar, 0);
     for (int t = 0; t < n_tiles; ++t) {
@@ -792,55 +844,131 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       const uint32_t do_base = q_base + L::kTile;
       const float* lse_s = reinterpret_cast<const float*>(stage + 2 * L::kTile);
       const float* delta_s = lse_s + kRows;
-
-      float st[32], dpt[32];
-      wgmma_fence();
-      scores<D>(st, k_base, q_base);    // S^T = K Q^T
-      scores<D>(dpt, v_base, do_base);  // dP^T = V dO^T
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(st);
-      fence_regs(dpt);
-
-      // P^T and dS^T; column 8 i + 2 quad + c is query row row0 + that, its
-      // lse (times log2(e), from the producer) and delta in the stage
       const int row0 = t * kRows;
+
+      if constexpr (NWG == 1) {
+        float st[32], dpt[32];
+        wgmma_fence();
+        scores<D>(st, k_base, q_base);    // S^T = K Q^T
+        scores<D>(dpt, v_base, do_base);  // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // P^T and dS^T; column 8 i + 2 quad + c is query row row0 + that, its
+        // lse (times log2(e), from the producer) and delta in the stage
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int col = 8 * i + 2 * quad;
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
-        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
+        for (int i = 0; i < 8; ++i) {
+          const int col = 8 * i + 2 * quad;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float l = c ? l2.y : l2.x;
-          const float dl = c ? d2.y : d2.x;
-          const bool valid = row0 + col + c < n_q;
-          const bool empty = l < kEmptyRowLse;
+          for (int c = 0; c < 2; ++c) {
+            const float l = c ? l2.y : l2.x;
+            const float dl = c ? d2.y : d2.x;
+            const bool valid = row0 + col + c < n_q;
+            const bool empty = l < kEmptyRowLse;
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int e = 4 * i + 2 * j + c;
-            const bool keep = valid && !empty && kept[j];
-            const float p = prob(st[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
-            dpt[e] = keep ? p * (dpt[e] - dl) * scale : 0.0f;
-            st[e] = p;
+            for (int j = 0; j < 2; ++j) {
+              const int e = 4 * i + 2 * j + c;
+              const bool keep = valid && !empty && kept[j];
+              const float p = prob(st[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
+              dpt[e] = keep ? p * (dpt[e] - dl) * scale : 0.0f;
+              st[e] = p;
+            }
           }
         }
-      }
-      uint32_t p_a[4][4], ds_a[4][4];
-      repack(st, p_a);
-      repack(dpt, ds_a);
+        uint32_t p_a[4][4], ds_a[4][4];
+        repack(st, p_a);
+        repack(dpt, ds_a);
 
-      wgmma_fence();
-      accumulate<D>(dv_acc, p_a, do_base);  // dV += P^T dO, dO read MN-major
-      accumulate<D>(dk_acc, ds_a, q_base);  // dK += dS^T Q, Q read MN-major
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+        wgmma_fence();
+        accumulate<D>(acc, p_a, do_base);     // dV += P^T dO, dO read MN-major
+        accumulate<D>(dk_acc, ds_a, q_base);  // dK += dS^T Q, Q read MN-major
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        fence_regs(dk_acc);
+      } else {
+        // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+        float sc[32];
+        wgmma_fence();
+        if (wg == 0) {
+          scores<D>(sc, k_base, q_base);
+        } else {
+          scores<D>(sc, v_base, do_base);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        if (wg == 0) {
+          // P^T as with one warpgroup, handed to warpgroup 1 in fp32 once it
+          // has read the last tile's
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = 8 * i + 2 * quad;
+            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float l = c ? l2.y : l2.x;
+              const bool valid = row0 + col + c < n_q;
+              const bool empty = l < kEmptyRowLse;
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int e = 4 * i + 2 * j + c;
+                const bool keep = valid && !empty && kept[j];
+                sc[e] = prob(sc[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
+              }
+            }
+          }
+          if (t > 0) named_bar_sync(kBarPEmpty, 256);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) p_x[e * 128 + tid] = sc[e];
+          named_bar_arrive(kBarPFull, 256);
+        } else {
+          // dS^T = P^T (dP^T - delta) scale on kept keys of rows that have
+          // one, 0 elsewhere, from warpgroup 0's P^T
+          named_bar_sync(kBarPFull, 256);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = 8 * i + 2 * quad;
+            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+            const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float l = c ? l2.y : l2.x;
+              const float dl = c ? d2.y : d2.x;
+              const bool valid = row0 + col + c < n_q;
+              const bool empty = l < kEmptyRowLse;
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int e = 4 * i + 2 * j + c;
+                const bool keep = valid && !empty && kept[j];
+                sc[e] = keep ? p_x[e * 128 + tid] * (sc[e] - dl) * scale : 0.0f;
+              }
+            }
+          }
+          if (t + 1 < n_tiles) named_bar_arrive(kBarPEmpty, 256);
+        }
+        uint32_t a[4][4];
+        repack(sc, a);
+        wgmma_fence();
+        // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q (MN-major)
+        accumulate<D>(acc, a, wg == 0 ? do_base : q_base);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
       mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
     }
-    store_rows<D>(dk_acc, dk + (size_t)bh * n_kv * D, r, quad, n_kv);
-    store_rows<D>(dv_acc, dv + (size_t)bh * n_kv * D, r, quad, n_kv);
+    if constexpr (NWG == 1) {
+      store_rows<D>(dk_acc, dk + (size_t)bh * n_kv * D, r, quad, n_kv);
+      store_rows<D>(acc, dv + (size_t)bh * n_kv * D, r, quad, n_kv);
+    } else {
+      store_rows<D>(acc, (wg == 0 ? dv : dk) + (size_t)bh * n_kv * D, r, quad, n_kv);
+    }
   }
 }
 
@@ -876,7 +1004,7 @@ cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + kRows - 1) / kRows, a.heads, a.batch);
-  kernel<<<grid, kThreads, L::kAlloc, a.stream>>>(
+  kernel<<<grid, kThreadsDq, L::kAlloc, a.stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(dq), a.heads, a.n_q, a.n_kv, a.scale);
@@ -890,10 +1018,11 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   cudaError_t err = encode_maps<D>(a, m);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dkv_bf16<D>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kAllocDkv);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_kv + kRows - 1) / kRows, a.heads, a.batch);
-  kernel<<<grid, kThreads, L::kAlloc, a.stream>>>(
+  kernel<<<grid, K3Shape<D>::kThreads, L::kAllocDkv, a.stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.heads, a.n_q, a.n_kv, a.scale);
@@ -937,7 +1066,7 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16;
-// head_dim 64 or 128 in either, 16 or 32 in float32. Each returns 0 or the
+// head_dim 64, 128 or 256 in either, 16 or 32 in float32. Each returns 0 or the
 // cudaError_t of the launch.
 extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, const void* lse,
@@ -948,6 +1077,8 @@ extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const voi
                static_cast<cudaStream_t>(stream)};
   if (head_dim == 64 && dtype == 1) return launch_dq_bf16<64>(a, dq);
   if (head_dim == 128 && dtype == 1) return launch_dq_bf16<128>(a, dq);
+  if (head_dim == 256 && dtype == 1) return launch_dq_bf16<256>(a, dq);
+  if (head_dim == 256 && dtype == 0) return launch_dq_f32<256>(a, dq);
   if (head_dim == 64 && dtype == 0) return launch_dq_f32<64>(a, dq);
   if (head_dim == 128 && dtype == 0) return launch_dq_f32<128>(a, dq);
   if (head_dim == 32 && dtype == 0) return launch_dq_f32<32>(a, dq);
@@ -964,6 +1095,8 @@ extern "C" int vb_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                static_cast<cudaStream_t>(stream)};
   if (head_dim == 64 && dtype == 1) return launch_dkv_bf16<64>(a, dk, dv);
   if (head_dim == 128 && dtype == 1) return launch_dkv_bf16<128>(a, dk, dv);
+  if (head_dim == 256 && dtype == 1) return launch_dkv_bf16<256>(a, dk, dv);
+  if (head_dim == 256 && dtype == 0) return launch_dkv_f32<256>(a, dk, dv);
   if (head_dim == 64 && dtype == 0) return launch_dkv_f32<64>(a, dk, dv);
   if (head_dim == 128 && dtype == 0) return launch_dkv_f32<128>(a, dk, dv);
   if (head_dim == 32 && dtype == 0) return launch_dkv_f32<32>(a, dk, dv);

@@ -24,6 +24,11 @@
 //    The host picks 64 query rows per block (one consumer warpgroup) where
 //    128-row blocks would not fill the card's SMs, 128 rows (two consumer
 //    warpgroups sharing each K/V tile) where they would.
+//  * bf16 at head dim 256 (2 x 256-wide heads): the same design with
+//    64-key tiles, since two stages of 128-key K and V tiles (256 KB) pass
+//    the 227 KB of shared memory a block can have. O is then 64 x 256 fp32,
+//    128 registers a thread, beside S (32) and P (16): within the 240 that
+//    setmaxnreg gives two consumer warpgroups, and the 255 of one.
 //  * fp32, the duration predictor (1-4 x 8 heads, 32-128 rows, head dim
 //    64): latency. wgmma has no fp32 mode and TF32 would break the fp32
 //    contract, so both products stay on CUDA-core FMAs, register-tiled: each
@@ -35,6 +40,8 @@
 //    heads of small models (head dim 16 and 32, fp32 only): a thread's D/16
 //    columns of O are then 2 or 1 neighbouring floats (F32Cols), read and
 //    written as 8- or 4-byte vectors, so nothing is padded to 64 columns.
+//    At head dim 256 the tiles take 152 KB of shared memory and O 32
+//    registers a thread.
 //
 // Both paths mask ragged n and kv here, with no padding copies: TMA (bf16)
 // and cp.async (fp32) fill rows past n or kv with zeros, keys past kv get
@@ -57,14 +64,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // ----------------------------------------------------------- bf16: layout
 
-constexpr int kBlockN = 128;  // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 
 // Shared memory in bytes. Each operand tile is stored as D / 64 column
 // chunks of (rows x 64) bf16, 128 bytes a row, as TMA's 128-byte swizzle
 // lays them out; every chunk starts on a 1024-byte boundary.
+// Keys per K/V tile (kBlockN): 128 up to head dim 128; 64 at 256, where a
+// 128-key ring (2 stages x K and V x 64 KB = 256 KB) would not fit the
+// 227 KB a block can have, and the 64-key ring takes 128 KB beside the
+// 32 KB of Q a warpgroup.
 template <int D, int NWG>
 struct Bf16Smem {
+  static constexpr int kBlockN = D == 256 ? 64 : 128;
   static constexpr int kChunks = D / kSwizzleCols;
   static constexpr int kRowsQ = NWG * 64;
   static constexpr int kQChunk = kRowsQ * 128;
@@ -97,6 +108,7 @@ __global__ void __launch_bounds__(Bf16Smem<D, NWG>::kThreads, 1)
                    bf16* __restrict__ out, float* __restrict__ lse, int heads, int n_q,
                    int n_kv, float scale) {
   using L = Bf16Smem<D, NWG>;
+  constexpr int kBlockN = L::kBlockN;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
@@ -175,7 +187,11 @@ __global__ void __launch_bounds__(Bf16Smem<D, NWG>::kThreads, 1)
         const uint32_t off = (kk % 4) * 32;
         const uint64_t da = sw128_desc(q_base + (kk / 4) * L::kQChunk + off, 16, 1024);
         const uint64_t db = sw128_desc(k_base + (kk / 4) * L::kKVChunk + off, 16, 1024);
-        wgmma_ss_n128(sc, da, db, kk > 0);
+        if constexpr (kBlockN == 128) {
+          wgmma_ss_n128(sc, da, db, kk > 0);
+        } else {
+          wgmma_ss_n64(sc, da, db, kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -475,8 +491,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   CUtensorMap tm_q, tm_k, tm_v;
   const int bh = batch * heads;
   if (!encode_bf16_3d(fn, &tm_q, q, D, n_q, bh, L::kRowsQ) ||
-      !encode_bf16_3d(fn, &tm_k, k, D, n_kv, bh, kBlockN) ||
-      !encode_bf16_3d(fn, &tm_v, v, D, n_kv, bh, kBlockN)) {
+      !encode_bf16_3d(fn, &tm_k, k, D, n_kv, bh, L::kBlockN) ||
+      !encode_bf16_3d(fn, &tm_v, v, D, n_kv, bh, L::kBlockN)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_fwd_bf16<D, NWG>;
@@ -526,7 +542,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 }  // namespace
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// head_dim: 64 or 128 in either dtype, 16 or 32 in float32. block_q: query
+// head_dim: 64, 128 or 256 in either dtype, 16 or 32 in float32. block_q: query
 // rows per block, 64 or 128 for bfloat16 (one or two consumer warpgroups),
 // 16 for float32. Returns 0 or the cudaError_t of the launch.
 extern "C" int vb_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -537,6 +553,8 @@ extern "C" int vb_flash_attention_fwd(const void* q, const void* k, const void* 
   cudaError_t err = cudaErrorInvalidValue;
   if (head_dim == 64) {
     err = launch<64>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
+  } else if (head_dim == 256) {
+    err = launch<256>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
   } else if (head_dim == 128) {
     err = launch<128>(q, k, v, mask, out, lse, batch, heads, n_q, n_kv, dtype, block_q, scale, s);
   } else if (head_dim == 32 && dtype == 0 && block_q == kF32BlockQ) {  // fp32 only

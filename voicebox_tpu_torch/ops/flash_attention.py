@@ -41,7 +41,7 @@ measured on a TPU); here every attention call on a CUDA tensor goes through
 K1, and every backward through K2 and K3.
 
 The kernels are built for the head dims in `HEAD_DIMS`; the wrappers take
-any head dim up to 128 in either dtype. The scale is resolved from the true
+any head dim up to 256 in either dtype. The scale is resolved from the true
 d, then q, k, v (and dO) are zero-padded to the narrowest built width at or
 above d (`kernel_head_dim`), the kernel runs, and out, dq, dk and dv are
 sliced back to d. That is exact: the zero columns add exact zeros to every
@@ -91,15 +91,15 @@ _BWD = "flash_attention_bwd"  # K2 and K3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims each dtype's kernels are built for: fp32 also takes the narrow
 # heads of small models (the quality canaries' 16 and 32); bf16's wgmma
-# tiles take 64-column chunks. Other head dims up to 128 are zero-padded to
-# the next of these (`kernel_head_dim`)
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
+# tiles take 64-column chunks. Other head dims up to 256 are zero-padded to
+# the next of these (`kernel_head_dim`): 129-255 to 256
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256), torch.bfloat16: (64, 128, 256)}
 
 
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head dim a d-wide call of K1, K2 or K3 launches at: the narrowest
     width in `HEAD_DIMS[dtype]` at or above d (d itself for a dtype the
-    kernels do not take: the operand checks name it). ValueError past 128."""
+    kernels do not take: the operand checks name it). ValueError past 256."""
     widths = HEAD_DIMS.get(dtype)
     if widths is None:
         return d
@@ -267,12 +267,12 @@ def _stream(t):
 def k1_block_q(b: int, h: int, n: int, d: int, dtype: torch.dtype, sms: int) -> int:
     """Query rows per K1 block for a (b, h, n, d) call on a card of `sms`
     SMs. bf16 takes 128 rows (two consumer warpgroups sharing each K/V
-    tile) at head dim 128 where that grid of ceil(n / 128) x h x b blocks
-    covers at least half the SMs, else 64 (one warpgroup; at head dim 64
-    two of its blocks share an SM). fp32 always takes 16. Measured on the
-    H100 (PERF.md, "K1's tile height")."""
+    tile) at head dim 128 and 256 where that grid of ceil(n / 128) x h x b
+    blocks covers at least half the SMs, else 64 (one warpgroup; at head
+    dim 64 two of its blocks share an SM). fp32 always takes 16. Measured on
+    the H100 (PERF.md, "K1's tile height")."""
     if dtype == torch.bfloat16:
-        return 128 if d == 128 and 2 * -(-n // 128) * b * h >= sms else 64
+        return 128 if d >= 128 and 2 * -(-n // 128) * b * h >= sms else 64
     return 16
 
 
@@ -315,12 +315,12 @@ def _k1_kernel(q, k, v, mask, scale, block_q=None):
 def k23_f32_edges() -> Tuple[Tuple[int, int], ...]:
     """(n, kv) pairs at the edges of the fp32 K2/K3 tiling: 1, one under,
     at and one over each tile size (64 owned rows; 64 streamed rows at head
-    dim 64, 32 at 128), and the duration predictor's phoneme buckets (32,
-    64, 128), on both sides of each kernel (K2 owns query rows and streams
-    keys, K3 the other way). The CPU tests, the card tests and
+    dim 64, 32 at 128, 16 at 256), and the duration predictor's phoneme
+    buckets (32, 64, 128), on both sides of each kernel (K2 owns query rows
+    and streams keys, K3 the other way). The CPU tests, the card tests and
     chip_smoke.py hold the backward at these shapes."""
     return ((1, 1), (1, 65), (31, 33), (32, 32), (33, 31), (63, 65), (64, 64), (65, 63),
-            (128, 128), (33, 128), (128, 33), (65, 1))
+            (128, 128), (33, 128), (128, 33), (65, 1), (15, 17), (16, 16), (17, 15))
 
 
 def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, scale) -> torch.Tensor:
@@ -469,7 +469,7 @@ def flash_attention(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention forward, same contract as `reference_attention`, and
     differentiable in q, k and v. CUDA tensors go through K1 and, backward,
-    K2 + K3 (contiguous float32 or bfloat16 at any head dim up to 128,
+    K2 + K3 (contiguous float32 or bfloat16 at any head dim up to 256,
     zero-padded to a width in `HEAD_DIMS`, else ValueError); CPU tensors
     through the plain version.
     `flash_attention.launches` counts K1 launches."""
