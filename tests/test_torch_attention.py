@@ -163,6 +163,9 @@ H100_SMS = 132
     (8, 2, 768, 256, torch.bfloat16, 128),   # 2 x 256 heads, training: 96 blocks of 128 rows
     (2, 2, 766, 256, torch.bfloat16, 64),    # 2 x 256 heads, serving: 24 blocks of 128 rows
     (8, 2, 128, 256, torch.float32, 16),     # the duration predictor at 2 x 256 heads
+    (8, 2, 768, 512, torch.bfloat16, 64),    # 2 x 512 heads: the chunked kernel's one height
+    (2, 2, 766, 512, torch.bfloat16, 64),
+    (2, 1, 128, 512, torch.float32, 16),     # the small fp32 denoiser at 1 x 512 heads
 ])
 def test_k1_tile_height_at_the_paths_shapes(b, h, n, d, dtype, rows):
     assert k1_block_q(b, h, n, d, dtype, H100_SMS) == rows
@@ -219,6 +222,12 @@ def _plain_kernels(monkeypatch):
     (8, torch.float32, 16), (24, torch.float32, 32),
     (192, torch.bfloat16, 256), (256, torch.bfloat16, 256),
     (192, torch.float32, 256), (256, torch.float32, 256),
+    # past 256: the next multiple of 64, the chunked kernels' widths (a
+    # padded width under ~384 columns: past that the CPU's BLAS sums the
+    # stand-in's logits in blocks that the zero columns move, so padded and
+    # unpadded plain products differ in rounding order, not in the wrapper)
+    (300, torch.bfloat16, 320), (576, torch.bfloat16, 576),
+    (300, torch.float32, 320), (1024, torch.float32, 1024),
 ])
 def test_padded_head_dims_equal_the_plain_version_exactly(monkeypatch, d, dtype, width):
     """Head dims the kernels are not built for are zero-padded to the next
@@ -249,18 +258,21 @@ def test_padded_head_dims_equal_the_plain_version_exactly(monkeypatch, d, dtype,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_head_dims_past_128_are_refused(monkeypatch, dtype):
-    """Past the widest built width, now 256 (head dims 129-256 pad to it),
-    every wrapper refuses before a launch."""
+    """No head dim is refused any more: past the widest built width (256)
+    every wrapper pads to the next multiple of 64 and launches the chunked
+    kernels there, at the true d's scale; the operand check takes the
+    built widths and the multiples of 64 past 256, and no other width."""
     calls = _plain_kernels(monkeypatch)
     q = torch.zeros(1, 1, 4, 257, dtype=dtype)
     lse = torch.zeros(1, 1, 1, 4)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fa._launch_k1(q, q, q, None, None)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fa._k2(q, q, q, None, q, lse, lse, None)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        fa._k3(q, q, q, None, q, lse, lse, None)
-    assert calls == []
+    out, lse = fa._launch_k1(q, q, q, None, None)
+    assert out.shape == q.shape
+    fa._k2(q, q, q, None, q, lse, lse.reshape(1, 1, 4), None)
+    fa._k3(q, q, q, None, q, lse, lse.reshape(1, 1, 4), None)
+    assert calls == [("k1", 320, 320, 320, 257 ** -0.5), ("k2", 320, 320, 257 ** -0.5),
+                     ("k3", 320, 320, 257 ** -0.5)]
+    assert [fa._launches_at(d, dtype) for d in (256, 257, 300, 320, 384, 576, 1024)] == [
+        True, False, False, True, True, True, True]
     assert [fa.kernel_head_dim(d, dtype) for d in (1, 64, 65, 128, 129, 256)] == (
         [64, 64, 128, 128, 256, 256] if dtype == torch.bfloat16
         else [16, 64, 128, 128, 256, 256])

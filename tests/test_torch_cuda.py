@@ -232,9 +232,11 @@ def test_k2_k3_f32_match_plain_at_tile_edges(cuda_device, n, kv, d):
 # head dims 192 (zero-padded to 256) and 256 at K1's edge shapes, in both
 # dtypes (tolerances as above): K1 against the plain forward, a fully-masked
 # element's rows at mean(V); K2/K3 against the plain backward, and a second
-# launch of each kernel gives the same bits
+# launch of each kernel gives the same bits. Past 256, the chunked kernels
+# (256 output columns a block): 512 and 1024 whole chunks, 320 and 576 a
+# last chunk of 64 columns
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512, 576, 1024])
 @pytest.mark.parametrize("b,h,n,kv", K1_SHAPES)
 def test_wide_heads_match_plain(cuda_device, dtype, tol, d, b, h, n, kv):
     q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t

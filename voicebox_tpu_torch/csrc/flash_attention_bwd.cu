@@ -61,6 +61,9 @@
 //    would take 256, so K3 runs two consumer warpgroups, one gradient each,
 //    with P handed from the dV warpgroup to the dK warpgroup in fp32
 //    through shared memory (flash_bwd_dkv_bf16 says how).
+//  * past head dim 256 (either dtype): a block owns a 256-column chunk of
+//    its gradients, and S and dP stream all four operands in 64-column
+//    slices (flash_bwd_dq_bf16_wide says how); no atomics across chunks.
 // fp32, the duration predictor's training (batch 8 x 8 heads, 128 rows and
 // keys, head dim 64): K2 does 403 MFLOP over ~10 MB and K3 537 MFLOP over
 // ~12 MB, above the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s, 20
@@ -150,28 +153,23 @@ struct F32Tile {
 __device__ __forceinline__ int f32_ty() { return 4 * (threadIdx.x / 64) + threadIdx.x % 32 / 8; }
 __device__ __forceinline__ int f32_tx() { return 8 * (threadIdx.x / 32 % 2) + threadIdx.x % 8; }
 
-// acc[i][c] = own row (ty + kTy i) . streamed row (tx + 16 c), one FMA
-// after another along d, the order of the plain version's fp32 product (at
-// logits of ~1e3 another order moves them by ulps, and exp by as much)
-template <int D, int NC>
-__device__ __forceinline__ void f32_scores(float (&acc)[4][NC], const float* own,
-                                           const float* str, int ty, int tx) {
-  constexpr int kLd = F32Tile<D>::kLd, TY = F32Tile<D>::kTy;
+// acc[i][c] += own row (ty + 16 i) . streamed row (tx + 16 c) over COLS
+// columns of tiles whose rows lie ld floats apart, one FMA after another
+// along d, the order of the plain version's fp32 product (at logits of ~1e3
+// another order moves them by ulps, and exp by as much)
+template <int NC, int COLS>
+__device__ __forceinline__ void f32_dot(float (&acc)[4][NC], const float* own, const float* str,
+                                        int ld, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < COLS; d += 4) {
     float4 b[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      b[c] = *reinterpret_cast<const float4*>(str + (tx + 16 * c) * kLd + d);
+      b[c] = *reinterpret_cast<const float4*>(str + (tx + 16 * c) * ld + d);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(own + (ty + TY * i) * kLd + d);
+      const float4 a = *reinterpret_cast<const float4*>(own + (ty + 16 * i) * ld + d);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         acc[i][c] = fmaf(a.w, b[c].w, fmaf(a.z, b[c].z, fmaf(a.y, b[c].y,
@@ -179,6 +177,19 @@ __device__ __forceinline__ void f32_scores(float (&acc)[4][NC], const float* own
       }
     }
   }
+}
+
+// acc[i][c] = own row (ty + kTy i) . streamed row (tx + 16 c) over D
+template <int D, int NC>
+__device__ __forceinline__ void f32_scores(float (&acc)[4][NC], const float* own,
+                                           const float* str, int ty, int tx) {
+  static_assert(F32Tile<D>::kTy == 16, "f32_dot's row groups");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  }
+  f32_dot<NC, D>(acc, own, str, F32Tile<D>::kLd, ty, tx);
 }
 
 // a thread's gradient: 4 owned rows x its F32Cols<D> columns
@@ -216,17 +227,22 @@ __device__ __forceinline__ void f32_accumulate(F32Acc<D>& acc, const float* t, c
 }
 
 // rows ty + kTy i of a gradient into out rows [row0, ...) of an (n_rows,
-// D) matrix, once; rows past n_rows are not stored
+// ld) matrix at columns col0 + F32Cols<D>::col(g, tx), once; rows past
+// n_rows and columns past n_cols are not stored
 template <int D>
-__device__ __forceinline__ void f32_store(const F32Acc<D>& acc, float* __restrict__ out,
-                                          int row0, int n_rows, int ty, int tx) {
+__device__ __forceinline__ void f32_store(const F32Acc<D>& acc, float* __restrict__ out, int ld,
+                                          int col0, int n_cols, int row0, int n_rows, int ty,
+                                          int tx) {
   using C = F32Cols<D>;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + F32Tile<D>::kTy * i;
     if (row >= n_rows) continue;
 #pragma unroll
-    for (int g = 0; g < C::G; ++g) st_f32<C::W>(out + (size_t)row * D + C::col(g, tx), acc[i][g]);
+    for (int g = 0; g < C::G; ++g) {
+      if (col0 + C::col(g, 0) >= n_cols) break;
+      st_f32<C::W>(out + (size_t)row * ld + col0 + C::col(g, tx), acc[i][g]);
+    }
   }
 }
 
@@ -249,6 +265,57 @@ __device__ __forceinline__ float f32_prob(float s, float scale, float lse) {
 }
 __device__ __forceinline__ float f32_ds(float p, float dp, float delta, float scale) {
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+// K2: dS^T of a streamed tile into ds_t, one row per key, one column per
+// owned query row (ldt floats a row): kept keys (the thread's, `kept`) of
+// live rows, 0 elsewhere (a select, never exp(.) * 0)
+template <int NC>
+__device__ __forceinline__ void f32_ds_tile(float* ds_t, int ldt, const float (&s)[4][NC],
+                                            const float (&dp)[4][NC], const bool (&live)[4],
+                                            const float (&lse_r)[4], const float (&delta_r)[4],
+                                            const bool (&kept)[NC], int ty, int tx,
+                                            float scale) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    float ds[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ds[i] = live[i] && kept[c]
+                  ? f32_ds(f32_prob(s[i][c], scale, lse_r[i]), dp[i][c], delta_r[i], scale)
+                  : 0.0f;
+    }
+    *reinterpret_cast<float4*>(ds_t + (tx + 16 * c) * ldt + 4 * ty) =
+        make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
+}
+
+// K3: P^T and dS^T of a streamed tile into p_t and ds_t (ldt floats a row):
+// p = exp(s scale - lse) on kept keys of rows that have one, 1 / kv on
+// every real key of a fully-masked row, 0 elsewhere; ds 0 but on kept keys
+// of rows that have one
+template <int NC>
+__device__ __forceinline__ void f32_pt_tile(float* p_t, float* ds_t, int ldt,
+                                            const float (&st)[4][NC], const float (&dpt)[4][NC],
+                                            const bool (&valid)[NC], const float (&lse_c)[NC],
+                                            const float (&delta_c)[NC], const bool (&real)[4],
+                                            const bool (&kept)[4], int ty, int tx, float inv_kv,
+                                            float scale) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const bool empty = lse_c[c] < kEmptyRowLse;
+    float p[4], ds[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool keep = valid[c] && !empty && kept[i];
+      p[i] = keep ? f32_prob(st[i][c], scale, lse_c[c])
+                  : (valid[c] && empty && real[i] ? inv_kv : 0.0f);
+      ds[i] = keep ? f32_ds(p[i], dpt[i][c], delta_c[c], scale) : 0.0f;
+    }
+    const int at = (tx + 16 * c) * ldt + 4 * ty;
+    *reinterpret_cast<float4*>(p_t + at) = make_float4(p[0], p[1], p[2], p[3]);
+    *reinterpret_cast<float4*>(ds_t + at) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
 }
 
 // ------------------------------------------------------------ fp32: K2
@@ -327,25 +394,13 @@ __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     f32_scores<D>(s, q_s, k_s, ty, tx);    // S = Q K^T
     f32_scores<D>(dp, do_s, v_s, ty, tx);  // dP = dO V^T
 
-    // dS^T: kept keys of live rows, 0 elsewhere (a select, never exp(.) * 0)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ds[i] = live[i] && kept[c]
-                    ? f32_ds(f32_prob(s[i][c], scale, lse_r[i]), dp[i][c], delta_r[i], scale)
-                    : 0.0f;
-      }
-      *reinterpret_cast<float4*>(ds_t + (tx + 16 * c) * L::kLdT + 4 * ty) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
+    f32_ds_tile(ds_t, L::kLdT, s, dp, live, lse_r, delta_r, kept, ty, tx, scale);
     // the 16 tx of these row groups are this warp and its neighbour
     named_bar_sync(1 + threadIdx.x / 64, 64);
 
     f32_accumulate<D>(acc, ds_t, k_s, min(STR, n_kv - k0), ty, tx);  // dQ += dS K
   }
-  f32_store<D>(acc, dq + bh * n_q * D, q0, n_q, ty, tx);
+  f32_store<D>(acc, dq + bh * n_q * D, D, 0, D, q0, n_q, ty, tx);
 }
 
 // ------------------------------------------------------------ fp32: K3
@@ -424,32 +479,270 @@ __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
     f32_scores<D>(st, k_s, q_s, ty, tx);    // S^T = K Q^T
     f32_scores<D>(dpt, v_s, do_s, ty, tx);  // dP^T = V dO^T
 
-    // P^T and dS^T: p = exp(s scale - lse) on kept keys of rows that have
-    // one, 1 / kv on every real key of a fully-masked row (ds = 0 there),
-    // 0 elsewhere
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const bool empty = lse_c[c] < kEmptyRowLse;
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool keep = valid[c] && !empty && kept[i];
-        p[i] = keep ? f32_prob(st[i][c], scale, lse_c[c])
-                    : (valid[c] && empty && real[i] ? inv_kv : 0.0f);
-        ds[i] = keep ? f32_ds(p[i], dpt[i][c], delta_c[c], scale) : 0.0f;
-      }
-      const int at = (tx + 16 * c) * L::kLdT + 4 * ty;
-      *reinterpret_cast<float4*>(p_t + at) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(ds_t + at) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
+    // P^T and dS^T (ds = 0 on a fully-masked row)
+    f32_pt_tile(p_t, ds_t, L::kLdT, st, dpt, valid, lse_c, delta_c, real, kept, ty, tx, inv_kv,
+                scale);
     named_bar_sync(1 + threadIdx.x / 64, 64);  // as in K2
 
     const int rows = min(STR, n_q - q0);
     f32_accumulate<D>(dv_acc, p_t, do_s, rows, ty, tx);  // dV += P^T dO
     f32_accumulate<D>(dk_acc, ds_t, q_s, rows, ty, tx);  // dK += dS^T Q
   }
-  f32_store<D>(dk_acc, dk + bh * n_kv * D, k0, n_kv, ty, tx);
-  f32_store<D>(dv_acc, dv + bh * n_kv * D, k0, n_kv, ty, tx);
+  f32_store<D>(dk_acc, dk + bh * n_kv * D, D, 0, D, k0, n_kv, ty, tx);
+  f32_store<D>(dv_acc, dv + bh * n_kv * D, D, 0, D, k0, n_kv, ty, tx);
+}
+
+// ------------------------------------------------ fp32: head dims past 256
+
+// As the bf16 chunked kernels below (flash_bwd_dq_bf16_wide says why): a
+// block owns a 256-column chunk of its 64 rows' gradients (K2: dQ; K3: dK
+// and dV; F32Cols<256>'s 64 registers a gradient, as at d = 256), and the
+// scores S and dP, sums over the whole d, come from both sides' operands
+// streamed in 64-column slices, still one FMA after another along d. The
+// loads are one stream of items: for each streamed tile of 32 rows, its d /
+// 64 slices (the owned rows' and the tile's, of both operand pairs), then
+// the tile's chunk of the operands that the gradients take (K2: K; K3: Q
+// and dO); cp.async keeps two items in flight in K2 (three slice buffers:
+// 194 KB of shared memory) and one in K3 (two: 184 KB), at every d.
+constexpr int kWideCols = 256;  // gradient columns a block owns
+constexpr int kSliceCols = 64;  // columns of a streamed slice
+
+struct F32Wide {
+  static constexpr int OWN = 64, STR = 32, kNc = STR / 16, kThreads = 4 * OWN;
+  static constexpr int kLdS = kSliceCols + 4;
+  static constexpr int kLdC = kWideCols + 4;  // F32Tile<256>::kLd: f32_accumulate<256>'s
+  static constexpr int kLdT = OWN + 4;        // F32Tile<256>::kLdT
+  // a stage: the owned rows' slices of two operands (K2: Q, dO; K3: K, V),
+  // then the streamed tile's (K2: K, V; K3: Q, dO)
+  static constexpr int kOwnB = OWN * kLdS;
+  static constexpr int kStrA = 2 * OWN * kLdS;
+  static constexpr int kStrB = kStrA + STR * kLdS;
+  static constexpr int kStage = 2 * (OWN + STR) * kLdS;
+  static constexpr int kChunk = STR * kLdC;
+  static constexpr int kTile = STR * kLdT;
+  static constexpr int kStagesDq = 3;  // then K's chunk and dS^T
+  static constexpr int kBytesDq = (kStagesDq * kStage + kChunk + kTile) * 4;
+  static constexpr int kStagesDkv = 2;  // then Q's and dO's chunks, P^T and dS^T
+  static constexpr int kBytesDkv = (kStagesDkv * kStage + 2 * kChunk + 2 * kTile) * 4;
+};
+static_assert(F32Wide::kLdC == F32Tile<kWideCols>::kLd && F32Wide::kLdT == F32Tile<kWideCols>::kLdT,
+              "the chunk tiles are laid out as f32_accumulate<256> reads them");
+
+// slice `r` (columns r kSliceCols ...) of rows [own0, own0 + OWN) of own_a and
+// own_b and of rows [str0, str0 + STR) of str_a and str_b into a stage
+__device__ __forceinline__ void f32_wide_slices(float* st, const float* own_a, const float* own_b,
+                                                int n_own, int own0, const float* str_a,
+                                                const float* str_b, int n_str, int str0, int d,
+                                                int r) {
+  using L = F32Wide;
+  const int c0 = r * kSliceCols;
+  cp_async_window<L::OWN, kSliceCols, L::kThreads>(st, own_a, n_own, d, own0, c0);
+  cp_async_window<L::OWN, kSliceCols, L::kThreads>(st + L::kOwnB, own_b, n_own, d, own0, c0);
+  cp_async_window<L::STR, kSliceCols, L::kThreads>(st + L::kStrA, str_a, n_str, d, str0, c0);
+  cp_async_window<L::STR, kSliceCols, L::kThreads>(st + L::kStrB, str_b, n_str, d, str0, c0);
+}
+
+// grid (query tiles of OWN rows x chunks of 256 columns, heads, batch); the
+// operands as flash_bwd_dq_f32's at head dim d
+__global__ void __launch_bounds__(F32Wide::kThreads, 1)
+    flash_bwd_dq_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ dq, int heads,
+                          int n_q, int n_kv, int d, float scale) {
+  using L = F32Wide;
+  constexpr int OWN = L::OWN, STR = L::STR, NC = L::kNc, NS = L::kStagesDq;
+  extern __shared__ float4 smem_f32[];
+  float* sm = reinterpret_cast<float*>(smem_f32);
+  float* kc_s = sm + NS * L::kStage;
+  float* ds_t = kc_s + L::kChunk;
+
+  const int ty = f32_ty(), tx = f32_tx();
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  const int chunk = blockIdx.x % n_chunks;
+  const int q0 = blockIdx.x / n_chunks * OWN;
+  const int col0 = chunk * kWideCols;
+  const int batch = blockIdx.z;
+  const size_t bh = (size_t)batch * heads + blockIdx.y;
+  const float* q_bh = q + bh * n_q * d;
+  const float* do_bh = dout + bh * n_q * d;
+  const float* k_bh = k + bh * n_kv * d;
+  const float* v_bh = v + bh * n_kv * d;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+  const int slices = d / kSliceCols;
+  const int per_tile = slices + 1;
+  const int items = (n_kv + STR - 1) / STR * per_tile;
+
+  // item i: of key tile i / per_tile, slice i % per_tile or, last, K's
+  // chunk; past the last item an empty group, so that every iteration
+  // waits alike
+  auto fetch = [&](int i) {
+    if (i < items) {
+      const int t = i / per_tile, r = i % per_tile;
+      if (r < slices) {
+        f32_wide_slices(sm + (t * slices + r) % NS * L::kStage, q_bh, do_bh, n_q, q0, k_bh,
+                        v_bh, n_kv, t * STR, d, r);
+      } else {
+        cp_async_window<STR, kWideCols, L::kThreads>(kc_s, k_bh, n_kv, d, t * STR, col0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the thread's owned rows, as in flash_bwd_dq_f32
+  float lse_r[4], delta_r[4];
+  bool live[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const bool valid = row < n_q;
+    lse_r[i] = valid ? lse[bh * n_q + row] : 0.0f;
+    delta_r[i] = valid ? delta[bh * n_q + row] : 0.0f;
+    live[i] = valid && !(lse_r[i] < kEmptyRowLse);
+  }
+  F32Acc<kWideCols> acc;
+  f32_zero<kWideCols>(acc);
+  float s[4][NC], dp[4][NC];
+  bool kept[NC];
+
+  fetch(0);
+  fetch(1);
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait<1>();  // item i has landed
+    __syncthreads();     // for every thread, and every thread is done with item i - 1
+    fetch(i + 2);        // into buffers no thread reads any more
+    const int t = i / per_tile, r = i % per_tile;
+    const int k0 = t * STR;
+    if (r < slices) {
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) s[j][c] = dp[j][c] = 0.0f;
+        }
+        // the tile's key flags, read long before their use
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int key = k0 + tx + 16 * c;
+          kept[c] = key < n_kv && (mask_b == nullptr || mask_b[key]);
+        }
+      }
+      const float* st = sm + (t * slices + r) % NS * L::kStage;
+      f32_dot<NC, kSliceCols>(s, st, st + L::kStrA, L::kLdS, ty, tx);              // S = Q K^T
+      f32_dot<NC, kSliceCols>(dp, st + L::kOwnB, st + L::kStrB, L::kLdS, ty, tx);  // dP = dO V^T
+      if (r == slices - 1) {
+        f32_ds_tile(ds_t, L::kLdT, s, dp, live, lse_r, delta_r, kept, ty, tx, scale);
+      }
+    } else {
+      f32_accumulate<kWideCols>(acc, ds_t, kc_s, min(STR, n_kv - k0), ty, tx);  // dQ += dS K
+    }
+  }
+  f32_store<kWideCols>(acc, dq + bh * n_q * d, d, col0, d, q0, n_q, ty, tx);
+}
+
+// grid (key tiles of OWN keys x chunks of 256 columns, heads, batch); the
+// operands as flash_bwd_dkv_f32's at head dim d
+__global__ void __launch_bounds__(F32Wide::kThreads, 1)
+    flash_bwd_dkv_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dk,
+                           float* __restrict__ dv, int heads, int n_q, int n_kv, int d,
+                           float scale) {
+  using L = F32Wide;
+  constexpr int OWN = L::OWN, STR = L::STR, NC = L::kNc, NS = L::kStagesDkv;
+  extern __shared__ float4 smem_f32[];
+  float* sm = reinterpret_cast<float*>(smem_f32);
+  float* qc_s = sm + NS * L::kStage;
+  float* doc_s = qc_s + L::kChunk;
+  float* p_t = doc_s + L::kChunk;
+  float* ds_t = p_t + L::kTile;
+
+  const int ty = f32_ty(), tx = f32_tx();
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  const int chunk = blockIdx.x % n_chunks;
+  const int k0 = blockIdx.x / n_chunks * OWN;
+  const int col0 = chunk * kWideCols;
+  const int batch = blockIdx.z;
+  const size_t bh = (size_t)batch * heads + blockIdx.y;
+  const float* q_bh = q + bh * n_q * d;
+  const float* do_bh = dout + bh * n_q * d;
+  const float* k_bh = k + bh * n_kv * d;
+  const float* v_bh = v + bh * n_kv * d;
+  const float* lse_bh = lse + bh * n_q;
+  const float* delta_bh = delta + bh * n_q;
+  const float inv_kv = 1.0f / (float)n_kv;
+  const int slices = d / kSliceCols;
+  const int per_tile = slices + 1;
+  const int items = (n_q + STR - 1) / STR * per_tile;
+
+  // item i: of query tile i / per_tile, slice i % per_tile or, last, Q's
+  // and dO's chunks; one item in flight while one computes
+  auto fetch = [&](int i) {
+    if (i < items) {
+      const int t = i / per_tile, r = i % per_tile;
+      if (r < slices) {
+        f32_wide_slices(sm + (t * slices + r) % NS * L::kStage, k_bh, v_bh, n_kv, k0, q_bh,
+                        do_bh, n_q, t * STR, d, r);
+      } else {
+        cp_async_window<STR, kWideCols, L::kThreads>(qc_s, q_bh, n_q, d, t * STR, col0);
+        cp_async_window<STR, kWideCols, L::kThreads>(doc_s, do_bh, n_q, d, t * STR, col0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  bool real[4], kept[4];  // the thread's owned keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    real[i] = key < n_kv;
+    kept[i] = real[i] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
+  }
+  F32Acc<kWideCols> dk_acc, dv_acc;
+  f32_zero<kWideCols>(dk_acc);
+  f32_zero<kWideCols>(dv_acc);
+  float st_[4][NC], dpt[4][NC], lse_c[NC], delta_c[NC];
+  bool valid[NC];
+
+  fetch(0);
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait<0>();  // item i has landed
+    __syncthreads();     // for every thread, and every thread is done with item i - 1
+    fetch(i + 1);
+    const int t = i / per_tile, r = i % per_tile;
+    const int q0 = t * STR;
+    if (r < slices) {
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) st_[j][c] = dpt[j][c] = 0.0f;
+        }
+        // the tile's query rows' lse and delta, read long before their use
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int row = q0 + tx + 16 * c;
+          valid[c] = row < n_q;
+          lse_c[c] = valid[c] ? lse_bh[row] : 0.0f;
+          delta_c[c] = valid[c] ? delta_bh[row] : 0.0f;
+        }
+      }
+      const float* st = sm + (t * slices + r) % NS * L::kStage;
+      f32_dot<NC, kSliceCols>(st_, st, st + L::kStrA, L::kLdS, ty, tx);              // S^T = K Q^T
+      f32_dot<NC, kSliceCols>(dpt, st + L::kOwnB, st + L::kStrB, L::kLdS, ty, tx);  // dP^T = V dO^T
+      if (r == slices - 1) {
+        f32_pt_tile(p_t, ds_t, L::kLdT, st_, dpt, valid, lse_c, delta_c, real, kept, ty, tx,
+                    inv_kv, scale);
+      }
+    } else {
+      const int rows = min(STR, n_q - q0);
+      f32_accumulate<kWideCols>(dv_acc, p_t, doc_s, rows, ty, tx);  // dV += P^T dO
+      f32_accumulate<kWideCols>(dk_acc, ds_t, qc_s, rows, ty, tx);  // dK += dS^T Q
+    }
+  }
+  f32_store<kWideCols>(dk_acc, dk + bh * n_kv * d, d, col0, d, k0, n_kv, ty, tx);
+  f32_store<kWideCols>(dv_acc, dv + bh * n_kv * d, d, col0, d, k0, n_kv, ty, tx);
 }
 
 // ------------------------------------------------------------ bf16: layout
@@ -539,16 +832,19 @@ __device__ __forceinline__ void repack(const float (&x)[32], uint32_t (&a)[4][4]
 }
 
 // rows r and r + 8 of the warpgroup's 64 x D accumulator (this thread's part)
-// into out (n_rows, D) as bf16 pairs; rows past n_rows are not stored
+// into out (n_rows rows of ld elements) at columns col0 ... as bf16 pairs;
+// rows past n_rows and columns past n_cols are not stored
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* __restrict__ out,
-                                           int r, int quad, int n_rows) {
+                                           int ld, int col0, int n_cols, int r, int quad,
+                                           int n_rows) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if (r + 8 * j >= n_rows) continue;
-    bf16* dst = out + (size_t)(r + 8 * j) * D + 2 * quad;
+    bf16* dst = out + (size_t)(r + 8 * j) * ld + col0 + 2 * quad;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
+      if (col0 + 8 * i >= n_cols) break;
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
           __floats2bfloat162_rn(acc[4 * i + 2 * j], acc[4 * i + 2 * j + 1]);
     }
@@ -568,6 +864,83 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ float prob(float s, float scale_l2, float lse_l2, bool keep,
                                       bool uniform, float inv_kv) {
   return keep ? ex2(fmaf(s, scale_l2, -lse_l2)) : (uniform ? inv_kv : 0.0f);
+}
+
+// K2: dS = P (dP - delta) scale in place of dP, on kept keys (k0 ...) of
+// live rows, 0 elsewhere; sc holds S, this thread's rows r and r + 8 in
+// wgmma's accumulator layout (element [4 i + 2 j + c]: row j, key 8 i + 2
+// quad + c)
+__device__ __forceinline__ void ds_rows(const float (&sc)[32], float (&dp)[32], int k0, int n_kv,
+                                        const uint8_t* mask_b, int quad, const bool (&live)[2],
+                                        const float (&lse_r)[2], const float (&delta_r)[2],
+                                        float scale_l2, float scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * i + 2 * quad + c;
+      const bool kept = key < n_kv && (mask_b == nullptr || mask_b[key]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * i + 2 * j + c;
+        const bool keep = kept && live[j];
+        const float p = prob(sc[e], scale_l2, lse_r[j], keep, false, 0.0f);
+        dp[e] = keep ? p * (dp[e] - delta_r[j]) * scale : 0.0f;
+      }
+    }
+  }
+}
+
+// K3's two warpgroups: P^T in place of S^T (warpgroup 0), then dS^T = P^T
+// (dP^T - delta) scale in place of dP^T from warpgroup 0's P^T in p_x
+// (warpgroup 1). Rows are this thread's keys r and r + 8 (real, kept);
+// column 8 i + 2 quad + c is query row row0 + that, its lse (times log2 e)
+// and delta in lse_s and delta_s: p = exp(s scale - lse) on kept keys of
+// rows that have one, 1 / kv on every real key of a fully-masked row, 0
+// elsewhere; ds 0 but on kept keys of rows that have one
+__device__ __forceinline__ void pt_cols(float (&sc)[32], const float* lse_s, int row0, int n_q,
+                                        int quad, const bool (&kept)[2], const bool (&real)[2],
+                                        float scale_l2, float inv_kv) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * quad;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float l = c ? l2.y : l2.x;
+      const bool valid = row0 + col + c < n_q;
+      const bool empty = l < kEmptyRowLse;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * i + 2 * j + c;
+        const bool keep = valid && !empty && kept[j];
+        sc[e] = prob(sc[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
+      }
+    }
+  }
+}
+__device__ __forceinline__ void dst_cols(float (&sc)[32], const float* p_x, const float* lse_s,
+                                         const float* delta_s, int row0, int n_q, int quad,
+                                         int tid, const bool (&kept)[2], float scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * quad;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+    const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float l = c ? l2.y : l2.x;
+      const float dl = c ? d2.y : d2.x;
+      const bool valid = row0 + col + c < n_q;
+      const bool empty = l < kEmptyRowLse;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * i + 2 * j + c;
+        const bool keep = valid && !empty && kept[j];
+        sc[e] = keep ? p_x[e * 128 + tid] * (sc[e] - dl) * scale : 0.0f;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------- bf16: K2
@@ -682,22 +1055,7 @@ __global__ void __launch_bounds__(kThreadsDq, D == 256 ? 1 : 2)
       fence_regs(dp);
 
       // dS = P (dP - delta) scale on kept keys of live rows, 0 elsewhere
-      const int k0 = t * kRows;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = k0 + 8 * i + 2 * quad + c;
-          const bool kept = key < n_kv && (mask_b == nullptr || mask_b[key]);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int e = 4 * i + 2 * j + c;
-            const bool keep = kept && live[j];
-            const float p = prob(sc[e], scale_l2, lse_r[j], keep, false, 0.0f);
-            dp[e] = keep ? p * (dp[e] - delta_r[j]) * scale : 0.0f;
-          }
-        }
-      }
+      ds_rows(sc, dp, t * kRows, n_kv, mask_b, quad, live, lse_r, delta_r, scale_l2, scale);
       uint32_t ds_a[4][4];
       repack(dp, ds_a);
 
@@ -708,7 +1066,7 @@ __global__ void __launch_bounds__(kThreadsDq, D == 256 ? 1 : 2)
       fence_regs(dq_acc);
       mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
     }
-    store_rows<D>(dq_acc, dq + (size_t)bh * n_q * D, r, quad, n_q);
+    store_rows<D>(dq_acc, dq + (size_t)bh * n_q * D, D, 0, D, r, quad, n_q);
   }
 }
 
@@ -906,23 +1264,7 @@ __global__ void __launch_bounds__(K3Shape<D>::kThreads, D == 64 ? 2 : 1)
         if (wg == 0) {
           // P^T as with one warpgroup, handed to warpgroup 1 in fp32 once it
           // has read the last tile's
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int col = 8 * i + 2 * quad;
-            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float l = c ? l2.y : l2.x;
-              const bool valid = row0 + col + c < n_q;
-              const bool empty = l < kEmptyRowLse;
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const int e = 4 * i + 2 * j + c;
-                const bool keep = valid && !empty && kept[j];
-                sc[e] = prob(sc[e], scale_l2, l, keep, valid && empty && real[j], inv_kv);
-              }
-            }
-          }
+          pt_cols(sc, lse_s, row0, n_q, quad, kept, real, scale_l2, inv_kv);
           if (t > 0) named_bar_sync(kBarPEmpty, 256);
 #pragma unroll
           for (int e = 0; e < 32; ++e) p_x[e * 128 + tid] = sc[e];
@@ -931,25 +1273,7 @@ __global__ void __launch_bounds__(K3Shape<D>::kThreads, D == 64 ? 2 : 1)
           // dS^T = P^T (dP^T - delta) scale on kept keys of rows that have
           // one, 0 elsewhere, from warpgroup 0's P^T
           named_bar_sync(kBarPFull, 256);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int col = 8 * i + 2 * quad;
-            const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
-            const float2 d2 = *reinterpret_cast<const float2*>(delta_s + col);
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float l = c ? l2.y : l2.x;
-              const float dl = c ? d2.y : d2.x;
-              const bool valid = row0 + col + c < n_q;
-              const bool empty = l < kEmptyRowLse;
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const int e = 4 * i + 2 * j + c;
-                const bool keep = valid && !empty && kept[j];
-                sc[e] = keep ? p_x[e * 128 + tid] * (sc[e] - dl) * scale : 0.0f;
-              }
-            }
-          }
+          dst_cols(sc, p_x, lse_s, delta_s, row0, n_q, quad, tid, kept, scale);
           if (t + 1 < n_tiles) named_bar_arrive(kBarPEmpty, 256);
         }
         uint32_t a[4][4];
@@ -964,11 +1288,378 @@ __global__ void __launch_bounds__(K3Shape<D>::kThreads, D == 64 ? 2 : 1)
       mbar_arrive(&empty_bar[s]);  // this thread's reads of the stage are done
     }
     if constexpr (NWG == 1) {
-      store_rows<D>(dk_acc, dk + (size_t)bh * n_kv * D, r, quad, n_kv);
-      store_rows<D>(acc, dv + (size_t)bh * n_kv * D, r, quad, n_kv);
+      store_rows<D>(dk_acc, dk + (size_t)bh * n_kv * D, D, 0, D, r, quad, n_kv);
+      store_rows<D>(acc, dv + (size_t)bh * n_kv * D, D, 0, D, r, quad, n_kv);
     } else {
-      store_rows<D>(acc, (wg == 0 ? dv : dk) + (size_t)bh * n_kv * D, r, quad, n_kv);
+      store_rows<D>(acc, (wg == 0 ? dv : dk) + (size_t)bh * n_kv * D, D, 0, D, r, quad,
+                    n_kv);
     }
+  }
+}
+
+// --------------------------------------------- bf16: head dims past 256
+
+// Past 256 columns one gradient takes 256 registers a thread (64 x 512
+// fp32) and the owned tiles alone 128 KB of shared memory, so neither is
+// held whole. A block owns a 256-column chunk of its 64 rows' gradients
+// (the chunk index in the grid): K2 one dQ chunk in its warpgroup, K3 a
+// chunk of dK and one of dV in two warpgroups, as at d = 256 (P handed from
+// the dV warpgroup to the dK warpgroup in fp32 through shared memory). The
+// scores S and dP are sums over the whole d: all four operands (K2: Q, dO
+// of its rows, K, V of the streamed tile; K3: K, V of its keys, Q, dO of the
+// tile) stream in 64-column slices, one swizzled column chunk each, through
+// a ring of stages (4 in K2, 2 in K3), so shared memory does not grow with
+// d. The gradient's product then takes the chunk's columns of the streamed
+// operand (K2: K; K3: dO and Q), a 64 x 256 tile through 2 stages of its
+// own, loaded ahead of the slices. Every chunk's block computes the same
+// scores; each owns its columns, so there are no atomics and the sums'
+// order is fixed. K2 holds dQ (128 registers), S and dP (32 each) in one
+// warpgroup as at d = 256; K3's two consumer warpgroups each hold one
+// gradient and one score tile, beside a producer warpgroup that gives its
+// registers away. The last chunk may be narrower than 256 (d is a multiple
+// of 64): its missing columns are not loaded and not stored.
+struct WideSmem {
+  static constexpr int kSlice = kRows * 128;  // 64 rows x 64 bf16: 8 KB
+  static constexpr int kStage = 4 * kSlice;   // four operands' slices
+  static constexpr int kChunkTile = kWideCols / kSwizzleCols * kSlice;  // 64 x 256: 32 KB
+  // K2: 4 stages of (Q, dO, K, V) slices, then 2 tiles of K's chunk
+  static constexpr int kRingDq = 4;
+  static constexpr int kChunksDq = kRingDq * kStage;
+  static constexpr int kAllocDq = kChunksDq + 2 * kChunkTile + 1024;  // 193 KB
+  // K3: 2 stages of (K, V, Q, dO) slices, then 2 stages of Q's and dO's
+  // chunks with the tile's 64 lse and 64 delta values, then P in fp32
+  static constexpr int kRingDkv = 2;
+  static constexpr int kChunkStage = 2 * kChunkTile + 1024;
+  static constexpr int kChunksDkv = kRingDkv * kStage;
+  static constexpr int kPx = kChunksDkv + 2 * kChunkStage;
+  static constexpr int kAllocDkv = kPx + 64 * 64 * 4 + 1024;  // 211 KB
+};
+
+// acc (64 x 64) += A (64 rows of one 64-column slice, K-major) times B^T
+// (64 rows of a slice, K-major) over the slice's columns in steps of 16;
+// `first` overwrites acc
+__device__ __forceinline__ void scores_slice(float (&acc)[32], uint32_t a_base, uint32_t b_base,
+                                             bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss_n64(acc, sw128_desc(a_base + kk * 32, 16, 1024),
+                 sw128_desc(b_base + kk * 32, 16, 1024), !first || kk > 0);
+  }
+}
+
+// grid: (query tiles of 64 rows x chunks of 256 columns, heads, batch).
+// Warpgroup 0 consumes; warp 4 loads. The operands as
+// flash_bwd_dq_bf16's at head dim d, the maps' boxes 64 columns x 64 rows.
+__global__ void __launch_bounds__(kThreadsDq, 1)
+    flash_bwd_dq_bf16_wide(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq, int heads,
+                           int n_q, int n_kv, int d, float scale) {
+  using L = WideSmem;
+  constexpr int kRing = L::kRingDq;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kRing];
+  __shared__ __align__(8) uint64_t empty_bar[kRing];
+  __shared__ __align__(8) uint64_t c_full[2];
+  __shared__ __align__(8) uint64_t c_empty[2];
+  uint8_t* smem = align1024(smem_raw);
+
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  const int chunk = blockIdx.x % n_chunks;
+  const int q_tile = blockIdx.x / n_chunks;
+  const int col0 = chunk * kWideCols;
+  const int slices = d / kSwizzleCols;
+  const int chunk_slices = min(kWideCols / kSwizzleCols, slices - col0 / kSwizzleCols);
+  const int batch = blockIdx.z;
+  const int bh = batch * heads + blockIdx.y;
+  const int n_tiles = (n_kv + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 128);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&c_full[s], 1);
+      mbar_init(&c_empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: per key tile, K's chunk, then the tile's (Q, dO, K, V)
+    // slices in order through the ring
+    if (threadIdx.x == 128) {
+      int it = 0;  // slices requested
+      for (int t = 0; t < n_tiles; ++t) {
+        const int cb = t & 1;
+        mbar_wait(&c_empty[cb], ((t >> 1) & 1) ^ 1);
+        mbar_expect_tx(&c_full[cb], chunk_slices * L::kSlice);
+        for (int c = 0; c < chunk_slices; ++c) {
+          tma_load_3d(smem + L::kChunksDq + cb * L::kChunkTile + c * L::kSlice, &tm_k,
+                      &c_full[cb], col0 + c * kSwizzleCols, t * kRows, bh);
+        }
+        for (int s = 0; s < slices; ++s, ++it) {
+          const int st = it % kRing;
+          uint8_t* stage = smem + st * L::kStage;
+          mbar_wait(&empty_bar[st], ((it / kRing) & 1) ^ 1);
+          mbar_expect_tx(&full_bar[st], L::kStage);
+          tma_load_3d(stage, &tm_q, &full_bar[st], s * kSwizzleCols, q_tile * kRows, bh);
+          tma_load_3d(stage + L::kSlice, &tm_do, &full_bar[st], s * kSwizzleCols,
+                      q_tile * kRows, bh);
+          tma_load_3d(stage + 2 * L::kSlice, &tm_k, &full_bar[st], s * kSwizzleCols, t * kRows,
+                      bh);
+          tma_load_3d(stage + 3 * L::kSlice, &tm_v, &full_bar[st], s * kSwizzleCols, t * kRows,
+                      bh);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup: 64 query rows, accumulator layout as flash_bwd_dq_bf16's
+    const int lane = threadIdx.x % 32;
+    const int quad = lane % 4;
+    const int r = q_tile * kRows + (threadIdx.x / 32) * 16 + lane / 4;
+    const float scale_l2 = scale * kLog2e;
+    const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)batch * n_kv;
+
+    float lse_r[2], delta_r[2];
+    bool live[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = r + 8 * j;
+      const bool valid = row < n_q;
+      lse_r[j] = valid ? lse[(size_t)bh * n_q + row] * kLog2e : 0.0f;
+      delta_r[j] = valid ? delta[(size_t)bh * n_q + row] : 0.0f;
+      live[j] = valid && !(lse_r[j] < kEmptyRowLse);
+    }
+
+    float dq_acc[kWideCols / 2];
+#pragma unroll
+    for (int i = 0; i < kWideCols / 2; ++i) dq_acc[i] = 0.0f;
+
+    int it = 0;  // slices consumed
+    for (int t = 0; t < n_tiles; ++t) {
+      // S = Q K^T and dP = dO V^T over d, slice after slice; a stage is
+      // released once the products that read it have retired, one behind
+      float sc[32], dp[32];
+      int prev = 0;
+      for (int s = 0; s < slices; ++s, ++it) {
+        const int st = it % kRing;
+        mbar_wait(&full_bar[st], (it / kRing) & 1);
+        const uint32_t base = smem_u32(smem + st * L::kStage);
+        wgmma_fence();
+        scores_slice(sc, base, base + 2 * L::kSlice, s == 0);
+        scores_slice(dp, base + L::kSlice, base + 3 * L::kSlice, s == 0);
+        wgmma_commit();
+        if (s > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(&empty_bar[prev]);
+        }
+        prev = st;
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&empty_bar[prev]);
+
+      // dS = P (dP - delta) scale on kept keys of live rows, 0 elsewhere
+      ds_rows(sc, dp, t * kRows, n_kv, mask_b, quad, live, lse_r, delta_r, scale_l2, scale);
+      uint32_t ds_a[4][4];
+      repack(dp, ds_a);
+
+      const int cb = t & 1;
+      mbar_wait(&c_full[cb], (t >> 1) & 1);
+      wgmma_fence();
+      accumulate<kWideCols>(dq_acc, ds_a,  // dQ += dS K over the chunk, K read MN-major
+                            smem_u32(smem + L::kChunksDq + cb * L::kChunkTile));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      mbar_arrive(&c_empty[cb]);
+    }
+    store_rows<kWideCols>(dq_acc, dq + (size_t)bh * n_q * d, d, col0, d, r, quad, n_q);
+  }
+}
+
+// grid: (key tiles of 64 keys x chunks of 256 columns, heads, batch);
+// warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO, warpgroup 1 dP^T
+// = V dO^T, dS^T from warpgroup 0's P^T and dK += dS^T Q, as
+// flash_bwd_dkv_bf16 at d = 256; warpgroup 2 is the producer (one warp of
+// it works). The operands as flash_bwd_dkv_bf16's at head dim d.
+__global__ void __launch_bounds__(3 * 128, 1)
+    flash_bwd_dkv_bf16_wide(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                            const float* __restrict__ delta, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int heads, int n_q, int n_kv, int d,
+                            float scale) {
+  using L = WideSmem;
+  constexpr int kRing = L::kRingDkv;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kRing];
+  __shared__ __align__(8) uint64_t empty_bar[kRing];
+  __shared__ __align__(8) uint64_t c_full[2];
+  __shared__ __align__(8) uint64_t c_empty[2];
+  uint8_t* smem = align1024(smem_raw);
+
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  const int chunk = blockIdx.x % n_chunks;
+  const int k_tile = blockIdx.x / n_chunks;
+  const int col0 = chunk * kWideCols;
+  const int slices = d / kSwizzleCols;
+  const int chunk_slices = min(kWideCols / kSwizzleCols, slices - col0 / kSwizzleCols);
+  const int batch = blockIdx.z;
+  const int bh = batch * heads + blockIdx.y;
+  const int n_tiles = (n_q + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 256);
+    }
+    for (int s = 0; s < 2; ++s) {
+      // the TMA's expect_tx and one arrival from each producer lane after
+      // its lse and delta stores
+      mbar_init(&c_full[s], 1 + 32);
+      mbar_init(&c_empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warp: per query tile, the chunks of Q and dO and the tile's
+    // lse and delta, then the (K, V, Q, dO) slices in order through the ring
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - 256;
+    if (lane >= 32) return;  // the rest of the producer warpgroup
+    const float* lse_bh = lse + (size_t)bh * n_q;
+    const float* delta_bh = delta + (size_t)bh * n_q;
+    int it = 0;  // slices requested (lane 0)
+    for (int t = 0; t < n_tiles; ++t) {
+      const int cb = t & 1;
+      uint8_t* cstage = smem + L::kChunksDkv + cb * L::kChunkStage;
+      float* lse_s = reinterpret_cast<float*>(cstage + 2 * L::kChunkTile);
+      mbar_wait(&c_empty[cb], ((t >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * lane + e;
+        const int row = t * kRows + i;
+        const bool valid = row < n_q;
+        lse_s[i] = valid ? lse_bh[row] * kLog2e : 0.0f;
+        lse_s[kRows + i] = valid ? delta_bh[row] : 0.0f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&c_full[cb], 2 * chunk_slices * L::kSlice);
+        for (int c = 0; c < chunk_slices; ++c) {
+          tma_load_3d(cstage + c * L::kSlice, &tm_q, &c_full[cb], col0 + c * kSwizzleCols,
+                      t * kRows, bh);
+          tma_load_3d(cstage + L::kChunkTile + c * L::kSlice, &tm_do, &c_full[cb],
+                      col0 + c * kSwizzleCols, t * kRows, bh);
+        }
+      }
+      mbar_arrive(&c_full[cb]);  // releases this lane's stores
+      if (lane == 0) {
+        for (int s = 0; s < slices; ++s, ++it) {
+          const int st = it % kRing;
+          uint8_t* stage = smem + st * L::kStage;
+          mbar_wait(&empty_bar[st], ((it / kRing) & 1) ^ 1);
+          mbar_expect_tx(&full_bar[st], L::kStage);
+          tma_load_3d(stage, &tm_k, &full_bar[st], s * kSwizzleCols, k_tile * kRows, bh);
+          tma_load_3d(stage + L::kSlice, &tm_v, &full_bar[st], s * kSwizzleCols,
+                      k_tile * kRows, bh);
+          tma_load_3d(stage + 2 * L::kSlice, &tm_q, &full_bar[st], s * kSwizzleCols, t * kRows,
+                      bh);
+          tma_load_3d(stage + 3 * L::kSlice, &tm_do, &full_bar[st], s * kSwizzleCols,
+                      t * kRows, bh);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: 64 keys, rows r and r + 8 of the accumulators
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int quad = lane % 4;
+    const int r = k_tile * kRows + (tid / 32) * 16 + lane / 4;
+    const float scale_l2 = scale * kLog2e;
+    const float inv_kv = 1.0f / (float)n_kv;
+    float* p_x = reinterpret_cast<float*>(smem + L::kPx);
+
+    bool real[2], kept[2];  // this thread's two keys
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = r + 8 * j;
+      real[j] = key < n_kv;
+      kept[j] = real[j] && (mask == nullptr || mask[(size_t)batch * n_kv + key]);
+    }
+
+    float acc[kWideCols / 2];  // warpgroup 0: dV; warpgroup 1: dK
+#pragma unroll
+    for (int i = 0; i < kWideCols / 2; ++i) acc[i] = 0.0f;
+
+    int it = 0;  // slices consumed
+    for (int t = 0; t < n_tiles; ++t) {
+      // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T, over d
+      float sc[32];
+      int prev = 0;
+      for (int s = 0; s < slices; ++s, ++it) {
+        const int st = it % kRing;
+        mbar_wait(&full_bar[st], (it / kRing) & 1);
+        const uint32_t base = smem_u32(smem + st * L::kStage) + wg * L::kSlice;
+        wgmma_fence();
+        scores_slice(sc, base, base + 2 * L::kSlice, s == 0);
+        wgmma_commit();
+        if (s > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(&empty_bar[prev]);
+        }
+        prev = st;
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&empty_bar[prev]);
+
+      const int cb = t & 1;
+      const uint8_t* cstage = smem + L::kChunksDkv + cb * L::kChunkStage;
+      const float* lse_s = reinterpret_cast<const float*>(cstage + 2 * L::kChunkTile);
+      const float* delta_s = lse_s + kRows;
+      const int row0 = t * kRows;
+      mbar_wait(&c_full[cb], (t >> 1) & 1);
+      if (wg == 0) {
+        // P^T, handed to warpgroup 1 in fp32 once it has read the last tile's
+        pt_cols(sc, lse_s, row0, n_q, quad, kept, real, scale_l2, inv_kv);
+        if (t > 0) named_bar_sync(kBarPEmpty, 256);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) p_x[e * 128 + tid] = sc[e];
+        named_bar_arrive(kBarPFull, 256);
+      } else {
+        // dS^T = P^T (dP^T - delta) scale on kept keys of rows that have
+        // one, 0 elsewhere
+        named_bar_sync(kBarPFull, 256);
+        dst_cols(sc, p_x, lse_s, delta_s, row0, n_q, quad, tid, kept, scale);
+        if (t + 1 < n_tiles) named_bar_arrive(kBarPEmpty, 256);
+      }
+      uint32_t a[4][4];
+      repack(sc, a);
+      wgmma_fence();
+      // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q, over the
+      // chunk (MN-major)
+      accumulate<kWideCols>(acc, a, smem_u32(cstage + (wg == 0 ? L::kChunkTile : 0)));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&c_empty[cb]);
+    }
+    store_rows<kWideCols>(acc, (wg == 0 ? dv : dk) + (size_t)bh * n_kv * d, d, col0, d, r, quad,
+                          n_kv);
   }
 }
 
@@ -982,8 +1673,7 @@ struct Args {
 };
 
 // the four maps of a bf16 launch, each in boxes of 64 rows
-template <int D>
-cudaError_t encode_maps(const Args& a, CUtensorMap (&m)[4]) {
+cudaError_t encode_maps(const Args& a, int D, CUtensorMap (&m)[4]) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const int bh = a.batch * a.heads;
@@ -998,7 +1688,7 @@ template <int D>
 cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   using L = Bf16Smem<D>;
   CUtensorMap m[4];
-  cudaError_t err = encode_maps<D>(a, m);
+  cudaError_t err = encode_maps(a, D, m);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dq_bf16<D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
@@ -1015,7 +1705,7 @@ template <int D>
 cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   using L = Bf16Smem<D>;
   CUtensorMap m[4];
-  cudaError_t err = encode_maps<D>(a, m);
+  cudaError_t err = encode_maps(a, D, m);
   if (err != cudaSuccess) return err;
   auto kernel = flash_bwd_dkv_bf16<D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1063,10 +1753,77 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// head dims past 256 (a multiple of 64): the chunked kernels
+cudaError_t launch_dq_wide(const Args& a, int d, int dtype, void* dq) {
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  if (dtype == 1) {
+    CUtensorMap m[4];
+    cudaError_t err = encode_maps(a, d, m);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_wide,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem::kAllocDq);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n_q + kRows - 1) / kRows * n_chunks, a.heads, a.batch);
+    flash_bwd_dq_bf16_wide<<<grid, kThreadsDq, WideSmem::kAllocDq, a.stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(dq), a.heads, a.n_q, a.n_kv, d, a.scale);
+    return cudaGetLastError();
+  }
+  if (dtype == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_f32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, F32Wide::kBytesDq);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n_q + F32Wide::OWN - 1) / F32Wide::OWN * n_chunks, a.heads, a.batch);
+    flash_bwd_dq_f32_wide<<<grid, F32Wide::kThreads, F32Wide::kBytesDq, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(dq), a.heads, a.n_q, a.n_kv, d,
+        a.scale);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_dkv_wide(const Args& a, int d, int dtype, void* dk, void* dv) {
+  const int n_chunks = (d + kWideCols - 1) / kWideCols;
+  if (dtype == 1) {
+    CUtensorMap m[4];
+    cudaError_t err = encode_maps(a, d, m);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_wide,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, WideSmem::kAllocDkv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n_kv + kRows - 1) / kRows * n_chunks, a.heads, a.batch);
+    flash_bwd_dkv_bf16_wide<<<grid, 3 * 128, WideSmem::kAllocDkv, a.stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.heads, a.n_q, a.n_kv, d, a.scale);
+    return cudaGetLastError();
+  }
+  if (dtype == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_f32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F32Wide::kBytesDkv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.n_kv + F32Wide::OWN - 1) / F32Wide::OWN * n_chunks, a.heads, a.batch);
+    flash_bwd_dkv_f32_wide<<<grid, F32Wide::kThreads, F32Wide::kBytesDkv, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(dk), static_cast<float*>(dv),
+        a.heads, a.n_q, a.n_kv, d, a.scale);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16;
-// head_dim 64, 128 or 256 in either, 16 or 32 in float32. Each returns 0 or the
+// head_dim 64, 128 or 256 in either, 16 or 32 in float32, or any multiple of
+// 64 past 256 in either (the chunked kernels). Each returns 0 or the
 // cudaError_t of the launch.
 extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, const void* lse,
@@ -1083,6 +1840,9 @@ extern "C" int vb_flash_attention_bwd_dq(const void* q, const void* k, const voi
   if (head_dim == 128 && dtype == 0) return launch_dq_f32<128>(a, dq);
   if (head_dim == 32 && dtype == 0) return launch_dq_f32<32>(a, dq);
   if (head_dim == 16 && dtype == 0) return launch_dq_f32<16>(a, dq);
+  if (head_dim > 256 && head_dim % kSwizzleCols == 0) {
+    return launch_dq_wide(a, head_dim, dtype, dq);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1101,5 +1861,8 @@ extern "C" int vb_flash_attention_bwd_dkv(const void* q, const void* k, const vo
   if (head_dim == 128 && dtype == 0) return launch_dkv_f32<128>(a, dk, dv);
   if (head_dim == 32 && dtype == 0) return launch_dkv_f32<32>(a, dk, dv);
   if (head_dim == 16 && dtype == 0) return launch_dkv_f32<16>(a, dk, dv);
+  if (head_dim > 256 && head_dim % kSwizzleCols == 0) {
+    return launch_dkv_wide(a, head_dim, dtype, dk, dv);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

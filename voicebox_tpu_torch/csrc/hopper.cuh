@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels and K4:
 // mbarrier waits and arrivals, named barriers, TMA loads of 2-D and 3-D
 // tiles, wgmma descriptors for 128-byte-swizzled tiles with the SS and RS
-// products (RS with an MN-major or a K-major B, N up to 256), setmaxnreg, the fp32 ->
-// bf16 register repack of an accumulator into an A operand, the fp32
-// kernels' 16-byte cp.async copies of padded row tiles, and the host's
-// tensor-map encoding through the runtime.
+// products (RS with an MN-major or a K-major B, N up to 256) and waits on
+// them, setmaxnreg, the fp32 -> bf16 register repack of an accumulator into
+// an A operand, the fp32 kernels' 16-byte cp.async copies of padded row
+// tiles and column windows, and the host's tensor-map encoding through the
+// runtime.
 //
 // Layout conventions (those of K1, flash_attention_fwd.cu): a bf16 operand
 // tile is stored as D / 64 column chunks of (rows x 64) bf16, 128 bytes a
@@ -112,6 +113,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// returns once at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from touching an accumulator before the wgmma that
@@ -401,6 +407,29 @@ __device__ __forceinline__ void cp_async_rows(float* dst, const float* __restric
     const int c = (i % kVecs) * 4;
     const bool valid = row0 + r < n_rows;
     cp_async16(dst + r * (D + 4) + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
+  }
+}
+
+// rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of a row-major
+// fp32 matrix of n_rows rows and n_cols columns (both multiples of 4) into a
+// tile whose rows are padded to COLS + 4 floats, by the block's THREADS
+// threads in 16-byte copies; rows past n_rows and columns past n_cols are
+// zero-filled. The head dims past 256 stream their operands so, in column
+// slices and chunks.
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void cp_async_window(float* dst, const float* __restrict__ src,
+                                                int n_rows, int n_cols, int row0, int col0) {
+  constexpr int kVecs = COLS / 4;
+  constexpr int kAll = ROWS * kVecs;
+  static_assert(kAll % THREADS == 0, "each thread copies the same number of vectors");
+#pragma unroll
+  for (int j = 0; j < kAll / THREADS; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    const int r = i / kVecs;
+    const int c = (i % kVecs) * 4;
+    const bool valid = row0 + r < n_rows && col0 + c < n_cols;
+    cp_async16(dst + r * (COLS + 4) + c,
+               valid ? src + (size_t)(row0 + r) * n_cols + col0 + c : src, valid);
   }
 }
 

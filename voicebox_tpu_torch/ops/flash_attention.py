@@ -40,12 +40,18 @@ The JAX package sends every call with kv <= 4096 to XLA's einsum (a rule
 measured on a TPU); here every attention call on a CUDA tensor goes through
 K1, and every backward through K2 and K3.
 
-The kernels are built for the head dims in `HEAD_DIMS`; the wrappers take
-any head dim up to 256 in either dtype. The scale is resolved from the true
-d, then q, k, v (and dO) are zero-padded to the narrowest built width at or
-above d (`kernel_head_dim`), the kernel runs, and out, dq, dk and dv are
-sliced back to d. That is exact: the zero columns add exact zeros to every
-q.k and P.V sum, and the padded columns of the gradients are zero.
+The wrappers take any head dim in either dtype. Up to 256 the kernels are
+built for the head dims in `HEAD_DIMS`; past 256 the chunked kernels take
+any multiple of 64 (`WIDE_STEP`): a block owns 256 columns of the output
+(K1's out, K2's dq, K3's dk and dv; the chunk index a grid dimension) and
+streams the logits' operands in 64-column slices, so every width runs and
+the last chunk may be narrower. The scale is resolved from
+the true d, then q, k, v (and dO) are zero-padded to the width the call
+launches at (`kernel_head_dim`: the narrowest built width at or above d up
+to 256, the next multiple of 64 past it), the kernel runs, and out, dq, dk
+and dv are sliced back to d. That is exact: the zero columns add exact
+zeros to every q.k and P.V sum, and the padded columns of the gradients
+are zero.
 
 A row whose keys are all masked has one defined answer on every path: every
 real key gets the same filled logit, so the row is mean(V) over the real
@@ -73,6 +79,7 @@ from .remat import checkpoint_name, saves
 __all__ = [
     "HEAD_DIMS",
     "MASK_FILL",
+    "WIDE_STEP",
     "attention_delta",
     "flash_attention",
     "flash_attention_bwd_dkv",
@@ -94,20 +101,31 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tiles take 64-column chunks. Other head dims up to 256 are zero-padded to
 # the next of these (`kernel_head_dim`): 129-255 to 256
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256), torch.bfloat16: (64, 128, 256)}
+# past 256, the chunked kernels: a block owns 256 columns of the output and
+# streams the logits' operands in slices of WIDE_STEP columns; they take
+# any multiple of WIDE_STEP, other widths are zero-padded to one
+WIDE_STEP = 64
 
 
 def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head dim a d-wide call of K1, K2 or K3 launches at: the narrowest
-    width in `HEAD_DIMS[dtype]` at or above d (d itself for a dtype the
-    kernels do not take: the operand checks name it). ValueError past 256."""
+    width in `HEAD_DIMS[dtype]` at or above d, past 256 the next multiple of
+    `WIDE_STEP` (d itself for a dtype the kernels do not take: the operand
+    checks name it)."""
     widths = HEAD_DIMS.get(dtype)
     if widths is None:
         return d
     for width in widths:
         if d <= width:
             return width
-    raise ValueError(f"K1, K2 and K3 take head dims up to {widths[-1]} in {str(dtype)[6:]}, "
-                     f"got {d}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
+
+
+def _launches_at(d: int, dtype: torch.dtype) -> bool:
+    """Whether a kernel launches at head dim d in dtype as it is: a built
+    width, or a multiple of `WIDE_STEP` past 256."""
+    widths = HEAD_DIMS[dtype]
+    return d in widths or (d > widths[-1] and d % WIDE_STEP == 0)
 
 
 def _widen(width: int, *ts: torch.Tensor):
@@ -222,10 +240,10 @@ def _check_operands(kernel, q, k, v, mask):
     b, h, n_q, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"{kernel} shapes: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d not in HEAD_DIMS[q.dtype]:
+    if not _launches_at(d, q.dtype):
         raise ValueError(f"{kernel} launches at head dim "
-                         f"{' or '.join(map(str, HEAD_DIMS[q.dtype]))} in {str(q.dtype)[6:]}, "
-                         f"got {d}")
+                         f"{' or '.join(map(str, HEAD_DIMS[q.dtype]))} or a multiple of "
+                         f"{WIDE_STEP} past them in {str(q.dtype)[6:]}, got {d}")
     if n_q == 0 or k.shape[2] == 0 or h > 65535 or b > 65535:
         raise ValueError(f"{kernel} cannot launch for q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -269,10 +287,11 @@ def k1_block_q(b: int, h: int, n: int, d: int, dtype: torch.dtype, sms: int) -> 
     SMs. bf16 takes 128 rows (two consumer warpgroups sharing each K/V
     tile) at head dim 128 and 256 where that grid of ceil(n / 128) x h x b
     blocks covers at least half the SMs, else 64 (one warpgroup; at head
-    dim 64 two of its blocks share an SM). fp32 always takes 16. Measured on
-    the H100 (PERF.md, "K1's tile height")."""
+    dim 64 two of its blocks share an SM; past 256 the chunked kernel has
+    one height). fp32 always takes 16. Measured on the H100 (PERF.md, "K1's
+    tile height")."""
     if dtype == torch.bfloat16:
-        return 128 if d >= 128 and 2 * -(-n // 128) * b * h >= sms else 64
+        return 128 if 128 <= d <= 256 and 2 * -(-n // 128) * b * h >= sms else 64
     return 16
 
 
@@ -469,9 +488,9 @@ def flash_attention(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention forward, same contract as `reference_attention`, and
     differentiable in q, k and v. CUDA tensors go through K1 and, backward,
-    K2 + K3 (contiguous float32 or bfloat16 at any head dim up to 256,
-    zero-padded to a width in `HEAD_DIMS`, else ValueError); CPU tensors
-    through the plain version.
+    K2 + K3 (contiguous float32 or bfloat16 at any head dim, zero-padded to
+    the width `kernel_head_dim` gives, else ValueError); CPU tensors through
+    the plain version.
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
