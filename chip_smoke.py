@@ -68,8 +68,8 @@ imports nothing of JAX. Its phases print one line each or more:
    1376 at k = 1365) at the front of a buffer that is NaN in the pitch and
    past its end, and a contiguous (1, 1365) x; n = 2730 (y's rows off 16
    bytes); a second launch must give the same bits; CUDA-event times of
-   K4 at the host's tile and at each tile, the plain version, cuBLAS on the
-   weight dequantized to bf16 ahead of time and, where it runs on CUDA,
+   K4 at the host's tile (and at each tile at one shape), the plain version,
+   cuBLAS on the weight dequantized to bf16 ahead of time and, where it runs on CUDA,
    `torch._weight_int8pack_mm`, with K4's share of its bound; then fp32 K4
    at the seq2seq decode's shapes at every route, the chosen one timed
    beside cuBLAS fp32 and every route in turns, and the GEMV route against
@@ -110,9 +110,9 @@ imports nothing of JAX. Its phases print one line each or more:
    fp32 configuration card vs CPU (3 windows, a latent prompt, the same
    noise); then an over-bucket text whose exact frames (from the seeded
    predictor) reach 2048, i.e. >= 3 windows, through `synthesize_stream`
-   (twice: time to the first chunk on the host and latency, min and
+   (once: time to the first chunk on the host and latency, min and
    median, RTF) and `synthesize`, a clone from a seeded 3 s raw prompt with
-   `prompt_text` through `clone_stream` (twice) and `clone`, and an
+   `prompt_text` through `clone_stream` (once) and `clone`, and an
    over-bucket `DynamicBatcher.submit` beside a `submit_clone`. Each request
    makes exactly 96 K1 and 384 K4 launches a window plus 10 K1 a predictor
    forward, every launch's shape tallied and checked; audio is finite and
@@ -186,6 +186,25 @@ imports nothing of JAX. Its phases print one line each or more:
    small fp32 denoiser at 1 x 512, 3 steps card against CPU, losses within
    1e-6 relative or, where larger, twice the distance of a CPU run whose
    logits sum in another order, and every update's cosine above 0.9999;
+24 (run after 15c). the JAX package's headline configurations: (a) its
+   default VoiceBox (dim 1024, depth 24, 16 x 64 heads, 711.1 M
+   parameters) built on the card from a seed, 2 + 3 AdamW steps at batch 8
+   x 752 frames + 16 registers in three runs: (i) as it is, (ii) under the
+   JAX headline's stack (remat "dots+attn_probs+qk_rotary+norm_out", bf16
+   Adam moments, `attn_scores_dtype=torch.bfloat16`), (iii) at 8 x 128
+   heads; each step exactly 24 K1 (48 under (ii)'s recompute), 24 K2 and 24
+   K3; then one 10 s request (96 K1 at (2, 16, 766, 766, 64)); (b) the 100
+   s long-context step: the flagship at batch 1 x 7504 frames + 16
+   registers (the trainer's grid at 16 frames), 2 + 3 steps of 24 K1, K2
+   and K3 at (1, 4, 7520, 7520, 128), and a 100 s request of 7500 frames in
+   one window through `sample` (96 K1 at (2, 4, 7516, 7516, 128)); steps/s
+   (CUDA events and host clock), a profiled step's or request's busy ms,
+   idle share and kernels, peak memory and the state between steps,
+   latency and RTF; every launch at a shape phases 3 and 4 checked and
+   timed; (c) card against CPU at depth 2 in fp32 as 15c (c): the default's
+   16 x 64 heads at dim 1024 on 2 x 128 frames, and the flagship's geometry
+   on 1 x 4096 frames (4112 tokens, past the JAX package's 4096-token
+   `attend` threshold);
 16. (c) `EncodecVoco.encode` of a 10 s wave through the SEANet encoder at
    the Encodec 24 kHz geometry -> (1, 750, 128), then its decode and the
    SEANet decoder's, with their times;
@@ -267,7 +286,7 @@ imports nothing of JAX. Its phases print one line each or more:
    (`chip_smoke.py --dp-worker`) under gloo at world 2 sharing cuda:0,
    each running `VoiceBoxTrainer` at phase 10's geometry, qk gains 0.25,
    global batch 8 (4 rows a rank), under "replicated" and "fsdp", 1 warm-up
-   and 2 timed steps on explicit draws: each rank's step exactly 24 K1, K2
+   and 1 timed step on explicit draws: each rank's step exactly 24 K1, K2
    and K3, rank 0's losses and parameters equal to the single-process
    trainer's on the same global batch and draws (2 micro-batches of 4 rows,
    so "replicated" to the bit), ms a step, the reduction's share, peak
@@ -280,7 +299,7 @@ imports nothing of JAX. Its phases print one line each or more:
    under "replicated"'s on both ranks;
 22. tensor and sequence parallelism, in phase 21 (b)'s two rank processes
    (`tp_sp_worker`), phase 10's trainer at qk gains 0.25 and the global
-   batch of 8 x 752 on each rank, 1 warm-up and 2 timed steps on explicit
+   batch of 8 x 752 on each rank, 1 warm-up and 1 timed step on explicit
    draws: (a) `param_sharding="tp"` at model 2 (each rank 2 of the 4 heads:
    24 K1, K2 and K3 a step at (8, 2, 768, 768, 128); the feed-forward's
    `proj_in` split and gathered, `proj_out` whole); (b) `seq_parallel=2`
@@ -311,7 +330,7 @@ imports nothing of JAX. Its phases print one line each or more:
    ranks sharing the card: one "fsdp+tp" step, one step of each stage
    trainer, the sequence-parallel and the pipeline's loss and gradients on
    tiny shapes, all finite; its seconds;
-24. one JSON line for the kernels (one row per kernel and main path; on the
+25. one JSON line for the kernels (one row per kernel and main path; on the
    quantized paths, means per launch over the shapes it ran), then
    the last line `{"ok": true, "device": {...}}`.
 
@@ -616,7 +635,25 @@ CHUNKED_K1 = [
        *_k1_tol(dtype, "randn"))
       for dtype, t in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))],
 ]
-K1_CASES += PAD_K1 + PP_K1 + WIDE_K1 + CHUNKED_K1
+# phase 24: the JAX package's default VoiceBox (dim 1024, 16 x 64 heads)
+# trained at batch 8 x 752 frames + 16 registers and serving a 10 s request
+# (x 2 for CFG), and trained at benchmarks/dim1024_remat.py's 8 x 128
+# split; the 100 s long-context step (the flagship at batch 1 x 7504 frames
+# + 16 registers: 7520 rows, 117 x 64 + 32 and 58 x 128 + 96) and a 100 s
+# request in one window (7500 frames + 16, x 2 for CFG); phase 24 (c)'s
+# fp32 card-vs-CPU steps (the default at depth 2 on 2 x 128 frames, the
+# flagship at depth 2 on 1 x 4096 frames, past JAX's 4096-token threshold),
+# checked, not timed
+DEFAULT_LONG_K1 = [
+    ("default_train_bf16", (8, 16, 768, 768, 64), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("default_cfg_bf16", (2, 16, 766, 766, 64), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("default128_train_bf16", (8, 8, 768, 768, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("long_train_bf16", (1, 4, 7520, 7520, 128), torch.bfloat16, "qk", "all", 1e-2, 1e-2),
+    ("long_cfg_bf16", (2, 4, 7516, 7516, 128), torch.bfloat16, "qk", None, 1e-2, 1e-2),
+    ("default_small_f32", (2, 16, 144, 144, 64), torch.float32, "qk", "all", 1e-3, 1e-3),
+    ("long_small_f32", (1, 4, 4112, 4112, 128), torch.float32, "qk", "all", 1e-3, 1e-3),
+]
+K1_CASES += PAD_K1 + PP_K1 + WIDE_K1 + CHUNKED_K1 + DEFAULT_LONG_K1
 K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_train_bf16",
             *(name for name, *_ in TP_SP_K1 + PP_K1),
             *(name for name, shape, *_ in PAD_K1 if shape[2] == 768),
@@ -630,7 +667,8 @@ K1_TIMED = ("flagship_cfg_bf16", "reference_split_bf16", "train_bf16", "rank_tra
             "mel_train_bf16", "mel_serve_bf16", "dp_train_f32", "dp_sample_f32",
             *(name for name, *_ in K1_CASES if name.startswith(("t2s_", "semantic_",
                                                                  "canary_", "http_"))),
-            "longform_bf16")
+            "longform_bf16", "default_train_bf16", "default_cfg_bf16", "default128_train_bf16",
+            "long_train_bf16", "long_cfg_bf16")
 K1_HOST_TIMED = ("flagship_cfg_bf16", "engine_b1_bf16")
 K1_BF16_HEIGHTS = (64, 128)  # query rows per block (fp32 takes 16)
 
@@ -714,7 +752,12 @@ WIDE_K23 = [(name, shape, dtype, inputs, mask, 2e-2 if dtype == torch.bfloat16 e
 # soft softmax, as the other padded widths)
 CHUNKED_K23 = [(name, shape, dtype, inputs, mask, 2e-2 if dtype == torch.bfloat16 else 1e-4)
                for name, shape, dtype, inputs, mask, *_ in CHUNKED_K1 if "_cfg_" not in name]
-K23_CASES += TP_SP_K23 + PAD_K23 + WIDE_K23 + CHUNKED_K23
+# phase 24's training shapes as K1's (the default's 16 x 64 split is
+# "reference_split_bf16" above)
+DEFAULT_LONG_K23 = [(name, shape, dtype, inputs, mask, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+                    for name, shape, dtype, inputs, mask, *_ in DEFAULT_LONG_K1
+                    if "_cfg_" not in name and name != "default_train_bf16"]
+K23_CASES += TP_SP_K23 + PAD_K23 + WIDE_K23 + CHUNKED_K23 + DEFAULT_LONG_K23
 # timed: the paths' shapes and the reference shapes; of the fp32 padded
 # widths at (8, 4, 768, 768, d) none any more (checked, not timed, to make
 # room for the widths past 256 under the script's clock)
@@ -726,7 +769,8 @@ K23_TIMED = ("train_bf16", "rank_train_bf16", "reference_split_bf16", "mel_train
              "flagship512_train_bf16", "small512_train_f32", "chunked_ref_d512_bf16",
              "chunked_ref_d512_f32",
              "dp_train_f32",
-             "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")))
+             "train_f32", *(name for name, *_ in K23_CASES if name.startswith("canary_")),
+             "default128_train_bf16", "long_train_bf16")
 NORM_TOL = {torch.bfloat16: (3e-3, 1e-2), torch.float32: (1e-4, 1e-4)}  # vs plain, autograd
 
 FLAGSHIP = dict(
@@ -1283,6 +1327,10 @@ K4_RAGGED_ROWS = (37, 1)
 # (atol); bf16 outputs also round to bf16 after the scale, which moves a
 # value by one bf16 step (2^-8 relative) where the sums straddle a boundary
 K4_TOL = {torch.bfloat16: (2 ** -7, 1e-4), torch.float32: (1e-5, 1e-5)}
+# bf16 K4 timed at every tile at this one (k, n) x m only (every tile is
+# still checked at every shape): the sweep at every shape took ~54 s of the
+# script's clock
+K4_TILES_TIMED_AT = ("to_qkv", 2112)
 
 
 def k4_times(m: int, k: int, n: int, dtype) -> tuple:
@@ -1394,8 +1442,8 @@ def phase_k4_check(smi: str) -> dict:
     point takes; a second launch must give the same bits. A contiguous (1, 1365) x and, in fp32,
     a contiguous (37, 1365) one. Times at the bf16 shapes of K4_ROWS: K4 at
     the host's tile, the plain version, cuBLAS on the weight dequantized to
-    bf16 ahead of time, `_weight_int8pack_mm` where it runs, and K4 at each
-    tile, in turns."""
+    bf16 ahead of time and `_weight_int8pack_mm` where it runs, in turns;
+    K4 at each tile at `K4_TILES_TIMED_AT` alone."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
@@ -1446,25 +1494,26 @@ def phase_k4_check(smi: str) -> dict:
         if int8pack is not None:
             fns["int8pack"] = int8pack
         t = in_turns(fns)
-        tiles = in_turns({tile: _k4_call(x, ql, tile) for tile in K4_TILES[dtype]})
         bound_ms, bound_by = k4_bound(m, k, n, dtype)
         results[(m, k, n)] = dict(
             shape=(m, k, n), ms=t["k4"], plain_ms=t["plain"], library_ms=t["cublas"],
             int8pack_ms=t.get("int8pack"), bound_ms=bound_ms, bound_by=bound_by,
             max_abs_err=errs[chosen], tile=list(chosen), share_of_bound=bound_ms / t["k4"],
-            vs_library=t["k4"] / t["cublas"],
-            tile_ms={f"{r}x{c}": ms for (r, c), ms in tiles.items()})
+            vs_library=t["k4"] / t["cublas"])
+        by_tile = ""
+        if (name, m) == K4_TILES_TIMED_AT:
+            tiles = in_turns({tile: _k4_call(x, ql, tile) for tile in K4_TILES[dtype]})
+            results[(m, k, n)]["tile_ms"] = {f"{r}x{c}": ms for (r, c), ms in tiles.items()}
+            by_tile = "; K4 by tile (rows x channels, blocks): " + ", ".join(
+                f"{r}x{c} {ms:.4f} ms ({-(-m // r) * -(-n // c)})" for (r, c), ms in tiles.items())
         pack = (f"{t['int8pack']:.4f} ms" if int8pack is not None
                 else f"not run ({why})")
         log("k4", f"time {name} ({m}, {k}, {n}) bf16: K4 {t['k4']:.4f} ms at tile "
                   f"{chosen[0]}x{chosen[1]} ({bound_ms / t['k4']:.1%} of the bound "
                   f"{bound_ms:.4f} ms, {bound_by}; {t['k4'] / t['cublas']:.2f}x cuBLAS), plain "
                   f"{t['plain']:.4f} ms, cuBLAS on the bf16-dequantized weight "
-                  f"{t['cublas']:.4f} ms, _weight_int8pack_mm {pack}; K4 by tile (rows x "
-                  f"channels, blocks): " + ", ".join(
-                      f"{r}x{c} {ms:.4f} ms ({-(-m // r) * -(-n // c)})"
-                      for (r, c), ms in tiles.items())
-                  + f" (CUDA events, mean of 2 x 20, in turns, {sms} SMs) on {smi}")
+                  f"{t['cublas']:.4f} ms, _weight_int8pack_mm {pack}{by_tile}"
+                  f" (CUDA events, mean of 2 x 20, in turns, {sms} SMs) on {smi}")
     phase_k4_host_time()
     return results
 
@@ -1626,14 +1675,14 @@ SMALL_TRAIN = dict(lr=1e-3, initial_lr=1e-4, num_warmup_steps=1, wd=1e-2, max_gr
                    save_results_every=1000)
 
 
-def _small_trainer(device, items, model=None, trainer=None):
+def _small_trainer(device, items, model=None, trainer=None, batch: int = 2):
     def build():
         vb = vbt.VoiceBox(dim_in=32, **{**SMALL, **(model or {})})
         _soften_qk_gains(vb)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2, device=device)
 
     cfm = seeded(build, SEED + 4)
-    return vbt.VoiceBoxTrainer(cfm, batch_size=2, dataset=vbt.ArrayDataset(items),
+    return vbt.VoiceBoxTrainer(cfm, batch_size=batch, dataset=vbt.ArrayDataset(items),
                                num_train_steps=3, valid_frac=0.0, bucket_multiple=128,
                                log_every=1000, device=device, **SMALL_TRAIN, **(trainer or {}))
 
@@ -1688,20 +1737,21 @@ def _logits_reordered():
 
 def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW",
                         heads: dict = None, loss_tol: float = 1e-4,
-                        cos_tol: float = 0.999, floor_run=None) -> None:
+                        cos_tol: float = 0.999, floor_run=None, frames: int = 124,
+                        batch: int = 2) -> None:
     """3 steps of the small trainers on the same batches and draws; losses
     (to `loss_tol` relative) and parameter updates (per-tensor cosine above
     `cos_tol`) held card against CPU. With `floor_run`, a third CPU trainer
     from the same weights steps on the same draws with its logits summed in
     another order (`_logits_reordered`), and the losses are held to the
     larger of `loss_tol` and CARD_CPU_TIMES_FLOOR times its distance from
-    the CPU's."""
+    the CPU's. `frames` is the batches' bucketed length (the phases' 90-96
+    frames + 4 registers: 124 + 4 = 128 tokens), `batch` their rows."""
     init = {n: p.detach().clone() for n, p in cpu.cfm_wrapper.voicebox.named_parameters()}
-    frames = 124  # 90-96 frames + 4 registers: the bucket grid gives 124 + 4 = 128 tokens
     depth = SMALL["depth"]
     losses, floor_losses = [], []
     for step in range(3):
-        m = 2
+        m = batch
         draws = dict(noise=rs.randn(m, frames, 32).astype(np.float32),
                      times=rs.rand(m).astype(np.float32),
                      cond_mask=rs.rand(m, frames) < 0.7, cond_drop_mask=rs.rand(m) < 0.2)
@@ -1730,8 +1780,9 @@ def _compare_small_runs(cpu, gpu, rs, k1_per_step: int, label: str = "AdamW",
                                                gpu.cfm_wrapper.voicebox, lr)
     frac_off = n_off / total
     heads = {**SMALL, **(heads or {})}
-    log("train", f"card vs CPU, fp32, dim 128 depth 2 heads {heads['heads']}x"
-                 f"{heads['dim_head']}, batch 2 x {frames} frames, "
+    log("train", f"card vs CPU, fp32, dim {heads['dim']} depth 2 heads {heads['heads']}x"
+                 f"{heads['dim_head']}, batch {batch} x {frames} frames + "
+                 f"{heads['num_register_tokens']} registers, "
                  f"3 {label} steps (lr {lr:g}, clip 0.5): losses card/CPU "
                  f"{[(round(g, 6), round(c, 6)) for g, c in losses]}, max relative diff "
                  f"{loss_err:.2e} (tol {loss_tol:.3g}{floor_note}); K1/K2/K3 launches per step "
@@ -2112,8 +2163,8 @@ CLONE_MIN_FRAMES = 900  # the prompt's 225 frames and the continuation: 2 window
 PROMPT_SAMPLES = 72_000  # a 3 s prompt at 24 kHz
 PROMPT_TEXT = "a voice that the engine should keep"
 # requests of each kind: time to first chunk and latency (3 until phase 15b's
-# head-dim-256 paths needed room under the script's clock)
-LONG_REPEATS = 2
+# head-dim-256 paths needed room under the script's clock, 2 until phase 24)
+LONG_REPEATS = 1
 K1_PER_WINDOW = EVALS_PER_REQUEST * FLAGSHIP["depth"]  # 96
 K4_PER_WINDOW = 4 * K1_PER_WINDOW  # 384
 # the streamed decode against the one-shot decode of the same latents, fp32
@@ -2400,11 +2451,19 @@ def _profile(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device activity only: the profiler also puts each record_function range
-    # (such as the optimizer's step) on the device's timeline
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels_ = [(e.name, e.time_range.start, e.time_range.end) for e in on_device
-                if not getattr(e, "is_user_annotation", False)]
+    return _device_summary(prof, wall_us)
+
+
+def _device_summary(prof, wall_us: float) -> dict:
+    """`_profile`'s numbers from the profiler's raw results: device activity
+    only (the profiler also puts each record_function range, such as the
+    optimizer's step, on the device's timeline). `prof.events()` would first
+    build the host's event tree, which takes tens of seconds for a window of
+    tens of thousands of launches on a slow host."""
+    on_device = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+    kernels_ = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3) for e in on_device
+                if not e.is_user_annotation()]
     return {**kernel_summary(kernels_, wall_us), "annotations": len(on_device) - len(kernels_)}
 
 
@@ -2467,6 +2526,7 @@ def phase_train(smi: str) -> dict:
     assert all(m > 0 for m in moved.values()), f"parameters did not change: {moved}"
     prof = _profile(trainer.train_step)
     idle = prof["idle"]
+    MEASURED.update(train_busy_ms=prof["busy_ms"])
     log("train", f"flagship: dim 512 depth 24 heads 4x128, bf16 compute, fp32 params "
                  f"({n_params / 1e6:.1f} M) and AdamW, batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
                  f"frames + 16 registers; {TRAIN_TIMED} timed steps after {TRAIN_WARMUP} "
@@ -2489,9 +2549,9 @@ WITNESS_DELTA = 2.0 ** -20  # the noise floor's change of the attention scale
 
 def _plain_attention(factor: float = 1.0):
     """Autograd of the plain `reference_attention`, its scale times `factor`."""
-    def attend(q, k, v, mask=None, scale=None):
+    def attend(q, k, v, mask=None, scale=None, scores_dtype=None):
         scale = q.shape[-1] ** -0.5 if scale is None else scale
-        return reference_attention(q, k, v, mask, scale * factor)
+        return reference_attention(q, k, v, mask, scale * factor, scores_dtype=scores_dtype)
     return attend
 
 
@@ -3327,7 +3387,7 @@ def phase_duration(smi: str, k1: dict) -> dict:
 # reference duration predictor's geometry (dim 512, depth 10, fp32) at 2 x
 # 256; (c) the small fp32 denoiser of phase 7 at 2 x 256, card against CPU
 WIDE = dict(heads=2, dim_head=256)
-WIDE_TRAIN_TIMED = 3  # after phase 10's TRAIN_WARMUP steps
+RUN_TIMED = 3  # steps after phase 10's TRAIN_WARMUP (15b, 15c and 24's runs)
 WIDE_DP_TIMED, WIDE_DP_ITEMS = 2, 16
 # phase 15c: head dims past 256 (the chunked kernels). (a) the flagship at
 # 2 x 512 heads (attention 1024 wide: to_qkv 512 -> 3072, to_out 1024 ->
@@ -3352,84 +3412,117 @@ def phase_wide_flagship(smi: str, k1: dict, k23: dict, heads: dict = WIDE,
     AdamW, batch 8 x 752 frames + 16 registers), then serves one 10 s request
     through the midpoint sampler and EncodecVoco, both built on the card
     from a seed."""
-    flagship_wide = {**FLAGSHIP, **heads}
-    h, dh = heads["heads"], heads["dim_head"]
+    model = {**FLAGSHIP, **heads}
+    label = f"{tag} flagship at {heads['heads']} x {heads['dim_head']} heads"
+    train = _train_run(smi, k1, k23, label, model, {}, seed, TRAIN_BATCH, TRAIN_FRAMES,
+                       tag="wide")
+    serve = _serve_run(smi, k1, label, model, seed + 2, FRAMES, tag="wide")
+    return {"train": train["counts"], "train_tally": train["tally"], "serve": serve["counts"],
+            "serve_tally": serve["tally"]}
 
+
+def _train_run(smi: str, k1: dict, k23: dict, label: str, model_kw: dict, trainer_kw: dict,
+               seed: int, batch: int, frames: int, tag: str = "p24", **extra) -> dict:
+    """Build `model_kw` on the card from `seed`, train TRAIN_WARMUP +
+    RUN_TIMED steps of `batch` x `frames` through `VoiceBoxTrainer` (bf16
+    compute over fp32 parameters and AdamW), every step's launches asserted
+    (`_k1_per_step`) and every launch's shape one that phases 3 and 4
+    checked and timed; log (under `tag`) and return the run's numbers."""
     def build():
         vb = vbt.VoiceBox(dim_in=LATENT_DIM, dtype=torch.bfloat16, param_dtype=torch.float32,
-                          **flagship_wide)
+                          **model_kw)
         return vbt.ConditionalFlowMatcherWrapper(vb, cond_drop_prob=0.2)
 
     cfm = seeded_on("cuda", build, seed)
     rs = np.random.RandomState(seed + 1)
-    items = [(rs.randn(TRAIN_FRAMES, LATENT_DIM).astype(np.float32),
-              rs.randint(0, FLAGSHIP["num_cond_tokens"], TRAIN_FRAMES).astype(np.int32))
-             for _ in range(2 * TRAIN_BATCH)]
+    items = [(rs.randn(frames, LATENT_DIM).astype(np.float32),
+              rs.randint(0, model_kw["num_cond_tokens"], frames).astype(np.int32))
+             for _ in range(2 * batch)]
     trainer = vbt.VoiceBoxTrainer(
-        cfm, batch_size=TRAIN_BATCH, dataset=vbt.ArrayDataset(items), num_train_steps=1000,
-        lr=1e-4, wd=1e-2, max_grad_norm=0.5, valid_frac=0.0, log_every=1000,
-        save_results_every=1000, seed=SEED,
-    )
+        cfm, batch_size=batch, dataset=vbt.ArrayDataset(items), num_train_steps=1000, lr=1e-4,
+        wd=1e-2, max_grad_norm=0.5, valid_frac=0.0, log_every=1000, save_results_every=1000,
+        seed=SEED, **trainer_kw, **extra)
+    vb = cfm.voicebox
+    attn = vb.transformer.layers[0][3]
+    depth, h, dh = vb.transformer.depth, attn.heads, attn.dim_head
     n_params = sum(p.numel() for p in trainer.params)
-    depth = FLAGSHIP["depth"]
+    per_step = {"k1": _k1_per_step(model_kw), "k2": depth, "k3": depth, "k4": 0}
     for _ in range(TRAIN_WARMUP):
         trainer.train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()  # the path's training run starts here
+    reset_launches()  # the run's launches start here
     logs, host_s = [], []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with shape_tally() as tally:
+        t_all = time.perf_counter()
         start.record()
-        for _ in range(WIDE_TRAIN_TIMED):
+        for _ in range(RUN_TIMED):
             before = read_launches()
             t0 = time.perf_counter()
             logs.append(trainer.train_step())
             host_s.append(time.perf_counter() - t0)
             step = {k: v - before[k] for k, v in read_launches().items()}
-            assert step == {"k1": depth, "k2": depth, "k3": depth, "k4": 0}, (
-                f"a {h} x {dh} training step launched {step}, expected {depth} of each")
+            assert step == per_step, f"{label}: a step launched {step}, want {per_step}"
         end.record()
         torch.cuda.synchronize()
-    train_counts = read_launches()
+        wall = time.perf_counter() - t_all
+    counts = read_launches()
     gpu_ms = start.elapsed_time(end)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = (TRAIN_BATCH, h, TRAIN_FRAMES + 16, TRAIN_FRAMES + 16, dh)
+    tokens = frames + vb.transformer.num_register_tokens
+    want = (batch, h, tokens, tokens, dh)
     assert {key[:3] for key in tally} == {(k, want, torch.bfloat16) for k in ("k1", "k2", "k3")}, (
-        f"{h} x {dh} training launched at {sorted(tally, key=str)}, want {want} bf16 only")
-    _assert_checked(tally, k1, f"{h} x {dh} training")
-    _assert_k23_checked(tally, k23, f"{h} x {dh} training")
+        f"{label} launched at {sorted(tally, key=str)}, want {want} bf16 only")
+    _assert_checked(tally, k1, label)
+    _assert_k23_checked(tally, k23, label)
     losses = torch.stack([lg["loss"] for lg in logs]).tolist()
     norms = torch.stack([lg["grad_norm"] for lg in logs]).tolist()
     assert all(math.isfinite(x) for x in losses + norms), f"non-finite {losses} {norms}"
     prof = _profile(trainer.train_step)
-    idle = prof["idle"]
-    log("wide", f"{tag} flagship at {h} x {dh} heads: dim 512 depth 24, bf16 compute, fp32 "
-                f"params "
-                f"({n_params / 1e6:.1f} M) and AdamW, batch {TRAIN_BATCH} x {TRAIN_FRAMES} "
-                f"frames + 16 registers; {WIDE_TRAIN_TIMED} timed steps after "
-                f"{TRAIN_WARMUP} warm-up: losses {[round(x, 4) for x in losses]}, grad "
-                f"norms {[round(x, 3) for x in norms]}, K1/K2/K3 per step {depth} each at "
-                f"{want}; steps/s {WIDE_TRAIN_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, "
-                f"{gpu_ms / WIDE_TRAIN_TIMED:.2f} ms/step; host clock steps "
-                f"{[round(t * 1e3, 1) for t in host_s]} ms; phase 10's 4 x 128: "
-                f"{MEASURED.get('train_steps_s', float('nan')):.3f}); idle share of one profiled "
-                f"step {'not measured' if idle is None else f'{idle:.3f}'}, device busy "
-                f"{prof['busy_ms']:.2f} ms, K1+K2+K3 {prof['attention_ms']:.3f} ms of it; peak "
-                f"memory {peak_gib:.2f} GiB (phase 10: "
-                f"{MEASURED.get('train_peak_gib', float('nan')):.2f}) on {smi}")
+    state_gib = _state_bytes(trainer) / 2**30
+    idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.3f}"
+    step_ms = gpu_ms / RUN_TIMED
+    flagship = (f"phase 10's 4 x 128 flagship: {MEASURED.get('train_steps_s', math.nan):.3f} "
+                f"steps/s, busy {MEASURED.get('train_busy_ms', math.nan):.2f} ms, peak "
+                f"{MEASURED.get('train_peak_gib', math.nan):.2f} GiB")
+    log(tag, f"{label}: dim {vb.to_pred.weight.shape[1]} depth {depth}, {h} x {dh} heads, "
+             f"{n_params / 1e6:.1f} M fp32 parameters, bf16 compute, AdamW"
+             f"{' ' + str(trainer_kw) if trainer_kw else ''}"
+             f"{' remat ' + model_kw['remat_policy'] if model_kw.get('remat') else ''}; batch "
+             f"{batch} x {frames} frames + {tokens - frames} registers ({tokens} tokens); "
+             f"{RUN_TIMED} timed steps after {TRAIN_WARMUP}: losses "
+             f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}, "
+             f"K1/K2/K3 a step {per_step['k1']}/{depth}/{depth} at {want}; steps/s "
+             f"{RUN_TIMED / (gpu_ms / 1e3):.3f} (CUDA events, {step_ms:.2f} ms a step), "
+             f"{RUN_TIMED / wall:.3f} (host clock, steps {[round(t * 1e3, 1) for t in host_s]} "
+             f"ms); one profiled step: device busy {prof['busy_ms']:.2f} ms over "
+             f"{prof['kernels']} kernels (K1+K2+K3 {prof['attention_ms']:.2f} ms), wall "
+             f"{prof['wall_ms']:.2f} ms, idle share {idle} (1 - busy / the timed steps' event "
+             f"ms: {1 - prof['busy_ms'] / step_ms:.3f}); peak memory {peak_gib:.2f} GiB, state "
+             f"between steps {state_gib:.2f} GiB; largest kernels (name, ms, calls): "
+             f"{'; '.join(f'{n} {t:.3f} {c}' for n, t, c in prof['top'][:4])}; {flagship}; "
+             f"on {smi}")
     del trainer, cfm, logs
     torch.cuda.empty_cache()
+    return {"counts": counts, "tally": tally}
 
-    def build_serving():
-        vb = vbt.VoiceBox(audio_enc_dec=EncodecVoco(), dtype=torch.bfloat16, **flagship_wide)
+
+def _serve_run(smi: str, k1: dict, label: str, model_kw: dict, seed: int, frames: int,
+               tag: str = "p24") -> dict:
+    """One request of `frames` (3 midpoint steps, CFG 1.3, EncodecVoco) from a
+    bf16 serving model built on the card from `seed`, after a warm-up
+    request: exactly depth x 4 K1 launches at a checked shape, finite audio
+    of the expected length; latency, RTF, a profiled request's idle share."""
+    def build():
+        vb = vbt.VoiceBox(audio_enc_dec=EncodecVoco(), dtype=torch.bfloat16, **model_kw)
         return vbt.ConditionalFlowMatcherWrapper(vb)
 
-    cfm = seeded_on("cuda", build_serving, seed + 2).eval()
-    codec = cfm.codec
-    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    cond = torch.randn(1, FRAMES, codec.latent_dim, generator=gen, device="cuda")
-    ids = torch.randint(0, FLAGSHIP["num_cond_tokens"], (1, FRAMES), generator=gen,
+    cfm = seeded_on("cuda", build, seed).eval()
+    codec, tr = cfm.codec, cfm.voicebox.transformer
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cond = torch.randn(1, frames, codec.latent_dim, generator=gen, device="cuda")
+    ids = torch.randint(0, model_kw["num_cond_tokens"], (1, frames), generator=gen,
                         device="cuda")
 
     def request():
@@ -3438,36 +3531,36 @@ def phase_wide_flagship(smi: str, k1: dict, k23: dict, heads: dict = WIDE,
 
     request()  # warm-up: allocator, cuFFT plans
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()  # the path's serving run starts here
-    with shape_tally() as stally:
+    reset_launches()  # the request's launches start here
+    with shape_tally() as tally:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         audio = request()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    serve_counts = read_launches()
-    serve_peak = torch.cuda.max_memory_allocated() / 2**30
-    expected = depth * EVALS_PER_REQUEST
-    want = (2, h, FRAMES + 16, FRAMES + 16, dh)
-    assert serve_counts == {"k1": expected, "k2": 0, "k3": 0, "k4": 0}, serve_counts
-    assert dict(stally) == {("k1", want, torch.bfloat16, False): expected}, dict(stally)
-    _assert_checked(stally, k1, f"{h} x {dh} serving")
-    assert tuple(audio.shape) == (1, 1, FRAMES * codec.downsample_factor), tuple(audio.shape)
+    counts = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expected = tr.depth * EVALS_PER_REQUEST
+    tokens = frames + tr.num_register_tokens
+    attn = tr.layers[0][3]
+    want = (2, attn.heads, tokens, tokens, attn.dim_head)
+    assert counts == {"k1": expected, "k2": 0, "k3": 0, "k4": 0}, counts
+    assert dict(tally) == {("k1", want, torch.bfloat16, False): expected}, dict(tally)
+    _assert_checked(tally, k1, label)
+    assert tuple(audio.shape) == (1, 1, frames * codec.downsample_factor), tuple(audio.shape)
     assert bool(torch.isfinite(audio).all()), "non-finite audio"
-    sprof = _profile(request)
-    serve_idle = "not measured" if sprof["idle"] is None else f"{sprof['idle']:.3f}"
-    audio_s = FRAMES * codec.downsample_factor / codec.sampling_rate
-    log("wide", f"{tag} a {audio_s:.1f} s request at {h} x {dh} heads (midpoint, {STEPS} steps, "
-                f"CFG "
-                f"{CFG_SCALE}, EncodecVoco): latency {dt * 1e3:.2f} ms (host clock), RTF "
-                f"{dt / audio_s:.5f}, {expected} K1 at {want}, audio finite "
-                f"{tuple(audio.shape)}; idle share of a profiled request "
-                f"{serve_idle}; peak "
-                f"memory {serve_peak:.2f} GiB on {smi}")
+    prof = _profile(request)
+    idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.3f}"
+    audio_s = frames * codec.downsample_factor / codec.sampling_rate
+    log(tag, f"{label}: a {audio_s:.1f} s request ({frames} frames in one window, midpoint "
+             f"{STEPS} steps, CFG {CFG_SCALE}, EncodecVoco): latency {dt * 1e3:.2f} ms (host "
+             f"clock), RTF {dt / audio_s:.5f}, {expected} K1 at {want}, audio finite "
+             f"{tuple(audio.shape)}; a profiled request: device busy {prof['busy_ms']:.2f} ms "
+             f"over {prof['kernels']} kernels (K1 {prof['attention_ms']:.2f} ms), idle share "
+             f"{idle}; peak memory {peak_gib:.2f} GiB on {smi}")
     del cfm, audio
     torch.cuda.empty_cache()
-    return {"train": train_counts, "train_tally": tally, "serve": serve_counts,
-            "serve_tally": stally}
+    return {"counts": counts, "tally": tally}
 
 
 def phase_wide_duration(smi: str, k1: dict, k23: dict) -> dict:
@@ -3534,18 +3627,21 @@ def phase_wide_duration(smi: str, k1: dict, k23: dict) -> dict:
 
 
 def phase_wide_card_vs_cpu(heads: dict = WIDE, seed: int = SEED + 97, floor: bool = False,
+                           lengths=(96, 90, 93, 96), frames: int = 124, batch: int = 2,
                            **tols) -> None:
     """15b (c) (and 15c (c) at `CHUNKED_SMALL`, to `CHUNKED_CARD_VS_CPU`
-    with the summation-order floor): phase 7's small fp32 denoiser at 2 x
-    256 heads, 3 steps on the card (K1/K2/K3 at d = 256) and on the CPU
-    from the same weights and draws, held as phase 7 holds it."""
+    with the summation-order floor; 24 (c) at other widths and lengths):
+    phase 7's small fp32 denoiser at 2 x 256 heads, 3 steps on the card
+    (K1/K2/K3 at d = 256) and on the CPU from the same weights and draws,
+    held as phase 7 holds it. Items of `lengths` frames, batches of `batch`
+    bucketed to `frames`."""
     rs = np.random.RandomState(seed)
     items = [(rs.randn(n, 32).astype(np.float32), rs.randint(0, 100, n).astype(np.int32))
-             for n in (96, 90, 93, 96)]
-    cpu, gpu = (_small_trainer(dev, items, model=heads) for dev in ("cpu", "cuda"))
-    floor_run = _small_trainer("cpu", items, model=heads) if floor else None
+             for n in lengths]
+    cpu, gpu = (_small_trainer(dev, items, model=heads, batch=batch) for dev in ("cpu", "cuda"))
+    floor_run = _small_trainer("cpu", items, model=heads, batch=batch) if floor else None
     _compare_small_runs(cpu, gpu, rs, k1_per_step=SMALL["depth"], heads=heads,
-                        floor_run=floor_run, **tols)
+                        floor_run=floor_run, frames=frames, batch=batch, **tols)
 
 
 def wide_rows(k1: dict, k23: dict, wide: dict) -> list:
@@ -3559,6 +3655,84 @@ def wide_rows(k1: dict, k23: dict, wide: dict) -> list:
                            kernels_=("k1",))
     dp = wide["dp"]
     rows += tally_rows(k1, k23, dp["train"], dp["tally"], "duration_train_d256")
+    return rows
+
+
+# phase 24: the two configurations of the JAX package's headline that no
+# earlier phase ran. (a) The JAX package's default VoiceBox (every field at
+# voicebox_tpu/models/voicebox.py's default: dim 1024, depth 24, 16 x 64
+# heads, a 1024-wide cond embedding, 16 registers, qk-norm; 711.1 M
+# parameters with 500 cond tokens and 128 latent channels), trained at phase
+# 10's batch of 8 x 752 frames in three runs: (i) as it is; (ii) under the
+# JAX headline's stack (remat saving "dots+attn_probs+qk_rotary+norm_out",
+# bf16 Adam moments, bf16 attention scores, a no-op on K1; without the TPU's
+# lane-aligned ff_mult 4.125); (iii) at benchmarks/dim1024_remat.py's 8 x
+# 128 split; then one 10 s request from a seeded 16 x 64 serving model. (b)
+# The 100 s long-context step (PERFORMANCE.md: seq 7504, dim 512, depth 24,
+# batch 1): the flagship at batch 1 x 7504 frames + 16 registers, the
+# trainer's grid at 16 frames (its default 256 would pad 7504 to 7664 frames,
+# 7680 tokens), then a 100 s request (7500 frames) in one window through
+# `sample`. (c) Card against CPU at depth 2 in fp32, as phase 15c (c): the
+# default's 16 x 64 heads at dim 1024 on 2 x 128 frames, and the flagship's
+# geometry on 1 x 4096 frames (4112 tokens, past the JAX package's
+# 4096-token `attend` threshold)
+DEFAULT_VB = dict(num_cond_tokens=500)
+DEFAULT_RUNS = {
+    "(i) 16 x 64": ({}, {}),
+    "(ii) 16 x 64, headline stack": (
+        dict(remat=True, remat_policy="dots+attn_probs+qk_rotary+norm_out",
+             attn_scores_dtype=torch.bfloat16), dict(moment_dtype=torch.bfloat16)),
+    "(iii) 8 x 128": (dict(heads=8, dim_head=128), {}),
+}
+LONG_TRAIN_FRAMES = 7504  # 100 s of the JAX headline's long-context step
+LONG_BUCKET = 16  # the trainer's grid: 7504 = 469 x 16 stays as it is
+LONG_SERVE_FRAMES = 7500  # 100 s at 24 kHz, hop 320
+P24_SMALL_DEFAULT = dict(dim=1024, dim_cond_emb=1024, heads=16, dim_head=64,
+                         num_register_tokens=16)
+P24_SMALL_LONG = dict(dim=512, dim_cond_emb=512, heads=4, dim_head=128, num_register_tokens=16)
+P24_CARD_VS_CPU = dict(loss_tol=1e-6, cos_tol=0.9999)
+
+
+def phase_default_long(smi: str, k1: dict, k23: dict) -> dict:
+    """24 (a) and (b): the default VoiceBox's three training runs and its 10 s
+    request, then the 100 s long-context step and a 100 s request."""
+    runs = {}
+    for i, (label, (model_kw, trainer_kw)) in enumerate(DEFAULT_RUNS.items()):
+        runs[label] = _train_run(smi, k1, k23, f"(a) default VoiceBox {label}",
+                                 {**DEFAULT_VB, **model_kw}, trainer_kw, SEED + 110 + 2 * i,
+                                 TRAIN_BATCH, TRAIN_FRAMES)
+    runs["serve_default"] = _serve_run(smi, k1, "(a) default VoiceBox 16 x 64", DEFAULT_VB,
+                                       SEED + 117, FRAMES)
+    runs["train_long"] = _train_run(smi, k1, k23, "(b) 100 s long-context step", FLAGSHIP, {},
+                                    SEED + 118, 1, LONG_TRAIN_FRAMES, bucket_multiple=LONG_BUCKET)
+    runs["serve_long"] = _serve_run(smi, k1, "(b) flagship", FLAGSHIP, SEED + 120,
+                                    LONG_SERVE_FRAMES)
+    return runs
+
+
+def phase_default_long_card_vs_cpu() -> None:
+    """24 (c): the default's 16 x 64 heads at dim 1024 on 2 x 128 frames,
+    then the flagship's geometry on 1 x 4096 frames (4112 tokens), each at
+    depth 2 in fp32, 3 steps card against CPU as phase 15c (c) holds them."""
+    for heads, seed, lengths, frames, batch in (
+            (P24_SMALL_DEFAULT, SEED + 121, (128, 120, 125, 128), 128, 2),
+            (P24_SMALL_LONG, SEED + 122, (4096, 4096), 4096, 1)):
+        phase_wide_card_vs_cpu(heads, seed, floor=True, lengths=lengths, frames=frames,
+                               batch=batch, **P24_CARD_VS_CPU)
+
+
+def p24_rows(k1: dict, k23: dict, runs: dict) -> list:
+    """K1, K2 and K3 on phase 24's paths, each at its one shape."""
+    rows = []
+    for label, path in (("(i) 16 x 64", "train_default"),
+                        ("(ii) 16 x 64, headline stack", "train_default_headline"),
+                        ("(iii) 8 x 128", "train_default_8x128"),
+                        ("train_long", "train_long_100s")):
+        run = runs[label]
+        rows += tally_rows(k1, k23, run["counts"], run["tally"], path)
+    for label, path in (("serve_default", "serve_default"), ("serve_long", "serve_long_100s")):
+        rows += tally_rows(k1, k23, runs[label]["counts"], runs[label]["tally"], path,
+                           kernels_=("k1",))
     return rows
 
 
@@ -4702,8 +4876,9 @@ def _k23_row(kk: str, path: str, r: dict, launches: int, name: str = None) -> di
 # phase 21: LoRA fine-tuning and data-parallel training at full width
 LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16, 1e-3
 LORA_WARMUP, LORA_TIMED = 2, 4  # 10 timed steps until phase 15b needed room
-# 1 + 2 steps (2 + 3 until phase 22 took the script past its clock)
-DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 1, 2, 16
+# 1 + 1 steps (2 + 3 until phase 22 took the script past its clock, 1 + 2
+# until phase 24 needed its time)
+DP_WORLD, DP_WARMUP, DP_TIMED, DP_ITEMS = 2, 1, 1, 16
 DP_MODES = ("replicated", "fsdp")
 DP_TIMEOUT_S = 600
 # The single-process reference takes the global batch as 2 micro-batches of
@@ -5953,7 +6128,8 @@ def kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_p
     configuration); K1, K2 and K3 on the raw-wave mel training path and K1
     on its sampling (phase 14); fp32 K1, K2 and K3 on duration training and
     K1 on the trained predictor's sampling call (phase 15); the semantic
-    paths' rows (phase 18, `semantic_rows`, and its long-form requests'); the
+    paths' rows (phase 18, `semantic_rows`, and its long-form requests', with
+    the later phases' rows after them, phase 24's last: `p24_rows`); the
     long-form and cloning path's rows (phase 9b: the windows' bf16 K1, the
     predictor's fp32 K1, K4)."""
     rows = [_k1_row("serve", k1["flagship_cfg_bf16"], serve_k1),
@@ -6036,6 +6212,11 @@ def main() -> int:
     phase_wide_card_vs_cpu(CHUNKED_SMALL, SEED + 104, floor=True, **CHUNKED_CARD_VS_CPU)
     assert min(wide[p]["train"][k] for p in wide for k in ("k1", "k2", "k3")) > 0, wide
     assert wide["flagship"]["serve"]["k1"] > 0 and wide["chunked"]["serve"]["k1"] > 0, wide
+    p24 = phase_default_long(smi, k1, k23)
+    phase_default_long_card_vs_cpu()
+    for label, run in p24.items():
+        kernels_ = ("k1",) if label.startswith("serve") else ("k1", "k2", "k3")
+        assert min(run["counts"][k] for k in kernels_) > 0, (label, run["counts"])
     phase_encodec(smi)
     phase_semantic_card_vs_cpu()
     sem = phase_semantic(smi, k1, k4, k4_dec)
@@ -6067,6 +6248,7 @@ def main() -> int:
         dp["pp"]
     semantic += pp_rows(k1, k23, dp["pp"])
     semantic += wide_rows(k1, k23, wide)
+    semantic += p24_rows(k1, k23, p24)
     phase_dryrun(smi)
     print(kernel_line(k1, k23, serve_k1, engine, train_counts, levers_counts, levers_per_step,
                       raw, semantic, long_rows), flush=True)

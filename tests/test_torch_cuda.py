@@ -113,12 +113,16 @@ def test_k1_every_tile_height_matches_plain(cuda_device, rows, d):
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, d=128)
-    # any head dim up to 256 (zero-padded to a built width), none past it
+    # any head dim: 257 runs zero-padded to 320 (the chunked kernels), one
+    # launch, against the plain version
     wide = [torch.cat([t, t, t[..., :1]], dim=-1) for t in (q, k, v)]  # 257
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        flash_attention(*wide)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        flash_attention(*(t.to(torch.bfloat16) for t in wide))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        args = [t.to(dtype) for t in wide]
+        before = flash_attention.launches
+        out = flash_attention(*args)
+        assert flash_attention.launches == before + 1 and out.shape == args[0].shape
+        torch.testing.assert_close(out.float(), reference_attention(*args).float(), atol=tol,
+                                   rtol=tol)
     strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(strided_q, k, v)
@@ -175,6 +179,67 @@ def test_remat_on_the_card_keeps_gradients_and_counts_k1(cuda_device, policy, k1
     assert plain_k1 == cfg["depth"] and k1 == k1_per_layer * cfg["depth"]
     for a, b in zip(ours, plain):
         assert torch.equal(a, b)
+
+
+def test_scores_dtype_changes_no_bit_on_the_kernel_path(cuda_device):
+    """`attn_scores_dtype=torch.bfloat16` acts on the plain path only: K1
+    holds no score matrix, so the loss and every gradient of a training
+    step through K1/K2/K3 are the same bits with and without it."""
+    cfg = dict(num_cond_tokens=20, dim_cond_emb=32, dim=128, depth=2, dim_head=64, heads=2,
+               num_register_tokens=4, dim_in=16, dtype=torch.bfloat16,
+               param_dtype=torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2, 60, 16, generator=gen, device=cuda_device)
+    kw = dict(times=torch.rand(2, generator=gen, device=cuda_device),
+              cond_token_ids=torch.randint(0, 20, (2, 60), generator=gen, device=cuda_device),
+              target=x, cond_mask=torch.rand(2, 60, generator=gen, device=cuda_device) < 0.5,
+              cond_drop_mask=torch.tensor([False, True], device=cuda_device), train=True)
+
+    def step(scores):
+        torch.manual_seed(0)
+        vb = VoiceBox(**cfg, attn_scores_dtype=scores).to(cuda_device)
+        before = flash_attention.launches
+        loss = vb(x, **kw)
+        loss.backward()
+        torch.cuda.synchronize()
+        return flash_attention.launches - before, loss, [p.grad for p in vb.parameters()]
+
+    k1, loss, grads = step(None)
+    k1_bf16, loss_bf16, grads_bf16 = step(torch.bfloat16)
+    assert k1 == k1_bf16 == cfg["depth"]
+    assert torch.equal(loss, loss_bf16)
+    for a, b in zip(grads, grads_bf16):
+        assert torch.equal(a, b)
+
+
+# the new paths' shapes: the 100 s long-context step (n = kv = 7520: 117 x 64
+# + 32 and 58 x 128 + 96 rows, a ragged last tile in both K1 heights and in
+# K2/K3's 64-row tiles, the lse and the fp32 row sums over 118 streamed
+# tiles) and the JAX package's default VoiceBox in training (8 x 16 heads of
+# 64); bf16, qk-normed logits at scale 10 as the denoiser calls them
+@pytest.mark.parametrize("b,h,n,d", [(1, 4, 7520, 128), (8, 16, 768, 64)])
+def test_long_context_and_default_shapes_match_plain(cuda_device, b, h, n, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device=cuda_device)
+                   for _ in range(4))
+    q, k = (torch.nn.functional.normalize(t, dim=-1) * d ** 0.5 for t in (q, k))
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    mask = torch.ones(b, n, dtype=torch.bool, device=cuda_device)
+    mask[0, -100:] = False  # a padded tail on the first element
+    out, lse = flash_attention(q, k, v, mask, 10.0, return_lse=True)
+    ref, ref_lse = reference_attention(q, k, v, mask, 10.0, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    delta = attention_delta(do, out)
+    got = (flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, 10.0),
+           *flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, 10.0))
+    plain = reference_attention_backward(q, k, v, mask, out, lse, do, 10.0)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), got, plain):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), r.float(), atol=2e-2 * r.float().abs().max().item(),
+                                   rtol=2e-2, msg=name)
 
 
 # bf16: P and dS are rounded to bf16 before their products, in another order

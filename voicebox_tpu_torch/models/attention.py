@@ -8,7 +8,10 @@ forward, K2 + K3 backward on the card) and the output projection. In
 training (`train=True`) with `attn_dropout > 0` the attention weights are
 dropped, as the JAX package does on its XLA path: `reference_attention`
 with its keep mask drawn from `generator`. Every other call goes to
-`flash_attention`.
+`flash_attention`. `scores_dtype` (the JAX module's field of that name)
+reaches both: on the CPU the plain version then holds its score matrix in
+that dtype; on the card K1 holds none, and the option changes nothing, as
+on the JAX package's Pallas path. Ring attention ignores it, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  qk_norm: bool = False, qk_norm_scale: float = 10.0,
-                 attn_dropout: float = 0.0, dtype=torch.float32, param_dtype=None):
+                 attn_dropout: float = 0.0, scores_dtype: Optional[torch.dtype] = None,
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.attn_dropout = attn_dropout
+        self.scores_dtype = scores_dtype
         self.qk_norm_scale = qk_norm_scale if qk_norm else None
         dim_inner = heads * dim_head
         if qk_norm:
@@ -82,9 +87,10 @@ class Attention(nn.Module):
                                x.device)[:, heads] < 1.0 - self.attn_dropout
             out = reference_attention(q, k, v, mask, self.qk_norm_scale,
                                       dropout=self.attn_dropout, keep=keep,
-                                      generator=generator)
+                                      generator=generator, scores_dtype=self.scores_dtype)
         else:
             # K1 takes contiguous (b, h, n, d) operands
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  mask=mask, scale=self.qk_norm_scale)
+                                  mask=mask, scale=self.qk_norm_scale,
+                                  scores_dtype=self.scores_dtype)
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * d))

@@ -31,6 +31,9 @@ recurrence spans the whole sequence), as in the JAX package.
 skip combiner) in the backward under `remat_policy` (`ops/remat.py`: None is
 full recompute, "dots", "dots_no_batch" and the JAX package's tag names),
 as the JAX package's `nn.remat(_Block, policy=...)` does.
+
+`attn_scores_dtype` is handed to every block's attention (`Attention`'s
+`scores_dtype`): opt-in bf16 scores on the plain path, nothing on K1.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ class Transformer(nn.Module):
         use_gateloop_layers: bool = False,
         attn_dropout: float = 0.0,
         ff_dropout: float = 0.0,
+        attn_scores_dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         remat_policy: Optional[str] = None,
         rotary_theta: float = 50000.0,
@@ -101,7 +105,8 @@ class Transformer(nn.Module):
                 if use_gateloop_layers else None,
                 prenorm(),
                 Attention(dim, dim_head=dim_head, heads=heads, qk_norm=attn_qk_norm,
-                          attn_dropout=attn_dropout, dtype=dtype, param_dtype=param_dtype),
+                          attn_dropout=attn_dropout, scores_dtype=attn_scores_dtype,
+                          dtype=dtype, param_dtype=param_dtype),
                 prenorm(),
                 FeedForward(dim, mult=ff_mult, dropout=ff_dropout, dtype=dtype,
                             param_dtype=param_dtype),

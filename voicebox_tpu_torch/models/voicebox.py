@@ -16,7 +16,10 @@ is given, and with `cond_drop_prob > 0` so is the CFG drop unless
 mean MSE over the span and the attention mask, in fp32: per sample
 num / clamp(den, 1e-5), then the mean over the batch. The JAX package's
 128-lane padding (`pad_to_lane_multiple`) is a TPU layout rule and is not
-ported: the masked loss is the same without it.
+ported: the masked loss is the same without it. `attn_scores_dtype` is the
+JAX field: None (fp32) by default; bf16 holds the plain attention's score
+matrix in bf16 (the CPU, and attention dropout in training) and changes
+nothing on K1, which holds no score matrix.
 
 Under tensor parallelism a `to_cond_emb` whose rows the rule splits holds
 this rank's block of rows (ids outside it give zeros, then one all-reduce
@@ -68,6 +71,7 @@ class VoiceBox(nn.Module):
         conv_pos_embed_groups: Optional[int] = None,
         attn_dropout: float = 0.0,
         attn_qk_norm: bool = True,
+        attn_scores_dtype: Optional[torch.dtype] = None,  # see ops/flash_attention.py
         use_gateloop_layers: bool = False,
         num_register_tokens: int = 16,
         frac_lengths_mask: Tuple[float, float] = (0.7, 1.0),
@@ -119,7 +123,8 @@ class VoiceBox(nn.Module):
             num_register_tokens=num_register_tokens, adaptive_rmsnorm=True,
             adaptive_rmsnorm_cond_dim_in=time_hidden_dim, attn_qk_norm=attn_qk_norm,
             use_gateloop_layers=use_gateloop_layers, attn_dropout=attn_dropout,
-            ff_dropout=ff_dropout, remat=remat, remat_policy=remat_policy, **lin,
+            ff_dropout=ff_dropout, attn_scores_dtype=attn_scores_dtype, remat=remat,
+            remat_policy=remat_policy, **lin,
         )
         self.to_pred = Linear(dim, self.latent_dim, bias=False, **lin)
 

@@ -8,7 +8,9 @@ the same forward:
   `reference_attention`): fp32 logits times `scale`, masked keys filled with
   -0.7 * f32max, an fp32 softmax, probabilities cast to v's dtype for the
   second product. With `return_lse=True` it also gives the per-row
-  log-sum-exp of the filled logits, from `torch.logsumexp`.
+  log-sum-exp of the filled logits, from `torch.logsumexp`. With
+  `scores_dtype=torch.bfloat16` (the JAX package's `attn_scores_dtype`)
+  the score matrix and the softmax are bf16, in the JAX order.
 * `flash_attention` runs K1, the hand-written forward kernel in
   `csrc/flash_attention_fwd.cu` (its query-tile height from `k1_block_q`),
   on CUDA tensors, inside an autograd
@@ -18,6 +20,9 @@ the same forward:
   forward saves out and lse and the backward recomputes nothing of it. On
   CPU tensors it runs the plain version, and autograd differentiates that.
   On a CUDA tensor it launches the kernels or raises; it never falls back.
+  `scores_dtype` acts on the plain version only: K1 never holds the score
+  matrix, so on the card the option changes no bit (the JAX package's
+  Pallas path ignores it too).
 
 With `dropout > 0`, `reference_attention` drops attention weights after
 the softmax (kept ones scaled by 1 / (1 - dropout)), with a keep mask that
@@ -147,27 +152,85 @@ def reference_attention(
     dropout: float = 0.0,
     keep: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    scores_dtype: Optional[torch.dtype] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q (b, h, n, d), k and v (b, h, kv, d), mask (b, kv) bool (True = keep).
     Returns out (b, h, n, d) in q's dtype and, with `return_lse`, lse
     (b, h, 1, n) fp32. With `dropout > 0` the softmax weights are kept
     where `keep` (b, h, n, kv) is True, or where a uniform draw from
-    `generator` is below 1 - dropout, and scaled by 1 / (1 - dropout)."""
+    `generator` is below 1 - dropout, and scaled by 1 / (1 - dropout).
+
+    `scores_dtype=torch.bfloat16` holds the score matrix in bf16, in the
+    JAX package's order: the fp32 logits rounded to bf16, then the scale,
+    the masked fill, the softmax (max, exp, a sum rounded to bf16, the
+    division) and the dropout on bf16 values, each Python scalar first
+    rounded to bf16 as JAX's weak types are, and the probabilities cast to
+    v's dtype for the second product. None keeps them fp32."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     # fp32 products of the stored values: the einsum's f32 accumulation
-    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    low = scores_dtype not in (None, torch.float32)
+    if low:  # JAX's weak-typed Python scalars act as values of the scores' dtype
+        sim = _LowLogits.apply(q, k, scores_dtype) * torch.tensor(scale, dtype=scores_dtype)
+    else:
+        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         sim = sim.masked_fill(~mask[:, None, None, :], MASK_FILL)
-    attn = checkpoint_name(torch.softmax(sim, dim=-1), "attn_probs")
+    attn = checkpoint_name(_low_softmax(sim) if low else torch.softmax(sim, dim=-1),
+                           "attn_probs")
     if dropout > 0.0:
         if keep is None:  # jax.random.bernoulli: uniform < p
             keep = uniform(attn.shape, generator, attn.device) < 1.0 - dropout
-        attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
+        kept = torch.tensor(1.0 - dropout, dtype=attn.dtype) if low else 1.0 - dropout
+        attn = torch.where(keep, attn / kept, 0.0)
     out = torch.matmul(attn.to(v.dtype), v).to(q.dtype)
     if not return_lse:
         return out
-    return out, torch.logsumexp(sim, dim=-1).unsqueeze(2)
+    return out, torch.logsumexp(sim.float(), dim=-1).unsqueeze(2)
+
+
+class _LowLogits(torch.autograd.Function):
+    """q k^T in fp32 rounded to `dtype`: the JAX einsum with
+    `preferred_element_type=dtype`, whose transposes round dq and dk to
+    `dtype` as well."""
+
+    @staticmethod
+    def forward(ctx, q, k, dtype):
+        ctx.save_for_backward(q, k)
+        return torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        low, g = g.dtype, g.float()
+        dq = torch.matmul(g, k.float()).to(low).to(q.dtype)
+        dk = torch.matmul(g.transpose(-1, -2), q.float()).to(low).to(k.dtype)
+        return dq, dk, None
+
+
+class _LowSoftmax(torch.autograd.Function):
+    """`jax.nn.softmax` on a bf16 (b, h, n, kv) tensor, with JAX's roundings
+    both ways. Forward: e = exp(sim - max) rounded, its sum taken in fp32
+    and rounded to s, then y = e / s rounded. Backward: JAX's autodiff of
+    those ops (the max held constant): dsim = (g / s - sum(g s^-2 e)) e,
+    each product, quotient and sum rounded."""
+
+    @staticmethod
+    def forward(ctx, sim):
+        e = torch.exp(sim - sim.amax(dim=-1, keepdim=True))
+        s = e.float().sum(dim=-1, keepdim=True).to(sim.dtype)
+        ctx.save_for_backward(e, s)
+        return e / s
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        g = g.to(e.dtype)
+        ds = (g * s.pow(-2) * e).float().sum(dim=-1, keepdim=True).to(e.dtype)
+        return (g / s - ds) * e
+
+
+_low_softmax = _LowSoftmax.apply
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -442,37 +505,39 @@ def _kernel_backward(q, k, v, mask, out, lse, dout, scale):
 
 @torch.library.custom_op("voicebox_tpu_torch::flash_attention_fwd", mutates_args=())
 def _k1_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
-           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+           scale: float, scores_dtype: Optional[torch.dtype]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 (the plain version on the CPU) as an op that a checkpoint policy
     can save. Its backward is `_FlashAttention`'s on the card and autograd
     of the plain version on the CPU, the two paths `flash_attention` takes
     outside remat."""
     if q.device.type == "cpu":
         with torch.no_grad():
-            return reference_attention(q, k, v, mask, scale, return_lse=True)
+            return reference_attention(q, k, v, mask, scale, return_lse=True,
+                                       scores_dtype=scores_dtype)
     return _launch_k1(q, k, v, mask, scale)
 
 
 @_k1_op.register_fake
-def _(q, k, v, mask, scale):
+def _(q, k, v, mask, scale, scores_dtype):
     return torch.empty_like(q), q.new_empty((*q.shape[:2], 1, q.shape[2]), dtype=torch.float32)
 
 
 def _k1_op_setup(ctx, inputs, output):
-    q, k, v, mask, scale = inputs
+    q, k, v, mask, scale, scores_dtype = inputs
     ctx.save_for_backward(q, k, v, mask, *output)
-    ctx.scale = scale
+    ctx.scale, ctx.scores_dtype = scale, scores_dtype
     ctx.mark_non_differentiable(output[1])
 
 
 def _k1_op_backward(ctx, dout, _dlse):
     q, k, v, mask, out, lse = ctx.saved_tensors  # unpacked once: remat recomputes on unpack
     if q.device.type != "cpu":
-        return _kernel_backward(q, k, v, mask, out, lse, dout, ctx.scale)
+        return (*_kernel_backward(q, k, v, mask, out, lse, dout, ctx.scale), None)
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = reference_attention(*qkv, mask, ctx.scale)
-        return (*torch.autograd.grad(out, qkv, dout), None, None)
+        out = reference_attention(*qkv, mask, ctx.scale, scores_dtype=ctx.scores_dtype)
+        return (*torch.autograd.grad(out, qkv, dout), None, None, None)
 
 
 _k1_op.register_autograd(_k1_op_backward, setup_context=_k1_op_setup)
@@ -485,21 +550,28 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    scores_dtype: Optional[torch.dtype] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Attention forward, same contract as `reference_attention`, and
     differentiable in q, k and v. CUDA tensors go through K1 and, backward,
     K2 + K3 (contiguous float32 or bfloat16 at any head dim, zero-padded to
     the width `kernel_head_dim` gives, else ValueError); CPU tensors through
     the plain version.
+
+    `scores_dtype` reaches the plain version only, on CPU tensors. On CUDA
+    tensors it changes nothing: K1 never holds the score matrix, its logits
+    and sums are fp32 tile by tile, as the JAX package's Pallas kernel
+    ignores the option.
     `flash_attention.launches` counts K1 launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {q.device}")
     if saves("attn_out") and saves("attn_lse"):  # a remat policy saves K1's outputs
-        out, lse = _k1_op(q, k, v, mask, float(scale))
+        out, lse = _k1_op(q, k, v, mask, float(scale), scores_dtype)
     elif q.device.type == "cpu":
-        out, lse = reference_attention(q, k, v, mask, scale, return_lse=True)
+        out, lse = reference_attention(q, k, v, mask, scale, return_lse=True,
+                                       scores_dtype=scores_dtype)
     else:
         out, lse = _FlashAttention.apply(q, k, v, mask, float(scale))
     out = checkpoint_name(out, "attn_out")
